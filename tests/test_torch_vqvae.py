@@ -184,11 +184,15 @@ def test_options_outside_the_slice_raise(field, value):
 
 
 def test_train_mode_raises_and_checkpoint_round_trips(tmp_path):
+    """Train mode used to raise; since the train step is ported it runs and
+    initialises the codebooks, and the checkpoint round-trips the result."""
     cfg = VQVAEConfig(n_bottleneck_blocks=2, num_embeddings=(8, 16), dtype=torch.float32)
     model = VQVAE(cfg, generator=torch.Generator().manual_seed(3))
     x = torch.randn(1, 1, 32, 32, 16)
-    with pytest.raises(NotImplementedError):
-        model(x, train=True)
+    embed0 = model.encoder.quantize[0].embed.clone()
+    model(x, train=True)
+    assert not bool(model.encoder.quantize[0].first_pass)
+    assert not torch.equal(model.encoder.quantize[0].embed, embed0)
     save_checkpoint(tmp_path, model.state_dict(), cfg, step=5)
     loaded, cfg2 = load_model(tmp_path)
     assert cfg2 == cfg

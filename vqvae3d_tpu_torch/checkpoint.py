@@ -1,5 +1,14 @@
-"""The port's checkpoint directory: ``latest.txt``, ``step_N_config.json`` and
-``step_N.pt`` (a state_dict under the reference keys).
+"""The port's checkpoint directory: ``latest.txt``, ``step_N_config.json``,
+``step_N.pt`` (a state_dict under the reference keys: parameters and
+quantizer buffers) and, for a train state, ``step_N_train.pt`` (the step and
+the optimizer state).
+
+``save_train_state`` / ``restore_train_state`` keep the semantics of
+``vqvae3d_tpu/train/checkpoint.py:46-107``: ``latest.txt`` names the newest
+step and is written last, ``max_to_keep`` prunes all but the newest N steps
+after a save (the CLI keeps the last checkpoint in its directory and the
+best one under ``best/``). ``load_model`` reads the model of either kind of
+checkpoint, so a training run's directory serves ``extract_embeddings``.
 
 The config JSON has the format of ``vqvae3d_tpu/train/checkpoint.py::
 _config_to_json`` (``dataclasses.asdict`` with the dtype by name), so either
@@ -75,3 +84,33 @@ def load_model(path, device="cpu", step: Optional[int] = None) -> Tuple[VQVAE, V
     state = torch.load(path / f"step_{step}.pt", map_location="cpu", weights_only=True)
     model.load_state_dict(state)
     return model.to(device).eval(), config
+
+
+def save_train_state(path, model: VQVAE, optimizer, config: VQVAEConfig, step: int,
+                     max_to_keep: Optional[int] = None) -> None:
+    """Save params + quantizer buffers, the optimizer state and the step;
+    then keep only the newest ``max_to_keep`` steps."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    opt = {k: v.detach().cpu() if torch.is_tensor(v) else v
+           for k, v in optimizer.state_dict().items()}
+    torch.save({"step": int(step), "optimizer": opt}, path / f"step_{step}_train.pt")
+    save_checkpoint(path, model.state_dict(), config, step)  # writes latest.txt last
+    if max_to_keep is not None:
+        steps = sorted(int(f.name[len("step_"):-len(".pt")]) for f in path.glob("step_*.pt")
+                       if f.name[len("step_"):-len(".pt")].isdigit())
+        for old in steps[: max(0, len(steps) - max_to_keep)]:
+            for suffix in (".pt", "_config.json", "_train.pt"):
+                (path / f"step_{old}{suffix}").unlink(missing_ok=True)
+
+
+def restore_train_state(path, model: VQVAE, optimizer, step: Optional[int] = None) -> int:
+    """Load a train state saved by ``save_train_state`` into ``model`` and
+    ``optimizer`` (in place); returns its step."""
+    path = Path(path)
+    step = _step(path, step)
+    state = torch.load(path / f"step_{step}.pt", map_location="cpu", weights_only=True)
+    model.load_state_dict(state)
+    train = torch.load(path / f"step_{step}_train.pt", map_location="cpu", weights_only=True)
+    optimizer.load_state_dict(train["optimizer"])
+    return int(train["step"])

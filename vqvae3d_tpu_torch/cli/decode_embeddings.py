@@ -24,11 +24,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vqvae3d_tpu.data import nrrd_io
-from vqvae3d_tpu.data.sample_db import add_samples, create_or_load_db, save_db
-from vqvae3d_tpu.data.transforms import hu_unnormalize
 from vqvae3d_tpu_torch.checkpoint import load_model
 from vqvae3d_tpu_torch.cli.extract_embeddings import read_codes, resolve_device
+from vqvae3d_tpu_torch.data import nrrd_io
+from vqvae3d_tpu_torch.data.sample_db import add_samples, create_or_load_db, save_db
+from vqvae3d_tpu_torch.data.transforms import hu_unnormalize
 
 
 def parse_arguments(argv=None):

@@ -2,7 +2,8 @@
 grids into a multi-level code store.
 
 Counterpart of ``vqvae3d_tpu/cli/extract_embeddings.py``, with the same flags
-and the same code-store output (``vqvae3d_tpu.data.code_store``), plus
+and the same code-store output (the port's copy,
+``vqvae3d_tpu_torch.data.code_store``), plus
 ``--device`` (default ``cuda``; no fallback to the CPU when CUDA is absent).
 Reads a port checkpoint (``vqvae3d_tpu_torch.checkpoint``). Runs under
 ``torch.inference_mode()``.
@@ -18,9 +19,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vqvae3d_tpu.data.code_store import CodeStore, CodeStoreWriter
-from vqvae3d_tpu.data.ct_dataset import CTDataModule
 from vqvae3d_tpu_torch.checkpoint import load_model
+from vqvae3d_tpu_torch.data.code_store import CodeStore, CodeStoreWriter
+from vqvae3d_tpu_torch.data.ct_dataset import CTDataModule
 
 
 def parse_arguments(argv=None):

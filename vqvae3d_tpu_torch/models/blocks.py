@@ -7,9 +7,10 @@ type (the default, reference vqvae/layers.py:102-216):
     ``bias1c``/``bias1d`` where the shape changes;
   * ``ResizeConv3D`` — trilinear x2 upsample + conv (the JAX stock path);
   * ``DownBlock`` / ``UpBlock`` / ``PreQuantizationConditioning``;
-  * ``apply_same_stack`` — the one call site of kernel K3: on a CUDA tensor
-    every 'same' stack runs through ``ops.stack_kernel.preact_stack_fused``,
-    on a CPU tensor it loops the plain block.
+  * ``apply_same_stack`` — the one call site of kernel K3: every 'same'
+    stack runs through ``ops.stack_kernel.preact_stack_fused`` (on a CUDA
+    tensor the K3 forward and, in training, its backward; on a CPU tensor
+    the plain block).
 
 Module attributes follow the reference torch module tree, so ``state_dict``
 keys are the reference checkpoint keys that
@@ -158,7 +159,9 @@ def apply_same_stack(
     """Run shape-preserving 'same' blocks over x (``apply_same_stack``,
     vqvae3d_tpu/models/blocks.py:688-908): the stack's weights are stacked per
     block and handed to ``preact_stack_fused`` — kernel K3 on a CUDA tensor,
-    the plain block loop on a CPU tensor."""
+    the plain block loop on a CPU tensor. In training its backward returns
+    the gradients of the stacked tensors, and ``torch.stack`` takes them on
+    to each block's parameters."""
     if not blocks:
         return x
     if dtype is not None:

@@ -1,40 +1,111 @@
-"""EMA vector quantizer, eval path (fp32-pinned).
+"""EMA vector quantizer (fp32-pinned): eval and train paths.
 
-Counterpart of ``vqvae3d_tpu/models/quantizer.py`` (``quantize`` with
-``train=False`` and ``Quantizer``). The codebook state lives in buffers
-under the reference keys — ``embed`` (K, D), ``embed_avg`` (K, D),
-``cluster_size`` (K,) and ``first_pass`` (a bool, True until the first
-training pass; the JAX package stores its inverse as ``initialized``).
+Counterpart of ``vqvae3d_tpu/models/quantizer.py`` (``quantize``,
+``ema_first_pass_init``, ``ema_update`` and ``Quantizer``). The codebook
+state lives in buffers under the reference keys — ``embed`` (K, D),
+``embed_avg`` (K, D), ``cluster_size`` (K,) and ``first_pass`` (a bool, True
+until the first training pass; the JAX package stores its inverse as
+``initialized``).
 
-The lookup is kernel K1 on a card (``ops.quantizer_ops.l2_argmin``). The EMA
-update and the data-dependent first-pass init belong to training (a later
-slice): ``train=True`` raises.
+The eval lookup is kernel K1a on a card (``ops.quantizer_ops.l2_argmin``),
+the train lookup kernel K1b (``l2_argmin_stats``: the lookup fused with the
+EMA cluster statistics). ``Quantizer.forward(train=True)`` updates the
+buffers in place under ``torch.no_grad()``, as the reference module does.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn as nn
 
-from vqvae3d_tpu_torch.ops.quantizer_ops import l2_argmin
+from vqvae3d_tpu_torch.ops.quantizer_ops import l2_argmin, l2_argmin_stats
 
 
-def quantize(inputs: torch.Tensor, embed: torch.Tensor, *, train: bool = False,
-             commitment_cost: float = 0.1):
-    """Eval-path quantization of (B, D, H, W, Z) inputs (channel dim 1).
+class QuantizerState(NamedTuple):
+    """The EMA state as tensors (``vqvae3d_tpu.models.quantizer.QuantizerState``
+    with ``first_pass = not initialized``)."""
+
+    embed: torch.Tensor  # (K, D)
+    embed_avg: torch.Tensor  # (K, D)
+    cluster_size: torch.Tensor  # (K,)
+    first_pass: torch.Tensor  # () bool
+
+
+def ema_first_pass_init(state: QuantizerState, flat: torch.Tensor) -> QuantizerState:
+    """Data-dependent codebook init where ``first_pass`` is set:
+    embed <- embed * std + mean over the rows (population std), embed_avg <-
+    embed, cluster_size += N / K (JAX quantizer.py:59-71). Selected with
+    ``torch.where``, so no host sync; the gradient reaches ``flat`` through
+    the mean and std only on the pass that initialises."""
+    k = state.embed.shape[0]
+    n = flat.shape[0]
+    init = state.embed * torch.std(flat, dim=0, correction=0) + torch.mean(flat, dim=0)
+    first = state.first_pass
+    embed = torch.where(first, init, state.embed)
+    return QuantizerState(
+        embed=embed,
+        embed_avg=torch.where(first, init, state.embed_avg),
+        cluster_size=torch.where(first, state.cluster_size + n / k, state.cluster_size),
+        first_pass=torch.zeros_like(first),
+    )
+
+
+def ema_update(state: QuantizerState, counts: torch.Tensor, dw: torch.Tensor,
+               decay: float, laplace_alpha: float) -> QuantizerState:
+    """EMA codebook update with Laplace smoothing from the cluster stats
+    (counts (K,), dw (K, D) = per-code sums of the rows; JAX
+    quantizer.py:74-101). fp32 throughout."""
+    k = state.embed.shape[0]
+    cluster_size = state.cluster_size * decay + counts * (1.0 - decay)
+    embed_avg = state.embed_avg * decay + dw * (1.0 - decay)
+    n = torch.sum(cluster_size)
+    smoothed = n * (cluster_size + laplace_alpha) / (n + k * laplace_alpha)
+    return QuantizerState(
+        embed=embed_avg / smoothed[:, None],
+        embed_avg=embed_avg,
+        cluster_size=cluster_size,
+        first_pass=state.first_pass,
+    )
+
+
+def quantize(inputs: torch.Tensor, embed: torch.Tensor, *, commitment_cost: float = 0.1):
+    """Eval-path quantization of (B, D, H, W, Z) inputs (channel dim 1)
+    against the (K, D) codebook (JAX ``quantize(train=False)``).
 
     Returns (loss, quantized, indices): the commitment loss
     ``commitment_cost · mse(quantized, x)``, the straight-through value
     ``x + (quantized - x)`` in fp32, and int64 indices (B, H, W, Z)."""
-    if train:
-        raise NotImplementedError(
-            "quantize(train=True): the EMA codebook update is not ported yet"
-        )
-    d = embed.shape[1]
     x = inputs.float()
     x_last = x.movedim(1, -1)
-    indices = l2_argmin(x_last.reshape(-1, d), embed)
+    indices = l2_argmin(x_last.reshape(-1, embed.shape[1]), embed)
+    return _finish(x, x_last, embed, indices, commitment_cost)
+
+
+def quantize_train(inputs: torch.Tensor, state: QuantizerState, *,
+                   commitment_cost: float = 0.1, decay: float = 0.99,
+                   laplace_alpha: float = 1e-5):
+    """Train-path quantization (JAX ``quantize(train=True)``,
+    quantizer.py:184-229): returns (loss, quantized, indices, new_state).
+
+    The first-pass init sees x with its gradient (the JAX package does not
+    stop it there), so on the pass that initialises the codebook the
+    commitment loss has a gradient through the init's mean and std; on every
+    later pass it has none. The lookup and its statistics (kernel K1b) use
+    the post-init, pre-EMA codebook; ``quantized`` is read from the post-EMA
+    codebook."""
+    x = inputs.float()
+    x_last = x.movedim(1, -1)
+    flat = x_last.reshape(-1, x_last.shape[-1])
+    state = ema_first_pass_init(state, flat)
+    indices, counts, dw = l2_argmin_stats(flat.detach(), state.embed.detach())
+    state = ema_update(state, counts, dw, decay, laplace_alpha)
+    return (*_finish(x, x_last, state.embed, indices, commitment_cost), state)
+
+
+def _finish(x, x_last, embed, indices, commitment_cost):
     quantized = embed.float()[indices].reshape(x_last.shape).movedim(-1, 1)
-    loss = commitment_cost * torch.mean(torch.square(quantized - x))
+    loss = commitment_cost * torch.mean(torch.square(quantized - x.detach()))
     quantized_st = x + (quantized - x).detach()
     return loss, quantized_st, indices.reshape(x_last.shape[:-1])
 
@@ -43,9 +114,12 @@ class Quantizer(nn.Module):
     """Module owning one level's codebook buffers (reference layers.py:602-728)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 commitment_cost: float = 0.1):
+                 commitment_cost: float = 0.1, decay: float = 0.99,
+                 laplace_alpha: float = 1e-5):
         super().__init__()
         self.commitment_cost = commitment_cost
+        self.decay = decay
+        self.laplace_alpha = laplace_alpha
         self.register_buffer("embed", torch.empty(num_embeddings, embedding_dim))
         self.register_buffer("embed_avg", torch.empty(num_embeddings, embedding_dim))
         self.register_buffer("cluster_size", torch.zeros(num_embeddings))
@@ -58,10 +132,23 @@ class Quantizer(nn.Module):
             self.cluster_size.zero_()
             self.first_pass.fill_(True)
 
+    def state(self) -> QuantizerState:
+        return QuantizerState(self.embed, self.embed_avg, self.cluster_size, self.first_pass)
+
     def forward(self, inputs: torch.Tensor, train: bool = False):
-        loss, quantized, indices = quantize(
-            inputs, self.embed, train=train, commitment_cost=self.commitment_cost
-        )
+        if not train:
+            loss, quantized, indices = quantize(inputs, self.embed,
+                                                commitment_cost=self.commitment_cost)
+        else:
+            # clones: autograd saves the old codebook, and the buffers change below
+            old = QuantizerState(*(t.clone() for t in self.state()))
+            loss, quantized, indices, new = quantize_train(
+                inputs, old, commitment_cost=self.commitment_cost,
+                decay=self.decay, laplace_alpha=self.laplace_alpha,
+            )
+            with torch.no_grad():
+                for buf, value in zip(self.state(), new):
+                    buf.copy_(value)
         # back to the surrounding compute dtype (JAX quantizer.py:283-285)
         return loss, quantized.to(inputs.dtype), indices
 

@@ -17,7 +17,12 @@ the other's ``step_N_config.json``. Fields that select TPU layout devices
 result and are carried only for that interchange. Options outside this
 port's slice raise ``NotImplementedError`` when the model is built or run:
 ``block_type`` other than 'pre-activation', ``encoder_variant='encoder'``,
-``metric='mixture-nll'`` and ``train=True``.
+``metric='mixture-nll'``.
+
+``train=True`` runs the quantizers' train path: the first-pass codebook init
+and the EMA update, in place on their buffers (kernel K1b on a card); the
+encoder and decoder compute the same values as in eval, and autograd runs
+the 'same' stacks' backward through kernel K3's (``ops/stack_kernel.py``).
 """
 from __future__ import annotations
 
@@ -236,14 +241,13 @@ class Encoder(nn.Module):
             _same_stack(cfg.n_pre_quantization_blocks, emb[i], cfg) for i in range(cfg.n_enc)
         )
         self.quantize = nn.ModuleList(
-            Quantizer(cfg.num_embeddings[i], emb[i], cfg.commitment_cost)
+            Quantizer(cfg.num_embeddings[i], emb[i], cfg.commitment_cost,
+                      decay=cfg.ema_decay, laplace_alpha=cfg.laplace_alpha)
             for i in range(cfg.n_enc)
         )
 
     def forward(self, x, train: bool = False):
         cfg = self.cfg
-        if train:
-            raise NotImplementedError("Encoder(train=True): training is not ported yet")
         x = self.parse_input(space_to_depth(x, cfg.stem_space_to_depth))
         downs = []
         for down in self.down:
@@ -287,9 +291,8 @@ class Decoder(nn.Module):
                           dtype=cfg.dtype)
 
     def forward(self, quantizations, train: bool = False):
+        """``train`` changes nothing in the decoder (the JAX signature's flag)."""
         cfg = self.cfg
-        if train:
-            raise NotImplementedError("Decoder(train=True): training is not ported yet")
         out = None
         for i in reversed(range(cfg.n_enc)):
             q = quantizations[i].to(cfg.dtype) if cfg.dtype else quantizations[i]

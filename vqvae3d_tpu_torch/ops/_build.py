@@ -34,14 +34,26 @@ NVCC_FLAGS = [
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points: name -> argtypes (every one returns an int error code)
 SIGNATURES = {
-    # K1: x, embed, e2, out, n, k, d, stream
+    # K1a: x, embed, e2, out, n, k, d, stream
     "vq_l2_argmin": [_p, _p, _p, _p, _i64, _i, _i, _p],
+    # K1b: x, embed, e2, idx, counts, dw, part, nblk, n, k, d, stream
+    "vq_l2_argmin_stats": [_p, _p, _p, _p, _p, _p, _p, _i, _i64, _i, _i, _p],
     # K3: is_bf16, x, w1, w2, w3, sc, a2, a3, y, batch, h, w, d, c, cb,
     #     cob_b, cob_c, wrap, stream
     "vq_preact_block_fwd": [
         _i, _p, _p, _p, _p, _p, _p, _p, _p, _i64, _i, _i, _i, _i, _i,
         _i, _i, _i, _p,
     ],
+    # K3 backward: is_bf16, x, gy, w1, w2, w3, w1t, w2t, w3t, sc, work, sv,
+    #     part, part_len, dx, dw1, dw2, dw3, dsc, batch, h, w, d, c, cb,
+    #     cob_b, cob_c, wrap, stream
+    "vq_preact_block_bwd": [
+        _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i64, _p, _p, _p, _p, _p,
+        _i64, _i, _i, _i, _i, _i, _i, _i, _i, _p,
+    ],
+    # K7: is_bf16, x, g, dw, part, nchunks, batch, cin, cout, hp, wp, dp, kh,
+    #     kw, kd, stream
+    "vq_dw_conv3d": [_i, _p, _p, _p, _p, _i, _i64, _i, _i, _i, _i, _i, _i, _i, _i, _p],
 }
 
 _lock = threading.Lock()

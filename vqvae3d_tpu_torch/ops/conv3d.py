@@ -11,9 +11,17 @@ they go to ``F.conv3d`` (cuDNN on a card). Weights are kept fp32 and cast to
 the activation dtype at call time; the bias is added after the conv, as the
 JAX package does, so the conv output rounds before the bias add.
 
+Training: a stride-1 conv with a kernel other than 1x1x1 and at most
+``SMALLC_MAX`` channels in and out runs through ``_SmallConv3d``, the JAX
+package's ``_conv3d_valid_smallc`` (vqvae3d_tpu/ops/conv3d.py:287-336):
+forward ``F.conv3d``, dx the transposed conv (cuDNN, as XLA computes it in
+the JAX package), dW ``dw_conv3d`` — kernel K7 (``csrc/dw_conv3d.cu``) on a
+CUDA tensor, ``dw_conv3d_plain`` on a CPU tensor. Every other conv keeps the
+plain autograd.
+
 The TPU-only rewrites of the JAX module (block-space s2d convs, folded
-weights, the small-channel custom backward) are exact re-expressions of this
-math for 128-lane layouts and are not ported.
+weights) are exact re-expressions of this math for 128-lane layouts and are
+not ported.
 """
 from __future__ import annotations
 
@@ -23,6 +31,11 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from vqvae3d_tpu_torch.ops import _build
+
+SMALLC_MAX = 32  # the custom backward takes max(Cin, Cout) <= this
+
 
 def pad3d(x: torch.Tensor, pad: int, mode: str = "zeros") -> torch.Tensor:
     """Pad the three spatial dims (H, W, D) of (B, C, H, W, D) by ``pad`` on
@@ -47,10 +60,91 @@ def conv3d(
 ) -> torch.Tensor:
     """x: (B, Cin, H, W, D); w: (Cout, Cin, kH, kW, kD) -> (B, Cout, H', W', D')."""
     x = pad3d(x, padding, pad_mode)
-    out = F.conv3d(x, w.to(x.dtype), stride=stride)
+    if (stride == 1 and tuple(w.shape[2:]) != (1, 1, 1) and max(w.shape[:2]) <= SMALLC_MAX
+            and torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        out = _SmallConv3d.apply(x, w)
+    else:
+        out = F.conv3d(x, w.to(x.dtype), stride=stride)
     if b is not None:
         out = out + b.to(out.dtype)[:, None, None, None]
     return out
+
+
+def dw_conv3d_plain(xp: torch.Tensor, g: torch.Tensor, ksize) -> torch.Tensor:
+    """dW of a stride-1 VALID conv, one fp32 contraction per tap:
+    dW[:, :, i, j, l] = sum_{b, pos} g[b, :, pos] x[b, :, pos + (i, j, l)]^T.
+    xp (B, Cin, Hp, Wp, Dp), g (B, Cout, Ho, Wo, Do) -> (Cout, Cin, kH, kW, kD)."""
+    kh, kw, kd = ksize
+    _, _, ho, wo, do = g.shape
+    gf, xf = g.float(), xp.float()
+    taps = [
+        torch.einsum("bohwd,bihwd->oi", gf, xf[:, :, i: i + ho, j: j + wo, l: l + do])
+        for i in range(kh) for j in range(kw) for l in range(kd)
+    ]
+    return torch.stack(taps, -1).reshape(*g.shape[1:2], xp.shape[1], kh, kw, kd)
+
+
+DW_TILE = 64  # output positions per shared-memory tile of K7 (csrc/dw_conv3d.cu)
+
+
+def dw_conv3d(xp: torch.Tensor, g: torch.Tensor, ksize) -> torch.Tensor:
+    """fp32 weight gradient of a stride-1 VALID conv (see ``dw_conv3d_plain``).
+
+    CPU tensors take ``dw_conv3d_plain``; CUDA tensors launch kernel K7
+    (fp32 or bf16 inputs, at most ``SMALLC_MAX`` channels each way) and add
+    one to ``dw_conv3d.launches``. Deterministic: the same inputs give a
+    bit-identical dW."""
+    if xp.device.type == "cpu":
+        return dw_conv3d_plain(xp, g, ksize)
+    if xp.device.type != "cuda":
+        raise NotImplementedError(f"dw_conv3d: no kernel for device {xp.device}")
+    if xp.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dw_conv3d takes fp32 or bf16, got {xp.dtype}")
+    kh, kw, kd = ksize
+    b, cin, hp, wp, dp = xp.shape
+    cout = g.shape[1]
+    if tuple(g.shape) != (b, cout, hp - kh + 1, wp - kw + 1, dp - kd + 1) or max(cin, cout) > SMALLC_MAX:
+        raise ValueError(f"dw_conv3d: x {tuple(xp.shape)}, g {tuple(g.shape)}, kernel {ksize}")
+    x = xp.contiguous()
+    gg = g.to(xp.dtype).contiguous()
+    npos = g[:, 0].numel()
+    kvol = kh * kw * kd
+    nchunks = max(1, min(-(-npos // (DW_TILE * 8)), 4096 // kvol))
+    part = torch.empty(nchunks * kvol * cin * cout, dtype=torch.float32, device=xp.device)
+    dw = torch.empty(cout, cin, kh, kw, kd, dtype=torch.float32, device=xp.device)
+    _build.check(
+        _build.library().vq_dw_conv3d(
+            int(xp.dtype == torch.bfloat16), x.data_ptr(), gg.data_ptr(), dw.data_ptr(),
+            part.data_ptr(), nchunks, b, cin, cout, hp, wp, dp, kh, kw, kd,
+            _build.stream_ptr(xp.device),
+        ),
+        "dw_conv3d",
+    )
+    dw_conv3d.launches += 1
+    return dw
+
+
+dw_conv3d.launches = 0
+
+
+class _SmallConv3d(torch.autograd.Function):
+    """Stride-1 VALID conv of a pre-padded input with the small-channel
+    backward: dx by the transposed conv, dW by ``dw_conv3d`` (fp32)."""
+
+    @staticmethod
+    def forward(ctx, xp, w):
+        ctx.save_for_backward(xp, w)
+        return F.conv3d(xp, w.to(xp.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv3d_input(xp.shape, w.to(g.dtype), g)
+        if ctx.needs_input_grad[1]:
+            dw = dw_conv3d(xp, g, tuple(w.shape[2:])).to(w.dtype)
+        return dx, dw
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,18 @@
-"""Codebook nearest-neighbour lookup (kernel K1) and its plain version.
+"""Codebook nearest-neighbour lookup (kernels K1a, K1b) and plain versions.
 
-Counterpart of ``vqvae3d_tpu/ops/quantizer_ops.py``: ``l2_argmin`` replaces
-the serving kernel ``l2_argmin_pallas`` (the dispatch ``l2_argmin`` there).
-On a CUDA tensor it launches the hand-written kernel of
-``csrc/l2_argmin.cu`` (source note there: what bounds it, what the design
-does); on a CPU tensor it runs ``l2_argmin_plain``. Both compute
-``argmin_k(|e_k|^2 - 2 x.e_k)`` in fp32 with ties to the lowest index.
-The fused lookup + EMA statistics (``l2_argmin_stats_pallas``) belongs to
-training and is not ported yet.
+Counterpart of ``vqvae3d_tpu/ops/quantizer_ops.py``:
+
+  * ``l2_argmin`` replaces the serving kernel ``l2_argmin_pallas``
+    (``csrc/l2_argmin.cu``);
+  * ``l2_argmin_stats`` replaces the training kernel
+    ``l2_argmin_stats_pallas``: the same lookup fused with the EMA cluster
+    statistics, per-code counts and sums of the rows
+    (``csrc/l2_argmin_stats.cu``, deterministic).
+
+On a CUDA tensor each launches its hand-written kernel (source notes there:
+what bounds it, what the design does); on a CPU tensor it runs its plain
+version. All compute ``argmin_k(|e_k|^2 - 2 x.e_k)`` in fp32 with ties to
+the lowest index.
 """
 from __future__ import annotations
 
@@ -68,6 +73,64 @@ def l2_argmin(flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 
 
 l2_argmin.launches = 0
+
+
+def l2_argmin_stats_plain(flat: torch.Tensor, embed: torch.Tensor):
+    """(N, D), (K, D) -> (idx (N,) int64, counts (K,) fp32, dw (K, D) fp32):
+    the lookup, then per-code row counts and row sums by ``index_add_``
+    (``l2_argmin_stats_ref``, vqvae3d_tpu/ops/quantizer_ops.py:242-255)."""
+    idx = l2_argmin_plain(flat, embed)
+    k, d = embed.shape
+    x = flat.float()
+    counts = torch.zeros(k, dtype=torch.float32, device=flat.device)
+    counts.index_add_(0, idx, torch.ones_like(x[:, 0]))
+    dw = torch.zeros(k, d, dtype=torch.float32, device=flat.device)
+    dw.index_add_(0, idx, x)
+    return idx, counts, dw
+
+
+STATS_CTAS = 264  # pass-1 CTAs of K1b at most: two per SM of an H100
+
+
+def l2_argmin_stats(flat: torch.Tensor, embed: torch.Tensor):
+    """Fused lookup + EMA statistics: (N, D), (K, D) -> (idx (N,) int64,
+    counts (K,) fp32, dw (K, D) fp32).
+
+    CPU tensors take ``l2_argmin_stats_plain``; CUDA tensors launch kernel
+    K1b and add one to ``l2_argmin_stats.launches``. The kernel's sums are
+    deterministic: the same inputs give bit-identical counts and dw."""
+    if flat.device.type == "cpu":
+        return l2_argmin_stats_plain(flat, embed)
+    if flat.device.type != "cuda":
+        raise NotImplementedError(f"l2_argmin_stats: no kernel for device {flat.device}")
+    if flat.ndim != 2 or embed.ndim != 2 or flat.shape[1] != embed.shape[1]:
+        raise ValueError(f"l2_argmin_stats: shapes {tuple(flat.shape)} vs {tuple(embed.shape)}")
+    if embed.device != flat.device:
+        raise ValueError("l2_argmin_stats: flat and embed lie on different devices")
+    n, d = flat.shape
+    k = embed.shape[0]
+    if d > 32:
+        raise ValueError(f"l2_argmin_stats kernel takes D <= 32, got {d}")
+    x = flat.float().contiguous()
+    e = embed.float().contiguous()
+    e2 = (e * e).sum(-1).contiguous()
+    nblk = max(1, min(-(-n // 256), STATS_CTAS))
+    idx = torch.empty(n, dtype=torch.int64, device=flat.device)
+    counts = torch.empty(k, dtype=torch.float32, device=flat.device)
+    dw = torch.empty(k, d, dtype=torch.float32, device=flat.device)
+    part = torch.empty(nblk * k * (d + 1), dtype=torch.float32, device=flat.device)
+    _build.check(
+        _build.library().vq_l2_argmin_stats(
+            x.data_ptr(), e.data_ptr(), e2.data_ptr(), idx.data_ptr(), counts.data_ptr(),
+            dw.data_ptr(), part.data_ptr(), nblk, n, k, d, _build.stream_ptr(flat.device),
+        ),
+        "l2_argmin_stats",
+    )
+    l2_argmin_stats.launches += 1
+    return idx, counts, dw
+
+
+l2_argmin_stats.launches = 0
 
 
 def genuine_ties(flat: torch.Tensor, embed: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

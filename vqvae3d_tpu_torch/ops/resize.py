@@ -4,7 +4,11 @@ Counterpart of ``vqvae3d_tpu/ops/resize.py`` (which works on (B, H, W, D, C)):
 
   * ``trilinear_upsample2x`` — x2 trilinear upsampling, half-pixel centres,
     edge-clamped: torch ``F.interpolate(mode='trilinear',
-    align_corners=False)``, as the reference ResizeConv3D uses.
+    align_corners=False)``, as the reference ResizeConv3D uses. When autograd
+    needs its gradient it runs as three separable passes of shifted slices
+    (in fp32, the same function to fp32 rounding): that backward is slicing
+    and adds, so a train step is deterministic, where the CUDA backward of
+    ``F.interpolate`` scatters with atomics, in another order each run.
   * ``space_to_depth`` / ``depth_to_space`` — the stem's f x f x f voxel
     blocks packed into channels, channel order (ph, pw, pd, c) with c
     fastest, as in the JAX package.
@@ -15,9 +19,25 @@ import torch
 import torch.nn.functional as F
 
 
+def _upsample2x_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x2 linear upsampling along one axis, half-pixel centres, edges clamped:
+    out[2i] = x[i-1]/4 + 3x[i]/4, out[2i+1] = 3x[i]/4 + x[i+1]/4."""
+    n = x.shape[dim]
+    prev = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
+    nxt = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
+    even = 0.25 * prev + 0.75 * x
+    odd = 0.75 * x + 0.25 * nxt
+    return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+
 def trilinear_upsample2x(x: torch.Tensor) -> torch.Tensor:
     """x2 trilinear upsample of the three spatial dims of (B, C, H, W, D)."""
-    return F.interpolate(x, scale_factor=2, mode="trilinear", align_corners=False)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return F.interpolate(x, scale_factor=2, mode="trilinear", align_corners=False)
+    out = x.float()
+    for dim in (2, 3, 4):
+        out = _upsample2x_axis(out, dim)
+    return out.to(x.dtype)
 
 
 def space_to_depth(x: torch.Tensor, factor: int) -> torch.Tensor:
