@@ -34,10 +34,23 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
   6. the train main path through the entry points: three synthetic scans,
      ``train_vqvae`` for 3 steps (validating at step 3), then ``--resume``
      for one more, then ``extract_embeddings`` on the checkpoint it wrote.
+  7. sampling kernel vs plain: K6 (one row of cached PixelCNN sampling)
+     against ``row_decode_plain`` at the top prior's row (51 layers, C=16,
+     br=4, K=128, s2=32, B=1, conditioned), at B=2 unconditioned and at
+     C=12/br=3: teacher-forced logits and caches within tolerance, free-running
+     indices equal except at counted near ties; per-row times and the bound.
+  8. the sampling main path through the entry point: a seeded port checkpoint
+     of the published top prior (PixelCNN 50x16, 128 codes, conditioned on
+     256), a sample DB with two level-1 grids 32x32x8, then
+     ``sample_embeddings --level 0 --size 128 128 32 --tau 0.1``: the grid's
+     shape, range and condition, and exactly 16,384 K6 launches; then the
+     cached sampler teacher-forced over the whole grid against the one-shot
+     ``PixelCNN.forward`` (every logit); then four slices under the profiler.
 
 TF32 is off for the whole run (fp32 comparisons need true fp32; bf16 runs
 do not use it). Every number is printed beside the card's name and power
-limit. The line before the last is {"kernels": [...]}; the last is
+limit. The line before the last is {"kernels": [...]} (six kernels; K6's
+times and bound per 128x128x32 grid, 16,384 rows); the last is
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 absent, when the package is missing, or when any phase fails.
 """
@@ -98,6 +111,21 @@ K3_BWD_TOL = {
 K7_TOL = 1e-5  # fp32 sums in another order; bf16 products are exact in fp32
 # the fp32 train step, kernel path vs plain path (see phase_train_step)
 STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_EMA_TOL = 1e-4, 1e-2, 1e-4
+# the published top prior and grid (bench_sample.py:82-100,
+# slurm-jobs/sample_embeddings_top.job): PixelCNN 50 blocks x 16 channels over
+# 128 codes, conditioned on the 32x32x8 mid grid of 256 codes, tau 0.1
+TOP_PRIOR = dict(input_dim=128, condition_dim=256, model_dim=16, num_resblocks=50,
+                 dropout_prob=0.0)
+TOP_GRID, TOP_COND, TOP_TAU = (128, 128, 32), (32, 32, 8), 0.1
+# K6 vs row_decode_plain, teacher-forced: logits and caches within
+# tol x max|ref|. Both compute in fp32; the kernel's ELU is exp(x) - 1 (as
+# the TPU kernel's) where the plain one is expm1, and its sums run in another
+# order; over 51 layers that moves the last bits (3.3e-7 measured on an NVIDIA
+# H100 80GB HBM3 at 700 W).
+K6_TOL = 1e-5
+# the cached sampler teacher-forced over the whole grid vs the one-shot
+# forward (cuDNN convs, true fp32): a different decomposition of the same sums
+FORWARD_TOL = 1e-4
 # published peaks of one H100 SXM (NVIDIA data sheet): the bounds' rates
 HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 
@@ -174,20 +202,22 @@ def plain_path():
 
 
 def launch_counts():
-    from vqvae3d_tpu_torch.ops import conv3d, quantizer_ops, stack_kernel
+    from vqvae3d_tpu_torch.ops import conv3d, decode_row, quantizer_ops, stack_kernel
 
     return dict(l2_argmin=quantizer_ops.l2_argmin.launches,
                 l2_argmin_stats=quantizer_ops.l2_argmin_stats.launches,
                 preact_stack_fwd=stack_kernel.preact_stack_fused.launches,
                 preact_stack_bwd=stack_kernel.preact_stack_bwd.launches,
-                dw_conv3d=conv3d.dw_conv3d.launches)
+                dw_conv3d=conv3d.dw_conv3d.launches,
+                row_decode=decode_row.row_decode.launches)
 
 
 def reset_counts():
-    from vqvae3d_tpu_torch.ops import conv3d, quantizer_ops, stack_kernel
+    from vqvae3d_tpu_torch.ops import conv3d, decode_row, quantizer_ops, stack_kernel
 
     for fn in (quantizer_ops.l2_argmin, quantizer_ops.l2_argmin_stats,
-               stack_kernel.preact_stack_fused, stack_kernel.preact_stack_bwd, conv3d.dw_conv3d):
+               stack_kernel.preact_stack_fused, stack_kernel.preact_stack_bwd, conv3d.dw_conv3d,
+               decode_row.row_decode):
         fn.launches = 0
 
 
@@ -742,7 +772,7 @@ def phase_train_step(ident, seed, results):
     got = launch_counts()
     blocks = sum(n for *_, n in cfg.same_stacks(VOLUME))
     want = dict(l2_argmin=0, l2_argmin_stats=cfg.n_enc, preact_stack_fwd=blocks,
-                preact_stack_bwd=blocks, dw_conv3d=len(convs))
+                preact_stack_bwd=blocks, dw_conv3d=len(convs), row_decode=0)
     print(f"bf16 train step launches {got}, config implies {want} "
           f"(loss {float(log['loss']):.5g}) [{ident}]")
     if got != want or not np.isfinite(float(log["loss"])):
@@ -815,7 +845,8 @@ def phase_train_cli(ident, counts, results, seed, work: Path):
     cfg = VQVAEConfig(**FULL, **STEM2)
     blocks = sum(n for *_, n in cfg.same_stacks(VOLUME))
     per_step = dict(l2_argmin=0, l2_argmin_stats=cfg.n_enc, preact_stack_fwd=blocks,
-                    preact_stack_bwd=blocks, dw_conv3d=len(results["smallc_convs"]))
+                    preact_stack_bwd=blocks, dw_conv3d=len(results["smallc_convs"]),
+                    row_decode=0)
     runs = [("train", ["--max-steps", "3"], 3), ("resume", ["--max-steps", "4", "--resume"], 1)]
     total = {k: 0 for k in launch_counts()}
     for name, extra, steps in runs:
@@ -869,6 +900,222 @@ def phase_train_cli(ident, counts, results, seed, work: Path):
         counts[k] = counts.get(k, 0) + v
 
 
+def make_prior(fields, seed, device):
+    """A seeded PixelCNN; every Fixup zero init (branch_conv3, the scalar
+    biases, the scale) and every conv bias perturbed, so each branch counts."""
+    import torch
+    from vqvae3d_tpu_torch.models.causal_blocks import SCALARS, PreActFixupCausalResBlock
+    from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
+
+    gen = torch.Generator().manual_seed(seed)
+    model = PixelCNN(PixelCNNConfig(**fields, dtype=torch.float32), generator=gen)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if name.endswith(".bias"):
+                prm.copy_(torch.randn(prm.shape, generator=gen) * 0.05)
+        for m in model.modules():
+            if isinstance(m, PreActFixupCausalResBlock):
+                for stream in ("depth_conv", "height_conv", "width_conv"):
+                    w = getattr(m.branch_conv3, stream).weight
+                    w.copy_(torch.randn(w.shape, generator=gen) * 0.3 * w.shape[1] ** -0.5)
+                for n in SCALARS:
+                    getattr(m, f"bias{n}").copy_(torch.randn(1, generator=gen) * 0.05)
+                m.scale.copy_(1.0 + torch.randn(1, generator=gen) * 0.05)
+    return model.to(device).eval()
+
+
+def k6_cost(st, b, s2, k, cond):
+    """(weight bytes, row bytes, flops of a row). The weights are the stacked
+    tensors, each of which the kernel reads (layer 0's skip conv the only
+    skip); a row reads its injections, caches, embeddings and Gumbel table
+    once and writes its caches and indices once; the flops are the products
+    of both phases, layer 0's skip conv and the logits."""
+    L, c, br = st["w1"].shape
+    weights = sum(v.numel() * v.element_size() for v in st.values())
+    rows = (4 if cond else 3) * L * b * s2 * br * 4  # d2h, d2w, (cnd,) vhc read
+    row_bytes = rows + 2 * b * s2 * c * 4 + s2 * b * k * 4 + L * b * s2 * br * 4 + b * s2 * 4
+    skip = 2 * 2 * c * c if "skw" in st else 0  # both streams
+    per_layer = 2 * (2 * c * br + br * br + 6 * br * br) + 2 * (2 * c * br + 2 * br * br)
+    flops = b * s2 * (L * per_layer + skip + 2 * c * k)
+    return weights, row_bytes, flops
+
+
+def phase_sample_kernels(ident, results, seed):
+    import torch
+    from vqvae3d_tpu_torch.ops import decode_row
+    from vqvae3d_tpu_torch.sample.ar_sample import draw_gumbel
+    from vqvae3d_tpu_torch.sample.cached_sample import _extract_layers
+
+    dev = torch.device("cuda")
+    s2 = TOP_GRID[2]
+    cases = [("top config, conditioned", TOP_PRIOR, 1, True),
+             ("B=2, unconditioned", dict(TOP_PRIOR, condition_dim=0), 2, False),
+             ("C=12 br=3, conditioned", dict(TOP_PRIOR, model_dim=12), 1, True)]
+    for i, (name, fields, b, cond) in enumerate(cases):
+        model = make_prior(fields, seed + 10 + i, dev)
+        st = decode_row.stack_row_weights(_extract_layers(model), model.parse_input.weight,
+                                          model.parse_input.bias, model.parse_output.weight,
+                                          model.parse_output.bias)
+        L, c, br = st["w1"].shape
+        k = fields["input_dim"]
+        gen = torch.Generator(dev).manual_seed(seed + 20 + i)
+        d2h, d2w, cnd, vhc0 = (torch.randn(L, b, s2, br, device=dev, generator=gen) * 0.5
+                               for _ in range(4))
+        cnd = cnd if cond else None
+        dfin, sprev = (torch.randn(b, s2, c, device=dev, generator=gen) * 0.5 for _ in range(2))
+        gum = draw_gumbel((s2, b, k), gen, dev)
+        forced = torch.randint(0, k, (b, s2), device=dev, generator=gen)
+        args = (st, d2h, d2w, cnd, dfin, sprev)
+        vk, vp = vhc0.clone(), vhc0.clone()
+        _, _, lk = decode_row.row_decode(*args, vk, gum, 5, TOP_TAU, forced_idx=forced)
+        _, _, lp = decode_row.row_decode_plain(*args, vp, gum, 5, TOP_TAU, forced_idx=forced)
+        errs = {}
+        for what, got, want in (("logits", lk, lp), ("caches", vk, vp)):
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            errs[what] = err
+            if not err <= K6_TOL * scale or not torch.isfinite(got).all():
+                raise AssertionError(f"K6 {name}, teacher-forced {what}: max|d|={err:.3g} > "
+                                     f"{K6_TOL} x {scale:.3g}")
+        free, _ = decode_row.row_decode(*args, vhc0.clone(), gum, 5, TOP_TAU)
+        _, _, lpath = decode_row.row_decode_plain(*args, vhc0.clone(), gum, 5, TOP_TAU,
+                                                  forced_idx=free)
+        ties, beyond = decode_row.sampling_disagreements(lpath, gum, TOP_TAU, free)
+        if beyond:
+            raise AssertionError(f"K6 {name}: {beyond} sampled indices disagree beyond a tie")
+        vk = vhc0.clone()
+        ms = cuda_ms(lambda: decode_row.row_decode(*args, vk, gum, 5, TOP_TAU), 20, warmup=2)
+        pms = cuda_ms(lambda: decode_row.row_decode_plain(*args, vk, gum, 5, TOP_TAU), 3)
+        weights, row_bytes, flops = k6_cost(st, b, s2, k, cond)
+        bms, by = bound_ms(weights + row_bytes, flops, FP32_FLOPS)
+        print(f"K6 row_decode {name} (L={L} C={c} br={br} K={k} s2={s2} B={b}): "
+              f"teacher-forced max|d| logits {errs['logits']:.3g} (max|ref| "
+              f"{float(lp.abs().max()):.3g}), caches {errs['caches']:.3g}; free-running "
+              f"near ties {ties}, beyond {beyond}; per row (random inputs): kernel {ms:.4f} ms "
+              f"(mean of 20), plain {pms:.2f} ms (mean of 3), bound {bms:.6f} ms ({by}: "
+              f"{weights} B of weights, {row_bytes} B of the row, {flops} flops) [{ident}]")
+        if i == 0:  # the JSON line, per top grid: ms from the main path's own run
+            rows = TOP_GRID[0] * TOP_GRID[1]
+            gbms, gby = bound_ms(weights + rows * row_bytes, rows * flops, FP32_FLOPS)
+            print(f"K6 per top grid ({rows} rows): bound {gbms:.4f} ms ({gby}; the weights "
+                  f"read once, each row's data once); the plain time in the JSON line is the "
+                  f"plain row's mean x {rows} (scaled, not run over a grid) [{ident}]")
+            results["row_decode"] = dict(max_abs_err=errs["logits"], plain_ms=pms * rows,
+                                         bound_ms=gbms, bound_by=gby, library_ms=None)
+        del model, st
+
+
+def phase_sample_main_path(ident, counts, results, seed, work: Path):
+    import torch
+    from vqvae3d_tpu_torch.checkpoint import save_prior
+    from vqvae3d_tpu_torch.cli import sample_embeddings
+    from vqvae3d_tpu_torch.data.sample_db import add_samples, create_or_load_db, save_db
+    from vqvae3d_tpu_torch.models.prior_utils import idx_to_one_hot
+    from vqvae3d_tpu_torch.sample.cached_sample import cached_ancestral_sample
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = make_prior(TOP_PRIOR, seed + 30, "cpu")
+    save_prior(work / "prior_top", model)
+    db_path = work / "samples_top.db"
+    db = create_or_load_db(db_path, 1)
+    rng = np.random.default_rng(seed + 31)
+    level1 = add_samples(db, 1, rng.integers(0, TOP_PRIOR["condition_dim"], (2, *TOP_COND))
+                         .astype(np.int32), None)
+    save_db(db, db_path, 1)
+    print(f"sampling set-up: prior checkpoint (PixelCNN {TOP_PRIOR}) and a DB with two "
+          f"level-1 grids {TOP_COND} in {time.perf_counter() - t0:.1f} s")
+
+    # the main path under a device-only profiler: K6's device time over its
+    # own 16,384 launches (the host loop stays ahead of the card, so the
+    # profiler's small per-launch cost should not reach the wall)
+    reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start.record()
+        new = sample_embeddings.main(sample_embeddings.parse_arguments([
+            "--model-checkpoint", str(work / "prior_top"), "--db-path", str(db_path),
+            "--level", "0", "--size", *map(str, TOP_GRID), "--num-samples", "1",
+            "--batch-size", "1", "--tau", str(TOP_TAU), "--sampler", "cached",
+            "--seed", str(seed), "--device", "cuda"]))
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0  # the profiler's teardown left out
+    got = launch_counts()
+    k6_rows = [e for e in prof.key_averages() if "row_decode" in e.key
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    k6_ms = sum(e.self_device_time_total for e in k6_rows) / 1e3
+    k6_n = sum(e.count for e in k6_rows)
+    rows = TOP_GRID[0] * TOP_GRID[1]
+    want = dict(dict.fromkeys(got, 0), row_decode=rows)
+    db = create_or_load_db(db_path, 0)
+    grid = np.asarray(db[0][new[0]]["data"])
+    print(f"sample_embeddings --level 0 --size {TOP_GRID} --tau {TOP_TAU}: {wall:.2f} s wall "
+          f"(host clock, checkpoint load and DB write included, under the device-only "
+          f"profiler, its teardown left out), {start.elapsed_time(end) / 1e3:.2f} s between "
+          f"CUDA events on the stream; K6 device time {k6_ms:.1f} ms over {k6_n} kernels ({k6_ms / max(k6_n, 1):.4f} ms "
+          f"a row); launches {got}, the grid implies {want}; "
+          f"grid {grid.shape} {grid.dtype} codes {grid.min()}..{grid.max()}, "
+          f"{len(np.unique(grid))} distinct [{ident}]")
+    if got != want or k6_n != rows:
+        raise AssertionError(f"sampling launches {got} != {want} (K6 kernels profiled: {k6_n})")
+    if (len(new) != 1 or grid.shape != TOP_GRID or not np.issubdtype(grid.dtype, np.integer)
+            or grid.min() < 0 or grid.max() >= TOP_PRIOR["input_dim"]
+            or db[0][new[0]]["condition"] not in level1):
+        raise AssertionError("the sampled grid or its condition is wrong")
+    for k, v in got.items():
+        counts[k] = counts.get(k, 0) + v
+    results["sample_s"] = wall
+    results["row_decode"]["ms"] = k6_ms
+
+    # exactness at full width: teacher-forced cached logits vs the one-shot forward
+    model = model.to(dev)
+    gen = torch.Generator(dev).manual_seed(seed + 32)
+    forced = torch.randint(0, TOP_PRIOR["input_dim"], (1, *TOP_GRID), device=dev, generator=gen)
+    cond = torch.from_numpy(np.stack([np.asarray(db[1][level1[0]]["data"])]).astype(np.int64))
+    t0 = time.perf_counter()
+    _, logits = cached_ancestral_sample(model, TOP_GRID, 1, cond, TOP_TAU, forced=forced)
+    torch.cuda.synchronize()
+    t_forced = time.perf_counter() - t0
+    with torch.inference_mode():
+        ref = model(idx_to_one_hot(forced, TOP_PRIOR["input_dim"]),
+                    idx_to_one_hot(cond.to(dev), TOP_PRIOR["condition_dim"]))
+    err, scale = float((logits - ref).abs().max()), float(ref.abs().max())
+    agree = float((logits.argmax(1) == ref.argmax(1)).float().mean())
+    print(f"exactness, full grid {TOP_GRID}: teacher-forced cached sampler (K6 per row, "
+          f"{t_forced:.2f} s) vs one-shot PixelCNN.forward: max|d| logits {err:.3g}, max|ref| "
+          f"{scale:.3g} (tolerance {FORWARD_TOL} x max|ref|); argmax agreement {agree:.6f} "
+          f"[{ident}]")
+    if not err <= FORWARD_TOL * scale or not torch.isfinite(logits).all():
+        raise AssertionError("cached logits disagree with the one-shot forward")
+    results["sample_exact"] = (err, scale)
+    del logits, ref
+    torch.cuda.empty_cache()
+
+    # where the time goes: four slices under the profiler (the condition cut
+    # to its first slice, upsampled to the four)
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    dims = (4, *TOP_GRID[1:])
+    cond = cond[:, :1]
+    cached_ancestral_sample(model, (1, *TOP_GRID[1:]), 1, cond, TOP_TAU, generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=act) as prof:
+        cached_ancestral_sample(model, dims, 1, cond, TOP_TAU, generator=gen)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    cuda_rows = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in cuda_rows) / 1e3
+    k6 = sum(e.self_device_time_total for e in cuda_rows if "row_decode" in e.key) / 1e3
+    table = events.table(sort_by="self_device_time_total", row_limit=15, max_name_column_width=60)
+    print(f"profile of {dims[0]} slices ({dims[0] * dims[1]} rows): wall {wall:.1f} ms under the "
+          f"profiler, device busy {busy:.1f} ms (K6 {k6:.1f} ms, the rest {busy - k6:.1f} ms: "
+          f"depth tower, condition, embeddings, Gumbel draws), idle {wall - busy:.1f} ms "
+          f"[{ident}]\n{table}")
+    del model
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -909,6 +1156,9 @@ def main():
             ("train kernels vs plain", lambda: phase_train_kernels(ident, results, args.seed)),
             ("train step", lambda: phase_train_step(ident, args.seed, results)),
             ("train CLI", lambda: phase_train_cli(ident, counts, results, args.seed, Path(tmp))),
+            ("sampling kernels vs plain", lambda: phase_sample_kernels(ident, results, args.seed)),
+            ("sampling main path", lambda: phase_sample_main_path(
+                ident, counts, results, args.seed, Path(tmp))),
         ]
         for name, fn in phases:
             t0 = time.perf_counter()
@@ -933,6 +1183,7 @@ def main():
         "preact_stack_bwd": ("vqvae3d_tpu_torch/csrc/preact_stack_bwd.cu",
                              "vqvae3d_tpu/ops/stack_kernel.py:1112"),
         "dw_conv3d": ("vqvae3d_tpu_torch/csrc/dw_conv3d.cu", "vqvae3d_tpu/ops/pallas_conv.py:151"),
+        "row_decode": ("vqvae3d_tpu_torch/csrc/row_decode.cu", "vqvae3d_tpu/ops/decode_row.py:290"),
     }
     missing = [name for name in meta if not counts.get(name)]
     if missing:

@@ -6,6 +6,9 @@
   * ``code_store_to_sample_db`` + ``decode_embeddings`` write one int32 NRRD
     per scan; the decoded volumes agree with the JAX ``decode_samples`` on
     the same DB within 2e-3 (tests/test_checkpoint.py's decoded tolerance).
+  * ``sample_embeddings --device cpu`` samples level-0 grids from a tiny
+    conditioned PixelCNN checkpoint, conditioned on the DB's level-1 grids;
+    the JAX package's ``sample_db`` reads what it wrote.
   * In a subprocess where ``import jax`` fails, every module of the port
     imports and both CLIs run: the port never needs jax.
 """
@@ -27,12 +30,15 @@ from vqvae3d_tpu.cli import decode_embeddings as jdecode
 from vqvae3d_tpu.cli import extract_embeddings as jextract
 from vqvae3d_tpu.data import nrrd_io
 from vqvae3d_tpu.data.code_store import CodeStore
+from vqvae3d_tpu.data.sample_db import add_samples as jadd_samples
 from vqvae3d_tpu.data.sample_db import create_or_load_db
+from vqvae3d_tpu.data.sample_db import save_db as jsave_db
 from vqvae3d_tpu.models.vqvae import VQVAE as JVQVAE, VQVAEConfig as JConfig
 import vqvae3d_tpu_torch
-from vqvae3d_tpu_torch.checkpoint import load_model, save_checkpoint
-from vqvae3d_tpu_torch.cli import decode_embeddings, extract_embeddings
+from vqvae3d_tpu_torch.checkpoint import load_model, save_checkpoint, save_prior
+from vqvae3d_tpu_torch.cli import decode_embeddings, extract_embeddings, sample_embeddings
 from vqvae3d_tpu_torch.convert import jax_variables_to_state_dict
+from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
 from vqvae3d_tpu_torch.models.vqvae import VQVAEConfig
 
 REPO = Path(__file__).resolve().parent.parent
@@ -127,6 +133,33 @@ def test_decode_writes_volumes_matching_jax(setup, monkeypatch):
     assert got.keys() == want.keys()
     for name in got:
         np.testing.assert_allclose(got[name], want[name], atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("sampler", ["cached", "naive"])
+def test_sample_embeddings_cli_on_cpu(tmp_path, sampler):
+    prior = PixelCNN(PixelCNNConfig(input_dim=5, condition_dim=4, model_dim=8, num_resblocks=2,
+                                    dropout_prob=0.0, bottleneck_divisor=2,
+                                    dtype=torch.float32),
+                     generator=torch.Generator().manual_seed(3))
+    save_prior(tmp_path / "prior", prior)
+    db_path = tmp_path / "samples.db"
+    db = create_or_load_db(db_path, 1)  # the JAX package writes the coarser level
+    coarse = np.random.default_rng(4).integers(0, 4, (2, 2, 2, 1)).astype(np.int32)
+    level1 = jadd_samples(db, 1, coarse, None)
+    jsave_db(db, db_path, 1)
+    argv = ["--model-checkpoint", str(tmp_path / "prior"), "--db-path", str(db_path),
+            "--level", "0", "--size", "3", "4", "3", "--num-samples", "3", "--batch-size", "1",
+            "--tau", "0.5", "--sampler", sampler, "--device", "cpu"]
+    new = sample_embeddings.main(sample_embeddings.parse_arguments(argv))
+    db = create_or_load_db(db_path, 0)
+    assert len(new) == 3 and set(db[0]) == set(new) and set(db[1]) == set(level1)
+    for u in new:
+        grid = np.asarray(db[0][u]["data"])
+        assert grid.shape == (3, 4, 3) and grid.dtype == np.int32
+        assert 0 <= grid.min() and grid.max() < 5 and db[0][u]["condition"] in level1
+    with pytest.raises(NotImplementedError):
+        sample_embeddings.main(sample_embeddings.parse_arguments(argv + ["--use-model",
+                                                                        "pixelsnail"]))
 
 
 def test_port_runs_with_jax_blocked(setup):

@@ -1,5 +1,6 @@
 """Kernel wrappers of the port (K1a/K1b codebook lookup, K3 'same'-block
-stack forward and backward, K7 small-channel conv weight gradient).
+stack forward and backward, K7 small-channel conv weight gradient, K6 one
+row of cached PixelCNN sampling).
 
 This file imports no jax, so its card tests also run on a machine that has
 only PyTorch and CUDA:
@@ -41,7 +42,10 @@ import pytest
 import torch
 
 from vqvae3d_tpu_torch.models import blocks as tblocks
-from vqvae3d_tpu_torch.ops import conv3d, quantizer_ops, stack_kernel
+from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
+from vqvae3d_tpu_torch.ops import conv3d, decode_row, quantizer_ops, stack_kernel
+from vqvae3d_tpu_torch.sample.ar_sample import draw_gumbel
+from vqvae3d_tpu_torch.sample.cached_sample import _extract_layers
 
 
 def _stack(rng, nb, c, std=0.2):
@@ -289,7 +293,7 @@ def test_k3_packed_layout_and_indexing(c, pad_mode):
 def _counts():
     return (quantizer_ops.l2_argmin.launches, quantizer_ops.l2_argmin_stats.launches,
             stack_kernel.preact_stack_fused.launches, stack_kernel.preact_stack_bwd.launches,
-            conv3d.dw_conv3d.launches)
+            conv3d.dw_conv3d.launches, decode_row.row_decode.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -462,3 +466,68 @@ def test_k7_kernel_matches_plain_on_card(cuda_device, cin, cout, spatial, dtype)
     assert conv3d.dw_conv3d.launches == launches + 2
     assert torch.equal(got, again) and got.dtype == torch.float32
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _k6_row(c, br, k, n_layers, b, s2, cond, l0_skip, seed, device):
+    """Stacked weights of a random PixelCNN and one row's random inputs."""
+    gen = torch.Generator().manual_seed(seed)
+    model = PixelCNN(PixelCNNConfig(input_dim=k, condition_dim=8 if cond else 0, model_dim=c,
+                                    num_resblocks=n_layers - 1, dropout_prob=0.0,
+                                    bottleneck_divisor=c // br), generator=gen)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if "branch_conv3" in name or ".bias" in name:  # Fixup zero inits
+                prm.copy_(torch.randn(prm.shape, generator=gen) * 0.2)
+    model.to(device)
+    layers = _extract_layers(model)
+    st = decode_row.stack_row_weights(layers, model.parse_input.weight, model.parse_input.bias,
+                                      model.parse_output.weight, model.parse_output.bias)
+    if not l0_skip:  # layer 0 as a mask-'B' layer: no skip conv, the residual added
+        del st["skw"], st["hskw"]
+    rows = [(torch.randn(n_layers, b, s2, br, generator=gen) * 0.5).to(device)
+            for _ in range(4)]
+    dfin, sprev = ((torch.randn(b, s2, c, generator=gen) * 0.5).to(device) for _ in range(2))
+    return st, rows, dfin, sprev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,br,k", [(16, 4, 128), (12, 3, 256)])
+@pytest.mark.parametrize("b,cond,l0_skip", [(1, True, True), (2, False, True), (2, True, False)])
+def test_k6_kernel_matches_plain_on_card(cuda_device, c, br, k, b, cond, l0_skip):
+    st, rows, dfin, sprev = _k6_row(c, br, k, 6, b, 32, cond, l0_skip, c * 10 + b, cuda_device)
+    d2h, d2w, cnd, vhc0 = rows
+    cnd = cnd if cond else None
+    gum = draw_gumbel((32, b, k), torch.Generator(cuda_device).manual_seed(1), cuda_device)
+    forced = torch.randint(0, k, (b, 32), device=cuda_device)
+    before = decode_row.row_decode.launches
+    for i1 in (0, 3):
+        sp = sprev if i1 else torch.zeros_like(sprev)
+        vk, vp = vhc0.clone(), vhc0.clone()
+        idx_k, _, lg_k = decode_row.row_decode(st, d2h, d2w, cnd, dfin, sp, vk, gum, i1, 0.1,
+                                               forced_idx=forced)
+        idx_p, _, lg_p = decode_row.row_decode_plain(st, d2h, d2w, cnd, dfin, sp, vp, gum, i1,
+                                                     0.1, forced_idx=forced)
+        torch.cuda.synchronize()
+        assert torch.equal(idx_k, forced.int()) and torch.equal(idx_p, forced.int())
+        for name, got, want in (("logits", lg_k, lg_p), ("vhc", vk, vp)):
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            assert err <= 1e-5 * scale, f"{name}: max|d|={err:.3g} > 1e-5 x {scale:.3g}"
+        # free-running, the same table: the kernel's picks against the plain
+        # logits along the kernel's own path
+        free, _ = decode_row.row_decode(st, d2h, d2w, cnd, dfin, sp, vhc0.clone(), gum, i1, 0.1)
+        _, _, lg_path = decode_row.row_decode_plain(st, d2h, d2w, cnd, dfin, sp, vhc0.clone(),
+                                                    gum, i1, 0.1, forced_idx=free)
+        ties, beyond = decode_row.sampling_disagreements(lg_path, gum, 0.1, free)
+        assert beyond == 0, f"{beyond} indices disagree beyond a near tie ({ties} ties)"
+        assert int(free.min()) >= 0 and int(free.max()) < k
+    assert decode_row.row_decode.launches == before + 4
+
+
+@pytest.mark.gpu
+def test_k6_kernel_reports_non_finite_logits(cuda_device):
+    st, rows, dfin, sprev = _k6_row(16, 4, 128, 3, 1, 32, False, True, 7, cuda_device)
+    st["b_out"][5] = float("nan")
+    gum = draw_gumbel((32, 1, 128), torch.Generator(cuda_device).manual_seed(2), cuda_device)
+    idx, _ = decode_row.row_decode(st, rows[0], rows[1], None, dfin, sprev, rows[3], gum, 2, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(idx.cpu(), torch.full((1, 32), -1, dtype=torch.int32))

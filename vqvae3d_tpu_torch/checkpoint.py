@@ -15,6 +15,11 @@ _config_to_json`` (``dataclasses.asdict`` with the dtype by name), so either
 package reads the other's config. Orbax checkpoints of the JAX package are
 not read here: turning one into a state_dict needs jax
 (``convert.jax_variables_to_state_dict`` on ``jax.device_get(variables)``).
+
+Prior checkpoints use the same directory format: ``save_prior`` writes a
+PixelCNN's state_dict and config, ``load_prior`` rebuilds the model. The
+prior's config JSON is the JAX ``PixelCNNConfig``'s; its TPU layout switches
+(``scan_stacks``, ``remat_scan``) are accepted and dropped on load.
 """
 from __future__ import annotations
 
@@ -25,18 +30,23 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
 from vqvae3d_tpu_torch.models.vqvae import VQVAE, VQVAEConfig
 
+PRIOR_LAYOUT_FIELDS = ("scan_stacks", "remat_scan")  # JAX-only, dropped on load
 
-def config_to_json(config: VQVAEConfig) -> str:
+
+def config_to_json(config) -> str:
     d = dataclasses.asdict(config)
     if d.get("dtype") is not None:
         d["dtype"] = str(d["dtype"]).removeprefix("torch.")
     return json.dumps(d)
 
 
-def config_from_json(text: str) -> VQVAEConfig:
+def config_from_json(text: str, cls=VQVAEConfig, drop=()):
     d = json.loads(text)
+    for k in drop:
+        d.pop(k, None)
     if d.get("dtype") is not None:
         dt = getattr(torch, d["dtype"], None)
         if not isinstance(dt, torch.dtype):
@@ -44,7 +54,7 @@ def config_from_json(text: str) -> VQVAEConfig:
         d["dtype"] = dt
     if isinstance(d.get("num_embeddings"), list):
         d["num_embeddings"] = tuple(d["num_embeddings"])
-    return VQVAEConfig(**d)
+    return cls(**d)
 
 
 def latest_step(path) -> Optional[int]:
@@ -60,8 +70,7 @@ def _step(path, step):
     return step
 
 
-def save_checkpoint(path, state_dict: Dict[str, torch.Tensor], config: VQVAEConfig,
-                    step: int = 0) -> None:
+def save_checkpoint(path, state_dict: Dict[str, torch.Tensor], config, step: int = 0) -> None:
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     cpu = {k: v.detach().cpu() for k, v in state_dict.items()}
@@ -114,3 +123,20 @@ def restore_train_state(path, model: VQVAE, optimizer, step: Optional[int] = Non
     train = torch.load(path / f"step_{step}_train.pt", map_location="cpu", weights_only=True)
     optimizer.load_state_dict(train["optimizer"])
     return int(train["step"])
+
+
+def save_prior(path, model: PixelCNN, step: int = 0) -> None:
+    """Write a PixelCNN prior's state_dict and config as step ``step``."""
+    save_checkpoint(path, model.state_dict(), model.config, step)
+
+
+def load_prior(path, device="cpu", step: Optional[int] = None) -> Tuple[PixelCNN, PixelCNNConfig]:
+    """Rebuild a PixelCNN prior from its config and load its state_dict (strict)."""
+    path = Path(path)
+    step = _step(path, step)
+    config = config_from_json((path / f"step_{step}_config.json").read_text(), PixelCNNConfig,
+                              drop=PRIOR_LAYOUT_FIELDS)
+    model = PixelCNN(config)
+    model.load_state_dict(torch.load(path / f"step_{step}.pt", map_location="cpu",
+                                     weights_only=True))
+    return model.to(device).eval(), config

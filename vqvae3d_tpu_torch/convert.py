@@ -1,4 +1,4 @@
-"""Weight bridge: a JAX VQVAE variable tree -> the port's state_dict.
+"""Weight bridge: JAX variable trees -> the port's state_dicts.
 
 ``jax_variables_to_state_dict`` is the exact inverse of
 ``vqvae3d_tpu/train/checkpoint.py::convert_reference_vqvae_state_dict``
@@ -8,6 +8,10 @@ refuses. It takes the tree ``{'params', 'quantizer'}`` as nested dicts of
 numpy arrays (``jax.device_get(variables)`` on the JAX side) and imports no
 jax. The quantizer's ``initialized`` flag becomes ``first_pass = not
 initialized``.
+
+``jax_pixelcnn_params_to_state_dict`` does the same for a PixelCNN prior: it
+is the exact inverse of ``vqvae3d_tpu/train/checkpoint.py::
+convert_reference_pixelcnn_state_dict`` and takes the ``params`` tree.
 """
 from __future__ import annotations
 
@@ -104,3 +108,37 @@ def jax_variables_to_state_dict(variables: Dict[str, Any], config) -> Dict[str, 
                 config.level_n_down(lvl), config.n_post_upscale_blocks)
     conv_entry(dec, "out", "decoder.out")
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _causal_block(tree, dst: str, sd: Dict[str, np.ndarray]) -> None:
+    """One PreActFixupCausalResBlock (``_convert_causal_block``'s inverse)."""
+    for name in ("1a", "1b", "2a", "2b", "3a", "3b", "4"):
+        sd[f"{dst}.bias{name}"] = np.asarray(tree[f"bias{name}"])
+    sd[f"{dst}.scale"] = np.asarray(tree["scale"])
+    streams = ("depth_conv", "height_conv", "width_conv")
+    for conv in ("branch_conv1", "branch_conv2", "branch_conv3"):
+        for stream in streams:
+            sd[f"{dst}.{conv}.{stream}.weight"] = _j2t_conv(tree[conv][stream]["kernel"])
+    for stream in ("depth_conv", "height_conv"):
+        sd[f"{dst}.expand_rf.{stream}.weight"] = _j2t_conv(tree["expand_rf"][stream]["kernel"])
+        sd[f"{dst}.expand_rf.{stream}.bias"] = np.asarray(tree["expand_rf"][stream]["bias"])
+    if "condition" in tree:
+        sd[f"{dst}.condition.weight"] = _j2t_conv(tree["condition"]["kernel"])
+        sd[f"{dst}.condition.bias"] = np.asarray(tree["condition"]["bias"])
+    if "skip_conv" in tree:
+        for stream in streams:
+            sd[f"{dst}.skip_conv.{stream}.weight"] = _j2t_conv(tree["skip_conv"][stream]["kernel"])
+            sd[f"{dst}.skip_conv.{stream}.bias"] = np.asarray(tree["skip_conv"][stream]["bias"])
+
+
+def jax_pixelcnn_params_to_state_dict(params: Dict[str, Any], config) -> Dict[str, torch.Tensor]:
+    """A JAX PixelCNN ``params`` tree (nested dicts of numpy arrays) -> the
+    port's state_dict, under the reference torch keys."""
+    sd: Dict[str, np.ndarray] = {}
+    for name in ("parse_input", "parse_output") + (
+            ("embed_condition",) if config.use_conditioning else ()):
+        sd[f"{name}.weight"] = _j2t_conv(params[name]["kernel"])
+        sd[f"{name}.bias"] = np.asarray(params[name]["bias"])
+    for i in range(config.num_resblocks + 1):
+        _causal_block(params[f"layer_{i}"], f"layers.{i}", sd)
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

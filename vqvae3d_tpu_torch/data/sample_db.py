@@ -8,6 +8,9 @@ reads what the other writes.
 from __future__ import annotations
 
 import pickle
+import random
+from itertools import chain
+from math import ceil
 from pathlib import Path
 from typing import Dict, List, Optional
 from uuid import uuid4
@@ -40,6 +43,23 @@ def save_db(db: Dict, db_path: Path, level: int) -> None:
             if level in other:
                 db[level].update(other[level])
         db_path.write_bytes(pickle.dumps(db))
+
+
+def get_condition_uuids(db: Dict, level: int, num_conditions: int) -> List:
+    """Pick condition uuids from the next-coarser level at random, repeating
+    the pool when it is smaller than the request."""
+    if level + 1 not in db or not db[level + 1]:
+        raise KeyError(f"the sample DB holds no level-{level + 1} grids to condition on")
+    options = list(db[level + 1].keys())
+    if len(options) < num_conditions:
+        options = list(chain.from_iterable(
+            options for _ in range(ceil(num_conditions / len(options)))))
+    return random.sample(options, k=num_conditions)
+
+
+def get_conditions(db: Dict, level: int, uuids) -> np.ndarray:
+    """The level-(level+1) grids of ``uuids``, stacked: (N, *grid)."""
+    return np.stack([np.asarray(db[level + 1][u]["data"]) for u in uuids])
 
 
 def add_samples(db: Dict, level: int, samples: np.ndarray,

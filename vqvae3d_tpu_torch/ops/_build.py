@@ -54,6 +54,10 @@ SIGNATURES = {
     # K7: is_bf16, x, g, dw, part, nchunks, batch, cin, cout, hp, wp, dp, kh,
     #     kw, kd, stream
     "vq_dw_conv3d": [_i, _p, _p, _p, _p, _i, _i64, _i, _i, _i, _i, _i, _i, _i, _i, _p],
+    # K6: w1, wk, w3, b3, sc, hw1, herf, herfb, hwk, hw3, hb3, skw, hskw,
+    #     w_in, b_in, w_out, b_out, d2h, d2w, cnd, dfin, sprev, vhc, gumbel,
+    #     forced, out, logits, L, B, s2, C, br, ws, K, i1, tau, stream
+    "vq_row_decode": [_p] * 27 + [_i] * 8 + [ctypes.c_float, _p],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,274 @@
+"""One row of cached PixelCNN sampling: kernel K6 and its plain version.
+
+Counterpart of ``vqvae3d_tpu/ops/decode_row.py`` (Pallas ``row_decode``,
+``_row_kernel``). A row (fixed s0-slice i0 and s1-row i1, all s2 voxels) is
+sampled in two phases:
+
+  * phase 1, the height-row step, vectorised over the row's s2 positions:
+    the height stream restricted to row i1 is a function of the previous
+    row's ``parse_input`` embedding, each layer's cached post-activation
+    v-row of row i1-1 and the depth stream's d2h injections at this row. It
+    yields every layer's h2w injection and the height stream's final row,
+    and it writes each layer's new v-row into the caches.
+  * phase 2, the voxel chain: each voxel in order through all L layers of
+    the width stream (1x1x1 contractions and the ws-tap width conv over
+    per-layer tap caches, fed by d2w and h2w), then the logits and the
+    sample ``argmax(logits / tau + gumbel)`` (lowest index on ties); the
+    sampled code's ``parse_input`` row feeds the next voxel's layer 0.
+
+``stack_row_weights`` stacks the per-layer weights into (L, ...) tensors
+(mask-'A' width taps front-padded with zero taps to the widest). Unlike the
+TPU layout, which packs [w3·scale ; skip] into one matrix with an identity
+skip for every mask-'B' layer, the residual is added directly and only
+layer 0's skip conv is kept.
+
+``row_decode`` is the dispatcher: on CUDA tensors it launches K6
+(``csrc/row_decode.cu``) and adds one to ``row_decode.launches``; on CPU
+tensors it runs ``row_decode_plain``, which computes the same contract op by
+op; any other device raises. Both update the height v-row caches ``vhc`` IN
+PLACE and also return them.
+
+Contract (fp32 throughout; B batch, s2 row length, C model width, br the
+bottleneck width, K codes, L layers):
+  d2h_row, d2w_row, cnd_row (L, B, s2, br) (cnd_row None when unconditioned);
+  dfin_row (B, s2, C) the depth stream's final row; sprev_row (B, s2, C) the
+  previous row's parse_input embedding (zeros at i1 = 0); vhc (L, B, s2, br);
+  gumbel (s2, B, K); i1 the row index; tau the temperature;
+  forced_idx (B, s2) int: teacher-force the row and also return its logits.
+Returns (B, s2) int32 indices and vhc — plus (B, s2, K) logits when forced.
+Free-running, a voxel whose logits are not all finite gets index -1 (the
+next voxel then reads code 0's embedding); the sampler reports it.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from vqvae3d_tpu_torch.ops import _build
+
+f32 = torch.float32
+
+
+def _k1(w: torch.Tensor) -> torch.Tensor:
+    """A 1x1x1 conv weight (O, I, 1, 1, 1) as an (I, O) matrix."""
+    return w.detach()[:, :, 0, 0, 0].t().float()
+
+
+def stack_row_weights(layers, w_in, b_in, w_out, b_out) -> Dict[str, torch.Tensor]:
+    """Stack the per-layer width and height weights of the sampler's layer
+    views (``sample.cached_sample._extract_layers``) into the row function's
+    (L, ...) operands. ``w_in``/``b_in``: ``parse_input`` weight (C, K, 1, 1,
+    1) and bias; ``w_out``/``b_out``: ``parse_output`` weight (K, C, 1, 1, 1)
+    and bias.
+
+    A layer's output is ``w3v @ w3 + b3`` plus its residual: the input itself
+    for a layer without a skip conv, else ``sk_in @ skw + skip bias`` (the
+    skip bias is folded into ``b3``). Only layer 0 (mask 'A') may have a skip
+    conv; ``skw``/``hskw`` hold its (C, C) weights and are absent without
+    one."""
+    if any(lp.skip is not None for lp in layers[1:]):
+        raise NotImplementedError("row_decode: a skip conv past layer 0 (a width change)")
+    w1 = torch.stack([_k1(lp.c1["width_conv"]) for lp in layers])
+    # width conv taps (O, I, 1, 1, ws) -> (ws, I, O); a layer with fewer taps
+    # is front-padded with zero taps, which multiply the never-written slot
+    kws = [lp.c2["width_conv"][:, :, 0, 0, :].permute(2, 1, 0).float() for lp in layers]
+    ws_max = max(w.shape[0] for w in kws)
+    wk = torch.stack([F.pad(w, (0, 0, 0, 0, ws_max - w.shape[0], 0)) for w in kws])
+    sc = torch.stack([torch.stack([lp.s[n] for n in ("1a", "1b", "2a", "2b", "3a", "3b", "4")]
+                                  + [lp.scale]) for lp in layers]).float()
+    scale = sc[:, 7][:, None, None]
+    b4 = sc[:, 6][:, None].expand(-1, w_in.shape[0])
+    l0_skip = layers[0].skip is not None
+
+    def out_proj(stream):
+        w3 = torch.stack([_k1(lp.c3[stream]) for lp in layers]) * scale
+        b3 = b4.clone()
+        if l0_skip:
+            b3[0] += layers[0].skip[stream][1].float()
+        return w3, b3
+
+    st = dict(
+        w1=w1, wk=wk, sc=sc,
+        hw1=torch.stack([_k1(lp.c1["height_conv"]) for lp in layers]),
+        herf=torch.stack([_k1(lp.erf_h[0]) for lp in layers]),
+        herfb=torch.stack([lp.erf_h[1].float() for lp in layers]),
+        # height conv (O, I, 1, 2, 3) -> (2 rows, 3 taps, I, O)
+        hwk=torch.stack([lp.c2["height_conv"][:, :, 0].permute(2, 3, 1, 0).float()
+                         for lp in layers]),
+        w_in=_k1(w_in), b_in=b_in.detach().float(), w_out=_k1(w_out),
+        b_out=b_out.detach().float(),
+    )
+    st["w3"], st["b3"] = out_proj("width_conv")
+    st["hw3"], st["hb3"] = out_proj("height_conv")
+    if l0_skip:
+        st["skw"] = _k1(layers[0].skip["width_conv"][0])
+        st["hskw"] = _k1(layers[0].skip["height_conv"][0])
+    return {k: v.contiguous() for k, v in st.items()}
+
+
+def _shift_s2(p: torch.Tensor, d: int) -> torch.Tensor:
+    """out[:, s] = p[:, s + d] with zero fill; s2 is dim 1 of (B, s2, X)."""
+    if d == 0:
+        return p
+    z = torch.zeros_like(p[:, : abs(d)])
+    if d > 0:
+        return torch.cat([p[:, d:], z], 1)
+    return torch.cat([z, p[:, :d]], 1)
+
+
+def row_decode_plain(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
+                     i1: int, tau: float, forced_idx: Optional[torch.Tensor] = None):
+    """The row contract computed op by op (the module docstring)."""
+    L, B, s2, br = d2w_row.shape
+    C = dfin_row.shape[-1]
+    ws = st["wk"].shape[1]
+    sc = st["sc"].tolist()
+    if cnd_row is None:
+        cnd_row = torch.zeros_like(d2w_row)
+    l0_skip = "skw" in st
+    b_in = st["b_in"]
+
+    # ---- phase 1: the height-row step, vectorised over s2
+    hw = torch.empty_like(d2w_row)
+    h = b_in.expand(B, s2, C)  # parse_input of the unsampled row
+    for li in range(L):
+        a = sc[li]
+        if li == 0:
+            u = F.elu(sprev_row + a[0]) + a[1]
+            if i1 == 0:
+                u = torch.zeros_like(u)
+        else:
+            u = F.elu(h + a[0]) + a[1]
+        tp = u @ st["hw1"][li]
+        hw[li] = tp @ st["herf"][li] + st["herfb"][li]
+        v = F.elu(tp + d2h_row[li] + a[2]) + a[3]
+        b2 = torch.zeros_like(v)
+        for j1 in range(3):
+            p = vhc[li] @ st["hwk"][li, 0, j1] + v @ st["hwk"][li, 1, j1]
+            b2 = b2 + _shift_s2(p, j1 - 1)
+        vhc[li] = v
+        w3v = F.elu(b2 + cnd_row[li] + a[4]) + a[5]
+        h = w3v @ st["hw3"][li] + st["hb3"][li] + (
+            sprev_row @ st["hskw"] if li == 0 and l0_skip else h)
+    hfin = h
+
+    # ---- phase 2: the voxel chain and the samples
+    vc = torch.zeros(L, B, max(ws - 1, 1), br, dtype=f32, device=d2w_row.device)
+    s_prev = torch.zeros(B, C, dtype=f32, device=d2w_row.device)
+    idx_all = torch.empty(B, s2, dtype=torch.int32, device=d2w_row.device)
+    logits_all = []
+    for i2 in range(s2):
+        w = b_in.expand(B, C)  # parse_input of the unsampled voxel
+        for li in range(L):
+            a = sc[li]
+            u = F.elu((s_prev if li == 0 else w) + a[0]) + a[1]
+            if li == 0 and i2 == 0:
+                u = torch.zeros_like(u)
+            t = u @ st["w1"][li] + d2w_row[li, :, i2] + hw[li, :, i2]
+            v = F.elu(t + a[2]) + a[3]
+            taps = torch.cat([vc[li, :, s] for s in range(ws - 1)] + [v], -1)
+            b2 = taps @ st["wk"][li].reshape(ws * br, br)
+            if ws > 1:
+                vc[li] = torch.cat([vc[li, :, 1:ws - 1], v[:, None]], 1)
+            w3v = F.elu(b2 + cnd_row[li, :, i2] + a[4]) + a[5]
+            w = w3v @ st["w3"][li] + st["b3"][li] + (
+                s_prev @ st["skw"] if li == 0 and l0_skip else w)
+        total = dfin_row[:, i2] + hfin[:, i2] + w
+        logits = total @ st["w_out"] + st["b_out"]
+        if forced_idx is not None:
+            logits_all.append(logits)
+            idx = forced_idx[:, i2].long()
+        else:
+            idx = torch.argmax(logits / tau + gumbel[i2], dim=-1)
+            idx = torch.where(torch.isfinite(logits).all(-1), idx, -1)
+        idx_all[:, i2] = idx
+        s_prev = st["w_in"][idx.clamp(min=0)] + b_in
+    if forced_idx is not None:
+        return idx_all, vhc, torch.stack(logits_all, 1)
+    return idx_all, vhc
+
+
+def sampling_disagreements(logits, gumbel, tau: float, idx, rel: float = 1e-5):
+    """Where a row's indices ``idx`` (B, s2) are not the argmax of
+    logits / tau + gumbel, with ``logits`` (B, s2, K) computed along ``idx``
+    (teacher-forced) and ``gumbel`` (s2, B, K): (near ties, beyond). A near
+    tie is a voxel whose chosen z is within rel x max|z| of the largest z: a
+    flip that fp32 sums in another order can cause."""
+    z = logits / tau + gumbel.transpose(0, 1)
+    zi = z.gather(-1, idx.long()[..., None])[..., 0]
+    bad = z.argmax(-1) != idx
+    tie = bad & (z.amax(-1) - zi <= rel * z.abs().amax(-1))
+    return int(tie.sum()), int((bad & ~tie).sum())
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def row_decode(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
+               i1: int, tau: float, forced_idx: Optional[torch.Tensor] = None):
+    """Sample one row (the module docstring's contract). CPU tensors take
+    ``row_decode_plain``; CUDA tensors launch kernel K6."""
+    dev = d2w_row.device
+    if dev.type == "cpu":
+        return row_decode_plain(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc,
+                                gumbel, i1, tau, forced_idx)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"row_decode: no kernel for device {dev}")
+    L, B, s2, br = d2w_row.shape
+    C = dfin_row.shape[-1]
+    K = gumbel.shape[-1]
+    ws = st["wk"].shape[1]
+    shapes = {"d2h_row": (d2h_row, (L, B, s2, br)), "d2w_row": (d2w_row, (L, B, s2, br)),
+              "dfin_row": (dfin_row, (B, s2, C)), "sprev_row": (sprev_row, (B, s2, C)),
+              "vhc": (vhc, (L, B, s2, br)), "gumbel": (gumbel, (s2, B, K)),
+              "w1": (st["w1"], (L, C, br)), "wk": (st["wk"], (L, ws, br, br)),
+              "w3": (st["w3"], (L, br, C)), "b3": (st["b3"], (L, C)),
+              "sc": (st["sc"], (L, 8)), "hw1": (st["hw1"], (L, C, br)),
+              "herf": (st["herf"], (L, br, br)), "herfb": (st["herfb"], (L, br)),
+              "hwk": (st["hwk"], (L, 2, 3, br, br)), "hw3": (st["hw3"], (L, br, C)),
+              "hb3": (st["hb3"], (L, C)), "w_in": (st["w_in"], (K, C)),
+              "b_in": (st["b_in"], (C,)), "w_out": (st["w_out"], (C, K)),
+              "b_out": (st["b_out"], (K,))}
+    if cnd_row is not None:
+        shapes["cnd_row"] = (cnd_row, (L, B, s2, br))
+    if "skw" in st:
+        shapes.update(skw=(st["skw"], (C, C)), hskw=(st["hskw"], (C, C)))
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want or t.dtype != f32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"row_decode: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
+                             f"(contiguous: {t.is_contiguous()}), expected {want} fp32 "
+                             f"contiguous on {dev}")
+    if C > 32 or br > 8 or ws != 2 or K > 512 or s2 > 256:
+        raise ValueError(f"row_decode kernel takes C <= 32, br <= 8, ws = 2, K <= 512, "
+                         f"s2 <= 256; got C={C} br={br} ws={ws} K={K} s2={s2}")
+    forced = None
+    logits = None
+    if forced_idx is not None:
+        if tuple(forced_idx.shape) != (B, s2):
+            raise ValueError(f"row_decode: forced_idx {tuple(forced_idx.shape)}, expected {(B, s2)}")
+        forced = forced_idx.to(device=dev, dtype=torch.int32).contiguous()
+        logits = torch.empty(B, s2, K, dtype=f32, device=dev)
+    out = torch.empty(B, s2, dtype=torch.int32, device=dev)
+    _build.check(
+        _build.library().vq_row_decode(
+            *(_ptr(st.get(k)) for k in ("w1", "wk", "w3", "b3", "sc", "hw1", "herf", "herfb",
+                                         "hwk", "hw3", "hb3", "skw", "hskw", "w_in", "b_in",
+                                         "w_out", "b_out")),
+            d2h_row.data_ptr(), d2w_row.data_ptr(), _ptr(cnd_row), dfin_row.data_ptr(),
+            sprev_row.data_ptr(), vhc.data_ptr(), gumbel.data_ptr(), _ptr(forced),
+            out.data_ptr(), _ptr(logits),
+            L, B, s2, C, br, ws, K, int(i1), ctypes.c_float(tau), _build.stream_ptr(dev),
+        ),
+        "row_decode",
+    )
+    row_decode.launches += 1
+    if forced_idx is not None:
+        return out, vhc, logits
+    return out, vhc
+
+
+row_decode.launches = 0

@@ -9,6 +9,8 @@ Counterpart of ``vqvae3d_tpu/ops/resize.py`` (which works on (B, H, W, D, C)):
     (in fp32, the same function to fp32 rounding): that backward is slicing
     and adds, so a train step is deterministic, where the CUDA backward of
     ``F.interpolate`` scatters with atomics, in another order each run.
+  * ``trilinear_resize`` — upsampling to any size (the prior's coarse
+    condition grid), ``F.interpolate`` in fp32.
   * ``space_to_depth`` / ``depth_to_space`` — the stem's f x f x f voxel
     blocks packed into channels, channel order (ph, pw, pd, c) with c
     fastest, as in the JAX package.
@@ -37,6 +39,21 @@ def trilinear_upsample2x(x: torch.Tensor) -> torch.Tensor:
     out = x.float()
     for dim in (2, 3, 4):
         out = _upsample2x_axis(out, dim)
+    return out.to(x.dtype)
+
+
+def trilinear_resize(x: torch.Tensor, size) -> torch.Tensor:
+    """Trilinear upsampling of the three spatial dims of (B, C, s0, s1, s2) to
+    ``size``, in fp32, half-pixel centres (the prior's conditioning grid).
+
+    ``jax.image.resize(method='trilinear')`` drops the taps that fall outside
+    the input and renormalises the rest; torch clamps the source coordinate
+    to the edge. When no axis shrinks both give the same values, so a
+    shrinking size raises (there the JAX resize antialiases)."""
+    size = tuple(int(s) for s in size)
+    if any(o < i for o, i in zip(size, x.shape[2:])):
+        raise ValueError(f"trilinear_resize upsamples only: {tuple(x.shape[2:])} -> {size}")
+    out = F.interpolate(x.float(), size=size, mode="trilinear", align_corners=False)
     return out.to(x.dtype)
 
 
