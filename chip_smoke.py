@@ -46,11 +46,33 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      shape, range and condition, and exactly 16,384 K6 launches; then the
      cached sampler teacher-forced over the whole grid against the one-shot
      ``PixelCNN.forward`` (every logit); then four slices under the profiler.
+  9. prior train kernels vs plain: K4 (PixelCNN's mask-'B' segment on the
+     union stream) forward, no-save and saving, and backward, against
+     ``causal_stack_plain`` and its autograd, at the top prior's segment
+     (B=1, 128x128x32, 50 blocks, conditioned), at B=2 unconditioned and for
+     one block with a p = 0.5 keep mask, fp32 and bf16: outputs, dx, the
+     condition's gradient and every union-weight gradient; the causality of
+     the kernel (impulses forward, gradients backward) against
+     ``causal_reach``; times beside the plain versions and the bounds.
+ 10. the top prior's train step at full width (PixelCNN 50x16, 128 codes,
+     conditioned on 256, 128x128x32, batch 1): one fp32 step on the kernel
+     path against the plain path (loss, every gradient); bf16 ms/step of both
+     paths with peak memory; the launches per step against what 50 blocks
+     imply; two identical steps from one state give bit-identical
+     parameters; a profiler breakdown.
+ 11. the prior train main path through the entry points: a synthetic code
+     store (level 0 128x128x32 over 128 codes, level 1 32x32x8 over 256),
+     ``train_prior ... --model-dim 16 --num-resblocks 50
+     --bottleneck-divisor 4 --dropout-prob 0 --batch-size 1`` for 3 steps
+     (validating at step 3), then ``--resume`` for one more, then
+     ``load_prior`` and one forward through K4, then ``sample_embeddings``
+     of a 32x32x8 grid from the trained checkpoint.
 
 TF32 is off for the whole run (fp32 comparisons need true fp32; bf16 runs
 do not use it). Every number is printed beside the card's name and power
-limit. The line before the last is {"kernels": [...]} (six kernels; K6's
-times and bound per 128x128x32 grid, 16,384 rows); the last is
+limit. The line before the last is {"kernels": [...]} (eight kernels; K6's
+times and bound per 128x128x32 grid, 16,384 rows; K4's per train step of
+the top prior, 50 blocks); the last is
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 absent, when the package is missing, or when any phase fails.
 """
@@ -126,6 +148,20 @@ K6_TOL = 1e-5
 # the cached sampler teacher-forced over the whole grid vs the one-shot
 # forward (cuDNN convs, true fp32): a different decomposition of the same sums
 FORWARD_TOL = 1e-4
+# K4 vs the plain segment, per output or gradient tensor: max|d| <= tol x
+# max|ref|, as K3's (both round at the same points; the fp32 sums run in
+# another order, which in bf16 can flip a rounding that then carries through
+# the blocks; in the backward the plain reference also rounds its weight and
+# scalar gradients to bf16 where the kernel sums them in fp32)
+K4_TOL = {
+    ("float32", "one"): 1e-4,
+    ("float32", "full"): 1e-4,
+    ("bfloat16", "one"): 2**-6,
+    ("bfloat16", "full"): 2**-4,
+}
+# the top prior's training (reference slurm-jobs/train_pixelcnn_top.job:76-90,
+# jobs/train_pixelcnn_top.sh): lr 5e-5 per 4-GPU node, so 1.25e-5 at batch 1
+TOP_LR = 1.25e-5
 # published peaks of one H100 SXM (NVIDIA data sheet): the bounds' rates
 HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 
@@ -184,40 +220,47 @@ def plain_path():
     through it in training), the lookups to the plain argmin and statistics,
     the small-channel conv dW to the plain contraction. The wrappers
     themselves never fall back."""
-    from vqvae3d_tpu_torch.models import blocks, quantizer
-    from vqvae3d_tpu_torch.ops import conv3d, quantizer_ops, stack_kernel
+    from vqvae3d_tpu_torch.models import blocks, pixelcnn, quantizer
+    from vqvae3d_tpu_torch.ops import causal_kernel, conv3d, quantizer_ops, stack_kernel
 
     saved = (blocks.preact_stack_fused, quantizer.l2_argmin, quantizer.l2_argmin_stats,
-             conv3d.dw_conv3d)
+             conv3d.dw_conv3d, pixelcnn.causal_stack_fused)
     blocks.preact_stack_fused = lambda x, w1s, w2s, w3s, sc8, pad_mode: (
         stack_kernel.preact_stack_plain(x, w1s, w2s, w3s, sc8, pad_mode=pad_mode))
     quantizer.l2_argmin = quantizer_ops.l2_argmin_plain
     quantizer.l2_argmin_stats = quantizer_ops.l2_argmin_stats_plain
     conv3d.dw_conv3d = conv3d.dw_conv3d_plain
+    # the causal segment: the plain block loop, each block checkpointed (the
+    # JAX remat_scan), else its autograd keeps every intermediate of 50 blocks
+    pixelcnn.causal_stack_fused = lambda x, cond, keep, p, w: (
+        causal_kernel.causal_stack_plain(x, cond, keep, p, w, remat=True))
     try:
         yield
     finally:
         (blocks.preact_stack_fused, quantizer.l2_argmin, quantizer.l2_argmin_stats,
-         conv3d.dw_conv3d) = saved
+         conv3d.dw_conv3d, pixelcnn.causal_stack_fused) = saved
 
 
 def launch_counts():
-    from vqvae3d_tpu_torch.ops import conv3d, decode_row, quantizer_ops, stack_kernel
+    from vqvae3d_tpu_torch.ops import causal_kernel, conv3d, decode_row, quantizer_ops, stack_kernel
 
     return dict(l2_argmin=quantizer_ops.l2_argmin.launches,
                 l2_argmin_stats=quantizer_ops.l2_argmin_stats.launches,
                 preact_stack_fwd=stack_kernel.preact_stack_fused.launches,
                 preact_stack_bwd=stack_kernel.preact_stack_bwd.launches,
                 dw_conv3d=conv3d.dw_conv3d.launches,
-                row_decode=decode_row.row_decode.launches)
+                row_decode=decode_row.row_decode.launches,
+                causal_stack_fwd=causal_kernel.causal_stack_fused.launches,
+                causal_stack_bwd=causal_kernel.causal_stack_bwd.launches)
 
 
 def reset_counts():
-    from vqvae3d_tpu_torch.ops import conv3d, decode_row, quantizer_ops, stack_kernel
+    from vqvae3d_tpu_torch.ops import causal_kernel, conv3d, decode_row, quantizer_ops, stack_kernel
 
     for fn in (quantizer_ops.l2_argmin, quantizer_ops.l2_argmin_stats,
                stack_kernel.preact_stack_fused, stack_kernel.preact_stack_bwd, conv3d.dw_conv3d,
-               decode_row.row_decode):
+               decode_row.row_decode, causal_kernel.causal_stack_fused,
+               causal_kernel.causal_stack_bwd):
         fn.launches = 0
 
 
@@ -771,8 +814,8 @@ def phase_train_step(ident, seed, results):
     torch.cuda.synchronize()
     got = launch_counts()
     blocks = sum(n for *_, n in cfg.same_stacks(VOLUME))
-    want = dict(l2_argmin=0, l2_argmin_stats=cfg.n_enc, preact_stack_fwd=blocks,
-                preact_stack_bwd=blocks, dw_conv3d=len(convs), row_decode=0)
+    want = dict(dict.fromkeys(got, 0), l2_argmin_stats=cfg.n_enc, preact_stack_fwd=blocks,
+                preact_stack_bwd=blocks, dw_conv3d=len(convs))
     print(f"bf16 train step launches {got}, config implies {want} "
           f"(loss {float(log['loss']):.5g}) [{ident}]")
     if got != want or not np.isfinite(float(log["loss"])):
@@ -844,9 +887,9 @@ def phase_train_cli(ident, counts, results, seed, work: Path):
              "--log-every-n-steps", "1", "--num-workers", "2", "--device", "cuda"]
     cfg = VQVAEConfig(**FULL, **STEM2)
     blocks = sum(n for *_, n in cfg.same_stacks(VOLUME))
-    per_step = dict(l2_argmin=0, l2_argmin_stats=cfg.n_enc, preact_stack_fwd=blocks,
-                    preact_stack_bwd=blocks, dw_conv3d=len(results["smallc_convs"]),
-                    row_decode=0)
+    per_step = dict(dict.fromkeys(launch_counts(), 0), l2_argmin_stats=cfg.n_enc,
+                    preact_stack_fwd=blocks, preact_stack_bwd=blocks,
+                    dw_conv3d=len(results["smallc_convs"]))
     runs = [("train", ["--max-steps", "3"], 3), ("resume", ["--max-steps", "4", "--resume"], 1)]
     total = {k: 0 for k in launch_counts()}
     for name, extra, steps in runs:
@@ -900,15 +943,16 @@ def phase_train_cli(ident, counts, results, seed, work: Path):
         counts[k] = counts.get(k, 0) + v
 
 
-def make_prior(fields, seed, device):
-    """A seeded PixelCNN; every Fixup zero init (branch_conv3, the scalar
-    biases, the scale) and every conv bias perturbed, so each branch counts."""
+def make_prior(fields, seed, device, dtype=None):
+    """A seeded PixelCNN (fp32 unless ``dtype``); every Fixup zero init
+    (branch_conv3, the scalar biases, the scale) and every conv bias
+    perturbed, so each branch counts."""
     import torch
     from vqvae3d_tpu_torch.models.causal_blocks import SCALARS, PreActFixupCausalResBlock
     from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
 
     gen = torch.Generator().manual_seed(seed)
-    model = PixelCNN(PixelCNNConfig(**fields, dtype=torch.float32), generator=gen)
+    model = PixelCNN(PixelCNNConfig(**fields, dtype=dtype or torch.float32), generator=gen)
     with torch.no_grad():
         for name, prm in model.named_parameters():
             if name.endswith(".bias"):
@@ -1116,6 +1160,376 @@ def phase_sample_main_path(ident, counts, results, seed, work: Path):
     del model
 
 
+def k4_cost(nvox, cu, cb, cc, itemsize):
+    """(bytes, flops) of one K4 forward block and one K4 backward block. The
+    forward reads x and the condition and writes y once, the weights once; the
+    backward reads the saved x, the output's cotangent and the condition,
+    reads and writes the condition's gradient, writes dx, reads the weights
+    and writes the fp32 weight gradients. Flops: 2 (Cu Cb + 18 Cb² + Cc Cb +
+    Cb Cu) a voxel forward (the union conv dense, as the kernel computes
+    it), three times that backward (recompute, data and weight gradients)."""
+    nw = cu * cb + 18 * cb * cb + cb * cu + cc * cb + 2 * cb
+    weights = nw * itemsize + 8 * 4
+    flops = 2 * nvox * (cu * cb + 18 * cb * cb + cc * cb + cb * cu)
+    fwd = (nvox * (2 * cu + cc) * itemsize + weights, flops)
+    bwd = (nvox * (3 * cu + 3 * cc) * itemsize + weights + 4 * (nw + 8), 3 * flops)
+    return fwd, bwd
+
+
+def top_union_weights(fields, seed, device):
+    """The stacked union weights of a seeded top prior's mask-'B' segment."""
+    import torch
+    from vqvae3d_tpu_torch.ops import causal_kernel as ck
+
+    model = make_prior(fields, seed, "cpu")
+    with torch.no_grad():
+        w = ck.pack_causal_union(model.layers[1:])
+    return ck.UnionWeights(*(None if t is None else t.to(device) for t in w))
+
+
+def phase_prior_kernels(ident, results, seed):
+    import torch
+    from vqvae3d_tpu_torch.ops import causal_kernel as ck
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed + 40)
+    w_top = top_union_weights(TOP_PRIOR, seed + 41, dev)
+    w_nc = top_union_weights(dict(TOP_PRIOR, condition_dim=0), seed + 42, dev)
+    nb, cu, cb = w_top.w1e.shape
+    cc = w_top.wc.shape[1]
+    one = ck.UnionWeights(*(None if t is None else t[:1] for t in w_top))
+    cases = [("top segment, conditioned", w_top, 1, 0.0, "full"),
+             ("B=2, unconditioned", w_nc, 2, 0.0, "full"),
+             ("one block, p=0.5 keep mask", one, 1, 0.5, "one")]
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    worst = {}
+    for name, w, b, p, depth in cases:
+        n = w.sc.shape[0]
+        x32 = torch.randn(b, *TOP_GRID, cu, generator=gen).to(dev)
+        g32 = torch.randn(b, *TOP_GRID, cu, generator=gen).to(dev)
+        c32 = torch.randn(b, *TOP_GRID, cc, generator=gen).to(dev) if w.wc is not None else None
+        keep = (torch.rand(n, b, cb, generator=gen) < 0.5).float().to(dev) if p else None
+        for dtype in (torch.float32, torch.bfloat16):
+            key = (str(dtype).removeprefix("torch."), depth)
+            x, gy = x32.to(dtype), g32.to(dtype)
+            cond = None if c32 is None else c32.to(dtype)
+            with torch.inference_mode():
+                got = ck.causal_stack_fused(x, cond, keep, p, w)
+                want = ck.causal_stack_plain(x, cond, keep, p, w)
+            err, scale = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+            worst[("fwd", *key)] = max(worst.get(("fwd", *key), 0.0), err / scale)
+            if not err <= K4_TOL[key] * scale or not torch.isfinite(got).all():
+                raise AssertionError(f"K4 {name} {key} no-save forward: max|d|={err:.3g} > "
+                                     f"{K4_TOL[key]} x {scale:.3g}")
+            del got, want
+
+            def grads(fn, **kw):
+                xg = x.clone().requires_grad_()
+                cg = None if cond is None else cond.clone().requires_grad_()
+                wg = ck.UnionWeights(*(None if t is None else t.clone().requires_grad_()
+                                       for t in w))
+                y = fn(xg, cg, keep, p, wg, **kw)
+                ins = [xg] + ([cg] if cg is not None else []) + [t for t in wg if t is not None]
+                return (y.detach(), *torch.autograd.grad(y, ins, gy))
+
+            got = grads(ck.causal_stack_fused)
+            want = grads(ck.causal_stack_plain, remat=True)
+            names = (["y", "dx"] + (["dcond"] if cond is not None else [])
+                     + [f for f, t in zip(ck.UnionWeights._fields, w) if t is not None])
+            rel = []
+            for tname, a, r in zip(names, got, want):
+                err, scale = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+                rel.append(f"{tname} {err / scale:.2e}")
+                worst[("bwd", *key)] = max(worst.get(("bwd", *key), 0.0), err / scale)
+                if not err <= K4_TOL[key] * scale or not torch.isfinite(a).all():
+                    raise AssertionError(f"K4 {name} {key} {tname}: max|d|={err:.3g} > "
+                                         f"{K4_TOL[key]} x {scale:.3g}")
+                if key == ("float32", "full"):
+                    errs["fwd" if tname == "y" else "bwd"] = max(
+                        errs["fwd" if tname == "y" else "bwd"], err)
+            print(f"K4 {name} ({n} blocks, B={b}, {TOP_GRID}, Cu={cu} Cb={cb}) {key[0]}: "
+                  f"max|d|/max|ref| saving forward + backward " + ", ".join(rel))
+            del got, want
+            torch.cuda.empty_cache()
+    print("K4 worst max|d|/max|ref| by (pass, dtype, depth): "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in sorted(worst.items())))
+
+    # causality of the kernel at the top segment (fp32): impulses through the
+    # no-save forward, gradients through the backward
+    x = torch.randn(1, *TOP_GRID, cu, generator=gen).to(dev)
+    with torch.inference_mode():
+        base = ck.causal_stack_fused(x, None, None, 0.0, w_nc)
+    checked, c = 0, cu // 3
+    s0, s1, s2 = TOP_GRID
+    for v in [(0, 0, 0), (s0 // 2, 3 * s1 // 4, s2 // 2), (s0 - 1, s1 - 1, s2 - 1), (5, s1 - 1, 0)]:
+        allowed = ck.causal_influence(TOP_GRID, v).to(dev)
+        for si in range(3):
+            x2 = x.clone()
+            x2[0, v[0], v[1], v[2], si * c:(si + 1) * c] += 1.0
+            with torch.inference_mode():
+                diff = (ck.causal_stack_fused(x2, None, None, 0.0, w_nc) - base).abs()
+            moved = diff[0].reshape(*TOP_GRID, 3, c).sum(-1).permute(3, 0, 1, 2) > 0
+            if (moved & ~allowed[si]).any() or not moved[si][v]:
+                raise AssertionError(f"K4 forward: input stream {si} at {v} moved outputs "
+                                     f"outside its raster future")
+            checked += 1
+    xg = x.clone().requires_grad_()
+    y = ck.causal_stack_fused(xg, None, None, 0.0, w_nc)
+    for pos in [(0, 0, 0), (s0 // 2, 3 * s1 // 4, s2 // 2), (s0 - 1, s1 - 1, s2 - 1)]:
+        reach = ck.causal_reach(TOP_GRID, pos).to(dev)
+        for so in range(3):
+            (gx,) = torch.autograd.grad(y[0, pos[0], pos[1], pos[2], so * c:(so + 1) * c].sum(),
+                                        xg, retain_graph=True)
+            dep = gx[0].abs().reshape(*TOP_GRID, 3, c).sum(-1).permute(3, 0, 1, 2) > 0
+            if (dep & ~reach[:, so]).any():
+                raise AssertionError(f"K4 backward: output {pos} stream {so} depends on "
+                                     f"inputs outside its raster past")
+            checked += 1
+    print(f"K4 causality at the top segment ({nb} blocks, {TOP_GRID}): {checked} impulse and "
+          f"gradient checks, no dependence outside causal_reach")
+    del x, xg, y, base
+
+    # times at the train path's shapes, bf16: one step's 50 blocks
+    x = torch.randn(1, *TOP_GRID, cu, generator=gen).to(dev, torch.bfloat16)
+    gy = torch.randn(1, *TOP_GRID, cu, generator=gen).to(dev, torch.bfloat16)
+    cond = torch.randn(1, *TOP_GRID, cc, generator=gen).to(dev, torch.bfloat16)
+    saves = torch.empty((nb, *x.shape), dtype=x.dtype, device=dev)
+    with torch.no_grad():  # the plain backward enables autograd for itself
+        ms_ns = cuda_ms(lambda: ck.causal_stack_fused(x, cond, None, 0.0, w_top), 3)
+        ms_f = cuda_ms(lambda: ck._forward_cuda(x, cond, None, 0.0, w_top, saves=saves), 3)
+        pms_f = cuda_ms(lambda: ck.causal_stack_plain(x, cond, None, 0.0, w_top), 1)
+        ms_b = cuda_ms(lambda: ck.causal_stack_bwd(saves, gy, cond, None, 0.0, w_top), 3)
+        pms_b = cuda_ms(lambda: ck.causal_stack_bwd_plain(saves, gy, cond, None, 0.0, w_top), 1)
+    nvox = int(np.prod(TOP_GRID))
+    (fb, ff), (bb, bf) = k4_cost(nvox, cu, cb, cc, 2)
+    bms_f, by_f = bound_ms(nb * fb, nb * ff, BF16_FLOPS)
+    bms_b, by_b = bound_ms(nb * bb, nb * bf, BF16_FLOPS)
+    print(f"K4 forward, {nb} blocks bf16 (one train step): saving {ms_f:.3f} ms, no-save "
+          f"{ms_ns:.3f} ms, plain {pms_f:.3f} ms, bound {bms_f:.4f} ms ({by_f}: {fb} B and {ff} "
+          f"flop a block) [{ident}]")
+    print(f"K4 backward, {nb} blocks bf16 (one train step): kernel {ms_b:.3f} ms, plain "
+          f"{pms_b:.3f} ms, bound {bms_b:.4f} ms ({by_b}: {bb} B and {bf} flop a block) [{ident}]")
+    results["causal_stack_fwd"] = dict(max_abs_err=errs["fwd"], ms=ms_f, plain_ms=pms_f,
+                                       bound_ms=bms_f, bound_by=by_f, library_ms=None)
+    results["causal_stack_bwd"] = dict(max_abs_err=errs["bwd"], ms=ms_b, plain_ms=pms_b,
+                                       bound_ms=bms_b, bound_by=by_b, library_ms=None)
+    del saves
+
+
+def code_batch(seed, device):
+    """One loader batch of the top prior: a level-0 grid of 128 codes and
+    its 32x32x8 level-1 condition of 256 codes, int32."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return {"data": torch.from_numpy(rng.integers(0, TOP_PRIOR["input_dim"], (1, *TOP_GRID),
+                                                  dtype=np.int32)).to(device),
+            "condition": torch.from_numpy(rng.integers(0, TOP_PRIOR["condition_dim"],
+                                                       (1, *TOP_COND), dtype=np.int32)).to(device)}
+
+
+def prior_step_launches(model):
+    """K4 and K7 launches of one train step of a PixelCNN on the union path:
+    one K4 forward and one K4 backward per mask-'B' block; K7 for the mask-'A'
+    block's small-channel causal convs (kernel larger than 1x1x1)."""
+    from vqvae3d_tpu_torch.models.causal_blocks import CausalConv
+    from vqvae3d_tpu_torch.ops.conv3d import SMALLC_MAX
+
+    k7 = sum(1 for m in model.layers[0].modules() if isinstance(m, CausalConv)
+             and tuple(m.weight.shape[2:]) != (1, 1, 1) and max(m.weight.shape[:2]) <= SMALLC_MAX)
+    nb = model.config.num_resblocks
+    return dict(causal_stack_fwd=nb, causal_stack_bwd=nb, dw_conv3d=k7)
+
+
+def phase_prior_step(ident, seed, results):
+    import torch
+    from vqvae3d_tpu_torch.train import prior_train
+    from vqvae3d_tpu_torch.train.state import AMSGrad
+
+    dev = torch.device("cuda")
+    batch = code_batch(seed + 50, dev)
+
+    # --- fp32: one step's loss and gradients, kernel path vs plain path
+    model = make_prior(TOP_PRIOR, seed + 51, dev)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = prior_train.prior_loss_fn(model, batch, train=True)
+        loss.backward()
+        return float(loss.detach()), {n: q.grad.clone() for n, q in model.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads()
+    with plain_path():
+        loss_p, grads_p = loss_and_grads()
+    torch.cuda.synchronize()
+    gmax = max(float(g.abs().max()) for g in grads_p.values())
+    grad_err = {n: float((grads_k[n] - grads_p[n]).abs().max())
+                / max(float(grads_p[n].abs().max()), 1e-3 * gmax) for n in grads_p}
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"fp32 top-prior train step ({TOP_GRID}): loss kernel {loss_k:.7g} plain "
+          f"{loss_p:.7g} (rel {loss_err:.2e}); gradients of {len(grads_p)} tensors, worst "
+          f"max|d| over max(max|ref|, 1e-3 max grad): "
+          + ", ".join(f"{n} {e:.2e}" for n, e in worst) + f" [{ident}]")
+    if loss_err > STEP_LOSS_TOL or worst[0][1] > STEP_GRAD_TOL or not np.isfinite(loss_k):
+        raise AssertionError("fp32 prior train step: kernel path disagrees with the plain path")
+    results["prior_step_fp32"] = dict(loss_rel=loss_err, grad_worst=worst[0][1])
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # --- bf16: launches per step, ms/step and peak memory per path
+    model = make_prior(TOP_PRIOR, seed + 51, dev, dtype=torch.bfloat16)
+    opt = AMSGrad(model.parameters(), lr=TOP_LR)
+    gen = torch.Generator(dev).manual_seed(seed + 52)
+    step = prior_train.make_prior_train_step(model, opt, gen)
+    reset_counts()
+    log = step(batch)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    want = dict(dict.fromkeys(got, 0), **prior_step_launches(model))
+    print(f"bf16 top-prior train step launches {got}, 50 blocks imply {want} "
+          f"(loss {float(log['loss_mean']):.5g}) [{ident}]")
+    if got != want or not np.isfinite(float(log["loss_mean"])):
+        raise AssertionError(f"prior train step launches {got} != {want} or non-finite loss")
+    timing = {}
+    for path in ("kernel", "plain", "kernel", "plain"):
+        ctx = plain_path() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: step(batch), iters=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        timing.setdefault(path, []).append((ms, peak))
+        print(f"bf16 top-prior train step (batch 1, {TOP_GRID}) {path} path: {ms:.2f} ms/step "
+              f"(mean of 3 after 1 warm-up) peak {peak:.2f} GiB [{ident}]")
+    results["prior_step_bf16"] = timing
+
+    # --- two identical steps from one state: bit-identical parameters
+    torch.backends.cudnn.deterministic = True
+    snap = ({k: v.clone() for k, v in model.state_dict().items()},
+            {k: v.clone() if torch.is_tensor(v) else v for k, v in opt.state_dict().items()})
+    outs = []
+    for _ in range(2):
+        model.load_state_dict(snap[0])
+        opt.load_state_dict(snap[1])
+        step(batch)
+        outs.append({k: v.clone() for k, v in model.state_dict().items()})
+    torch.backends.cudnn.deterministic = False
+    differ = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+    print(f"two identical bf16 top-prior steps from one state: {len(outs[0]) - len(differ)} of "
+          f"{len(outs[0])} parameters bit-identical (cuDNN deterministic) [{ident}]")
+    if differ:
+        raise AssertionError(f"not bit-identical: {differ[:5]}")
+
+    # --- where the time goes: one kernel-path step under the profiler
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=act) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    cuda_rows = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in cuda_rows) / 1e3
+    k4 = {what: sum(e.self_device_time_total for e in cuda_rows if any(
+        k in e.key for k in keys)) / 1e3 for what, keys in (
+        ("K4 forward", ("fwd_pre", "fwd_conv", "fwd_post")),
+        ("K4 backward", ("bwd_", "dwu_partial", "contract_", "scalars_kernel")))}
+    table = events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=70)
+    print(f"profile of one bf16 kernel-path top-prior step: device busy {busy:.1f} ms of "
+          f"{wall:.1f} ms wall under the profiler; "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in k4.items())
+          + f", the rest {busy - sum(k4.values()):.1f} ms [{ident}]\n{table}")
+    del model, opt
+
+
+def phase_prior_cli(ident, counts, seed, work: Path):
+    import torch
+    from vqvae3d_tpu_torch.checkpoint import load_prior
+    from vqvae3d_tpu_torch.cli import sample_embeddings, train_prior
+    from vqvae3d_tpu_torch.data.code_store import CodeStoreWriter
+    from vqvae3d_tpu_torch.data.sample_db import add_samples, create_or_load_db, save_db
+    from vqvae3d_tpu_torch.models.prior_utils import idx_to_one_hot
+
+    rng = np.random.default_rng(seed + 60)
+    t0 = time.perf_counter()
+    store = work / "prior_codes"
+    w = CodeStoreWriter(str(store), 2, [TOP_PRIOR["input_dim"], TOP_PRIOR["condition_dim"]],
+                        backend="file")
+    for i in range(4):  # 3 train grids, 1 validation grid
+        w.write_sample(i, [rng.integers(0, TOP_PRIOR["input_dim"], TOP_GRID, dtype=np.int32),
+                           rng.integers(0, TOP_PRIOR["condition_dim"], TOP_COND, dtype=np.int32)])
+    w.close()
+    print(f"prior CLI set-up: a code store of 4 samples {TOP_GRID} / {TOP_COND} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ckpt = work / "prior_ckpt"
+    flags = [str(store), "0", "--use-model", "pixelcnn", "--model-dim", "16",
+             "--num-resblocks", "50", "--bottleneck-divisor", "4", "--dropout-prob", "0",
+             "--batch-size", "1", "--val-every-steps", "3", "--log-every-n-steps", "1",
+             "--lr", str(TOP_LR), "--ckpt-dir", str(ckpt), "--device", "cuda",
+             "--seed", str(seed)]
+    total = {k: 0 for k in launch_counts()}
+    for name, extra, steps in [("train", ["--max-steps", "3"], 3),
+                               ("resume", ["--max-steps", "4", "--resume"], 1)]:
+        reset_counts()
+        t0 = time.perf_counter()
+        model, opt, step = train_prior.main(train_prior.parse_arguments(flags + extra))
+        torch.cuda.synchronize()
+        got = launch_counts()
+        per_step = prior_step_launches(model)
+        want = dict(dict.fromkeys(got, 0), **{k: v * steps for k, v in per_step.items()})
+        want["causal_stack_fwd"] += per_step["causal_stack_fwd"]  # one validation forward
+        print(f"train_prior {name}: {steps} step(s) to step {step} in "
+              f"{time.perf_counter() - t0:.1f} s (host clock, data and checkpoints included); "
+              f"launches {got}; 50 blocks imply {want} [{ident}]")
+        if step != {"train": 3, "resume": 4}[name] or opt.count != step or got != want:
+            raise AssertionError(f"{name}: step {step}, optimizer count {opt.count}, "
+                                 f"launches {got} != {want}")
+        for k in total:
+            total[k] += got[k]
+        del model, opt
+    logs = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss_mean"] for r in logs if "train_loss_mean" in r]
+    val = [r["val_loss_mean"] for r in logs if "val_loss_mean" in r]
+    print(f"train losses by step {losses}; val losses {val}; best/ holds "
+          f"{sorted(f.name for f in (ckpt / 'best').glob('step_*'))}")
+    if len(losses) != 4 or not np.all(np.isfinite(losses + val)) or len(val) != 2:
+        raise AssertionError("prior train CLI: losses missing or not finite")
+
+    # the trained checkpoint serves the one-shot forward and the sampler
+    reset_counts()
+    model, cfg = load_prior(ckpt, "cuda")
+    batch = code_batch(seed + 61, "cuda")
+    with torch.inference_mode():
+        logits = model(idx_to_one_hot(batch["data"], cfg.input_dim),
+                       idx_to_one_hot(batch["condition"], cfg.condition_dim))
+    torch.cuda.synchronize()
+    db_path = work / "prior_samples.db"
+    db = create_or_load_db(db_path, 1)
+    level1 = add_samples(db, 1, rng.integers(0, TOP_PRIOR["condition_dim"], (1, *TOP_COND))
+                         .astype(np.int32), None)
+    save_db(db, db_path, 1)
+    t0 = time.perf_counter()
+    new = sample_embeddings.main(sample_embeddings.parse_arguments([
+        "--model-checkpoint", str(ckpt), "--db-path", str(db_path), "--level", "0",
+        "--size", *map(str, TOP_COND), "--num-samples", "1", "--batch-size", "1",
+        "--tau", str(TOP_TAU), "--sampler", "cached", "--seed", str(seed), "--device", "cuda"]))
+    torch.cuda.synchronize()
+    got = launch_counts()
+    want = dict(dict.fromkeys(got, 0), causal_stack_fwd=cfg.num_resblocks,
+                row_decode=TOP_COND[0] * TOP_COND[1])
+    grid = np.asarray(create_or_load_db(db_path, 0)[0][new[0]]["data"])
+    print(f"load_prior (step 4, {cfg.dtype}) + one forward: logits {tuple(logits.shape)} "
+          f"finite={bool(torch.isfinite(logits).all())}; sample_embeddings --size {TOP_COND} "
+          f"from the trained checkpoint in {time.perf_counter() - t0:.1f} s: grid {grid.shape} "
+          f"codes {grid.min()}..{grid.max()}; launches {got}, implied {want} [{ident}]")
+    if (tuple(logits.shape) != (1, cfg.input_dim, *TOP_GRID) or not torch.isfinite(logits).all()
+            or got != want or grid.shape != TOP_COND or grid.min() < 0
+            or grid.max() >= cfg.input_dim):
+        raise AssertionError("the trained checkpoint does not serve the forward or the sampler")
+    for k in total:
+        counts[k] = counts.get(k, 0) + total[k] + got[k]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1159,6 +1573,10 @@ def main():
             ("sampling kernels vs plain", lambda: phase_sample_kernels(ident, results, args.seed)),
             ("sampling main path", lambda: phase_sample_main_path(
                 ident, counts, results, args.seed, Path(tmp))),
+            ("prior train kernels vs plain", lambda: phase_prior_kernels(
+                ident, results, args.seed)),
+            ("prior train step", lambda: phase_prior_step(ident, args.seed, results)),
+            ("prior train CLI", lambda: phase_prior_cli(ident, counts, args.seed, Path(tmp))),
         ]
         for name, fn in phases:
             t0 = time.perf_counter()
@@ -1184,6 +1602,10 @@ def main():
                              "vqvae3d_tpu/ops/stack_kernel.py:1112"),
         "dw_conv3d": ("vqvae3d_tpu_torch/csrc/dw_conv3d.cu", "vqvae3d_tpu/ops/pallas_conv.py:151"),
         "row_decode": ("vqvae3d_tpu_torch/csrc/row_decode.cu", "vqvae3d_tpu/ops/decode_row.py:290"),
+        "causal_stack_fwd": ("vqvae3d_tpu_torch/csrc/causal_stack.cu",
+                             "vqvae3d_tpu/ops/causal_kernel.py:532"),
+        "causal_stack_bwd": ("vqvae3d_tpu_torch/csrc/causal_stack_bwd.cu",
+                             "vqvae3d_tpu/ops/causal_kernel.py:612"),
     }
     missing = [name for name in meta if not counts.get(name)]
     if missing:

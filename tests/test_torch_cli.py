@@ -9,9 +9,15 @@
   * ``sample_embeddings --device cpu`` samples level-0 grids from a tiny
     conditioned PixelCNN checkpoint, conditioned on the DB's level-1 grids;
     the JAX package's ``sample_db`` reads what it wrote.
+  * ``train_prior --device cpu`` trains a tiny conditioned PixelCNN for two
+    steps on a synthetic code store, then ``--resume``s for a third; the
+    checkpoint keeps the step and the optimizer state, ``load_prior`` and
+    ``sample_embeddings`` read it, and the JAX ``_config_from_json`` reads
+    its config.
   * In a subprocess where ``import jax`` fails, every module of the port
     imports and both CLIs run: the port never needs jax.
 """
+import json
 import os
 import pkgutil
 import subprocess
@@ -33,10 +39,18 @@ from vqvae3d_tpu.data.code_store import CodeStore
 from vqvae3d_tpu.data.sample_db import add_samples as jadd_samples
 from vqvae3d_tpu.data.sample_db import create_or_load_db
 from vqvae3d_tpu.data.sample_db import save_db as jsave_db
+from vqvae3d_tpu.models.pixelcnn import PixelCNNConfig as JPixelCNNConfig
 from vqvae3d_tpu.models.vqvae import VQVAE as JVQVAE, VQVAEConfig as JConfig
+from vqvae3d_tpu.train.checkpoint import _config_from_json
 import vqvae3d_tpu_torch
-from vqvae3d_tpu_torch.checkpoint import load_model, save_checkpoint, save_prior
-from vqvae3d_tpu_torch.cli import decode_embeddings, extract_embeddings, sample_embeddings
+from vqvae3d_tpu_torch.checkpoint import load_model, load_prior, save_checkpoint, save_prior
+from vqvae3d_tpu_torch.cli import (
+    decode_embeddings,
+    extract_embeddings,
+    sample_embeddings,
+    train_prior,
+)
+from vqvae3d_tpu_torch.data.code_store import CodeStoreWriter
 from vqvae3d_tpu_torch.convert import jax_variables_to_state_dict
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
 from vqvae3d_tpu_torch.models.vqvae import VQVAEConfig
@@ -160,6 +174,50 @@ def test_sample_embeddings_cli_on_cpu(tmp_path, sampler):
     with pytest.raises(NotImplementedError):
         sample_embeddings.main(sample_embeddings.parse_arguments(argv + ["--use-model",
                                                                         "pixelsnail"]))
+
+
+def test_train_prior_cli_on_cpu(tmp_path):
+    rng = np.random.default_rng(5)
+    w = CodeStoreWriter(str(tmp_path / "codes"), 2, [5, 4], backend="file")
+    for i in range(4):  # 3 train grids, 1 validation grid
+        w.write_sample(i, [rng.integers(0, 5, (4, 4, 4)).astype(np.int32),
+                           rng.integers(0, 4, (2, 2, 1)).astype(np.int32)])
+    w.close()
+    ck = tmp_path / "prior"
+    flags = [str(tmp_path / "codes"), "0", "--use-model", "pixelcnn", "--model-dim", "8",
+             "--num-resblocks", "2", "--bottleneck-divisor", "2", "--dropout-prob", "0.1",
+             "--batch-size", "1", "--val-every-steps", "2", "--log-every-n-steps", "1",
+             "--lr", "1e-3", "--ckpt-dir", str(ck), "--device", "cpu"]
+    model, opt, step = train_prior.main(train_prior.parse_arguments(flags + ["--max-steps", "2"]))
+    assert step == 2 and opt.count == 2 and model.config.dtype == torch.bfloat16
+    assert (ck / "latest.txt").read_text() == "2" and (ck / "best" / "step_2_train.pt").exists()
+    model, opt, step = train_prior.main(train_prior.parse_arguments(
+        flags + ["--max-steps", "3", "--resume"]))
+    assert step == 3 and opt.count == 3
+    assert sorted(f.name for f in ck.glob("step_*")) == [
+        "step_3.pt", "step_3_config.json", "step_3_train.pt"]
+    logs = [json.loads(line) for line in (ck / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss_mean"] for r in logs if "train_loss_mean" in r]
+    val = [r for r in logs if "val_accuracy" in r]
+    assert len(losses) == 3 and np.all(np.isfinite(losses)) and len(val) == 2
+    assert {"val_loss_mean", "val_bits_per_dim", "val_loss_std"} <= set(val[0])
+    loaded, cfg = load_prior(ck)
+    assert cfg == model.config
+    for k, v in model.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k], v.cpu())
+    jcfg = _config_from_json(JPixelCNNConfig, (ck / "step_3_config.json").read_text())
+    assert (jcfg.input_dim, jcfg.condition_dim, jcfg.model_dim) == (5, 4, 8)
+    assert jcfg.dtype == jnp.bfloat16
+    # the trained prior serves sample_embeddings
+    db_path = tmp_path / "samples.db"
+    db = create_or_load_db(db_path, 1)
+    level1 = jadd_samples(db, 1, rng.integers(0, 4, (2, 2, 2, 1)).astype(np.int32), None)
+    jsave_db(db, db_path, 1)
+    new = sample_embeddings.main(sample_embeddings.parse_arguments([
+        "--model-checkpoint", str(ck), "--db-path", str(db_path), "--level", "0",
+        "--size", "4", "4", "4", "--num-samples", "2", "--batch-size", "1", "--device", "cpu"]))
+    db = create_or_load_db(db_path, 0)
+    assert len(new) == 2 and all(db[0][u]["condition"] in level1 for u in new)
 
 
 def test_port_runs_with_jax_blocked(setup):

@@ -1,6 +1,7 @@
 """Kernel wrappers of the port (K1a/K1b codebook lookup, K3 'same'-block
-stack forward and backward, K7 small-channel conv weight gradient, K6 one
-row of cached PixelCNN sampling).
+stack forward and backward, K4 PixelCNN causal segment forward and
+backward, K7 small-channel conv weight gradient, K6 one row of cached
+PixelCNN sampling).
 
 This file imports no jax, so its card tests also run on a machine that has
 only PyTorch and CUDA:
@@ -17,7 +18,14 @@ On the CPU:
     of ``pack_stack_weights_t``, the transposed conv's source voxels, the
     dW2 tap layout, the scalar shares), K1b's tile/CTA partition of the rows
     (csrc/l2_argmin_stats.cu) and K7's position offsets and output layout
-    (csrc/dw_conv3d.cu), each against its plain version.
+    (csrc/dw_conv3d.cu), each against its plain version;
+  * K4 forward and backward (csrc/causal_stack.cu, csrc/causal_stack_bwd.cu):
+    ``pack_kernel_weights`` / ``pack_kernel_weights_t`` read through the
+    kernels' flat offsets, the union conv's 18 taps and zero pads, the
+    transposed conv's sources one row ahead, the dropout mask, the
+    condition's accumulated gradient and the output layouts
+    (``kernel_grads_to_union``), against ``causal_block_plain`` and
+    ``causal_stack_bwd_plain``, to 1e-5 (float64 vs fp32).
 On a card (marker ``gpu``; skipped here with the reason):
   * K1 against ``l2_argmin_plain``: equal indices wherever the two best
     codes are more than 1e-5 apart (relative), at the path's three shapes;
@@ -35,7 +43,16 @@ On a card (marker ``gpu``; skipped here with the reason):
     second call;
   * K7 against ``dw_conv3d_plain`` within 1e-5 of max|ref| in fp32 and bf16
     (bf16 products are exact in fp32; only the order of the fp32 sums
-    differs), bit-identical on a second call.
+    differs), bit-identical on a second call;
+  * K4 against ``causal_stack_plain`` and its autograd, 3 blocks, at odd
+    grid sizes, B = 1 and 2, with and without a condition, and with a
+    p = 0.5 keep mask: the no-save forward within 1e-4 (fp32) and 3e-2
+    (bf16) of max|ref| as K3's; the saving forward, dx, the condition's
+    gradient and every union-weight gradient per tensor within 1e-4 (fp32)
+    and 6e-2 (bf16: the reference rounds its gradients to bf16, the kernel
+    sums in fp32), bit-identical on a second call; and the causality check
+    of ``causal_reach`` on the kernel's forward (impulses) and backward
+    (gradients).
 """
 import numpy as np
 import pytest
@@ -43,7 +60,7 @@ import torch
 
 from vqvae3d_tpu_torch.models import blocks as tblocks
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
-from vqvae3d_tpu_torch.ops import conv3d, decode_row, quantizer_ops, stack_kernel
+from vqvae3d_tpu_torch.ops import causal_kernel, conv3d, decode_row, quantizer_ops, stack_kernel
 from vqvae3d_tpu_torch.sample.ar_sample import draw_gumbel
 from vqvae3d_tpu_torch.sample.cached_sample import _extract_layers
 
@@ -134,13 +151,13 @@ def _shifted(shape, tap, s, wrap):
     return idx, (np.ones_like(inside) if wrap else inside)
 
 
-def _grouped(mat_rows, packed, n_out, inner, tap=None):
+def _grouped(mat_rows, packed, n_out, inner, tap=None, ntaps=27):
     """out[:, o] = mat_rows @ packed[g·G + tap·inner·cob + arange(inner)·cob + j]
-    for o = g·cob + j, G = the group's slab (27·inner·cob with taps, else
-    inner·cob): how every kernel reads a [G][(27)][inner][cob] pack."""
+    for o = g·cob + j, G = the group's slab (ntaps·inner·cob with taps, else
+    inner·cob): how every kernel reads a [G][(ntaps)][inner][cob] pack."""
     cob = packed.shape[-1]
     flat = np.asarray(packed, np.float64).reshape(-1)
-    slab, off = (inner * cob, 0) if tap is None else (27 * inner * cob, tap * inner * cob)
+    slab, off = (inner * cob, 0) if tap is None else (ntaps * inner * cob, tap * inner * cob)
     out = np.zeros((mat_rows.shape[0], n_out))
     for o in range(n_out):
         g, j = divmod(o, cob)
@@ -293,7 +310,8 @@ def test_k3_packed_layout_and_indexing(c, pad_mode):
 def _counts():
     return (quantizer_ops.l2_argmin.launches, quantizer_ops.l2_argmin_stats.launches,
             stack_kernel.preact_stack_fused.launches, stack_kernel.preact_stack_bwd.launches,
-            conv3d.dw_conv3d.launches, decode_row.row_decode.launches)
+            conv3d.dw_conv3d.launches, decode_row.row_decode.launches,
+            causal_kernel.causal_stack_fused.launches, causal_kernel.causal_stack_bwd.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -324,6 +342,15 @@ def test_cpu_tensors_take_the_plain_versions():
         stack_kernel.preact_stack_plain(xr, *wr, pad_mode="zeros"), [xr, *wr], gy)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    # K4: the no-save forward and the autograd.Function on CPU tensors
+    uw = _union_weights(rng, 2, 4, 2, 3)
+    xu = torch.from_numpy(rng.standard_normal((1, 3, 4, 2, 12)).astype(np.float32))
+    cu_ = torch.from_numpy(rng.standard_normal((1, 3, 4, 2, 3)).astype(np.float32))
+    np.testing.assert_array_equal(causal_kernel.causal_stack_fused(xu, cu_, None, 0.0, uw),
+                                  causal_kernel.causal_stack_plain(xu, cu_, None, 0.0, uw))
+    xg = xu.clone().requires_grad_()
+    (causal_kernel.causal_stack_fused(xg, cu_, None, 0.0, uw) ** 2).sum().backward()
+    assert torch.isfinite(xg.grad).all()
     assert _counts() == before
 
 
@@ -531,3 +558,245 @@ def test_k6_kernel_reports_non_finite_logits(cuda_device):
     idx, _ = decode_row.row_decode(st, rows[0], rows[1], None, dfin, sprev, rows[3], gum, 2, 0.1)
     torch.cuda.synchronize()
     assert torch.equal(idx.cpu(), torch.full((1, 32), -1, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K4: the causal segment on the union stream
+# ---------------------------------------------------------------------------
+
+
+def _union_weights(rng, nb, c, cb8, cc, std=1.0):
+    """Random stacked ``UnionWeights`` for a union of Cu = 3c, Cb = 3·cb8
+    (dense: the kernels take any union weights), condition width cc (0:
+    none), at a Fixup-like scale that stays stable over a few blocks."""
+    cu, cb = 3 * c, 3 * cb8
+
+    def t(*shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale * std).astype(np.float32))
+
+    sc = t(nb, 8, scale=0.1)
+    sc[:, 7] += 0.3
+    return causal_kernel.UnionWeights(
+        t(nb, cu, cb, scale=cu ** -0.5), t(nb, cb, scale=0.1),
+        t(nb, 2, 3, 3, cb, cb, scale=(18 * cb) ** -0.5), t(nb, cb, cu, scale=cb ** -0.5),
+        t(nb, cc, cb, scale=cc ** -0.5) if cc else None, t(nb, cb, scale=0.1) if cc else None,
+        sc)
+
+
+def _union_shifted(shape, tap, s):
+    """csrc/causal_union.cuh:tap_voxel for every voxel: the index of
+    v + s·(j - 1) per axis and whether it lies inside the grid."""
+    b, s0, s1, s2 = shape
+    v = np.arange(b * s0 * s1 * s2)
+    i2, t = v % s2, v // s2
+    i1, t = t % s1, t // s1
+    i0, ib = t % s0, t // s0
+    a, bb, c = i0 + s * (tap // 9 - 1), i1 + s * ((tap // 3) % 3 - 1), i2 + s * (tap % 3 - 1)
+    inside = (a >= 0) & (a < s0) & (bb >= 0) & (bb < s1) & (c >= 0) & (c < s2)
+    return ((ib * s0 + a % s0) * s1 + bb % s1) * s2 + c % s2, inside
+
+
+def _k4_recompute(xv, cond, keep, denom, pk, j, vshape):
+    """The forward of csrc/causal_stack.cu (and the backward's recompute)
+    for block j, float64 on (nvox, C) rows: (t1, a1, t2, a2, t3, a3)."""
+    b, s0, s1, s2 = vshape
+    cu = xv.shape[1]
+    cb = pk.be.shape[1]
+    sc = pk.sc[j].numpy().astype(np.float64)
+    t1 = xv + sc[0]
+    a1 = _elu(t1) + sc[1]
+    t2 = _grouped(a1, pk.w1[j], cb, cu) + pk.be[j].numpy() + sc[2]
+    a2 = _elu(t2) + sc[3]
+    acc = np.zeros((xv.shape[0], cb))
+    for tap in range(18):
+        nb, ok = _union_shifted(vshape, tap, 1)
+        acc += _grouped(a2[nb] * ok[:, None], pk.wu[j], cb, cb, tap, ntaps=18)
+    bidx = np.arange(xv.shape[0]) // (s0 * s1 * s2)
+    if keep is not None:
+        acc = np.where(keep[j].numpy()[bidx] > 0, acc / denom, 0.0)
+    if cond is not None:
+        acc = acc + _grouped(cond, pk.wc[j], cb, cond.shape[1]) + pk.bc[j].numpy()
+    t3 = acc + sc[4]
+    return t1, a1, t2, a2, t3, _elu(t3) + sc[5]
+
+
+@pytest.mark.parametrize("c,cb8,cc,b,p", [(16, 4, 16, 1, 0.0), (3, 1, 0, 2, 0.0),
+                                          (8, 4, 5, 2, 0.5)])
+def test_k4_packed_layout_and_indexing(c, cb8, cc, b, p):
+    rng = np.random.default_rng(700 + c)
+    nb, vshape = 2, (b, 3, 4, 5)
+    w = _union_weights(rng, nb, c, cb8, cc)
+    cu, cb = 3 * c, 3 * cb8
+    x = torch.from_numpy(rng.standard_normal((*vshape, cu)).astype(np.float32))
+    gy = torch.from_numpy(rng.standard_normal((*vshape, cu)).astype(np.float32))
+    cond = torch.from_numpy(rng.standard_normal((*vshape, cc)).astype(np.float32)) if cc else None
+    keep = torch.from_numpy((rng.random((nb, b, cb)) < 0.5).astype(np.float32)) if p else None
+    denom = 1.0 - p
+    pk = causal_kernel.pack_kernel_weights(w, torch.float32)
+    w1t, wut, w3t, wct = causal_kernel.pack_kernel_weights_t(w, torch.float32)
+    cv = None if cond is None else cond.reshape(-1, cc).numpy().astype(np.float64)
+    # forward: fwd_pre, fwd_conv, fwd_post block by block
+    saves, cur = [], x.reshape(-1, cu).numpy().astype(np.float64)
+    for j in range(nb):
+        saves.append(cur)
+        *_, a3 = _k4_recompute(cur, cv, keep, denom, pk, j, vshape)
+        sc = pk.sc[j].numpy()
+        cur = _grouped(a3, pk.w3[j], cu, cb) * sc[7] + sc[6] + cur
+    want = causal_kernel.causal_stack_plain(x, cond, keep, p, w)
+    np.testing.assert_allclose(cur.reshape(want.shape), want.numpy(), atol=1e-5, rtol=0)
+    # backward: bwd_pre .. bwd_dx and the contractions, last block first
+    g = gy.reshape(-1, cu).numpy().astype(np.float64)
+    gcond = None if cond is None else np.zeros_like(cv)
+    outs = [None] * nb
+    bidx = np.arange(g.shape[0]) // (vshape[1] * vshape[2] * vshape[3])
+    for j in reversed(range(nb)):
+        t1, a1, t2, a2, t3, a3 = _k4_recompute(saves[j], cv, keep, denom, pk, j, vshape)
+        sc = pk.sc[j].numpy()
+        gu = g * sc[7]
+        ga3 = _grouped(gu, w3t[j], cb, cu)
+        gt3 = ga3 * _elu_grad(t3)
+        gm = gt3 if keep is None else np.where(keep[j].numpy()[bidx] > 0, gt3 / denom, 0.0)
+        if cond is not None:
+            gcond = gcond + _grouped(gt3, wct[j], cc, cb)
+        u3 = _grouped(a3, pk.w3[j], cu, cb)
+        ga2 = np.zeros_like(gm)
+        dwu = np.zeros((18, cb, cb))
+        for tap in range(18):
+            src, ok = _union_shifted(vshape, tap, -1)
+            ga2 += _grouped(gm[src] * ok[:, None], wut[j], cb, cb, tap, ntaps=18)
+            nbr, ok = _union_shifted(vshape, tap, 1)
+            dwu[tap] = gm.T @ (a2[nbr] * ok[:, None])
+        gt2 = ga2 * _elu_grad(t2)
+        ga1 = _grouped(gt2, w1t[j], cu, cb)
+        gt1 = ga1 * _elu_grad(t1)
+        dsc = [gt1.sum(), ga1.sum(), gt2.sum(), ga2.sum(), gt3.sum(), ga3.sum(), g.sum(),
+               (g * u3).sum()]
+        outs[j] = (gt2.T @ a1, gt2.sum(0), dwu, gu.T @ a3,
+                   gt3.T @ cv if cond is not None else np.zeros((cb, 1)), gt3.sum(0), dsc)
+        g = g + gt1
+    got = causal_kernel.kernel_grads_to_union(
+        *(torch.from_numpy(np.stack(t)) for t in zip(*outs)), cond is not None)
+    saved = torch.stack([torch.from_numpy(sv.reshape(*vshape, cu).astype(np.float32))
+                         for sv in saves])
+    ref = causal_kernel.causal_stack_bwd_plain(saved, gy, cond, keep, p, w)
+    np.testing.assert_allclose(g.reshape(gy.shape), ref[0].numpy(), atol=1e-5, rtol=0)
+    if cond is not None:
+        np.testing.assert_allclose(gcond.reshape(cond.shape), ref[1].numpy(), atol=1e-5,
+                                   rtol=0)
+    for name, a, r in zip(("dw1e", "dbe", "dwu", "dw3", "dwc", "dbc", "dsc"), got, ref[2:]):
+        if r is None:
+            assert a is None, name
+            continue
+        np.testing.assert_allclose(a.numpy(), r.numpy(), atol=1e-5 * float(r.abs().max()),
+                                   rtol=0, err_msg=name)
+
+
+K4_CASES = [  # (c, cb8, cc, batch, grid, p): the top prior's widths, odd grids, B=2,
+    (16, 4, 16, 1, (7, 6, 5), 0.0),  # no condition, a keep mask, a narrow union
+    (16, 4, 0, 2, (4, 5, 3), 0.0),
+    (8, 4, 8, 2, (5, 3, 6), 0.5),
+    (6, 1, 6, 1, (3, 5, 4), 0.0),
+]
+
+
+def _k4_inputs(case, dtype, device, seed):
+    c, cb8, cc, b, grid, p = case
+    rng = np.random.default_rng(seed)
+    w = causal_kernel.UnionWeights(*(None if t is None else t.to(device)
+                                     for t in _union_weights(rng, 3, c, cb8, cc)))
+    x = torch.from_numpy(rng.standard_normal((b, *grid, 3 * c)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((b, *grid, 3 * c)).astype(np.float32))
+    cond = (torch.from_numpy(rng.standard_normal((b, *grid, cc)).astype(np.float32))
+            .to(device, dtype) if cc else None)
+    keep = (torch.from_numpy((rng.random((3, b, 3 * cb8)) < 0.5).astype(np.float32)).to(device)
+            if p else None)
+    return x.to(device, dtype), g.to(device, dtype), cond, keep, p, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(K4_CASES)))
+def test_k4_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    x, _, cond, keep, p, w = _k4_inputs(K4_CASES[case], dtype, cuda_device, 800 + case)
+    launches = causal_kernel.causal_stack_fused.launches
+    with torch.inference_mode():
+        got = causal_kernel.causal_stack_fused(x, cond, keep, p, w)
+        want = causal_kernel.causal_stack_plain(x, cond, keep, p, w)
+    torch.cuda.synchronize()
+    assert causal_kernel.causal_stack_fused.launches == launches + 3
+    assert got.dtype == dtype and got.shape == x.shape
+    scale = float(want.float().abs().max())
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(K4_CASES)))
+def test_k4_bwd_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    x, gy, cond, keep, p, w = _k4_inputs(K4_CASES[case], dtype, cuda_device, 900 + case)
+
+    def grads(run):
+        xg = x.clone().requires_grad_()
+        cg = None if cond is None else cond.clone().requires_grad_()
+        wg = [None if t is None else t.clone().requires_grad_() for t in w]
+        y = run(xg, cg, keep, p, causal_kernel.UnionWeights(*wg))
+        ins = [xg] + ([cg] if cg is not None else []) + [t for t in wg if t is not None]
+        return (y.detach(), *torch.autograd.grad(y, ins, gy))
+
+    before = causal_kernel.causal_stack_bwd.launches
+    runs = [grads(causal_kernel.causal_stack_fused) for _ in range(2)]
+    want = grads(causal_kernel.causal_stack_plain)
+    torch.cuda.synchronize()
+    assert causal_kernel.causal_stack_bwd.launches == before + 6
+    tol = 1e-4 if dtype == torch.float32 else 6e-2
+    for i, (a, a2, b) in enumerate(zip(*runs, want)):
+        assert torch.equal(a, a2), f"output {i}: two identical passes differ"
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * scale, f"output {i}: max|d|={err:.3g} > {tol} x {scale:.3g}"
+
+
+def _causal_blocks(c, bd, nb, seed):
+    from vqvae3d_tpu_torch.models.causal_blocks import PreActFixupCausalResBlock
+
+    gen = torch.Generator().manual_seed(seed)
+    blocks = [PreActFixupCausalResBlock(c, c, 3, "B", bottleneck_divisor=bd, num_layers=nb + 1)
+              for _ in range(nb)]
+    with torch.no_grad():
+        for blk in blocks:
+            for prm in blk.parameters():
+                prm.copy_(torch.randn(prm.shape, generator=gen) * 0.3)
+    return blocks
+
+
+@pytest.mark.gpu
+def test_k4_is_causal_on_card(cuda_device):
+    """The union tap embedding leaks no future: forward impulses through the
+    no-save kernel, gradients through the backward kernel."""
+    c, dims = 16, (4, 5, 6)
+    w = causal_kernel.UnionWeights(*(None if t is None else t.detach().to(cuda_device)
+                                     for t in causal_kernel.pack_causal_union(
+                                         _causal_blocks(c, 4, 3, 5))))
+    x = torch.randn(1, *dims, 3 * c, device=cuda_device)
+    with torch.inference_mode():
+        base = causal_kernel.causal_stack_fused(x, None, None, 0.0, w)
+    for v in [(0, 0, 0), (1, 2, 3), (3, 4, 5), (2, 0, 5)]:
+        for si in range(3):
+            x2 = x.clone()
+            x2[0, v[0], v[1], v[2], si * c:(si + 1) * c] += 1.0
+            with torch.inference_mode():
+                diff = (causal_kernel.causal_stack_fused(x2, None, None, 0.0, w) - base).abs()
+            moved = diff[0].reshape(*dims, 3, c).sum(-1).permute(3, 0, 1, 2).cpu() > 0
+            leak = moved & ~causal_kernel.causal_influence(dims, v)[si]
+            assert not leak.any(), f"input stream {si} at {v} moved {leak.nonzero()[:5].tolist()}"
+            assert moved[si][v], "an input must move its own output"
+    xg = x.clone().requires_grad_()
+    y = causal_kernel.causal_stack_fused(xg, None, None, 0.0, w)
+    for pos in [(0, 0, 0), (2, 3, 4), (3, 1, 2)]:
+        reach = causal_kernel.causal_reach(dims, pos)
+        for so in range(3):
+            (gx,) = torch.autograd.grad(y[0, pos[0], pos[1], pos[2], so * c:(so + 1) * c].sum(),
+                                        xg, retain_graph=True)
+            dep = gx[0].abs().reshape(*dims, 3, c).sum(-1).permute(3, 0, 1, 2).cpu() > 0
+            assert not (dep & ~reach[:, so]).any(), f"gradient of {pos} stream {so} leaks"

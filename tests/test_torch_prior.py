@@ -36,6 +36,7 @@ from vqvae3d_tpu.train.checkpoint import (
     convert_reference_pixelcnn_state_dict,
 )
 from vqvae3d_tpu_torch.checkpoint import load_prior, save_prior
+from vqvae3d_tpu_torch.cli import train_prior
 from vqvae3d_tpu_torch.convert import _causal_block, jax_pixelcnn_params_to_state_dict
 from vqvae3d_tpu_torch.models.causal_blocks import PreActFixupCausalResBlock
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
@@ -180,10 +181,16 @@ def test_prior_checkpoint_and_config_interchange(tmp_path):
 
 
 def test_training_only_options_raise():
+    """What the port does not train yet raises; training-time dropout works
+    (tests/test_torch_prior_train.py::test_dropout_trains)."""
     with pytest.raises(NotImplementedError):
         PixelCNN(PixelCNNConfig(**tiny_config(False), use_pre_activation=False))
     with pytest.raises(NotImplementedError):
         PixelCNN(PixelCNNConfig(**tiny_config(False), use_concat_activation=True))
-    model = PixelCNN(PixelCNNConfig(**{**tiny_config(False), "dropout_prob": 0.5}))
     with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 5, *DIMS), train=True)
+        train_prior.parse_arguments(["codes", "0", "--use-model", "pixelsnail"])
+    with pytest.raises(NotImplementedError):
+        train_prior.main(train_prior.parse_arguments(["codes", "0", "--multihost"]))
+    model = PixelCNN(PixelCNNConfig(**{**tiny_config(False), "dropout_prob": 0.5}))
+    out = model(torch.zeros(1, 5, *DIMS), train=True, generator=torch.Generator().manual_seed(0))
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()

@@ -17,7 +17,10 @@ not read here: turning one into a state_dict needs jax
 (``convert.jax_variables_to_state_dict`` on ``jax.device_get(variables)``).
 
 Prior checkpoints use the same directory format: ``save_prior`` writes a
-PixelCNN's state_dict and config, ``load_prior`` rebuilds the model. The
+PixelCNN's state_dict and config, ``save_prior_train_state`` adds the step
+and the optimizer state as a train state does, and ``load_prior`` rebuilds
+the model from either (so a ``train_prior`` run's directory serves
+``sample_embeddings``). The
 prior's config JSON is the JAX ``PixelCNNConfig``'s; its TPU layout switches
 (``scan_stacks``, ``remat_scan``) are accepted and dropped on load.
 """
@@ -95,7 +98,7 @@ def load_model(path, device="cpu", step: Optional[int] = None) -> Tuple[VQVAE, V
     return model.to(device).eval(), config
 
 
-def save_train_state(path, model: VQVAE, optimizer, config: VQVAEConfig, step: int,
+def save_train_state(path, model, optimizer, config, step: int,
                      max_to_keep: Optional[int] = None) -> None:
     """Save params + quantizer buffers, the optimizer state and the step;
     then keep only the newest ``max_to_keep`` steps."""
@@ -113,7 +116,7 @@ def save_train_state(path, model: VQVAE, optimizer, config: VQVAEConfig, step: i
                 (path / f"step_{old}{suffix}").unlink(missing_ok=True)
 
 
-def restore_train_state(path, model: VQVAE, optimizer, step: Optional[int] = None) -> int:
+def restore_train_state(path, model, optimizer, step: Optional[int] = None) -> int:
     """Load a train state saved by ``save_train_state`` into ``model`` and
     ``optimizer`` (in place); returns its step."""
     path = Path(path)
@@ -128,6 +131,20 @@ def restore_train_state(path, model: VQVAE, optimizer, step: Optional[int] = Non
 def save_prior(path, model: PixelCNN, step: int = 0) -> None:
     """Write a PixelCNN prior's state_dict and config as step ``step``."""
     save_checkpoint(path, model.state_dict(), model.config, step)
+
+
+def save_prior_train_state(path, model: PixelCNN, optimizer, step: int,
+                           max_to_keep: Optional[int] = None) -> None:
+    """``save_train_state`` for a prior: its state_dict and config (what
+    ``save_prior`` writes), the step and the optimizer state."""
+    save_train_state(path, model, optimizer, model.config, step, max_to_keep)
+
+
+def restore_prior_train_state(path, model: PixelCNN, optimizer,
+                              step: Optional[int] = None) -> int:
+    """Load a prior's train state into ``model`` and ``optimizer`` (in
+    place); returns its step."""
+    return restore_train_state(path, model, optimizer, step)
 
 
 def load_prior(path, device="cpu", step: Optional[int] = None) -> Tuple[PixelCNN, PixelCNNConfig]:

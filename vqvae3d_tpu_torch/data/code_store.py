@@ -1,7 +1,9 @@
 """Multi-level discrete-code store (numpy only).
 
-The port's copy of the writer and reader of ``vqvae3d_tpu/data/code_store.py``
-(the prior-training dataset classes are not ported yet). One sub-store per
+The port's copy of ``vqvae3d_tpu/data/code_store.py``: the writer, the
+reader, and the prior-training dataset and data module (the same split, the
+same shuffle keyed on (seed, epoch), so both packages draw the same batches
+from one store). One sub-store per
 hierarchy level (0 = finest grid), samples keyed by integer index, root
 metadata ``num_dbs`` / ``length`` / ``num_embeddings``. Backends:
 
@@ -16,7 +18,7 @@ from __future__ import annotations
 import json
 import pickle
 from pathlib import Path
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 
@@ -107,3 +109,77 @@ class CodeStore:
             with self._env.begin() as txn:
                 return pickle.loads(txn.get(str(index).encode(), db=self._sub_dbs[level]))
         return np.load(self.path / f"level_{level}" / f"{index}.npy")
+
+
+class CodeDataset:
+    """Level-i training pairs [data, condition (the next-coarser level)]
+    (reference load_lmdb_dataset.py:54-109)."""
+
+    def __init__(self, root: str, embedding_id: int = -1, backend: str = "auto"):
+        self.store = CodeStore(root, backend=backend)
+        n_enc = self.store.num_levels
+        if embedding_id >= n_enc:
+            raise ValueError(f"level {embedding_id} of a {n_enc}-level store")
+        self.embedding_id = embedding_id
+        self._idx = range(n_enc) if embedding_id == -1 else range(embedding_id, n_enc)[:2]
+        self.num_embeddings = [self.store.num_embeddings[i] for i in self._idx]
+        if len(self.num_embeddings) == 1:
+            self.num_embeddings.append(0)
+
+    @property
+    def n_enc(self) -> int:
+        return self.store.num_levels
+
+    def __len__(self) -> int:
+        return self.store.length
+
+    def __getitem__(self, index: int) -> List[np.ndarray]:
+        return [self.store.get(index, i) for i in self._idx]
+
+
+def _degrid(arr) -> np.ndarray:
+    """Stored grids may carry the extraction's batch-1 dim (the reference
+    stores (1, d, h, w) and squeezes it in training)."""
+    arr = np.asarray(arr)
+    return arr[0] if arr.ndim == 4 and arr.shape[0] == 1 else arr
+
+
+class CodeDataModule:
+    """Split and batch iteration over code grids for prior training
+    (reference LMDBDataModule, load_lmdb_dataset.py:12-50): a
+    ``train_frac`` split of a seeded permutation, the train batches shuffled
+    by a generator keyed on (seed, epoch), whole batches only."""
+
+    def __init__(self, path: str, embedding_id: int, batch_size: int = 16,
+                 train_frac: float = 0.95, seed: int = 42, backend: str = "auto"):
+        self.dataset = CodeDataset(path, embedding_id, backend=backend)
+        self.batch_size = batch_size
+        self.num_embeddings = self.dataset.num_embeddings
+        self.n_enc = self.dataset.n_enc
+        n = len(self.dataset)
+        perm = np.random.default_rng(seed).permutation(n)
+        train_len = int(n * train_frac)
+        self.train_indices = perm[:train_len]
+        self.val_indices = perm[train_len:]
+        self.seed = seed
+
+    def _iter(self, indices, shuffle: bool, epoch: int = 0, process_index: int = 0,
+              process_count: int = 1):
+        if process_count != 1 or process_index != 0:
+            raise NotImplementedError("per-process batch slices: multi-GPU is not ported yet")
+        idx = np.array(indices)
+        if shuffle:
+            idx = np.random.default_rng(self.seed + 1 + epoch).permutation(idx)
+        bs = self.batch_size
+        for b in range(len(idx) // bs):
+            items = [self.dataset[int(i)] for i in idx[b * bs:(b + 1) * bs]]
+            batch = {"data": np.stack([_degrid(it[0]) for it in items]).astype(np.int32)}
+            if len(items[0]) > 1:
+                batch["condition"] = np.stack([_degrid(it[1]) for it in items]).astype(np.int32)
+            yield batch
+
+    def train_dataloader(self, epoch: int = 0, process_index: int = 0, process_count: int = 1):
+        return self._iter(self.train_indices, True, epoch, process_index, process_count)
+
+    def val_dataloader(self, process_index: int = 0, process_count: int = 1):
+        return self._iter(self.val_indices, False, 0, process_index, process_count)

@@ -13,9 +13,12 @@ after the activation, so that a voxel never sees itself; mask 'B' may see
 the current voxel's already-computed streams.
 
 Every conv pads explicitly (front-only on the causal axis, symmetric on the
-others) and then runs VALID. Only the evaluation forward of
-``PreActFixupCausalResBlock`` is ported: training-time channel dropout,
-``aux`` inputs, ``concat_activation`` and ``FixupCausalResBlock`` raise
+others) and then runs VALID. ``PreActFixupCausalResBlock`` computes in its
+activations' dtype, as the JAX module does with ``dtype`` set, and in
+training applies channel dropout (torch ``Dropout3d``: one keep decision per
+(sample, channel) and stream, kept values divided by 1 − p, after
+``branch_conv2`` and before the condition add). ``aux`` inputs,
+``concat_activation`` and ``FixupCausalResBlock`` raise
 ``NotImplementedError``. Module attributes follow the reference torch tree,
 so ``state_dict`` keys are the reference checkpoint keys
 (``branch_conv1.depth_conv.weight``, ``expand_rf.height_conv.bias``,
@@ -59,6 +62,15 @@ def shift_down_3d(x: torch.Tensor) -> torch.Tensor:  # s1 (height)
 
 def shift_right_3d(x: torch.Tensor) -> torch.Tensor:  # s2 (width)
     return _shift_one(x, 4)
+
+
+def draw_keep_masks(shape, p: float, generator: Optional[torch.Generator] = None,
+                    device=None) -> torch.Tensor:
+    """0/1 fp32 channel-dropout keep decisions, each kept with probability
+    1 - p (``shape`` ends in the union's 3·Cb channels, [d|h|w])."""
+    u = torch.rand(shape, generator=generator,
+                   device=generator.device if generator is not None else device)
+    return (u < 1.0 - p).float()
 
 
 def input_to_stack(x: torch.Tensor) -> Stack:
@@ -198,22 +210,31 @@ class PreActFixupCausalResBlock(nn.Module):
             self.scale.fill_(1.0)
 
     def forward(self, stack: Stack, condition: Optional[torch.Tensor] = None,
-                train: bool = False) -> Stack:
-        if train and self.dropout_prob > 0:
-            raise NotImplementedError("training-time channel dropout is not ported")
+                train: bool = False, keep: Optional[torch.Tensor] = None) -> Stack:
+        """``keep``: (B, 3·Cb) 0/1 dropout keep mask, [d|h|w], used when
+        ``train`` and dropout_prob > 0 (drawn from torch's default generator
+        when None)."""
         if (condition is None) != (self.condition is None):
             raise ValueError("a condition is needed exactly when condition_dim > 0")
+        dt = stack[0].dtype
 
         def pre(x, a, b):
-            return F.elu(x + a) + b
+            return F.elu(x + a.to(dt)) + b.to(dt)
 
         out = self.branch_conv1(tuple(pre(x, self.bias1a, self.bias1b) for x in stack))
         out = self.expand_rf(out)
         out = self.branch_conv2(tuple(pre(x, self.bias2a, self.bias2b) for x in out))
+        p = self.dropout_prob
+        if train and p > 0:
+            cb = out[0].shape[1]
+            if keep is None:
+                keep = draw_keep_masks((out[0].shape[0], 3 * cb), p, device=out[0].device)
+            out = tuple(torch.where(keep[:, s * cb:(s + 1) * cb, None, None, None] > 0,
+                                    o / (1.0 - p), 0.0) for s, o in enumerate(out))
         if self.condition is not None:
             cond = self.condition(condition)
-            out = tuple(o + cond for o in out)
+            out = tuple(o + cond.to(dt) for o in out)
         out = self.branch_conv3(tuple(pre(x, self.bias3a, self.bias3b) for x in out))
-        out = tuple(o * self.scale + self.bias4 for o in out)
+        out = tuple(o * self.scale.to(dt) + self.bias4.to(dt) for o in out)
         skip = stack if self.skip_conv is None else self.skip_conv(stack)
         return tuple(o + s for o, s in zip(out, skip))

@@ -6,14 +6,23 @@ causal blocks (the first mask 'A', the rest 'B'), each conditioned on the
 embedded, trilinearly upsampled one-hot of the next-coarser grid → 1x1x1
 ``parse_output`` logits.
 
-The forward is the JAX module's stock path (``pixelcnn.py:215-269``); a
-condition at the coarser grid is upsampled as a one-hot, then embedded, in
-that order. It computes in fp32 whatever ``dtype`` says: in this port it
-serves the naive sampler and the tests (the cached sampler reads the
-weights and runs its own decomposition), and ``dtype`` is kept for the
-config file and for prior training, which is not ported yet. The JAX
-module's block-space scan and kernel K4 are a TPU layout of the same math
-and are not used here.
+The forward computes in ``config.dtype`` (or the ``dtype`` it is given), as
+the JAX module does, and returns fp32 logits. A condition at the coarser grid
+is upsampled as a one-hot (fp32, no gradient), then embedded, in that order,
+so the upsample never needs a backward. The mask-'A' block runs the stock
+modules. The mask-'B' segment runs as one union stream through
+``ops/causal_kernel.py::causal_stack_fused`` (kernel K4 on the card, forward
+and backward) where the JAX module takes its block-space path, on the
+conditions that are about function: pre-activation, no concat-activation,
+``kernel_size`` 3, ``model_dim`` ≤ 32 and at least one mask-'B' block
+(``uses_union_stack``; the JAX ``pixelcnn.py:90-101`` and
+``ops/causal_stack.py:61-85`` less their TPU lane, VMEM and grid-size gates).
+Wider models (the 256/512-d mid and bottom PixelCNNs) run the stock block
+modules, as the JAX package does. This is a dispatch on the config, decided
+before any launch.
+
+Channel dropout in training: one (L, B, 3·Cb) 0/1 keep mask for the L
+blocks, passed in as data or drawn from ``generator``.
 """
 from __future__ import annotations
 
@@ -25,9 +34,11 @@ import torch.nn as nn
 
 from vqvae3d_tpu_torch.models.causal_blocks import (
     PreActFixupCausalResBlock,
+    draw_keep_masks,
     input_to_stack,
     stack_to_output,
 )
+from vqvae3d_tpu_torch.ops.causal_kernel import causal_stack_fused, pack_causal_union
 from vqvae3d_tpu_torch.ops.conv3d import Conv3D
 from vqvae3d_tpu_torch.ops.resize import trilinear_resize
 
@@ -95,22 +106,48 @@ class PixelCNN(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
+    @property
+    def uses_union_stack(self) -> bool:
+        """Whether the mask-'B' segment runs through ``causal_stack_fused``."""
+        cfg = self.config
+        return cfg.kernel_size == 3 and cfg.model_dim <= 32 and cfg.num_resblocks >= 1
+
     def forward(self, data: torch.Tensor, condition: Optional[torch.Tensor] = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, dtype=None) -> torch.Tensor:
         """data (B, input_dim, s0, s1, s2) one-hot; condition (B, condition_dim,
-        *grid) one-hot at this grid or the coarser one. Returns fp32 logits
+        *grid) one-hot at this grid or the coarser one. ``keep`` (L, B, 3·Cb):
+        the dropout keep masks of a training forward (drawn from ``generator``
+        when None). ``dtype`` overrides ``config.dtype``. Returns fp32 logits
         (B, input_dim, s0, s1, s2)."""
         cfg = self.config
+        dt = dtype or cfg.dtype
         if (condition is not None) != cfg.use_conditioning:
             raise ValueError("a condition is needed exactly when condition_dim > 0")
-        h = self.parse_input(data.float())
+        p = cfg.dropout_prob if train else 0.0
+        if p > 0 and keep is None:
+            cb = max(cfg.model_dim // cfg.bottleneck_divisor, 1)
+            keep = draw_keep_masks((cfg.num_layers, data.shape[0], 3 * cb), p, generator,
+                                   data.device)
+        if p == 0:
+            keep = None
+        h = self.parse_input(data.to(dt))
         stack = input_to_stack(h)
         cond = None
         if cfg.use_conditioning:
-            condition = condition.float()
             if condition.shape[2:] != data.shape[2:]:
-                condition = trilinear_resize(condition, data.shape[2:])
-            cond = self.embed_condition(condition)
-        for layer in self.layers:
-            stack = layer(stack, cond, train=train)
-        return self.parse_output(stack_to_output(stack))
+                condition = trilinear_resize(condition.float(), data.shape[2:])
+            cond = self.embed_condition(condition.to(dt))
+        stack = self.layers[0](stack, cond, train=train, keep=None if keep is None else keep[0])
+        if self.uses_union_stack:
+            c = cfg.model_dim
+            x = torch.cat([s.permute(0, 2, 3, 4, 1) for s in stack], -1)  # (B, *grid, 3C)
+            cl = None if cond is None else cond.permute(0, 2, 3, 4, 1).contiguous()
+            y = causal_stack_fused(x, cl, None if keep is None else keep[1:], p,
+                                   pack_causal_union(self.layers[1:]))
+            stack = tuple(y[..., s * c:(s + 1) * c].permute(0, 4, 1, 2, 3) for s in range(3))
+        else:
+            for i in range(1, cfg.num_layers):
+                stack = self.layers[i](stack, cond, train=train,
+                                       keep=None if keep is None else keep[i])
+        return self.parse_output(stack_to_output(stack)).float()

@@ -31,7 +31,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
-_p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry points: name -> argtypes (every one returns an int error code)
 SIGNATURES = {
     # K1a: x, embed, e2, out, n, k, d, stream
@@ -54,6 +54,15 @@ SIGNATURES = {
     # K7: is_bf16, x, g, dw, part, nchunks, batch, cin, cout, hp, wp, dp, kh,
     #     kw, kd, stream
     "vq_dw_conv3d": [_i, _p, _p, _p, _p, _i, _i64, _i, _i, _i, _i, _i, _i, _i, _i, _p],
+    # K4: is_bf16, x, cond, keep, denom, w1, be, wu, w3, wc, bc, sc, a2, a3, y,
+    #     batch, s0, s1, s2, cu, cb, cc, cob_b, cob_u, stream
+    "vq_causal_block_fwd": [_i, _p, _p, _p, _f] + [_p] * 10 + [_i64] + [_i] * 8 + [_p],
+    # K4 backward: is_bf16, x, gy, cond, keep, denom, w1, be, wu, w3, wc, bc, sc,
+    #     w1t, wut, w3t, wct, work, gm, sv, part, part_len, dx, gcond, dw1, dbe,
+    #     dwu, dw3, dwc, dbc, dsc, batch, s0, s1, s2, cu, cb, cc, cob_b, cob_u,
+    #     cob_c, stream
+    "vq_causal_block_bwd": [_i, _p, _p, _p, _p, _f] + [_p] * 15 + [_i64] + [_p] * 9
+    + [_i64] + [_i] * 9 + [_p],
     # K6: w1, wk, w3, b3, sc, hw1, herf, herfb, hwk, hw3, hb3, skw, hskw,
     #     w_in, b_in, w_out, b_out, d2h, d2w, cnd, dfin, sprev, vhc, gumbel,
     #     forced, out, logits, L, B, s2, C, br, ws, K, i1, tau, stream

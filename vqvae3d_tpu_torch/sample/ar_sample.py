@@ -94,7 +94,7 @@ def ancestral_sample(
     with fp32_exact():
         for v in range(math.prod(dims)):
             i0, i1, i2 = (v // (dims[1] * dims[2]), (v // dims[2]) % dims[1], v % dims[2])
-            logits = model(x, condition)[:, :, i0, i1, i2]  # (B, K)
+            logits = model(x, condition, dtype=torch.float32)[:, :, i0, i1, i2]  # (B, K)
             g = (gumbel[i0, i1, i2].to(dev) if gumbel is not None
                  else draw_gumbel((batch_size, k), generator, dev))
             idx = gumbel_argmax(logits, g, tau)
