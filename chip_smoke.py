@@ -67,12 +67,45 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      (validating at step 3), then ``--resume`` for one more, then
      ``load_prior`` and one forward through K4, then ``sample_embeddings``
      of a 32x32x8 grid from the trained checkpoint.
+ 12. attention kernel vs plain: K8 (causal flash attention) forward and
+     backward against the dense ``flash_causal_attention_plain`` and its
+     autograd, fp32 and bf16, at the bottom PixelSNAIL's call (N = 144,
+     S = 128, D = 16; every row) and the mid one's (N = 24, S = 8192, D = 8;
+     the plain version on the first stream's 8 heads: its (S, S) logits are
+     2 GiB each); a second call bit-identical; the causality of the kernel
+     on the card (the gradients of a row reach no later key or value, later
+     keys and values never move it); bf16 times beside the plain version,
+     SDPA (the library call, timed only) and the bound.
+ 13. the two published PixelSNAIL train steps (jobs/train_pixelsnail_
+     bottom.sh: 3x5x512d, 8x8x2, batch 6, causal dropout 0.5, mixup 0.4;
+     jobs/train_pixelsnail_mid_downscaled.sh: 8x5x256d, 32x32x8, batch 1,
+     causal dropout 0.2, mixup 0.2; both unconditioned, attention dropout
+     0): for each, one fp32 step on the kernel path against the plain path
+     (the dense attention checkpointed per block; the same dropout masks
+     and mixup), loss and every gradient; bf16 ms/step of both paths with
+     peak memory; K8 launches per step; two identical bf16 steps
+     bit-identical; a profiler breakdown.
+ 14. the PixelSNAIL train main path: ``train_prior --use-model pixelsnail``
+     at both configs on a seeded code store, 3 steps (validating at step 3)
+     and ``--resume`` for one more, K8 launches against what the steps and
+     validations imply, then ``load_prior``.
+ 15. wide sampling kernel vs plain: the wide K6 against ``row_decode_plain``
+     at the published mid (46 layers, C=256, br=64, K=256, conditioned,
+     s2=8, B=10) and bottom (51 layers, C=512, br=128, K=512, s2=2, B=20)
+     PixelCNN rows: teacher-forced logits and caches, free-running indices;
+     per-row times beside the plain row and the bound.
+ 16. the wide sampling main path: seeded checkpoints of the published mid
+     and bottom PixelCNNs, ``sample_embeddings`` of a full 32x32x8 grid at
+     batch 10 (conditioned on 8x8x2 grids) and a full 8x8x2 grid at batch
+     20, tau 0.1, with the wide K6's launches; then the cached sampler
+     teacher-forced over the whole grids against the one-shot forward.
 
 TF32 is off for the whole run (fp32 comparisons need true fp32; bf16 runs
 do not use it). Every number is printed beside the card's name and power
-limit. The line before the last is {"kernels": [...]} (eight kernels; K6's
+limit. The line before the last is {"kernels": [...]} (eleven kernels; K6's
 times and bound per 128x128x32 grid, 16,384 rows; K4's per train step of
-the top prior, 50 blocks); the last is
+the top prior, 50 blocks; K8's per call at the mid PixelSNAIL's shape; the
+wide K6's per row of the mid PixelCNN's grid); the last is
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 absent, when the package is missing, or when any phase fails.
 """
@@ -164,6 +197,36 @@ K4_TOL = {
 TOP_LR = 1.25e-5
 # published peaks of one H100 SXM (NVIDIA data sheet): the bounds' rates
 HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
+# the two published PixelSNAIL jobs (jobs/train_pixelsnail_bottom.sh,
+# jobs/train_pixelsnail_mid_downscaled.sh) on one card: batch 6 and 1 per
+# device, lr scaled as the jobs scale it, unconditioned, attention dropout 0
+SNAIL = {
+    "bottom": dict(fields=dict(input_dim=512, model_dim=512, num_blocks=3, num_layers_per_block=5,
+                               causal_dropout_prob=0.5, attention_dropout_prob=0.0,
+                               mixup_alpha=0.4),
+                   level=1, grid=(8, 8, 2), batch=6, lr=1e-4 * 6 / 24),
+    "mid": dict(fields=dict(input_dim=256, model_dim=256, num_blocks=8, num_layers_per_block=5,
+                            causal_dropout_prob=0.2, attention_dropout_prob=0.0, mixup_alpha=0.2),
+                level=0, grid=(32, 32, 8), batch=1, lr=5e-5 / 4),
+}
+# K8's calls on those paths, (N = 3 streams x batch x 8 heads, S, dh)
+K8_SHAPES = {"bottom": (3 * 6 * 8, 128, 16), "mid": (3 * 1 * 8, 8192, 8)}
+# K8 vs its plain version, per output and gradient: max|d| <= tol x max|ref|.
+# fp32: the same fp32 math summed in another order (online softmax, tiles).
+# bf16: both widen the inputs, compute in fp32 and round o and each gradient
+# to bf16 once; a flip of that rounding is 2^-8 of the value.
+K8_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the published wide PixelCNNs and their sampling jobs (jobs/train_pixelcnn_mid.sh,
+# jobs/train_pixelcnn_bottom.sh, jobs/sample_mid.sh, jobs/sample_bottom.sh):
+# mid 45 x 256 over 256 codes conditioned on the bottom's 512, 32x32x8 at
+# batch 10; bottom 50 x 512 over 512 codes, 8x8x2 at batch 20; tau 0.1
+WIDE = {
+    "mid": dict(fields=dict(input_dim=256, condition_dim=512, model_dim=256, num_resblocks=45,
+                            dropout_prob=0.0), level=1, grid=(32, 32, 8), cond=(8, 8, 2),
+                batch=10),
+    "bottom": dict(fields=dict(input_dim=512, condition_dim=0, model_dim=512, num_resblocks=50,
+                               dropout_prob=0.0), level=2, grid=(8, 8, 2), cond=None, batch=20),
+}
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -218,13 +281,16 @@ def plain_path():
     """Route the model's kernel call sites to the plain versions (the
     reference on the card): the stacks to the plain block loop (autograd
     through it in training), the lookups to the plain argmin and statistics,
-    the small-channel conv dW to the plain contraction. The wrappers
-    themselves never fall back."""
-    from vqvae3d_tpu_torch.models import blocks, pixelcnn, quantizer
-    from vqvae3d_tpu_torch.ops import causal_kernel, conv3d, quantizer_ops, stack_kernel
+    the small-channel conv dW to the plain contraction, PixelSNAIL's
+    attention to the dense plain attention. The wrappers themselves never
+    fall back."""
+    from torch.utils.checkpoint import checkpoint
+    from vqvae3d_tpu_torch.models import blocks, causal_blocks, pixelcnn, quantizer
+    from vqvae3d_tpu_torch.ops import (causal_kernel, conv3d, flash_attention, quantizer_ops,
+                                       stack_kernel)
 
     saved = (blocks.preact_stack_fused, quantizer.l2_argmin, quantizer.l2_argmin_stats,
-             conv3d.dw_conv3d, pixelcnn.causal_stack_fused)
+             conv3d.dw_conv3d, pixelcnn.causal_stack_fused, causal_blocks.flash_causal_attention)
     blocks.preact_stack_fused = lambda x, w1s, w2s, w3s, sc8, pad_mode: (
         stack_kernel.preact_stack_plain(x, w1s, w2s, w3s, sc8, pad_mode=pad_mode))
     quantizer.l2_argmin = quantizer_ops.l2_argmin_plain
@@ -234,15 +300,20 @@ def plain_path():
     # JAX remat_scan), else its autograd keeps every intermediate of 50 blocks
     pixelcnn.causal_stack_fused = lambda x, cond, keep, p, w: (
         causal_kernel.causal_stack_plain(x, cond, keep, p, w, remat=True))
+    # the attention: the dense plain version, checkpointed (recomputed in the
+    # backward), else 8 blocks keep their (S, S) logits at S = 8192
+    causal_blocks.flash_causal_attention = lambda q, k, v, sm_scale: checkpoint(
+        flash_attention.flash_causal_attention_plain, q, k, v, sm_scale, use_reentrant=False)
     try:
         yield
     finally:
         (blocks.preact_stack_fused, quantizer.l2_argmin, quantizer.l2_argmin_stats,
-         conv3d.dw_conv3d, pixelcnn.causal_stack_fused) = saved
+         conv3d.dw_conv3d, pixelcnn.causal_stack_fused, causal_blocks.flash_causal_attention) = saved
 
 
 def launch_counts():
-    from vqvae3d_tpu_torch.ops import causal_kernel, conv3d, decode_row, quantizer_ops, stack_kernel
+    from vqvae3d_tpu_torch.ops import (causal_kernel, conv3d, decode_row, flash_attention,
+                                       quantizer_ops, stack_kernel)
 
     return dict(l2_argmin=quantizer_ops.l2_argmin.launches,
                 l2_argmin_stats=quantizer_ops.l2_argmin_stats.launches,
@@ -251,17 +322,23 @@ def launch_counts():
                 dw_conv3d=conv3d.dw_conv3d.launches,
                 row_decode=decode_row.row_decode.launches,
                 causal_stack_fwd=causal_kernel.causal_stack_fused.launches,
-                causal_stack_bwd=causal_kernel.causal_stack_bwd.launches)
+                causal_stack_bwd=causal_kernel.causal_stack_bwd.launches,
+                flash_attention_fwd=flash_attention.flash_causal_attention.launches,
+                flash_attention_bwd=flash_attention.flash_attention_bwd.launches,
+                row_decode_wide=decode_row.row_decode.wide_launches)
 
 
 def reset_counts():
-    from vqvae3d_tpu_torch.ops import causal_kernel, conv3d, decode_row, quantizer_ops, stack_kernel
+    from vqvae3d_tpu_torch.ops import (causal_kernel, conv3d, decode_row, flash_attention,
+                                       quantizer_ops, stack_kernel)
 
     for fn in (quantizer_ops.l2_argmin, quantizer_ops.l2_argmin_stats,
                stack_kernel.preact_stack_fused, stack_kernel.preact_stack_bwd, conv3d.dw_conv3d,
                decode_row.row_decode, causal_kernel.causal_stack_fused,
-               causal_kernel.causal_stack_bwd):
+               causal_kernel.causal_stack_bwd, flash_attention.flash_causal_attention,
+               flash_attention.flash_attention_bwd):
         fn.launches = 0
+    decode_row.row_decode.wide_launches = 0
 
 
 def make_model(stem: int, seed: int, dtype, device):
@@ -1380,8 +1457,7 @@ def phase_prior_step(ident, seed, results):
     # --- bf16: launches per step, ms/step and peak memory per path
     model = make_prior(TOP_PRIOR, seed + 51, dev, dtype=torch.bfloat16)
     opt = AMSGrad(model.parameters(), lr=TOP_LR)
-    gen = torch.Generator(dev).manual_seed(seed + 52)
-    step = prior_train.make_prior_train_step(model, opt, gen)
+    step = prior_train.make_prior_train_step(model, opt, seed=seed + 52)
     reset_counts()
     log = step(batch)
     torch.cuda.synchronize()
@@ -1530,6 +1606,501 @@ def phase_prior_cli(ident, counts, seed, work: Path):
         counts[k] = counts.get(k, 0) + total[k] + got[k]
 
 
+def k8_bound(n, s, d, itemsize, backward: bool):
+    """(ms, what bounds it, bytes, flops, exps) of one K8 call on (N, S, D):
+    q, k, v read once and o and the fp32 log-sum-exp written once (backward:
+    q, k, v, o, do and the log-sum-exp read, dq, dk, dv written); per causal
+    logit (N S (S + 1) / 2 of them) 4 D flops and one exp forward (q.k,
+    p.v), 10 D flops and one exp backward (q.k, do.v, dv, dk, dq). Products
+    at the tensor-core rate of the dtype (fp32: the CUDA-core rate), exps at
+    the fp32 rate; the larger of the three times."""
+    logits = n * s * (s + 1) // 2
+    nbytes = (8 if backward else 4) * n * s * d * itemsize + 4 * n * s
+    flops = (10 if backward else 4) * d * logits
+    peak = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    t = {"bytes": nbytes / HBM_BPS, "operations": max(flops / peak, logits / FP32_FLOPS)}
+    by = max(t, key=t.get)
+    return 1e3 * t[by], by, nbytes, flops, logits
+
+
+def phase_attention_kernels(ident, results, seed):
+    import torch
+    import torch.nn.functional as F
+    from vqvae3d_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed + 70)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, (n, s, d) in K8_SHAPES.items():
+        scale = d ** -0.5
+        q32, k32, v32, g32 = (torch.randn(n, s, d, generator=gen).to(dev) for _ in range(4))
+        # the plain reference densely: the whole N at the bottom shape, the
+        # first stream's 8 heads at the mid one ((S, S) logits, 2 GiB each)
+        rows = n if s <= 2048 else 8
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).removeprefix("torch.")
+            q, k, v, g = (t.to(dtype) for t in (q32, k32, v32, g32))
+
+            def run(fn, nr):
+                qq, kk, vv = (t[:nr].clone().requires_grad_() for t in (q, k, v))
+                o = fn(qq, kk, vv, scale)
+                return (o.detach(), *torch.autograd.grad(o, (qq, kk, vv), g[:nr]))
+
+            got = run(fa.flash_causal_attention, n)
+            again = run(fa.flash_causal_attention, n)
+            want = run(fa.flash_causal_attention_plain, rows)
+            rel = []
+            for tname, a, b, r in zip(("o", "dq", "dk", "dv"), got, again, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K8 {name} {key} {tname}: a second call differs")
+                err = float((a[:rows].float() - r.float()).abs().max())
+                scale_ = float(r.float().abs().max())
+                rel.append(f"{tname} {err:.3g} (max|ref| {scale_:.3g})")
+                if not err <= K8_TOL[key] * scale_ or not torch.isfinite(a).all():
+                    raise AssertionError(f"K8 {name} {key} {tname}: max|d|={err:.3g} > "
+                                         f"{K8_TOL[key]} x {scale_:.3g}")
+                if key == "float32":
+                    w = "fwd" if tname == "o" else "bwd"
+                    worst[w] = max(worst[w], err)
+            print(f"K8 {name} (N={n} S={s} D={d}) {key}, plain on {rows} of {n} rows: max|d| "
+                  + ", ".join(rel) + f"; a second call bit-identical [{ident}]")
+            del got, again, want
+            torch.cuda.empty_cache()
+
+        # causality on the card: the gradient of query row i is exactly zero
+        # on every key and value row after i; keys and values after i never
+        # move o[i]
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q32, k32, v32))
+        o = fa.flash_causal_attention(qq, kk, vv, scale)
+        for i in sorted({0, 63, 64, s // 2, s - 2, s - 1}):
+            dq, dk, dv = torch.autograd.grad(o[:, i].sum(), (qq, kk, vv), retain_graph=True)
+            if dk[:, i + 1:].any() or dv[:, i + 1:].any() or dq[:, :i].any() or dq[:, i + 1:].any():
+                raise AssertionError(f"K8 {name}: the gradient of row {i} reaches other rows "
+                                     "than its past")
+            if not dv[:, i].any():
+                raise AssertionError(f"K8 {name}: row {i} does not see itself")
+        cut = s // 2
+        k2, v2 = k32.clone(), v32.clone()
+        k2[:, cut + 1:] += 1.0
+        v2[:, cut + 1:] -= 1.0
+        with torch.no_grad():
+            moved = fa.flash_causal_attention(q32, k2, v2, scale)
+            if not torch.equal(moved[:, :cut + 1], o.detach()[:, :cut + 1]):
+                raise AssertionError(f"K8 {name}: a key or value after row {cut} moved it")
+        print(f"K8 {name}: causality on the card clean (gradients of 6 rows, a forward impulse)")
+        del qq, kk, vv, o
+
+        # times at the train path's dtype (bf16), the whole N
+        q, k, v, g = (t.to(torch.bfloat16) for t in (q32, k32, v32, g32))
+        with torch.no_grad():
+            ms_f = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), 10, warmup=2)
+            o, lse = fa.flash_attention_fwd(q, k, v, scale)
+            ms_b = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, scale), 10, warmup=2)
+            pms_f = cuda_ms(lambda: fa.flash_causal_attention_plain(q, k, v, scale), 3)
+            lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[:, None], k[:, None], v[:, None], is_causal=True, scale=scale), 10, warmup=2)
+
+        def bwd_only(fn):  # the backward alone, on a graph built once
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            out = fn(qq, kk, vv)
+            ms = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), g.view_as(out),
+                                                     retain_graph=True), 3, warmup=1)
+            del out
+            return ms
+
+        pms_b = bwd_only(lambda a, b, c: fa.flash_causal_attention_plain(a, b, c, scale))
+        torch.cuda.empty_cache()
+        lib_b = bwd_only(lambda a, b, c: F.scaled_dot_product_attention(
+            a[:, None], b[:, None], c[:, None], is_causal=True, scale=scale))
+        bf, byf, nbf, flf, nexp = k8_bound(n, s, d, 2, False)
+        bb, byb, nbb, flb, _ = k8_bound(n, s, d, 2, True)
+        print(f"K8 {name} (N={n} S={s} D={d}) bf16, per call: forward {ms_f:.4f} ms, plain "
+              f"{pms_f:.3f} ms, SDPA {lib_f:.4f} ms, bound {bf:.4f} ms ({byf}: {nbf} B, {flf} "
+              f"flop, {nexp} exp); backward {ms_b:.4f} ms, plain {pms_b:.3f} ms, SDPA "
+              f"{lib_b:.4f} ms, bound {bb:.4f} ms ({byb}: {nbb} B, {flb} flop, {nexp} exp) "
+              f"[{ident}]")
+        if name == "mid":  # the JSON line: per call at the mid PixelSNAIL's shape
+            results["flash_attention_fwd"] = dict(max_abs_err=worst["fwd"], ms=ms_f,
+                                                  plain_ms=pms_f, bound_ms=bf, bound_by=byf,
+                                                  library_ms=lib_f)
+            results["flash_attention_bwd"] = dict(max_abs_err=worst["bwd"], ms=ms_b,
+                                                  plain_ms=pms_b, bound_ms=bb, bound_by=byb,
+                                                  library_ms=lib_b)
+        del q, k, v, g, o, lse, q32, k32, v32, g32
+        torch.cuda.empty_cache()
+
+
+def make_snail(fields, seed, device, dtype=None):
+    """A seeded PixelSNAIL (fp32 unless ``dtype``), every Fixup zero init and
+    every conv bias perturbed, as ``make_prior``."""
+    import torch
+    from vqvae3d_tpu_torch.models.causal_blocks import SCALARS, PreActFixupCausalResBlock
+    from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL, PixelSNAILConfig
+
+    gen = torch.Generator().manual_seed(seed)
+    model = PixelSNAIL(PixelSNAILConfig(**fields, dtype=dtype or torch.float32), generator=gen)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if name.endswith(".bias"):
+                prm.copy_(torch.randn(prm.shape, generator=gen) * 0.05)
+        for m in model.modules():
+            if isinstance(m, PreActFixupCausalResBlock):
+                for stream in ("depth_conv", "height_conv", "width_conv"):
+                    w = getattr(m.branch_conv3, stream).weight
+                    w.copy_(torch.randn(w.shape, generator=gen) * 0.3 * w.shape[1] ** -0.5)
+                for n in SCALARS:
+                    getattr(m, f"bias{n}").copy_(torch.randn(1, generator=gen) * 0.05)
+                m.scale.copy_(1.0 + torch.randn(1, generator=gen) * 0.05)
+    return model.to(device)
+
+
+def snail_batch(cfg, seed, device):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return {"data": torch.from_numpy(rng.integers(0, cfg["fields"]["input_dim"],
+                                                  (cfg["batch"], *cfg["grid"]),
+                                                  dtype=np.int32)).to(device)}
+
+
+def phase_snail_steps(ident, seed, results):
+    import torch
+    from vqvae3d_tpu_torch.train import prior_train
+    from vqvae3d_tpu_torch.train.state import AMSGrad
+
+    dev = torch.device("cuda")
+    for name, cfg in SNAIL.items():
+        nb = cfg["fields"]["num_blocks"]
+        batch = snail_batch(cfg, seed + 80, dev)
+        desc = (f"PixelSNAIL {name} ({nb}x{cfg['fields']['num_layers_per_block']}x"
+                f"{cfg['fields']['model_dim']}d, {cfg['grid']}, batch {cfg['batch']})")
+
+        # --- fp32: one step's loss and gradients, kernel path vs plain path,
+        # the same dropout masks and mixup (one generator state for both)
+        model = make_snail(cfg["fields"], seed + 81, dev)
+
+        def loss_and_grads():
+            model.zero_grad(set_to_none=True)
+            gen = prior_train.step_generator(seed, 0, dev)
+            loss, _ = prior_train.prior_loss_fn(model, batch, train=True, generator=gen)
+            loss.backward()
+            return float(loss.detach()), {n: q.grad.clone() for n, q in model.named_parameters()}
+
+        reset_counts()
+        loss_k, grads_k = loss_and_grads()
+        got = launch_counts()
+        with plain_path():
+            loss_p, grads_p = loss_and_grads()
+        torch.cuda.synchronize()
+        if got["flash_attention_fwd"] != nb or got["flash_attention_bwd"] != nb:
+            raise AssertionError(f"{desc}: K8 launches {got} for {nb} attention blocks")
+        gmax = max(float(g.abs().max()) for g in grads_p.values())
+        grad_err = {n: float((grads_k[n] - grads_p[n]).abs().max())
+                    / max(float(grads_p[n].abs().max()), 1e-3 * gmax) for n in grads_p}
+        worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        print(f"fp32 {desc} train step: loss kernel {loss_k:.7g} plain {loss_p:.7g} (rel "
+              f"{loss_err:.2e}); gradients of {len(grads_p)} tensors, worst max|d| over "
+              f"max(max|ref|, 1e-3 max grad): " + ", ".join(f"{n} {e:.2e}" for n, e in worst)
+              + f" [{ident}]")
+        if loss_err > STEP_LOSS_TOL or worst[0][1] > STEP_GRAD_TOL or not np.isfinite(loss_k):
+            raise AssertionError(f"fp32 {desc}: the kernel path disagrees with the plain path")
+        results[f"snail_{name}_fp32"] = dict(loss_rel=loss_err, grad_worst=worst[0][1])
+        del model, grads_k, grads_p
+        torch.cuda.empty_cache()
+
+        # --- bf16: launches per step, ms/step and peak memory per path
+        model = make_snail(cfg["fields"], seed + 81, dev, dtype=torch.bfloat16)
+        opt = AMSGrad(model.parameters(), lr=cfg["lr"])
+        step = prior_train.make_prior_train_step(model, opt, seed=seed)
+        reset_counts()
+        log = step(batch)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        want = dict(dict.fromkeys(got, 0), flash_attention_fwd=nb, flash_attention_bwd=nb)
+        print(f"bf16 {desc} train step launches {got}, {nb} attention blocks imply {want} "
+              f"(loss {float(log['loss_mean']):.5g}) [{ident}]")
+        if got != want or not np.isfinite(float(log["loss_mean"])):
+            raise AssertionError(f"{desc}: launches {got} != {want} or a non-finite loss")
+        timing = {}
+        for path in ("kernel", "plain", "kernel", "plain"):
+            ctx = plain_path() if path == "plain" else contextlib.nullcontext()
+            with ctx:
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: step(batch), iters=3, warmup=1)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+            timing.setdefault(path, []).append((ms, peak))
+            print(f"bf16 {desc} train step, {path} path: {ms:.2f} ms/step (mean of 3 after 1 "
+                  f"warm-up) peak {peak:.2f} GiB [{ident}]")
+        results[f"snail_{name}_bf16"] = timing
+
+        # --- two identical steps from one state: bit-identical parameters
+        torch.backends.cudnn.deterministic = True
+        snap = ({k: v.clone() for k, v in model.state_dict().items()},
+                {k: v.clone() if torch.is_tensor(v) else v for k, v in opt.state_dict().items()})
+        outs = []
+        for _ in range(2):
+            model.load_state_dict(snap[0])
+            opt.load_state_dict(snap[1])
+            step(batch)
+            outs.append({k: v.clone() for k, v in model.state_dict().items()})
+        torch.backends.cudnn.deterministic = False
+        differ = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+        print(f"two identical bf16 {desc} steps from one state: {len(outs[0]) - len(differ)} of "
+              f"{len(outs[0])} parameters bit-identical (cuDNN deterministic) [{ident}]")
+        if differ:
+            raise AssertionError(f"not bit-identical: {differ[:5]}")
+        del outs, snap
+
+        # --- where the time goes: one kernel-path step under the profiler
+        act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=act) as prof:
+            step(batch)
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        events = prof.key_averages()
+        cuda_rows = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in cuda_rows) / 1e3
+        k8 = {what: sum(e.self_device_time_total for e in cuda_rows if any(
+            k in e.key for k in keys)) / 1e3 for what, keys in (
+            ("K8 forward", ("flash_fwd",)), ("K8 backward", ("bwd_delta", "bwd_dkdv", "bwd_dq")))}
+        table = events.table(sort_by="self_device_time_total", row_limit=20,
+                             max_name_column_width=70)
+        print(f"profile of one bf16 kernel-path {desc} step: device busy {busy:.1f} ms of "
+              f"{wall:.1f} ms wall under the profiler; "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in k8.items())
+              + f" ({100 * sum(k8.values()) / busy:.1f} % of busy), the rest "
+              f"{busy - sum(k8.values()):.1f} ms [{ident}]\n{table}")
+        results[f"snail_{name}_profile"] = dict(busy_ms=busy, wall_ms=wall, **k8)
+        del model, opt
+        torch.cuda.empty_cache()
+
+
+def phase_snail_cli(ident, counts, seed, work: Path):
+    import torch
+    from vqvae3d_tpu_torch.checkpoint import load_prior
+    from vqvae3d_tpu_torch.cli import train_prior
+    from vqvae3d_tpu_torch.data.code_store import CodeStoreWriter
+    from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL
+
+    rng = np.random.default_rng(seed + 90)
+    t0 = time.perf_counter()
+    store = work / "snail_codes"
+    mid, bottom = SNAIL["mid"], SNAIL["bottom"]
+    w = CodeStoreWriter(str(store), 2, [mid["fields"]["input_dim"],
+                                        bottom["fields"]["input_dim"]], backend="file")
+    n = 128  # the 95 % split leaves 7 validation grids: a whole batch of 6
+    for i in range(n):
+        w.write_sample(i, [rng.integers(0, mid["fields"]["input_dim"], mid["grid"], dtype=np.int32),
+                           rng.integers(0, bottom["fields"]["input_dim"], bottom["grid"],
+                                        dtype=np.int32)])
+    w.close()
+    print(f"PixelSNAIL CLI set-up: a code store of {n} samples {mid['grid']} / {bottom['grid']} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    total = {}
+    for name, cfg in (("bottom", bottom), ("mid", mid)):
+        f = cfg["fields"]
+        ckpt = work / f"snail_{name}"
+        flags = [str(store), str(cfg["level"]), "--use-model", "pixelsnail",
+                 "--model-dim", str(f["model_dim"]), "--num-blocks", str(f["num_blocks"]),
+                 "--num-layers-per-block", str(f["num_layers_per_block"]),
+                 "--causal-dropout-prob", str(f["causal_dropout_prob"]),
+                 "--attention-dropout-prob", "0.0", "--mixup-alpha", str(f["mixup_alpha"]),
+                 "--use-conditioning", "False", "--batch-size", str(cfg["batch"]),
+                 "--lr", str(cfg["lr"]), "--val-every-steps", "3", "--log-every-n-steps", "1",
+                 "--ckpt-dir", str(ckpt), "--device", "cuda", "--seed", str(seed)]
+        val_batches = (n - int(n * 0.95)) // cfg["batch"]
+        nb = f["num_blocks"]
+        for run, extra, steps in [("train", ["--max-steps", "3"], 3),
+                                  ("resume", ["--max-steps", "4", "--resume"], 1)]:
+            reset_counts()
+            t0 = time.perf_counter()
+            model, opt, step = train_prior.main(train_prior.parse_arguments(flags + extra))
+            torch.cuda.synchronize()
+            got = launch_counts()
+            # every train step, and one validation pass, at the end
+            want = dict(dict.fromkeys(got, 0), flash_attention_fwd=nb * (steps + val_batches),
+                        flash_attention_bwd=nb * steps)
+            print(f"train_prior --use-model pixelsnail ({name}) {run}: {steps} step(s) to step "
+                  f"{step} in {time.perf_counter() - t0:.1f} s (host clock, data and checkpoints "
+                  f"included); launches {got}; implied {want} [{ident}]")
+            if (step != {"train": 3, "resume": 4}[run] or opt.count != step or got != want
+                    or not isinstance(model, PixelSNAIL)):
+                raise AssertionError(f"{name} {run}: step {step}, optimizer count {opt.count}, "
+                                     f"launches {got} != {want}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            del model, opt
+        logs = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train_loss_mean"] for r in logs if "train_loss_mean" in r]
+        val = [r["val_loss_mean"] for r in logs if "val_loss_mean" in r]
+        loaded, lcfg = load_prior(ckpt)
+        print(f"{name}: train losses by step {losses}; val losses {val}; load_prior gives a "
+              f"{type(loaded).__name__} ({lcfg.num_blocks} blocks, {lcfg.dtype})")
+        if (len(losses) != 4 or len(val) != 2 or not np.all(np.isfinite(losses + val))
+                or not isinstance(loaded, PixelSNAIL)):
+            raise AssertionError(f"PixelSNAIL {name} CLI: losses missing or not finite")
+        del loaded
+        torch.cuda.empty_cache()
+    for k, v in total.items():
+        counts[k] = counts.get(k, 0) + v
+
+
+def phase_wide_k6_kernels(ident, results, seed):
+    import torch
+    from vqvae3d_tpu_torch.ops import decode_row
+    from vqvae3d_tpu_torch.sample.ar_sample import draw_gumbel
+    from vqvae3d_tpu_torch.sample.cached_sample import _extract_layers
+
+    dev = torch.device("cuda")
+    for i, (name, cfg) in enumerate(WIDE.items()):
+        f = cfg["fields"]
+        model = make_prior(f, seed + 100 + i, dev)
+        st = decode_row.stack_row_weights(_extract_layers(model), model.parse_input.weight,
+                                          model.parse_input.bias, model.parse_output.weight,
+                                          model.parse_output.bias)
+        L, c, br = st["w1"].shape
+        k, b, s2 = f["input_dim"], cfg["batch"], cfg["grid"][2]
+        cond = f["condition_dim"] > 0
+        assert decode_row.uses_wide_kernel(c, br, k, s2)
+        gen = torch.Generator(dev).manual_seed(seed + 110 + i)
+        d2h, d2w, cnd, vhc0 = (torch.randn(L, b, s2, br, device=dev, generator=gen) * 0.5
+                               for _ in range(4))
+        cnd = cnd if cond else None
+        dfin, sprev = (torch.randn(b, s2, c, device=dev, generator=gen) * 0.5 for _ in range(2))
+        gum = draw_gumbel((s2, b, k), gen, dev)
+        forced = torch.randint(0, k, (b, s2), device=dev, generator=gen)
+        args = (st, d2h, d2w, cnd, dfin, sprev)
+        vk, vp = vhc0.clone(), vhc0.clone()
+        _, _, lk = decode_row.row_decode(*args, vk, gum, 5, TOP_TAU, forced_idx=forced)
+        _, _, lp = decode_row.row_decode_plain(*args, vp, gum, 5, TOP_TAU, forced_idx=forced)
+        errs = {}
+        for what, got, want in (("logits", lk, lp), ("caches", vk, vp)):
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            errs[what] = err
+            if not err <= K6_TOL * scale or not torch.isfinite(got).all():
+                raise AssertionError(f"wide K6 {name}, teacher-forced {what}: max|d|={err:.3g} "
+                                     f"> {K6_TOL} x {scale:.3g}")
+        free, _ = decode_row.row_decode(*args, vhc0.clone(), gum, 5, TOP_TAU)
+        _, _, lpath = decode_row.row_decode_plain(*args, vhc0.clone(), gum, 5, TOP_TAU,
+                                                  forced_idx=free)
+        ties, beyond = decode_row.sampling_disagreements(lpath, gum, TOP_TAU, free)
+        if beyond:
+            raise AssertionError(f"wide K6 {name}: {beyond} sampled indices disagree beyond a tie")
+        vk = vhc0.clone()
+        ms = cuda_ms(lambda: decode_row.row_decode(*args, vk, gum, 5, TOP_TAU), 10, warmup=2)
+        pms = cuda_ms(lambda: decode_row.row_decode_plain(*args, vk, gum, 5, TOP_TAU), 2)
+        weights, row_bytes, flops = k6_cost(st, b, s2, k, cond)
+        rows = cfg["grid"][0] * cfg["grid"][1]
+        bms, by = bound_ms(weights + row_bytes, flops, FP32_FLOPS)
+        gbms, gby = bound_ms(weights + rows * row_bytes, rows * flops, FP32_FLOPS)
+        print(f"wide K6 row_decode {name} (L={L} C={c} br={br} K={k} s2={s2} B={b}, "
+              f"{'conditioned' if cond else 'unconditioned'}): teacher-forced max|d| logits "
+              f"{errs['logits']:.3g} (max|ref| {float(lp.abs().max()):.3g}), caches "
+              f"{errs['caches']:.3g}; free-running near ties {ties}, beyond {beyond}; per row: "
+              f"kernel {ms:.4f} ms (mean of 10), plain {pms:.2f} ms (mean of 2), bound "
+              f"{bms:.5f} ms ({by}: {weights} B of weights, {row_bytes} B of the row, {flops} "
+              f"flops); per grid of {rows} rows: bound {gbms:.4f} ms ({gby}) [{ident}]")
+        if name == "mid":  # the JSON line, per row of the mid grid
+            results["row_decode_wide"] = dict(max_abs_err=errs["logits"], plain_ms=pms,
+                                              bound_ms=bms, bound_by=by, library_ms=None)
+        del model, st
+        torch.cuda.empty_cache()
+
+
+def phase_wide_sample_main_path(ident, counts, results, seed, work: Path):
+    import torch
+    from vqvae3d_tpu_torch.checkpoint import save_prior
+    from vqvae3d_tpu_torch.cli import sample_embeddings
+    from vqvae3d_tpu_torch.data.sample_db import add_samples, create_or_load_db, save_db
+    from vqvae3d_tpu_torch.models.prior_utils import idx_to_one_hot
+    from vqvae3d_tpu_torch.sample.cached_sample import cached_ancestral_sample
+
+    dev = torch.device("cuda")
+    for i, (name, cfg) in enumerate(WIDE.items()):
+        f, grid, b, level = cfg["fields"], cfg["grid"], cfg["batch"], cfg["level"]
+        model = make_prior(f, seed + 120 + i, "cpu")
+        save_prior(work / f"prior_{name}", model)
+        db_path = work / f"samples_{name}.db"
+        pool = None
+        if cfg["cond"] is not None:  # two grids of the next-coarser level to condition on
+            db = create_or_load_db(db_path, level + 1)
+            rng = np.random.default_rng(seed + 121 + i)
+            pool = add_samples(db, level + 1, rng.integers(0, f["condition_dim"],
+                                                           (2, *cfg["cond"])).astype(np.int32),
+                               None)
+            save_db(db, db_path, level + 1)
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            start.record()
+            new = sample_embeddings.main(sample_embeddings.parse_arguments([
+                "--model-checkpoint", str(work / f"prior_{name}"), "--db-path", str(db_path),
+                "--level", str(level), "--size", *map(str, grid), "--num-samples", str(b),
+                "--batch-size", str(b), "--tau", str(TOP_TAU), "--sampler", "cached",
+                "--seed", str(seed), "--device", "cuda"]))
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = launch_counts()
+        k6_rows = [e for e in prof.key_averages() if "row_decode_wide" in e.key
+                   and e.device_type == torch.autograd.DeviceType.CUDA]
+        k6_ms = sum(e.self_device_time_total for e in k6_rows) / 1e3
+        k6_n = sum(e.count for e in k6_rows)
+        rows = grid[0] * grid[1]
+        want = dict(dict.fromkeys(got, 0), row_decode_wide=rows)
+        db = create_or_load_db(db_path, level)
+        grids = np.stack([np.asarray(db[level][u]["data"]) for u in new])
+        print(f"sample_embeddings {name} --level {level} --size {grid} --num-samples {b} "
+              f"--batch-size {b} --tau {TOP_TAU}: {wall:.2f} s wall (host clock, under the "
+              f"device-only profiler), {start.elapsed_time(end) / 1e3:.2f} s between CUDA events; "
+              f"wide K6 device time {k6_ms:.1f} ms over {k6_n} kernels "
+              f"({k6_ms / max(k6_n, 1):.4f} ms a row); launches {got}, the grid implies {want}; "
+              f"grids {grids.shape} codes {grids.min()}..{grids.max()}, "
+              f"{len(np.unique(grids))} distinct [{ident}]")
+        # the wrappers' counts are the launch check; the profiler only times
+        # (it may miss a record: 1023 of 1024 on one run)
+        if got != want or not k6_n:
+            raise AssertionError(f"{name} sampling launches {got} != {want} (kernels "
+                                 f"profiled: {k6_n})")
+        if (len(new) != b or grids.shape != (b, *grid) or grids.min() < 0
+                or grids.max() >= f["input_dim"]
+                or (pool is not None and any(db[level][u]["condition"] not in pool
+                                             for u in new))):
+            raise AssertionError(f"{name}: the sampled grids or their conditions are wrong")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        if name == "mid":  # the JSON line: per row, the main path's mean
+            results["row_decode_wide"]["ms"] = k6_ms / k6_n
+        results[f"wide_sample_{name}_s"] = wall
+
+        # exactness at full width: teacher-forced cached logits vs the one-shot forward
+        model = model.to(dev)
+        gen = torch.Generator(dev).manual_seed(seed + 122 + i)
+        forced = torch.randint(0, f["input_dim"], (b, *grid), device=dev, generator=gen)
+        cond = None
+        if cfg["cond"] is not None:
+            cond = torch.from_numpy(np.stack([np.asarray(db[level + 1][pool[j % 2]]["data"])
+                                              for j in range(b)]).astype(np.int64))
+        t0 = time.perf_counter()
+        _, logits = cached_ancestral_sample(model, grid, b, cond, TOP_TAU, forced=forced)
+        torch.cuda.synchronize()
+        t_forced = time.perf_counter() - t0
+        with torch.inference_mode():
+            ref = model(idx_to_one_hot(forced, f["input_dim"]),
+                        None if cond is None else idx_to_one_hot(cond.to(dev), f["condition_dim"]))
+        err, scale = float((logits - ref).abs().max()), float(ref.abs().max())
+        print(f"exactness {name}, {b} full grids {grid}: teacher-forced cached sampler (wide K6 "
+              f"per row, {t_forced:.2f} s) vs one-shot PixelCNN.forward: max|d| logits {err:.3g}, "
+              f"max|ref| {scale:.3g} (tolerance {FORWARD_TOL} x max|ref|) [{ident}]")
+        if not err <= FORWARD_TOL * scale or not torch.isfinite(logits).all():
+            raise AssertionError(f"{name}: cached logits disagree with the one-shot forward")
+        del model, logits, ref
+        torch.cuda.empty_cache()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1577,6 +2148,14 @@ def main():
                 ident, results, args.seed)),
             ("prior train step", lambda: phase_prior_step(ident, args.seed, results)),
             ("prior train CLI", lambda: phase_prior_cli(ident, counts, args.seed, Path(tmp))),
+            ("attention kernels vs plain", lambda: phase_attention_kernels(
+                ident, results, args.seed)),
+            ("PixelSNAIL train steps", lambda: phase_snail_steps(ident, args.seed, results)),
+            ("PixelSNAIL train CLI", lambda: phase_snail_cli(ident, counts, args.seed, Path(tmp))),
+            ("wide sampling kernel vs plain", lambda: phase_wide_k6_kernels(
+                ident, results, args.seed)),
+            ("wide sampling main path", lambda: phase_wide_sample_main_path(
+                ident, counts, results, args.seed, Path(tmp))),
         ]
         for name, fn in phases:
             t0 = time.perf_counter()
@@ -1606,6 +2185,12 @@ def main():
                              "vqvae3d_tpu/ops/causal_kernel.py:532"),
         "causal_stack_bwd": ("vqvae3d_tpu_torch/csrc/causal_stack_bwd.cu",
                              "vqvae3d_tpu/ops/causal_kernel.py:612"),
+        "flash_attention_fwd": ("vqvae3d_tpu_torch/csrc/flash_attention.cu",
+                                "vqvae3d_tpu/models/causal_blocks.py:675"),
+        "flash_attention_bwd": ("vqvae3d_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "vqvae3d_tpu/models/causal_blocks.py:675"),
+        "row_decode_wide": ("vqvae3d_tpu_torch/csrc/row_decode_wide.cu",
+                            "vqvae3d_tpu/ops/decode_row.py:290"),
     }
     missing = [name for name in meta if not counts.get(name)]
     if missing:

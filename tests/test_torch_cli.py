@@ -14,6 +14,9 @@
     checkpoint keeps the step and the optimizer state, ``load_prior`` and
     ``sample_embeddings`` read it, and the JAX ``_config_from_json`` reads
     its config.
+  * A resumed ``train_prior`` run (2 + 1 + 1 steps) equals an uninterrupted
+    one (4 steps) bit for bit, for the PixelCNN and the PixelSNAIL, with
+    dropout and mixup on.
   * In a subprocess where ``import jax`` fails, every module of the port
     imports and both CLIs run: the port never needs jax.
 """
@@ -137,7 +140,7 @@ def test_decode_writes_volumes_matching_jax(setup, monkeypatch):
     np.testing.assert_allclose(header["spacings"], [0.976, 0.976, 3])
 
     db = create_or_load_db(db_path, level=0)
-    model, _ = load_model(s.ckpt)
+    model, _ = load_model(s.ckpt, device="cpu")
     with torch.inference_mode():
         got = dict(decode_embeddings.decode_samples(model, db, torch.device("cpu")))
     # unfolded JAX decode with its block-space rewrites off: the same math as
@@ -201,7 +204,7 @@ def test_train_prior_cli_on_cpu(tmp_path):
     val = [r for r in logs if "val_accuracy" in r]
     assert len(losses) == 3 and np.all(np.isfinite(losses)) and len(val) == 2
     assert {"val_loss_mean", "val_bits_per_dim", "val_loss_std"} <= set(val[0])
-    loaded, cfg = load_prior(ck)
+    loaded, cfg = load_prior(ck, device="cpu")
     assert cfg == model.config
     for k, v in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v.cpu())
@@ -218,6 +221,46 @@ def test_train_prior_cli_on_cpu(tmp_path):
         "--size", "4", "4", "4", "--num-samples", "2", "--batch-size", "1", "--device", "cpu"]))
     db = create_or_load_db(db_path, 0)
     assert len(new) == 2 and all(db[0][u]["condition"] in level1 for u in new)
+
+
+@pytest.mark.parametrize("use_model", ["pixelcnn", "pixelsnail"])
+def test_train_prior_resume_replays_the_run(tmp_path, use_model):
+    """A 2+1+1-step run equals a 4-step run bit for bit, with channel
+    dropout, mixup and (PixelSNAIL) attention dropout on: each step draws
+    from (seed, step), and a resumed run takes the batch the uninterrupted
+    one would (batch 2 over 7 train grids, 3 batches an epoch: the first
+    resume starts at the third batch of epoch 0, the second at epoch 1)."""
+    rng = np.random.default_rng(6)
+    w = CodeStoreWriter(str(tmp_path / "codes"), 2, [5, 4], backend="file")
+    for i in range(8):
+        w.write_sample(i, [rng.integers(0, 5, (4, 4, 2)).astype(np.int32),
+                           rng.integers(0, 4, (2, 2, 1)).astype(np.int32)])
+    w.close()
+    model_flags = {
+        "pixelcnn": ["--num-resblocks", "2", "--dropout-prob", "0.3"],
+        "pixelsnail": ["--num-blocks", "1", "--num-layers-per-block", "1", "--num-heads", "2",
+                       "--causal-dropout-prob", "0.3", "--attention-dropout-prob", "0.2"],
+    }[use_model]
+    flags = [str(tmp_path / "codes"), "0", "--use-model", use_model, "--model-dim", "8",
+             "--bottleneck-divisor", "2", "--mixup-alpha", "0.4", "--batch-size", "2",
+             "--val-every-steps", "2", "--lr", "1e-3", "--precision", "fp32", "--device", "cpu",
+             *model_flags]
+    whole, opt_w, _ = train_prior.main(train_prior.parse_arguments(
+        flags + ["--max-steps", "4", "--ckpt-dir", str(tmp_path / "whole")]))
+    for n in (2, 3, 4):
+        parts, opt_p, step = train_prior.main(train_prior.parse_arguments(
+            flags + ["--max-steps", str(n), "--ckpt-dir", str(tmp_path / "parts")]
+            + (["--resume"] if n > 2 else [])))
+    assert step == 4 and opt_p.count == opt_w.count == 4
+    assert type(whole).__name__ == {"pixelcnn": "PixelCNN", "pixelsnail": "PixelSNAIL"}[use_model]
+    for k, v in whole.state_dict().items():
+        assert torch.equal(parts.state_dict()[k], v), k
+    for k in ("mu", "nu", "nu_max"):
+        assert torch.equal(opt_p.state_dict()[k], opt_w.state_dict()[k]), k
+    # and the draws are not a constant: another seed trains another model
+    other, _, _ = train_prior.main(train_prior.parse_arguments(
+        flags + ["--max-steps", "4", "--ckpt-dir", str(tmp_path / "other"), "--seed", "7"]))
+    assert any(not torch.equal(other.state_dict()[k], v) for k, v in whole.state_dict().items())
 
 
 def test_port_runs_with_jax_blocked(setup):

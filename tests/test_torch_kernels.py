@@ -1,7 +1,8 @@
 """Kernel wrappers of the port (K1a/K1b codebook lookup, K3 'same'-block
 stack forward and backward, K4 PixelCNN causal segment forward and
 backward, K7 small-channel conv weight gradient, K6 one row of cached
-PixelCNN sampling).
+PixelCNN sampling, narrow and wide, K8 causal flash attention forward and
+backward).
 
 This file imports no jax, so its card tests also run on a machine that has
 only PyTorch and CUDA:
@@ -25,7 +26,12 @@ On the CPU:
     transposed conv's sources one row ahead, the dropout mask, the
     condition's accumulated gradient and the output layouts
     (``kernel_grads_to_union``), against ``causal_block_plain`` and
-    ``causal_stack_bwd_plain``, to 1e-5 (float64 vs fp32).
+    ``causal_stack_bwd_plain``, to 1e-5 (float64 vs fp32);
+  * K8 (csrc/flash_attention*.cu): the tile loops, chunked online softmax,
+    masks and backward ranges, transcribed in float64, against the autograd
+    of ``flash_causal_attention_plain`` to 1e-5, at S = 1, 77 and 130;
+  * the wide K6 (csrc/row_decode_wide.cu): its flat offsets, partial-sum
+    chunks and phase order, transcribed, against ``row_decode_plain``.
 On a card (marker ``gpu``; skipped here with the reason):
   * K1 against ``l2_argmin_plain``: equal indices wherever the two best
     codes are more than 1e-5 apart (relative), at the path's three shapes;
@@ -52,7 +58,14 @@ On a card (marker ``gpu``; skipped here with the reason):
     and 6e-2 (bf16: the reference rounds its gradients to bf16, the kernel
     sums in fp32), bit-identical on a second call; and the causality check
     of ``causal_reach`` on the kernel's forward (impulses) and backward
-    (gradients).
+    (gradients);
+  * K8 against the autograd of ``flash_causal_attention_plain`` at
+    S ∈ {1, 77, 128, 300}, D ∈ {8, 16}: fp32 within 1e-5 of max|ref|, bf16
+    within 1e-2 (both round o and the gradients once), bit-identical on a
+    second call; its causality (gradients and a forward impulse);
+  * the wide K6 against ``row_decode_plain`` at C=256/br=64/K=256
+    conditioned and C=512/br=128/K=512: teacher-forced logits and caches
+    within 1e-5 of max|ref|, free-running indices except near ties.
 """
 import numpy as np
 import pytest
@@ -60,7 +73,14 @@ import torch
 
 from vqvae3d_tpu_torch.models import blocks as tblocks
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
-from vqvae3d_tpu_torch.ops import causal_kernel, conv3d, decode_row, quantizer_ops, stack_kernel
+from vqvae3d_tpu_torch.ops import (
+    causal_kernel,
+    conv3d,
+    decode_row,
+    flash_attention,
+    quantizer_ops,
+    stack_kernel,
+)
 from vqvae3d_tpu_torch.sample.ar_sample import draw_gumbel
 from vqvae3d_tpu_torch.sample.cached_sample import _extract_layers
 
@@ -311,7 +331,9 @@ def _counts():
     return (quantizer_ops.l2_argmin.launches, quantizer_ops.l2_argmin_stats.launches,
             stack_kernel.preact_stack_fused.launches, stack_kernel.preact_stack_bwd.launches,
             conv3d.dw_conv3d.launches, decode_row.row_decode.launches,
-            causal_kernel.causal_stack_fused.launches, causal_kernel.causal_stack_bwd.launches)
+            causal_kernel.causal_stack_fused.launches, causal_kernel.causal_stack_bwd.launches,
+            flash_attention.flash_causal_attention.launches,
+            flash_attention.flash_attention_bwd.launches, decode_row.row_decode.wide_launches)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -351,6 +373,23 @@ def test_cpu_tensors_take_the_plain_versions():
     xg = xu.clone().requires_grad_()
     (causal_kernel.causal_stack_fused(xg, cu_, None, 0.0, uw) ** 2).sum().backward()
     assert torch.isfinite(xg.grad).all()
+    # K8: the dispatcher on CPU tensors is the plain version, autograd included
+    q, k, v = (torch.randn(3, 9, 8, requires_grad=True) for _ in range(3))
+    o = flash_attention.flash_causal_attention(q, k, v, 0.3)
+    np.testing.assert_array_equal(o.detach(), flash_attention.flash_causal_attention_plain(
+        q, k, v, 0.3).detach())
+    o.sum().backward()
+    assert torch.isfinite(q.grad).all()
+    # K6 at a wide width: the plain row
+    st, rows, dfin, sprev = _k6_row(64, 16, 32, 2, 1, 3, False, True, 5, "cpu")
+    assert decode_row.uses_wide_kernel(64, 16, 32, 3)
+    gum = torch.rand(3, 1, 32)
+    got = decode_row.row_decode(st, rows[0], rows[1], None, dfin, sprev, rows[3].clone(), gum,
+                                1, 0.5)
+    want = decode_row.row_decode_plain(st, rows[0], rows[1], None, dfin, sprev, rows[3].clone(),
+                                       gum, 1, 0.5)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
     assert _counts() == before
 
 
@@ -370,6 +409,198 @@ def test_plain_block_is_the_module_math():
             blk(x), stack_kernel.preact_fixup_same(x, w1s[0], w2s[0], w3s[0], sc8[0],
                                                    pad_mode="wrap")
         )
+
+
+def _emulate_k8_fwd(q, k, v, scale, bq=64, bk=64, ch=16):
+    """numpy transcription of csrc/flash_attention.cu (float64): per block of
+    bq query rows, the key tiles up to its diagonal, staged with zero fill
+    past S, the online softmax over chunks of ch keys, masked at j > i."""
+    n_, s_, d_ = q.shape
+    o, lse = np.zeros_like(q), np.zeros((n_, s_))
+    for n in range(n_):
+        for q0 in range(0, s_, bq):
+            rows = np.arange(q0, min(q0 + bq, s_))
+            m = np.full(len(rows), -np.inf)
+            l, acc = np.zeros(len(rows)), np.zeros((len(rows), d_))
+            for k0 in range(0, min(q0 + bq, s_), bk):
+                ks, vs = np.zeros((bk, d_)), np.zeros((bk, d_))
+                ks[:min(bk, s_ - k0)] = k[n, k0:k0 + bk]
+                vs[:min(bk, s_ - k0)] = v[n, k0:k0 + bk]
+                jn = np.minimum(bk, rows - k0 + 1)  # keys j <= i of this tile
+                for c0 in range(0, bk, ch):
+                    act = c0 < jn
+                    j = c0 + np.arange(ch)
+                    sc = (q[n, rows] @ ks[j].T) * scale
+                    sc = np.where(j[None] < jn[:, None], sc, -np.inf)
+                    mn = np.maximum(m, sc.max(1))
+                    alpha = np.exp(np.where(act, m - mn, 0.0))
+                    p = np.where(j[None] < jn[:, None], np.exp(sc - mn[:, None]), 0.0)
+                    l = np.where(act, l * alpha + p.sum(1), l)
+                    acc = np.where(act[:, None], acc * alpha[:, None] + p @ vs[j], acc)
+                    m = np.where(act, mn, m)
+            o[n, rows] = acc / l[:, None]
+            lse[n, rows] = m + np.log(l)
+    return o, lse
+
+
+def _emulate_k8_bwd(q, k, v, o, lse, do, scale, bq=64, bk=64):
+    """numpy transcription of csrc/flash_attention_bwd.cu (float64): delta;
+    dk, dv per key tile over the query tiles from its diagonal, rows
+    max(j - q0, 0) .. min(bq, S - q0); dq per query tile over the key tiles
+    up to its diagonal, keys < min(bk, i - k0 + 1)."""
+    n_, s_, d_ = q.shape
+    delta = (do * o).sum(-1)
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+    for n in range(n_):
+        for k0 in range(0, s_, bk):
+            for j in range(k0, min(k0 + bk, s_)):
+                for q0 in range(k0, s_, bq):
+                    ii = np.arange(max(j - q0, 0), min(bq, s_ - q0)) + q0
+                    p = np.exp((q[n, ii] @ k[n, j]) * scale - lse[n, ii])
+                    ds = p * (do[n, ii] @ v[n, j] - delta[n, ii])
+                    dv[n, j] += p @ do[n, ii]
+                    dk[n, j] += ds @ q[n, ii]
+            dk[n, k0:k0 + bk] *= scale
+        for q0 in range(0, s_, bq):
+            for i in range(q0, min(q0 + bq, s_)):
+                for k0 in range(0, min(q0 + bq, s_), bk):
+                    jj = np.arange(min(bk, i - k0 + 1)) + k0
+                    p = np.exp((k[n, jj] @ q[n, i]) * scale - lse[n, i])
+                    ds = p * (v[n, jj] @ do[n, i] - delta[n, i])
+                    dq[n, i] += ds @ k[n, jj]
+            dq[n, q0:q0 + bq] *= scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("s,d", [(1, 8), (77, 16), (130, 8)])
+def test_k8_tiles_and_masks(s, d):
+    """The tile loops, masks and ranges of K8's forward and backward (a
+    transcription in float64) against the autograd of the plain version (fp32),
+    to 1e-5 of max|ref|: at S = 1, one ragged tile and three tiles."""
+    rng = np.random.default_rng(s + d)
+    q, k, v, g = (rng.standard_normal((2, s, d)) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = _emulate_k8_fwd(q, k, v, scale)
+    got = (o, *_emulate_k8_bwd(q, k, v, o, lse, g, scale))
+    qt, kt, vt = (torch.tensor(a, dtype=torch.float32, requires_grad=True) for a in (q, k, v))
+    ot = flash_attention.flash_causal_attention_plain(qt, kt, vt, scale)
+    want = (ot, *torch.autograd.grad(ot, (qt, kt, vt), torch.tensor(g, dtype=torch.float32)))
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        b = b.detach().numpy()
+        # the scale at least 1 (the inputs' own): at S = 1, dq and dk are zero
+        err, ref = float(np.abs(a - b).max()), max(float(np.abs(b).max()), 1.0)
+        assert err <= 1e-5 * ref, f"{name}: max|d|={err:.3g} > 1e-5 x {ref:.3g}"
+
+
+def _emulate_k6_wide(st, d2h, d2w, cnd, dfin, sprev, vhc, gum, i1, tau, forced=None, nt=512):
+    """numpy transcription of csrc/row_decode_wide.cu (float64): every weight
+    and row tensor read through the kernel's flat offsets, the C -> br and
+    2br -> br products split into nt / br partial sums over the kernel's
+    chunks, phase 1 over the row's positions, phase 2 over its voxels."""
+    f = {k: np.asarray(t, np.float64).ravel() for k, t in st.items()}
+    L, B, s2, br = d2w.shape
+    C, K = dfin.shape[-1], gum.shape[-1]
+    d2h, d2w, vhc = (np.asarray(t, np.float64).ravel().copy() for t in (d2h, d2w, vhc))
+    cnd = None if cnd is None else np.asarray(cnd, np.float64).ravel()
+    dfin, sprev, gum = (np.asarray(t, np.float64).ravel() for t in (dfin, sprev, gum))
+    elu = _elu
+    skip0 = "skw" in f
+    nparts = nt // br
+    cchunk, tchunk = -(-C // nparts), -(-2 * br // nparts)
+    out = np.zeros((B, s2), np.int64)
+    logits = np.zeros((B, s2, K))
+
+    def rowoff(li, b, p):
+        return ((li * B + b) * s2 + p) * br
+
+    for b in range(B):
+        sp = sprev[b * s2 * C:(b + 1) * s2 * C].reshape(s2, C)
+        h = np.tile(f["b_in"][:C], (s2, 1))
+        hw = np.zeros((L, s2, br))
+        for li in range(L):
+            sc = f["sc"][li * 8:li * 8 + 8]
+            u1 = elu((sp if li == 0 else h) + sc[0]) + sc[1]
+            if li == 0 and i1 == 0:
+                u1 = np.zeros_like(u1)
+            w1 = f["hw1"][li * C * br:(li + 1) * C * br].reshape(C, br)
+            tp = u1 @ w1
+            herf = f["herf"][li * br * br:(li + 1) * br * br].reshape(br, br)
+            hw[li] = f["herfb"][li * br:(li + 1) * br] + tp @ herf
+            r = np.array([rowoff(li, b, p) for p in range(s2)])[:, None] + np.arange(br)
+            v1 = elu(tp + d2h[r] + sc[2]) + sc[3]
+            vp = vhc[r].copy()
+            vhc[r] = v1
+            b2 = np.zeros((s2, br))
+            for p in range(s2):
+                for j1 in range(3):
+                    qq = p + j1 - 1
+                    if 0 <= qq < s2:
+                        o0 = ((li * 2 + 0) * 3 + j1) * br * br
+                        o1 = ((li * 2 + 1) * 3 + j1) * br * br
+                        b2[p] += vp[qq] @ f["hwk"][o0:o0 + br * br].reshape(br, br)
+                        b2[p] += v1[qq] @ f["hwk"][o1:o1 + br * br].reshape(br, br)
+            cn = 0.0 if cnd is None else cnd[r]
+            w3v1 = elu(b2 + cn + sc[4]) + sc[5]
+            acc = f["hb3"][li * C:(li + 1) * C] + w3v1 @ f["hw3"][li * br * C:(li + 1) * br * C] \
+                .reshape(br, C)
+            h = acc + (sp @ f["hskw"].reshape(C, C) if li == 0 and skip0 else h)
+        sv = np.zeros(C)
+        vc = np.zeros((L, br))
+        for i2 in range(s2):
+            w = f["b_in"][:C].copy()
+            for li in range(L):
+                sc = f["sc"][li * 8:li * 8 + 8]
+                u = elu((sv if li == 0 else w) + sc[0]) + sc[1]
+                if li == 0 and i2 == 0:
+                    u = np.zeros(C)
+                w1 = f["w1"][li * C * br:(li + 1) * C * br].reshape(C, br)
+                t = sum(u[pp * cchunk:min(C, (pp + 1) * cchunk)]
+                        @ w1[pp * cchunk:min(C, (pp + 1) * cchunk)] for pp in range(nparts))
+                r = rowoff(li, b, i2) + np.arange(br)
+                v = elu(t + d2w[r] + hw[li, i2] + sc[2]) + sc[3]
+                x = np.concatenate([vc[li], v])
+                wk = f["wk"][li * 2 * br * br:(li + 1) * 2 * br * br].reshape(2 * br, br)
+                b2 = sum(x[pp * tchunk:min(2 * br, (pp + 1) * tchunk)]
+                         @ wk[pp * tchunk:min(2 * br, (pp + 1) * tchunk)] for pp in range(nparts))
+                cn = 0.0 if cnd is None else cnd[r]
+                w3v = elu(b2 + cn + sc[4]) + sc[5]
+                vc[li] = v
+                acc = f["b3"][li * C:(li + 1) * C] + w3v @ f["w3"][li * br * C:(li + 1) * br * C] \
+                    .reshape(br, C)
+                w = acc + (sv @ f["skw"].reshape(C, C) if li == 0 and skip0 else w)
+            tot = dfin[(b * s2 + i2) * C:(b * s2 + i2 + 1) * C] + h[i2] + w
+            lg = f["b_out"] + tot @ f["w_out"].reshape(C, K)
+            logits[b, i2] = lg
+            if forced is not None:
+                idx = int(forced[b, i2])
+            else:
+                z = lg / tau + gum[(i2 * B + b) * K:(i2 * B + b + 1) * K]
+                idx = int(np.argmax(z)) if np.isfinite(lg).all() else -1
+            out[b, i2] = idx
+            sv = f["w_in"][max(idx, 0) * C:(max(idx, 0) + 1) * C] + f["b_in"][:C]
+    return out, vhc.reshape(L, B, s2, br), logits
+
+
+@pytest.mark.parametrize("c,br,k,cond,s2", [(64, 16, 32, True, 3), (96, 32, 40, False, 2)])
+def test_k6_wide_offsets_and_partials(c, br, k, cond, s2):
+    """The wide K6's flat offsets, partial-sum chunks (C and 2br over
+    512 / br parts) and phase order, transcribed, against row_decode_plain:
+    teacher-forced logits and caches within 1e-5 of max|ref|, free-running
+    indices equal."""
+    st, rows, dfin, sprev = _k6_row(c, br, k, 3, 2, s2, cond, True, c + br, "cpu")
+    d2h, d2w, cnd, vhc0 = rows
+    cnd = cnd if cond else None
+    gum = draw_gumbel((s2, 2, k), torch.Generator().manual_seed(4), "cpu")
+    forced = torch.randint(0, k, (2, s2), generator=torch.Generator().manual_seed(5))
+    for frc in (forced, None):
+        vp = vhc0.clone()
+        want = decode_row.row_decode_plain(st, d2h, d2w, cnd, dfin, sprev, vp, gum, 2, 0.5,
+                                           forced_idx=frc)
+        idx, vh, lg = _emulate_k6_wide(st, d2h, d2w, cnd, dfin, sprev, vhc0, gum, 2, 0.5, frc)
+        np.testing.assert_array_equal(idx, want[0].numpy())
+        assert np.abs(vh - vp.numpy()).max() <= 1e-5 * float(vp.abs().max())
+        if frc is not None:
+            assert np.abs(lg - want[2].numpy()).max() <= 1e-5 * float(want[2].abs().max())
 
 
 @pytest.fixture
@@ -800,3 +1031,93 @@ def test_k4_is_causal_on_card(cuda_device):
                                         xg, retain_graph=True)
             dep = gx[0].abs().reshape(*dims, 3, c).sum(-1).permute(3, 0, 1, 2).cpu() > 0
             assert not (dep & ~reach[:, so]).any(), f"gradient of {pos} stream {so} leaks"
+
+
+def _qkv(n, s, d, seed, device, dtype):
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(n, s, d, generator=gen).to(device, dtype) for _ in range(3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("s", [1, 77, 128, 300])
+def test_k8_kernel_matches_plain_on_card(cuda_device, s, d, dtype):
+    """K8 forward and backward against the autograd of the plain version:
+    fp32 within 1e-5 of max|ref| (the same fp32 math summed in another
+    order), bf16 within 1e-2 (both round o and the gradients to bf16 once; a
+    flip of that rounding is 2^-8 of the value); a second call bit-identical."""
+    q, k, v = _qkv(6, s, d, s * 10 + d, cuda_device, dtype)
+    g = _qkv(6, s, d, s * 10 + d + 1, cuda_device, dtype)[0]
+    scale = d ** -0.5
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+
+    def run(fn):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fn(qq, kk, vv, scale)
+        return (o.detach(), *torch.autograd.grad(o, (qq, kk, vv), g))
+
+    fwd, bwd = flash_attention.flash_causal_attention.launches, flash_attention.flash_attention_bwd.launches
+    got, again = run(flash_attention.flash_causal_attention), run(flash_attention.flash_causal_attention)
+    want = run(flash_attention.flash_causal_attention_plain)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_causal_attention.launches == fwd + 2
+    assert flash_attention.flash_attention_bwd.launches == bwd + 2
+    for name, a, b, r in zip(("o", "dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype and torch.equal(a, b), f"{name} not bit-identical"
+        err, scale_ = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+        assert err <= tol * scale_, f"{name}: max|d|={err:.3g} > {tol} x {scale_:.3g}"
+
+
+@pytest.mark.gpu
+def test_k8_is_causal_on_card(cuda_device):
+    """The gradient of query row i is exactly zero on every key and value row
+    after i, and a key or value after i never moves o[i]."""
+    q, k, v = _qkv(2, 150, 8, 3, cuda_device, torch.float32)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    o = flash_attention.flash_causal_attention(qq, kk, vv, 8 ** -0.5)
+    for i in (0, 63, 64, 149):
+        dq, dk, dv = torch.autograd.grad(o[:, i].sum(), (qq, kk, vv), retain_graph=True)
+        assert not dk[:, i + 1:].any() and not dv[:, i + 1:].any(), f"row {i} sees its future"
+        assert dq[:, i + 1:].eq(0).all() and dv[:, i].abs().sum() > 0
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 100:] += 1.0
+    v2[:, 100:] -= 1.0
+    with torch.no_grad():
+        base = flash_attention.flash_causal_attention(q, k, v, 8 ** -0.5)
+        moved = flash_attention.flash_causal_attention(q, k2, v2, 8 ** -0.5)
+    assert torch.equal(base[:, :100], moved[:, :100])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,br,k,b,cond,s2", [(256, 64, 256, 3, True, 8),
+                                              (512, 128, 512, 4, False, 2)])
+def test_k6_wide_kernel_matches_plain_on_card(cuda_device, c, br, k, b, cond, s2):
+    """The wide K6 (the mid and bottom priors' widths, a few layers) against
+    ``row_decode_plain``: teacher-forced logits and caches within 1e-5 of
+    max|ref|, free-running indices equal except at near ties."""
+    st, rows, dfin, sprev = _k6_row(c, br, k, 4, b, s2, cond, True, c + b, cuda_device)
+    assert decode_row.uses_wide_kernel(c, br, k, s2)
+    d2h, d2w, cnd, vhc0 = rows
+    cnd = cnd if cond else None
+    gum = draw_gumbel((s2, b, k), torch.Generator(cuda_device).manual_seed(1), cuda_device)
+    forced = torch.randint(0, k, (b, s2), device=cuda_device)
+    before = decode_row.row_decode.wide_launches
+    for i1 in (0, 3):
+        sp = sprev if i1 else torch.zeros_like(sprev)
+        vk, vp = vhc0.clone(), vhc0.clone()
+        idx_k, _, lg_k = decode_row.row_decode(st, d2h, d2w, cnd, dfin, sp, vk, gum, i1, 0.1,
+                                               forced_idx=forced)
+        _, _, lg_p = decode_row.row_decode_plain(st, d2h, d2w, cnd, dfin, sp, vp, gum, i1, 0.1,
+                                                 forced_idx=forced)
+        torch.cuda.synchronize()
+        assert torch.equal(idx_k, forced.int())
+        for name, got, want in (("logits", lg_k, lg_p), ("vhc", vk, vp)):
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            assert err <= 1e-5 * scale, f"{name}: max|d|={err:.3g} > 1e-5 x {scale:.3g}"
+        free, _ = decode_row.row_decode(st, d2h, d2w, cnd, dfin, sp, vhc0.clone(), gum, i1, 0.1)
+        _, _, lg_path = decode_row.row_decode_plain(st, d2h, d2w, cnd, dfin, sp, vhc0.clone(),
+                                                    gum, i1, 0.1, forced_idx=free)
+        ties, beyond = decode_row.sampling_disagreements(lg_path, gum, 0.1, free)
+        assert beyond == 0, f"{beyond} indices disagree beyond a near tie ({ties} ties)"
+    assert decode_row.row_decode.wide_launches == before + 4

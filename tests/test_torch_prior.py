@@ -167,7 +167,7 @@ def test_prior_checkpoint_and_config_interchange(tmp_path):
     fields = tiny_config(True)
     _, _, model = jax_and_port_models(fields, seed=50)
     save_prior(tmp_path / "ck", model, step=7)
-    loaded, cfg = load_prior(tmp_path / "ck")
+    loaded, cfg = load_prior(tmp_path / "ck", device="cpu")
     assert cfg == model.config
     for k, v in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v)
@@ -177,7 +177,7 @@ def test_prior_checkpoint_and_config_interchange(tmp_path):
     (tmp_path / "ck" / "step_7_config.json").write_text(
         _config_to_json(JConfig(**fields, dtype=jnp.float32)))
     assert "scan_stacks" in json.loads((tmp_path / "ck" / "step_7_config.json").read_text())
-    assert load_prior(tmp_path / "ck")[1] == cfg
+    assert load_prior(tmp_path / "ck", device="cpu")[1] == cfg
 
 
 def test_training_only_options_raise():
@@ -187,8 +187,10 @@ def test_training_only_options_raise():
         PixelCNN(PixelCNNConfig(**tiny_config(False), use_pre_activation=False))
     with pytest.raises(NotImplementedError):
         PixelCNN(PixelCNNConfig(**tiny_config(False), use_concat_activation=True))
-    with pytest.raises(NotImplementedError):
-        train_prior.parse_arguments(["codes", "0", "--use-model", "pixelsnail"])
+    # PixelSNAIL trains (tests/test_torch_pixelsnail.py): its flags parse
+    args = train_prior.parse_arguments(["codes", "0", "--use-model", "pixelsnail",
+                                        "--num-blocks", "3", "--attention-dropout-prob", "0"])
+    assert (args.num_blocks, args.attention_dropout_prob) == (3, 0.0)
     with pytest.raises(NotImplementedError):
         train_prior.main(train_prior.parse_arguments(["codes", "0", "--multihost"]))
     model = PixelCNN(PixelCNNConfig(**{**tiny_config(False), "dropout_prob": 0.5}))

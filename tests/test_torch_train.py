@@ -230,5 +230,5 @@ def test_train_state_checkpoint_round_trip(tmp_path):
     for (k, a), b in zip(model.state_dict().items(), model2.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
     # the serving side reads the same directory
-    served, cfg2 = checkpoint.load_model(tmp_path)
+    served, cfg2 = checkpoint.load_model(tmp_path, device="cpu")
     assert cfg2 == cfg and not bool(served.encoder.quantize[0].first_pass)

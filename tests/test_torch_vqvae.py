@@ -194,7 +194,7 @@ def test_train_mode_raises_and_checkpoint_round_trips(tmp_path):
     assert not bool(model.encoder.quantize[0].first_pass)
     assert not torch.equal(model.encoder.quantize[0].embed, embed0)
     save_checkpoint(tmp_path, model.state_dict(), cfg, step=5)
-    loaded, cfg2 = load_model(tmp_path)
+    loaded, cfg2 = load_model(tmp_path, device="cpu")
     assert cfg2 == cfg
     with torch.inference_mode():
         a, _ = model(x)

@@ -9,8 +9,9 @@ on-disk formats (NRRD, code store, sample DB) stay interchangeable with the
 JAX package's.
 
 Scope so far: stage-1 serving (encode → quantize → decode), the stage-1
-train step with its CLI (``cli/train_vqvae.py``), and sampling of code grids
-from a PixelCNN prior (``sample/``, ``cli/sample_embeddings.py``).
+train step with its CLI (``cli/train_vqvae.py``), sampling of code grids
+from a PixelCNN prior of any width (``sample/``, ``cli/sample_embeddings.py``),
+and training of the PixelCNN and PixelSNAIL priors (``cli/train_prior.py``).
 
   * Activations use the reference torch layout (B, C, H, W, D); weights use
     the reference torch state_dict keys and shapes (O, I, kH, kW, kD).
@@ -18,8 +19,10 @@ from a PixelCNN prior (``sample/``, ``cli/sample_embeddings.py``).
     under ``csrc/``, built at first use by ``ops/_build.py``: K1a/K1b
     (codebook lookup, lookup + EMA statistics, ``ops/quantizer_ops.py``),
     K3 (the 'same'-block stack forward and backward, ``ops/stack_kernel.py``),
-    K7 (small-channel conv weight gradient, ``ops/conv3d.py``) and K6 (one
-    row of cached PixelCNN sampling, ``ops/decode_row.py``). Each
+    K7 (small-channel conv weight gradient, ``ops/conv3d.py``), K6 (one
+    row of cached PixelCNN sampling, narrow and wide, ``ops/decode_row.py``),
+    K4 (PixelCNN's causal segment, ``ops/causal_kernel.py``) and K8 (causal
+    flash attention, ``ops/flash_attention.py``). Each
     wrapper runs its plain PyTorch version on a CPU tensor and launches its
     kernel (or raises) on a CUDA tensor.
   * The TPU layout devices of the JAX package (folded I/O and folded loss,

@@ -16,24 +16,31 @@ package reads the other's config. Orbax checkpoints of the JAX package are
 not read here: turning one into a state_dict needs jax
 (``convert.jax_variables_to_state_dict`` on ``jax.device_get(variables)``).
 
-Prior checkpoints use the same directory format: ``save_prior`` writes a
-PixelCNN's state_dict and config, ``save_prior_train_state`` adds the step
-and the optimizer state as a train state does, and ``load_prior`` rebuilds
-the model from either (so a ``train_prior`` run's directory serves
-``sample_embeddings``). The
-prior's config JSON is the JAX ``PixelCNNConfig``'s; its TPU layout switches
-(``scan_stacks``, ``remat_scan``) are accepted and dropped on load.
+Prior checkpoints use the same directory format, for either prior:
+``save_prior`` writes a PixelCNN's or a PixelSNAIL's state_dict and config,
+``save_prior_train_state`` adds the step and the optimizer state as a train
+state does, and ``load_prior`` rebuilds the model from either (so a
+``train_prior`` run's directory serves ``sample_embeddings``). The prior's
+config JSON is the JAX ``PixelCNNConfig``'s or ``PixelSNAILConfig``'s, with
+no extra key, so the JAX package reads it; its fields name the model class
+(``prior_class``: a PixelSNAIL config has ``num_blocks``, a PixelCNN config
+``num_resblocks``). The PixelCNN's TPU layout switches (``scan_stacks``,
+``remat_scan``) are accepted and dropped on load.
+
+``load_model`` and ``load_prior`` put the model on the card unless the
+caller names another device.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
+from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL, PixelSNAILConfig
 from vqvae3d_tpu_torch.models.vqvae import VQVAE, VQVAEConfig
 
 PRIOR_LAYOUT_FIELDS = ("scan_stacks", "remat_scan")  # JAX-only, dropped on load
@@ -87,7 +94,7 @@ def load_config(path, step: Optional[int] = None) -> VQVAEConfig:
     return config_from_json((path / f"step_{_step(path, step)}_config.json").read_text())
 
 
-def load_model(path, device="cpu", step: Optional[int] = None) -> Tuple[VQVAE, VQVAEConfig]:
+def load_model(path, device="cuda", step: Optional[int] = None) -> Tuple[VQVAE, VQVAEConfig]:
     """Rebuild the model from its config and load its state_dict (strict)."""
     path = Path(path)
     step = _step(path, step)
@@ -128,32 +135,46 @@ def restore_train_state(path, model, optimizer, step: Optional[int] = None) -> i
     return int(train["step"])
 
 
-def save_prior(path, model: PixelCNN, step: int = 0) -> None:
-    """Write a PixelCNN prior's state_dict and config as step ``step``."""
+Prior = Union[PixelCNN, PixelSNAIL]
+
+
+def prior_class(fields) -> Tuple[type, type]:
+    """(model class, config class) of a prior config's field names."""
+    if "num_blocks" in fields:
+        return PixelSNAIL, PixelSNAILConfig
+    if "num_resblocks" in fields:
+        return PixelCNN, PixelCNNConfig
+    raise ValueError(f"not a prior config: fields {sorted(fields)}")
+
+
+def save_prior(path, model: Prior, step: int = 0) -> None:
+    """Write a prior's state_dict and config as step ``step``."""
     save_checkpoint(path, model.state_dict(), model.config, step)
 
 
-def save_prior_train_state(path, model: PixelCNN, optimizer, step: int,
+def save_prior_train_state(path, model: Prior, optimizer, step: int,
                            max_to_keep: Optional[int] = None) -> None:
     """``save_train_state`` for a prior: its state_dict and config (what
     ``save_prior`` writes), the step and the optimizer state."""
     save_train_state(path, model, optimizer, model.config, step, max_to_keep)
 
 
-def restore_prior_train_state(path, model: PixelCNN, optimizer,
+def restore_prior_train_state(path, model: Prior, optimizer,
                               step: Optional[int] = None) -> int:
     """Load a prior's train state into ``model`` and ``optimizer`` (in
     place); returns its step."""
     return restore_train_state(path, model, optimizer, step)
 
 
-def load_prior(path, device="cpu", step: Optional[int] = None) -> Tuple[PixelCNN, PixelCNNConfig]:
-    """Rebuild a PixelCNN prior from its config and load its state_dict (strict)."""
+def load_prior(path, device="cuda", step: Optional[int] = None):
+    """Rebuild a prior (PixelCNN or PixelSNAIL, by its config's fields) from
+    its config and load its state_dict (strict): (model, config)."""
     path = Path(path)
     step = _step(path, step)
-    config = config_from_json((path / f"step_{step}_config.json").read_text(), PixelCNNConfig,
-                              drop=PRIOR_LAYOUT_FIELDS)
-    model = PixelCNN(config)
+    text = (path / f"step_{step}_config.json").read_text()
+    model_cls, config_cls = prior_class(json.loads(text))
+    config = config_from_json(text, config_cls, drop=PRIOR_LAYOUT_FIELDS)
+    model = model_cls(config)
     model.load_state_dict(torch.load(path / f"step_{step}.pt", map_location="cpu",
                                      weights_only=True))
     return model.to(device).eval(), config

@@ -30,6 +30,7 @@ from vqvae3d_tpu_torch.data.sample_db import (
     get_conditions,
     save_db,
 )
+from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN
 from vqvae3d_tpu_torch.sample.ar_sample import ancestral_sample
 from vqvae3d_tpu_torch.sample.cached_sample import make_cached_sampler
 
@@ -64,11 +65,14 @@ def main(args):
     """Sample and store the grids; returns their new uuids."""
     if args.use_model == "pixelsnail":
         raise NotImplementedError("PixelSNAIL sampling is not ported yet (ROADMAP Queue 1, "
-                                  "item 10: sample/cached_snail.py)")
+                                  "slice 5b: sample/cached_snail.py)")
     device = resolve_device(args.device)
     dims = tuple(args.size)
     db = create_or_load_db(args.db_path, args.level)
     model, config = load_prior(args.model_checkpoint, device)
+    if not isinstance(model, PixelCNN):
+        raise NotImplementedError("the checkpoint holds a PixelSNAIL prior: PixelSNAIL "
+                                  "sampling is not ported yet (ROADMAP Queue 1, slice 5b)")
     has_cond_pool = bool(db.get(args.level + 1))
     if config.use_conditioning != has_cond_pool:
         raise ValueError("a conditioned prior needs coarser-level samples in the DB, and an "

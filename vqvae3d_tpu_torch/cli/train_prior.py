@@ -6,24 +6,35 @@ two-phase parsing on ``--use-model``, the level's ``num_embeddings``
 (input_dim, condition_dim) read from the code store, seed 42, validation
 every ``--val-every-steps`` (0: every half train epoch), the last checkpoint
 in ``--ckpt-dir`` and the best on ``val_loss_mean`` under ``--ckpt-dir``/best
-(``checkpoint.save_prior_train_state``; ``load_prior`` and
-``sample_embeddings`` read either). ``--resume`` continues from the newest
-checkpoint there (params, optimizer state, step; the dropout and mixup
-generator is reseeded from ``--seed`` and the step). ``--profile-dir`` writes
-a ``torch.profiler`` trace of steps 10-15. ``--use-model pixelsnail`` and the
-multi-host flags raise ``NotImplementedError``: PixelSNAIL and multi-GPU
-training are not ported yet. ``--scan-stacks`` / ``--remat-scan`` are the
-JAX package's TPU layout switches, accepted and ignored.
+(``checkpoint.save_prior_train_state``; ``load_prior`` reads either).
+``--use-model`` picks the PixelCNN or the PixelSNAIL and its config's flags
+(PixelSNAIL: ``--num-blocks``, ``--num-layers-per-block``, ``--num-heads``,
+``--causal-dropout-prob``, ``--attention-dropout-prob`` …). Each step draws
+its dropout masks and mixup from a generator seeded from (``--seed`` + 1,
+step) (``prior_train.step_generator``). ``--resume`` continues from the
+newest checkpoint there (params, optimizer state, step) at the batch the
+uninterrupted run would take next, so a resumed run replays the
+uninterrupted one (the JAX CLI restarts its loader at epoch 0).
+``--profile-dir`` writes a ``torch.profiler`` trace of steps 10-15. The
+multi-host flags raise ``NotImplementedError``: multi-GPU training is not
+ported yet. ``--scan-stacks`` / ``--remat-scan`` are the JAX package's TPU
+layout switches of the PixelCNN, accepted and ignored.
 
-The published top prior (reference slurm-jobs/train_pixelcnn_top.job):
+The published top prior (reference slurm-jobs/train_pixelcnn_top.job) and
+the bottom PixelSNAIL (jobs/train_pixelsnail_bottom.sh):
 
     python -m vqvae3d_tpu_torch.cli.train_prior codes/ 0 --use-model pixelcnn \\
         --model-dim 16 --num-resblocks 50 --bottleneck-divisor 4 \\
         --dropout-prob 0 --batch-size 1
+    python -m vqvae3d_tpu_torch.cli.train_prior codes/ 2 --use-model pixelsnail \\
+        --model-dim 512 --num-blocks 3 --num-layers-per-block 5 \\
+        --causal-dropout-prob 0.5 --attention-dropout-prob 0 --mixup-alpha 0.4 \\
+        --use-conditioning False --batch-size 6
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 from pathlib import Path
 
 import numpy as np
@@ -45,26 +56,26 @@ from vqvae3d_tpu_torch.cli.extract_embeddings import resolve_device
 from vqvae3d_tpu_torch.data.code_store import CodeDataModule
 from vqvae3d_tpu_torch.data.device_feed import device_prefetch
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
+from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL, PixelSNAILConfig
 from vqvae3d_tpu_torch.train.prior_train import make_prior_eval_step, make_prior_train_step
 from vqvae3d_tpu_torch.train.state import AMSGrad
 from vqvae3d_tpu_torch.utils.profiling import StepTimer
 
-MODELS = ("pixelcnn", "pixelsnail")
+MODELS = {"pixelcnn": (PixelCNN, PixelCNNConfig), "pixelsnail": (PixelSNAIL, PixelSNAILConfig)}
 CONFIG_SKIP = ("dtype", "input_dim", "condition_dim")
 
 
 def parse_arguments(argv=None):
     pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--use-model", choices=MODELS, default="pixelcnn")
+    pre.add_argument("--use-model", choices=list(MODELS), default="pixelcnn")
     known, _ = pre.parse_known_args(argv)
-    if known.use_model != "pixelcnn":
-        raise NotImplementedError(f"--use-model {known.use_model}: not ported yet")
 
     parser = argparse.ArgumentParser(description=__doc__, parents=[pre])
-    parser = add_dataclass_args(parser, PixelCNNConfig, skip=CONFIG_SKIP)
-    for name in PRIOR_LAYOUT_FIELDS:
-        parser.add_argument("--" + name.replace("_", "-"), type=booltype, default=True,
-                            help="the JAX package's TPU layout switch; ignored")
+    parser = add_dataclass_args(parser, MODELS[known.use_model][1], skip=CONFIG_SKIP)
+    if known.use_model == "pixelcnn":
+        for name in PRIOR_LAYOUT_FIELDS:
+            parser.add_argument("--" + name.replace("_", "-"), type=booltype, default=True,
+                                help="the JAX package's TPU layout switch; ignored")
     parser.add_argument("dataset_path", type=Path)
     parser.add_argument("level", type=int, help="hierarchy level to train (0=finest)")
     parser.add_argument("--batch-size", type=int, default=16)
@@ -96,11 +107,12 @@ def main(args):
     input_dim, condition_dim = dm.num_embeddings
     use_cond = args.use_conditioning in ("True", "true", "1") and condition_dim > 0
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    model_cls, config_cls = MODELS[args.use_model]
     config = dataclass_from_args(
-        PixelCNNConfig, args, skip=CONFIG_SKIP,
+        config_cls, args, skip=CONFIG_SKIP,
         overrides={"input_dim": input_dim, "condition_dim": condition_dim if use_cond else 0,
                    "dtype": dtype})
-    model = PixelCNN(config, generator=torch.Generator().manual_seed(args.seed), device=device)
+    model = model_cls(config, generator=torch.Generator().manual_seed(args.seed), device=device)
     ckpt_dir = args.ckpt_dir or f"ckpts/{args.use_model}_level{args.level}"
     print(f"model: {args.use_model}; input_dim={input_dim} "
           f"condition_dim={config.condition_dim}; device {device}; "
@@ -111,14 +123,16 @@ def main(args):
         step = restore_prior_train_state(ckpt_dir, model, optimizer)
         print(f"resumed from step {step}")
 
-    generator = torch.Generator(device).manual_seed(args.seed + 1 + step)
-    train_step = make_prior_train_step(model, optimizer, generator)
+    train_step = make_prior_train_step(model, optimizer, seed=args.seed + 1)
     eval_step = make_prior_eval_step(model)
     logger = MetricLogger(ckpt_dir)
     val_every = args.val_every_steps or max(1, len(dm.train_indices) // (2 * args.batch_size))
     best_val = float("inf")
     timer = StepTimer(device)
-    epoch, profiler = 0, None
+    # where the uninterrupted run would be: whole batches only, so an epoch
+    # is len(train) // batch_size steps
+    epoch, skip = divmod(step, len(dm.train_indices) // args.batch_size)
+    profiler = None
 
     def clean(batch):
         if not use_cond:
@@ -126,7 +140,9 @@ def main(args):
         return batch
 
     while step < args.max_steps:
-        for batch in device_prefetch(dm.train_dataloader(epoch=epoch), device):
+        batches = itertools.islice(dm.train_dataloader(epoch=epoch), skip, None)
+        skip = 0
+        for batch in device_prefetch(batches, device):
             with timer:
                 log = train_step(clean(batch))
             step += 1

@@ -9,9 +9,10 @@ numpy arrays (``jax.device_get(variables)`` on the JAX side) and imports no
 jax. The quantizer's ``initialized`` flag becomes ``first_pass = not
 initialized``.
 
-``jax_pixelcnn_params_to_state_dict`` does the same for a PixelCNN prior: it
-is the exact inverse of ``vqvae3d_tpu/train/checkpoint.py::
-convert_reference_pixelcnn_state_dict`` and takes the ``params`` tree.
+``jax_pixelcnn_params_to_state_dict`` and ``jax_pixelsnail_params_to_state_dict``
+do the same for the priors: each is the exact inverse of
+``vqvae3d_tpu/train/checkpoint.py::convert_reference_pixelcnn_state_dict``
+(``convert_reference_pixelsnail_state_dict``) and takes the ``params`` tree.
 """
 from __future__ import annotations
 
@@ -111,7 +112,8 @@ def jax_variables_to_state_dict(variables: Dict[str, Any], config) -> Dict[str, 
 
 
 def _causal_block(tree, dst: str, sd: Dict[str, np.ndarray]) -> None:
-    """One PreActFixupCausalResBlock (``_convert_causal_block``'s inverse)."""
+    """One PreActFixupCausalResBlock, its skip and aux convs included
+    (``_convert_causal_block``'s inverse)."""
     for name in ("1a", "1b", "2a", "2b", "3a", "3b", "4"):
         sd[f"{dst}.bias{name}"] = np.asarray(tree[f"bias{name}"])
     sd[f"{dst}.scale"] = np.asarray(tree["scale"])
@@ -125,10 +127,16 @@ def _causal_block(tree, dst: str, sd: Dict[str, np.ndarray]) -> None:
     if "condition" in tree:
         sd[f"{dst}.condition.weight"] = _j2t_conv(tree["condition"]["kernel"])
         sd[f"{dst}.condition.bias"] = np.asarray(tree["condition"]["bias"])
-    if "skip_conv" in tree:
-        for stream in streams:
-            sd[f"{dst}.skip_conv.{stream}.weight"] = _j2t_conv(tree["skip_conv"][stream]["kernel"])
-            sd[f"{dst}.skip_conv.{stream}.bias"] = np.asarray(tree["skip_conv"][stream]["bias"])
+    for conv in ("skip_conv", "aux"):
+        _biased_streams(tree, conv, f"{dst}.{conv}", sd)
+
+
+def _biased_streams(tree, conv: str, dst: str, sd: Dict[str, np.ndarray]) -> None:
+    """A CausalConv3dAdd with bias, when ``tree`` has it."""
+    if conv in tree:
+        for stream in ("depth_conv", "height_conv", "width_conv"):
+            sd[f"{dst}.{stream}.weight"] = _j2t_conv(tree[conv][stream]["kernel"])
+            sd[f"{dst}.{stream}.bias"] = np.asarray(tree[conv][stream]["bias"])
 
 
 def jax_pixelcnn_params_to_state_dict(params: Dict[str, Any], config) -> Dict[str, torch.Tensor]:
@@ -141,4 +149,26 @@ def jax_pixelcnn_params_to_state_dict(params: Dict[str, Any], config) -> Dict[st
         sd[f"{name}.bias"] = np.asarray(params[name]["bias"])
     for i in range(config.num_resblocks + 1):
         _causal_block(params[f"layer_{i}"], f"layers.{i}", sd)
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def jax_pixelsnail_params_to_state_dict(params: Dict[str, Any],
+                                        config) -> Dict[str, torch.Tensor]:
+    """A JAX PixelSNAIL ``params`` tree (nested dicts of numpy arrays) -> the
+    port's state_dict under the reference torch keys: the exact inverse of
+    ``vqvae3d_tpu/train/checkpoint.py::convert_reference_pixelsnail_state_dict``
+    (``block_i/causal_j`` -> ``layers.i.causal_layers.j``)."""
+    sd: Dict[str, np.ndarray] = {}
+    for name in ("parse_input", "parse_output") + (
+            ("embed_condition",) if config.use_conditioning else ()):
+        sd[f"{name}.weight"] = _j2t_conv(params[name]["kernel"])
+        sd[f"{name}.bias"] = np.asarray(params[name]["bias"])
+    _causal_block(params["to_causal"], "to_causal", sd)
+    for i in range(config.num_blocks):
+        blk, dst = params[f"block_{i}"], f"layers.{i}"
+        for j in range(config.num_layers_per_block):
+            _causal_block(blk[f"causal_{j}"], f"{dst}.causal_layers.{j}", sd)
+        for proj in ("key_value_proj", "query_proj"):
+            _biased_streams(blk, proj, f"{dst}.{proj}", sd)
+        _causal_block(blk["out_proj"], f"{dst}.out_proj", sd)
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

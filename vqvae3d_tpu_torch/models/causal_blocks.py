@@ -17,12 +17,32 @@ others) and then runs VALID. ``PreActFixupCausalResBlock`` computes in its
 activations' dtype, as the JAX module does with ``dtype`` set, and in
 training applies channel dropout (torch ``Dropout3d``: one keep decision per
 (sample, channel) and stream, kept values divided by 1 − p, after
-``branch_conv2`` and before the condition add). ``aux`` inputs,
+``branch_conv2`` and before the condition add). With ``use_aux`` a block
+takes an ``aux`` stack (PixelSNAIL's attention output, ``branch`` channels):
+a 1x1x1 ``CausalConv3dAdd`` with bias over elu(aux), added after ExpandRF.
 ``concat_activation`` and ``FixupCausalResBlock`` raise
 ``NotImplementedError``. Module attributes follow the reference torch tree,
 so ``state_dict`` keys are the reference checkpoint keys
 (``branch_conv1.depth_conv.weight``, ``expand_rf.height_conv.bias``,
-``condition.weight``, ``skip_conv.width_conv.bias``, ``bias1a`` …).
+``condition.weight``, ``skip_conv.width_conv.bias``, ``aux.depth_conv.weight``,
+``bias1a`` …).
+
+PixelSNAIL's parts (JAX ``causal_blocks.py:666-920``):
+
+  * ``CausalAttention``: multi-head causal self-attention over the raster
+    sequence, per stream, no parameters. Its path is decided from the device,
+    the dropout and S before any launch (``attention_path``): with attention
+    dropout off, kernel K8 (``ops/flash_attention.py``) on a card and the
+    dense path at the JAX dense path's rounding on the CPU (what the JAX
+    package runs off the TPU); with dropout on, the dense path with the
+    reference's pre-mask logit dropout (kept logits / (1 − p), dropped ones
+    −1e3) up to S = 2048 on either device (as JAX does on the TPU too), and
+    beyond that on a card a ``NotImplementedError`` naming kernel K5
+    (``flash_causal_dropout_attention``), which is not ported yet.
+  * ``CausalAttentionPixelBlock``: N causal blocks, then attention keyed on
+    [stack | out | background] and queried on [out | background], with the
+    reference's swapped roles, then an ``out_proj`` block with the attention
+    as ``aux``.
 """
 from __future__ import annotations
 
@@ -41,6 +61,7 @@ from vqvae3d_tpu_torch.ops.conv3d import (
     xavier_normal_init,
     zeros_init,
 )
+from vqvae3d_tpu_torch.ops.flash_attention import flash_causal_attention
 
 Stack = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 SCALARS = ("1a", "1b", "2a", "2b", "3a", "3b", "4")
@@ -181,8 +202,6 @@ class PreActFixupCausalResBlock(nn.Module):
         super().__init__()
         if concat_activation:
             raise NotImplementedError("concat_activation is not ported")
-        if use_aux:
-            raise NotImplementedError("aux inputs are not ported")
         self.dropout_prob = dropout_prob
         branch = max(max(in_channels, out_channels) // bottleneck_divisor, 1)
         for n in SCALARS:
@@ -191,6 +210,8 @@ class PreActFixupCausalResBlock(nn.Module):
         self.branch_conv1 = CausalConv3dAdd(in_channels, branch, 1, mask, False,
                                             fixup_branch_init(num_layers))
         self.expand_rf = ExpandRFConv(branch)
+        self.aux = (CausalConv3dAdd(branch, branch, 1, "B", True, torch_conv_default_init())
+                    if use_aux else None)
         self.branch_conv2 = CausalConv3dAdd(branch, branch, kernel_size, "B", False,
                                             kaiming_normal_init())
         self.condition = None
@@ -210,12 +231,16 @@ class PreActFixupCausalResBlock(nn.Module):
             self.scale.fill_(1.0)
 
     def forward(self, stack: Stack, condition: Optional[torch.Tensor] = None,
-                train: bool = False, keep: Optional[torch.Tensor] = None) -> Stack:
+                train: bool = False, keep: Optional[torch.Tensor] = None,
+                aux: Optional[Stack] = None) -> Stack:
         """``keep``: (B, 3·Cb) 0/1 dropout keep mask, [d|h|w], used when
         ``train`` and dropout_prob > 0 (drawn from torch's default generator
-        when None)."""
+        when None). ``aux``: a (B, Cb, ...) stack, given exactly when the
+        block was built with ``use_aux``."""
         if (condition is None) != (self.condition is None):
             raise ValueError("a condition is needed exactly when condition_dim > 0")
+        if (aux is None) != (self.aux is None):
+            raise ValueError("an aux stack is needed exactly when use_aux")
         dt = stack[0].dtype
 
         def pre(x, a, b):
@@ -223,6 +248,8 @@ class PreActFixupCausalResBlock(nn.Module):
 
         out = self.branch_conv1(tuple(pre(x, self.bias1a, self.bias1b) for x in stack))
         out = self.expand_rf(out)
+        if self.aux is not None:
+            out = tuple(o + a for o, a in zip(out, self.aux(tuple(F.elu(x) for x in aux))))
         out = self.branch_conv2(tuple(pre(x, self.bias2a, self.bias2b) for x in out))
         p = self.dropout_prob
         if train and p > 0:
@@ -238,3 +265,144 @@ class PreActFixupCausalResBlock(nn.Module):
         out = tuple(o * self.scale.to(dt) + self.bias4.to(dt) for o in out)
         skip = stack if self.skip_conv is None else self.skip_conv(stack)
         return tuple(o + s for o, s in zip(out, skip))
+
+
+# Above this sequence length the dense path's O(S²) logits give way to a
+# flash kernel (JAX ``causal_blocks.py:666-669``).
+DENSE_MAX_SEQ = 2048
+
+
+def attention_path(device_type: str, dropout_active: bool, seq: int) -> str:
+    """Which path ``CausalAttention`` takes: 'flash' (kernel K8) or 'dense';
+    raises where the path needs a kernel that is not ported."""
+    if dropout_active:
+        if seq <= DENSE_MAX_SEQ or device_type == "cpu":
+            return "dense"
+        raise NotImplementedError(
+            f"attention dropout at S={seq} > {DENSE_MAX_SEQ} on {device_type} needs kernel K5 "
+            "(vqvae3d_tpu/ops/flash_dropout_attention.py:flash_causal_dropout_attention), "
+            "which is not ported yet (ROADMAP Queue 1, slice 5b); train with "
+            "--attention-dropout-prob 0, as the published PixelSNAIL jobs do")
+    if device_type == "cpu":
+        return "dense"
+    if device_type == "cuda":
+        return "flash"
+    raise NotImplementedError(f"CausalAttention: no path for device {device_type}")
+
+
+def _heads(x: torch.Tensor, nh: int) -> torch.Tensor:
+    """(B, C, s0, s1, s2) -> (B, nh, S, C / nh), channel c = head·dh + d."""
+    b, c = x.shape[:2]
+    return x.reshape(b, nh, c // nh, -1).transpose(-1, -2)
+
+
+def _unheads(o: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(B, nh, S, dv) -> (B, nh·dv, *grid of ``like``)."""
+    b, nh, _, dv = o.shape
+    return o.transpose(-1, -2).reshape(b, nh * dv, *like.shape[2:])
+
+
+def dense_causal_attention(q, k, v, sm_scale: float, dropout_prob: float = 0.0,
+                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The JAX dense path (``causal_blocks.py:815-831``) on (B, nh, S, dh)
+    heads, at its rounding: q scaled in its dtype, the logits' product in the
+    input dtype then fp32, the optional pre-mask logit dropout, the causal
+    mask, an fp32 softmax, the weights cast to v's dtype for the product."""
+    s = q.shape[-2]
+    logits = ((q * sm_scale) @ k.transpose(-1, -2)).float()
+    if dropout_prob > 0:
+        keep = torch.rand(logits.shape, generator=generator,
+                          device=generator.device if generator is not None else q.device)
+        logits = torch.where(keep < 1.0 - dropout_prob, logits / (1.0 - dropout_prob), -1e3)
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    weights = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    return weights.to(v.dtype) @ v
+
+
+class CausalAttention(nn.Module):
+    """Multi-head causal self-attention over the flattened (s0, s1, s2)
+    sequence, applied per stream (reference layers.py:613-647). No
+    parameters. On the flash path the three streams and the heads fold into
+    the kernel's N, so one call is one K8 launch."""
+
+    def __init__(self, num_heads: int = 8, dropout_prob: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout_prob = dropout_prob
+
+    def forward(self, keys: Stack, queries: Stack, values: Stack, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Stack:
+        nh = self.num_heads
+        ck, cv = keys[0].shape[1], values[0].shape[1]
+        if ck % nh or cv % nh:
+            raise ValueError(f"{ck} key and {cv} value channels over {nh} heads")
+        seq = keys[0][0, 0].numel()
+        dropout_active = train and self.dropout_prob > 0
+        sm_scale = (ck // nh) ** -0.5
+        path = attention_path(keys[0].device.type, dropout_active, seq)
+        if path == "dense":
+            return tuple(_unheads(dense_causal_attention(
+                _heads(q, nh), _heads(k, nh), _heads(v, nh), sm_scale,
+                self.dropout_prob if dropout_active else 0.0, generator), v)
+                for k, q, v in zip(keys, queries, values))
+
+        def fold(stack):  # 3 x (B, C, ...) -> (3·B·nh, S, dh)
+            return torch.stack([_heads(x, nh) for x in stack]).flatten(0, 2)
+
+        b = keys[0].shape[0]
+        out = flash_causal_attention(fold(queries), fold(keys), fold(values), sm_scale)
+        out = out.reshape(3, b, nh, seq, cv // nh)
+        return tuple(_unheads(out[i], values[i]) for i in range(3))
+
+
+class CausalAttentionPixelBlock(nn.Module):
+    """PixelSNAIL block (reference layers.py:650-703; JAX
+    ``causal_blocks.py:834-920``): ``num_layers_per_block`` mask-'B' causal
+    blocks, then causal attention over (stack, out, background), then the
+    ``out_proj`` block with the attention as aux. The condition is passed to
+    every inner block (the reference's ``condition_cache`` slip is not
+    copied, as in JAX)."""
+
+    def __init__(self, model_dim: int, kernel_size: int = 3, num_layers_per_block: int = 5,
+                 bottleneck_divisor: int = 4, condition_dim: int = 0, num_heads: int = 8,
+                 causal_dropout_prob: float = 0.5, attention_dropout_prob: float = 0.5,
+                 num_layers: int = 1):
+        super().__init__()
+        branch = model_dim // bottleneck_divisor
+
+        def block(use_aux=False):
+            return PreActFixupCausalResBlock(
+                model_dim, model_dim, kernel_size, "B", condition_dim=condition_dim,
+                dropout_prob=causal_dropout_prob, bottleneck_divisor=bottleneck_divisor,
+                use_aux=use_aux, num_layers=num_layers)
+
+        self.causal_layers = nn.ModuleList(block() for _ in range(num_layers_per_block))
+        init = torch_conv_default_init()
+        self.key_value_proj = CausalConv3dAdd(2 * model_dim + 3, 2 * branch, 1, "B", True, init)
+        self.query_proj = CausalConv3dAdd(model_dim + 3, branch, 1, "B", True, init)
+        self.causal_attention = CausalAttention(num_heads, attention_dropout_prob)
+        self.out_proj = block(use_aux=True)
+
+    def forward(self, stack: Stack, background: torch.Tensor,
+                condition: Optional[torch.Tensor] = None, train: bool = False,
+                keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Stack:
+        """``background`` (B, 3, *grid); ``keep`` (N + 1, B, 3·Cb): the
+        channel-dropout masks of the N inner blocks and ``out_proj``;
+        ``generator`` draws the attention dropout."""
+        out = stack
+        for i, layer in enumerate(self.causal_layers):
+            out = layer(out, condition, train=train, keep=None if keep is None else keep[i])
+        bg = background.to(out[0].dtype)
+        kv = self.key_value_proj(tuple(torch.cat([s, o, bg], 1) for s, o in zip(stack, out)))
+        branch = kv[0].shape[1] // 2
+        keys = tuple(x[:, :branch] for x in kv)
+        values = tuple(x[:, branch:] for x in kv)
+        queries = self.query_proj(tuple(torch.cat([o, bg], 1) for o in out))
+        # the reference's swapped roles (JAX :897-907): the output position's
+        # vector comes from the key/value projection, the attended positions'
+        # from the query projection; converted checkpoints depend on it
+        attn = self.causal_attention(keys=queries, queries=keys, values=values, train=train,
+                                     generator=generator)
+        return self.out_proj(out, condition, train=train,
+                             keep=None if keep is None else keep[-1], aux=attn)

@@ -5,8 +5,9 @@ pixel_model/train_helpers.py): bits/dim, the one-hot encoding, the per-voxel
 cross-entropy, and mixup with a Sattolo derangement pairing. Grids are
 channels-first here: logits (B, K, *grid), one-hots (B, K, *grid). The random
 draws take an explicit ``torch.Generator``; λ and the pairing can also be
-given, so that two implementations can be fed the same ones. PixelSNAIL's
-coordinate background comes with PixelSNAIL.
+given, so that two implementations can be fed the same ones.
+``generate_background`` is PixelSNAIL's coordinate background (JAX
+``prior_utils.py:145-160``).
 """
 from __future__ import annotations
 
@@ -78,3 +79,13 @@ def mixup_cross_entropy(logits: torch.Tensor, targets, lam: float) -> torch.Tens
     """λ·CE(y_a) + (1 − λ)·CE(y_b), per voxel."""
     y_a, y_b = targets
     return lam * cross_entropy(logits, y_a) + (1 - lam) * cross_entropy(logits, y_b)
+
+
+def generate_background(batch: int, dims, device=None) -> torch.Tensor:
+    """PixelSNAIL's positional background (reference pixelsnail.py:283-293):
+    (B, 3, s0, s1, s2) fp32, channel a holding linspace(−1, 1, s_a) along
+    axis a."""
+    s0, s1, s2 = dims
+    axes = [torch.linspace(-1, 1, n, device=device) for n in (s0, s1, s2)]
+    grid = torch.stack(torch.meshgrid(*axes, indexing="ij"))
+    return grid[None].expand(batch, 3, s0, s1, s2)

@@ -67,6 +67,13 @@ SIGNATURES = {
     #     w_in, b_in, w_out, b_out, d2h, d2w, cnd, dfin, sprev, vhc, gumbel,
     #     forced, out, logits, L, B, s2, C, br, ws, K, i1, tau, stream
     "vq_row_decode": [_p] * 27 + [_i] * 8 + [ctypes.c_float, _p],
+    # K6 wide: the same arguments as vq_row_decode
+    "vq_row_decode_wide": [_p] * 27 + [_i] * 8 + [ctypes.c_float, _p],
+    # K8: is_bf16, q, k, v, o, lse, N, S, D, scale, stream
+    "vq_flash_attn_fwd": [_i] + [_p] * 5 + [_i] * 3 + [_f, _p],
+    # K8 backward: is_bf16, q, k, v, o, do, lse, delta, dq, dk, dv, N, S, D,
+    #     scale, stream
+    "vq_flash_attn_bwd": [_i] + [_p] * 10 + [_i] * 3 + [_f, _p],
 }
 
 _lock = threading.Lock()

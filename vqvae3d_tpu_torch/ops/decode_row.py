@@ -22,10 +22,13 @@ TPU layout, which packs [w3·scale ; skip] into one matrix with an identity
 skip for every mask-'B' layer, the residual is added directly and only
 layer 0's skip conv is kept.
 
-``row_decode`` is the dispatcher: on CUDA tensors it launches K6
-(``csrc/row_decode.cu``) and adds one to ``row_decode.launches``; on CPU
-tensors it runs ``row_decode_plain``, which computes the same contract op by
-op; any other device raises. Both update the height v-row caches ``vhc`` IN
+``row_decode`` is the dispatcher: on CUDA tensors it launches K6, picking
+the kernel from the widths before the launch (``uses_wide_kernel``): the
+narrow ``csrc/row_decode.cu`` (C <= 32, br <= 8: the top prior), counted on
+``row_decode.launches``, or the wide ``csrc/row_decode_wide.cu`` (the 256-
+and 512-wide mid and bottom priors), counted on ``row_decode.wide_launches``;
+on CPU tensors it runs ``row_decode_plain``, which computes the same contract
+op by op; any other device raises. Both update the height v-row caches ``vhc`` IN
 PLACE and also return them.
 
 Contract (fp32 throughout; B batch, s2 row length, C model width, br the
@@ -204,6 +207,14 @@ def sampling_disagreements(logits, gumbel, tau: float, idx, rel: float = 1e-5):
     return int(tie.sum()), int((bad & ~tie).sum())
 
 
+def uses_wide_kernel(C: int, br: int, K: int, s2: int) -> bool:
+    """Whether a row of these widths runs the wide kernel: the narrow one
+    (weights in shared memory, one warp on the voxel chain) takes C <= 32,
+    br <= 8, K <= 512 and s2 <= 256."""
+    return not (C <= 32 and br <= 8 and K <= 512 and s2 <= 256)
+
+
+
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
@@ -242,9 +253,11 @@ def row_decode(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
             raise ValueError(f"row_decode: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
                              f"(contiguous: {t.is_contiguous()}), expected {want} fp32 "
                              f"contiguous on {dev}")
-    if C > 32 or br > 8 or ws != 2 or K > 512 or s2 > 256:
-        raise ValueError(f"row_decode kernel takes C <= 32, br <= 8, ws = 2, K <= 512, "
-                         f"s2 <= 256; got C={C} br={br} ws={ws} K={K} s2={s2}")
+    wide = uses_wide_kernel(C, br, K, s2)
+    if ws != 2 or br > 512:
+        raise ValueError(f"row_decode: the kernels take ws = 2 and br <= 512 (the wide one "
+                         f"also checks that the row's state fits shared memory); got L={L} "
+                         f"C={C} br={br} ws={ws} K={K} s2={s2}")
     forced = None
     logits = None
     if forced_idx is not None:
@@ -253,8 +266,9 @@ def row_decode(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
         forced = forced_idx.to(device=dev, dtype=torch.int32).contiguous()
         logits = torch.empty(B, s2, K, dtype=f32, device=dev)
     out = torch.empty(B, s2, dtype=torch.int32, device=dev)
+    lib = _build.library()
     _build.check(
-        _build.library().vq_row_decode(
+        (lib.vq_row_decode_wide if wide else lib.vq_row_decode)(
             *(_ptr(st.get(k)) for k in ("w1", "wk", "w3", "b3", "sc", "hw1", "herf", "herfb",
                                          "hwk", "hw3", "hb3", "skw", "hskw", "w_in", "b_in",
                                          "w_out", "b_out")),
@@ -265,10 +279,14 @@ def row_decode(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
         ),
         "row_decode",
     )
-    row_decode.launches += 1
+    if wide:
+        row_decode.wide_launches += 1
+    else:
+        row_decode.launches += 1
     if forced_idx is not None:
         return out, vhc, logits
     return out, vhc
 
 
-row_decode.launches = 0
+row_decode.launches = 0  # the narrow kernel (csrc/row_decode.cu)
+row_decode.wide_launches = 0  # the wide kernel (csrc/row_decode_wide.cu)

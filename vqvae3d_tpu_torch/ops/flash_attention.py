@@ -1,0 +1,129 @@
+"""Causal flash attention (kernel K8, forward and backward) and its plain
+version.
+
+Counterpart of ``vqvae3d_tpu/models/causal_blocks.py::_flash_causal_attention``
+(the bundled Pallas TPU ``flash_attention``, causal, with its custom
+backward), which PixelSNAIL's attention blocks take when attention dropout is
+off. On (N, S, D) tensors, N any fold of streams, batch and heads:
+
+  o[n, i] = sum_{j <= i} softmax_j(q[n, i] . k[n, j] * sm_scale) v[n, j]
+
+(the diagonal included, so every row attends to at least itself).
+
+Rounding: q, k, v are widened to fp32; the dots, the softmax and the P.V sums
+are fp32 (P is never rounded to the input type); the output (and in the
+backward each gradient) is rounded to the input type once.
+``flash_causal_attention_plain`` is that math densely, in plain PyTorch: the
+(S, S) logits materialise, so it is a reference for small N S² only.
+
+``flash_causal_attention`` is the dispatcher: a CPU tensor takes the plain
+version (autograd through it); a CUDA tensor runs ``_FlashCausal``, whose
+forward launches ``csrc/flash_attention.cu`` (adding one to
+``flash_causal_attention.launches``) and whose backward launches
+``csrc/flash_attention_bwd.cu`` (adding one to
+``flash_attention_bwd.launches``); any other device raises. The kernels take
+D in {8, 16, 32} and v as wide as q and k.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vqvae3d_tpu_torch.ops import _build
+
+HEAD_DIMS = (8, 16, 32)
+
+
+def flash_causal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 sm_scale: float) -> torch.Tensor:
+    """The K8 contract densely: fp32 logits, causal mask, fp32 softmax and
+    P.V, the output rounded to q's dtype."""
+    s = q.shape[-2]
+    logits = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    return (p @ v.float()).to(q.dtype)
+
+
+def _check(what: str, *ts: torch.Tensor) -> None:
+    ref = ts[0]
+    if ref.dim() != 3 or ref.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: (N, S, D) fp32 or bf16 tensors, got {tuple(ref.shape)} "
+                         f"{ref.dtype}")
+    n, s, d = ref.shape
+    if d not in HEAD_DIMS or n > 65535:
+        raise ValueError(f"{what}: the kernel takes D in {HEAD_DIMS} and N <= 65535, got "
+                         f"N={n} D={d}")
+    for t in ts:
+        if t.shape != ref.shape or t.dtype != ref.dtype or t.device != ref.device:
+            raise ValueError(f"{what}: operands differ: {tuple(t.shape)} {t.dtype} {t.device} "
+                             f"vs {tuple(ref.shape)} {ref.dtype} {ref.device}")
+
+
+def flash_attention_fwd(q, k, v, sm_scale: float):
+    """Launch the K8 forward on contiguous CUDA tensors: (o, lse)."""
+    _check("flash_attention_fwd", q, k, v)
+    n, s, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(n, s, dtype=torch.float32, device=q.device)
+    _build.check(_build.library().vq_flash_attn_fwd(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), n, s, d, ctypes.c_float(sm_scale), _build.stream_ptr(q.device)),
+        "flash_attention_fwd")
+    flash_causal_attention.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float):
+    """Launch the K8 backward (delta, dk/dv, dq) on contiguous CUDA tensors:
+    (dq, dk, dv)."""
+    _check("flash_attention_bwd", q, k, v, o, do)
+    n, s, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(n, s, dtype=torch.float32, device=q.device)
+    _build.check(_build.library().vq_flash_attn_bwd(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), n, s, d, ctypes.c_float(sm_scale), _build.stream_ptr(q.device)),
+        "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashCausal(torch.autograd.Function):
+    """K8 forward, saving q, k, v, o and the log-sum-exp; K8 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        o, lse = flash_attention_fwd(q, k, v, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.sm_scale = sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.sm_scale)
+        return dq, dk, dv, None
+
+
+def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           sm_scale: float) -> torch.Tensor:
+    """Causal attention on (N, S, D) tensors (the module docstring's
+    contract). CPU tensors take the plain version; CUDA tensors kernel K8."""
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_causal_attention_plain(q, k, v, sm_scale)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"flash_causal_attention: no kernel for device {dev}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashCausal.apply(q, k, v, float(sm_scale))
+    return flash_attention_fwd(q, k, v, float(sm_scale))[0]
+
+
+flash_causal_attention.launches = 0

@@ -14,12 +14,22 @@ The JAX train path computes its loss on 2x-folded logits (a TPU layout
 device, exact because the loss is voxel-pointwise); the port computes it at
 full resolution. Batches are the loader's dicts {'data': (B, s0, s1, s2)
 int, 'condition': optional coarser grid}. The optimizer is
-``train.state.AMSGrad`` at the prior's ``lr``.
+``train.state.AMSGrad`` at the prior's ``lr``. Either prior trains here:
+PixelCNN (channel dropout ``dropout_prob``) and PixelSNAIL (channel dropout
+``causal_dropout_prob`` and attention dropout ``attention_dropout_prob``);
+the model draws both from the step's generator.
+
+Random draws per step: ``make_prior_train_step(..., seed=s)`` draws each
+step's dropout masks and mixup from ``step_generator(s, step)``, a function
+of the seed and the optimizer's step count only, as the JAX step folds the
+step into its key (``vqvae3d_tpu/train/prior_train.py:153``): a resumed run
+draws what an uninterrupted one does.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from vqvae3d_tpu_torch.models.prior_utils import (
@@ -67,14 +77,24 @@ def prior_loss_fn(model, batch: Dict[str, torch.Tensor], *, train: bool,
     return loss, {k: v.detach() for k, v in log.items()}
 
 
-def make_prior_train_step(model, optimizer, generator: Optional[torch.Generator] = None):
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of train step ``step`` (0 for the first) of a run
+    seeded ``seed``: seeded from (seed, step) alone."""
+    mixed = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]) >> 1
+    return torch.Generator(device).manual_seed(mixed)
+
+
+def make_prior_train_step(model, optimizer, seed: int = 0):
     """The train step: batch -> log dict (0-d tensors on the model's device).
     One forward in training mode (dropout, mixup), the backward, and one
-    optimizer step; params and the optimizer state change in place."""
+    optimizer step; params and the optimizer state change in place. The
+    random draws come from ``step_generator(seed, optimizer.count)``."""
+    device = next(model.parameters()).device
 
     def train_step(batch):
+        gen = step_generator(seed, optimizer.count, device)
         optimizer.zero_grad()
-        loss, log = prior_loss_fn(model, batch, train=True, generator=generator)
+        loss, log = prior_loss_fn(model, batch, train=True, generator=gen)
         loss.backward()
         optimizer.step()
         return log
