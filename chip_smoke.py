@@ -99,13 +99,31 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      batch 10 (conditioned on 8x8x2 grids) and a full 8x8x2 grid at batch
      20, tau 0.1, with the wide K6's launches; then the cached sampler
      teacher-forced over the whole grids against the one-shot forward.
+ 17. dropout attention kernel vs plain: K5 (causal flash attention with the
+     reference's pre-mask logit dropout, p = 0.5) forward and backward
+     against ``flash_causal_dropout_attention_plain`` and its autograd, fp32
+     and bf16, at the mid PixelSNAIL's call (N = 24, S = 8192, D = 8; the
+     plain version on the first stream's 8 heads) and a ragged one (N = 6,
+     S = 333, D = 16); a second call bit-identical; at p = 0 equal to K8
+     within K8's tolerance; the kernel's collected keep mask equal to the plain Philox mask
+     at every logit; bf16 times beside K8's, the plain version's and the
+     bound (no library call computes this function).
+ 18. the conditioned mid PixelSNAIL train step (bench_prior.py:150-166:
+     8x5x256d over 256 codes, 32x32x8, conditioned on 8x8x2 of 512, causal
+     and attention dropout 0.5, batch 1): as phase 13, with K5 in place of
+     K8 (8 forward and 8 backward launches a step).
+ 19. its train main path: ``train_prior --use-model pixelsnail`` at that
+     config on a seeded code store, 3 steps (validating at step 3, where K8
+     serves the eval forward), ``--resume`` for one more, and an
+     uninterrupted 4-step run whose parameters equal the resumed run's bit
+     for bit (cuDNN deterministic).
 
 TF32 is off for the whole run (fp32 comparisons need true fp32; bf16 runs
 do not use it). Every number is printed beside the card's name and power
-limit. The line before the last is {"kernels": [...]} (eleven kernels; K6's
-times and bound per 128x128x32 grid, 16,384 rows; K4's per train step of
-the top prior, 50 blocks; K8's per call at the mid PixelSNAIL's shape; the
-wide K6's per row of the mid PixelCNN's grid); the last is
+limit. The line before the last is {"kernels": [...]} (thirteen kernels;
+K6's times and bound per 128x128x32 grid, 16,384 rows; K4's per train step
+of the top prior, 50 blocks; K8's and K5's per call at the mid PixelSNAIL's
+shape; the wide K6's per row of the mid PixelCNN's grid); the last is
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA is
 absent, when the package is missing, or when any phase fails.
 """
@@ -216,6 +234,35 @@ K8_SHAPES = {"bottom": (3 * 6 * 8, 128, 16), "mid": (3 * 1 * 8, 8192, 8)}
 # bf16: both widen the inputs, compute in fp32 and round o and each gradient
 # to bf16 once; a flip of that rounding is 2^-8 of the value.
 K8_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the conditioned mid PixelSNAIL of bench_prior.py:150-166 ("mid_pixelsnail",
+# jobs/train_pixelsnail_mid): 8x5x256d over 256 codes, conditioned on the
+# 8x8x2 grid of 512 codes, causal and attention dropout 0.5 (the config's
+# defaults), no mixup, batch 1; its attention dropout at S = 8192 runs K5
+SNAIL_DROPOUT = dict(fields=dict(input_dim=256, condition_dim=512, model_dim=256, num_blocks=8,
+                                 num_layers_per_block=5, causal_dropout_prob=0.5,
+                                 attention_dropout_prob=0.5, mixup_alpha=0.0),
+                     grid=(32, 32, 8), cond=(8, 8, 2), batch=1, lr=1e-5)
+# K5's calls: the mid PixelSNAIL's (N = 3 streams x batch 1 x 8 heads, S, dh)
+# and a ragged small S
+K5_SHAPES = {"mid": (3 * 1 * 8, 8192, 8), "ragged": (6, 333, 16)}
+K5_P = 0.5
+# K5 vs its plain version, (output, gradients): max|d| <= tol x max|ref|.
+# fp32: the same fp32 math (and the same mask bits) summed in another order.
+# bf16: both widen the inputs and round o and each gradient to bf16 once, but
+# the kernel's delta = rowsum(do o) reads the rounded o where the plain
+# autograd differentiates the fp32 softmax, and each ds = P (dP - delta) is a
+# difference of two nearly equal sums (this phase measured up to 6.8e-3 of
+# max|ref| on an NVIDIA H100 80GB HBM3 at 700 W).
+K5_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 2e-2)}
+# its fp32 train step, kernel path vs plain path, (loss, gradients) relative:
+# the same masks, fp32 sums in another order (the PixelSNAIL steps of phase 13
+# measured losses equal to 7 digits and gradients within 2.9e-5 on an NVIDIA
+# H100 80GB HBM3 at 700 W)
+DROPOUT_STEP_TOL = (1e-5, 1e-4)
+# the int32 operations an H100 SXM can retire: per SM and clock, 64 INT32
+# lanes plus the 64 FMA lanes that also take IMAD, at 1.98 GHz (the clock of
+# the fp32 peak; Hopper architecture white paper)
+INT32_OPS = 132 * 128 * 1.98e9
 # the published wide PixelCNNs and their sampling jobs (jobs/train_pixelcnn_mid.sh,
 # jobs/train_pixelcnn_bottom.sh, jobs/sample_mid.sh, jobs/sample_bottom.sh):
 # mid 45 x 256 over 256 codes conditioned on the bottom's 512, 32x32x8 at
@@ -282,15 +329,16 @@ def plain_path():
     reference on the card): the stacks to the plain block loop (autograd
     through it in training), the lookups to the plain argmin and statistics,
     the small-channel conv dW to the plain contraction, PixelSNAIL's
-    attention to the dense plain attention. The wrappers themselves never
-    fall back."""
+    attention to the dense plain attention and its dropout attention to K5's
+    plain version. The wrappers themselves never fall back."""
     from torch.utils.checkpoint import checkpoint
     from vqvae3d_tpu_torch.models import blocks, causal_blocks, pixelcnn, quantizer
-    from vqvae3d_tpu_torch.ops import (causal_kernel, conv3d, flash_attention, quantizer_ops,
-                                       stack_kernel)
+    from vqvae3d_tpu_torch.ops import (causal_kernel, conv3d, flash_attention,
+                                       flash_dropout_attention, quantizer_ops, stack_kernel)
 
     saved = (blocks.preact_stack_fused, quantizer.l2_argmin, quantizer.l2_argmin_stats,
-             conv3d.dw_conv3d, pixelcnn.causal_stack_fused, causal_blocks.flash_causal_attention)
+             conv3d.dw_conv3d, pixelcnn.causal_stack_fused, causal_blocks.flash_causal_attention,
+             causal_blocks.flash_causal_dropout_attention)
     blocks.preact_stack_fused = lambda x, w1s, w2s, w3s, sc8, pad_mode: (
         stack_kernel.preact_stack_plain(x, w1s, w2s, w3s, sc8, pad_mode=pad_mode))
     quantizer.l2_argmin = quantizer_ops.l2_argmin_plain
@@ -304,16 +352,21 @@ def plain_path():
     # backward), else 8 blocks keep their (S, S) logits at S = 8192
     causal_blocks.flash_causal_attention = lambda q, k, v, sm_scale: checkpoint(
         flash_attention.flash_causal_attention_plain, q, k, v, sm_scale, use_reentrant=False)
+    # the dropout attention: K5's plain version, which checkpoints its own
+    # chunks of query rows; the same seed, so the same mask
+    causal_blocks.flash_causal_dropout_attention = (
+        flash_dropout_attention.flash_causal_dropout_attention_plain)
     try:
         yield
     finally:
         (blocks.preact_stack_fused, quantizer.l2_argmin, quantizer.l2_argmin_stats,
-         conv3d.dw_conv3d, pixelcnn.causal_stack_fused, causal_blocks.flash_causal_attention) = saved
+         conv3d.dw_conv3d, pixelcnn.causal_stack_fused, causal_blocks.flash_causal_attention,
+         causal_blocks.flash_causal_dropout_attention) = saved
 
 
 def launch_counts():
     from vqvae3d_tpu_torch.ops import (causal_kernel, conv3d, decode_row, flash_attention,
-                                       quantizer_ops, stack_kernel)
+                                       flash_dropout_attention, quantizer_ops, stack_kernel)
 
     return dict(l2_argmin=quantizer_ops.l2_argmin.launches,
                 l2_argmin_stats=quantizer_ops.l2_argmin_stats.launches,
@@ -325,18 +378,24 @@ def launch_counts():
                 causal_stack_bwd=causal_kernel.causal_stack_bwd.launches,
                 flash_attention_fwd=flash_attention.flash_causal_attention.launches,
                 flash_attention_bwd=flash_attention.flash_attention_bwd.launches,
-                row_decode_wide=decode_row.row_decode.wide_launches)
+                row_decode_wide=decode_row.row_decode.wide_launches,
+                flash_dropout_attention_fwd=(
+                    flash_dropout_attention.flash_causal_dropout_attention.launches),
+                flash_dropout_attention_bwd=(
+                    flash_dropout_attention.flash_dropout_attention_bwd.launches))
 
 
 def reset_counts():
     from vqvae3d_tpu_torch.ops import (causal_kernel, conv3d, decode_row, flash_attention,
-                                       quantizer_ops, stack_kernel)
+                                       flash_dropout_attention, quantizer_ops, stack_kernel)
 
     for fn in (quantizer_ops.l2_argmin, quantizer_ops.l2_argmin_stats,
                stack_kernel.preact_stack_fused, stack_kernel.preact_stack_bwd, conv3d.dw_conv3d,
                decode_row.row_decode, causal_kernel.causal_stack_fused,
                causal_kernel.causal_stack_bwd, flash_attention.flash_causal_attention,
-               flash_attention.flash_attention_bwd):
+               flash_attention.flash_attention_bwd,
+               flash_dropout_attention.flash_causal_dropout_attention,
+               flash_dropout_attention.flash_dropout_attention_bwd):
         fn.launches = 0
     decode_row.row_decode.wide_launches = 0
 
@@ -1763,118 +1822,138 @@ def snail_batch(cfg, seed, device):
                                                   dtype=np.int32)).to(device)}
 
 
-def phase_snail_steps(ident, seed, results):
+def snail_step_checks(ident, seed, results, name, cfg, batch, launches, kernels,
+                      tols=(STEP_LOSS_TOL, STEP_GRAD_TOL)):
+    """One PixelSNAIL train step at ``cfg`` on ``batch``: fp32 loss and
+    gradients, kernel path vs plain path (one generator state for both, so
+    the same dropout masks, attention seeds and mixup); the bf16 step's
+    launches (``launches``: kernel -> count, every other kernel 0), ms/step
+    and peak memory of both paths; two identical bf16 steps bit-identical;
+    one profiled step, its device time split by ``kernels`` (label -> CUDA
+    kernel name parts), and the host's idle share. ``tols``: the fp32
+    step's (loss, gradient) tolerances, relative."""
     import torch
     from vqvae3d_tpu_torch.train import prior_train
     from vqvae3d_tpu_torch.train.state import AMSGrad
 
     dev = torch.device("cuda")
+    f = cfg["fields"]
+    desc = (f"PixelSNAIL {name} ({f['num_blocks']}x{f['num_layers_per_block']}x"
+            f"{f['model_dim']}d, {cfg['grid']}, batch {cfg['batch']}"
+            + (f", conditioned on {cfg['cond']} of {f['condition_dim']}"
+               if f.get("condition_dim") else "")
+            + f", attention dropout {f['attention_dropout_prob']})")
+
+    # --- fp32: one step's loss and gradients, kernel path vs plain path
+    model = make_snail(f, seed + 81, dev)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        gen = prior_train.step_generator(seed, 0, dev)
+        loss, _ = prior_train.prior_loss_fn(model, batch, train=True, generator=gen)
+        loss.backward()
+        return float(loss.detach()), {n: q.grad.clone() for n, q in model.named_parameters()}
+
+    reset_counts()
+    loss_k, grads_k = loss_and_grads()
+    got = launch_counts()
+    with plain_path():
+        loss_p, grads_p = loss_and_grads()
+    torch.cuda.synchronize()
+    if any(got[k] != v for k, v in launches.items()):
+        raise AssertionError(f"{desc}: launches {got}, expected {launches}")
+    gmax = max(float(g.abs().max()) for g in grads_p.values())
+    grad_err = {n: float((grads_k[n] - grads_p[n]).abs().max())
+                / max(float(grads_p[n].abs().max()), 1e-3 * gmax) for n in grads_p}
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"fp32 {desc} train step: loss kernel {loss_k:.7g} plain {loss_p:.7g} (rel "
+          f"{loss_err:.2e}); gradients of {len(grads_p)} tensors, worst max|d| over "
+          f"max(max|ref|, 1e-3 max grad): " + ", ".join(f"{n} {e:.2e}" for n, e in worst)
+          + f" [{ident}]")
+    if loss_err > tols[0] or worst[0][1] > tols[1] or not np.isfinite(loss_k):
+        raise AssertionError(f"fp32 {desc}: the kernel path disagrees with the plain path")
+    results[f"snail_{name}_fp32"] = dict(loss_rel=loss_err, grad_worst=worst[0][1])
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # --- bf16: launches per step, ms/step and peak memory per path
+    model = make_snail(f, seed + 81, dev, dtype=torch.bfloat16)
+    opt = AMSGrad(model.parameters(), lr=cfg["lr"])
+    step = prior_train.make_prior_train_step(model, opt, seed=seed)
+    reset_counts()
+    log = step(batch)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    want = dict(dict.fromkeys(got, 0), **launches)
+    print(f"bf16 {desc} train step launches {got}, {f['num_blocks']} attention blocks imply "
+          f"{want} (loss {float(log['loss_mean']):.5g}) [{ident}]")
+    if got != want or not np.isfinite(float(log["loss_mean"])):
+        raise AssertionError(f"{desc}: launches {got} != {want} or a non-finite loss")
+    timing = {}
+    for path in ("kernel", "plain", "kernel", "plain"):
+        ctx = plain_path() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: step(batch), iters=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        timing.setdefault(path, []).append((ms, peak))
+        print(f"bf16 {desc} train step, {path} path: {ms:.2f} ms/step (mean of 3 after 1 "
+              f"warm-up) peak {peak:.2f} GiB [{ident}]")
+    results[f"snail_{name}_bf16"] = timing
+
+    # --- two identical steps from one state: bit-identical parameters
+    torch.backends.cudnn.deterministic = True
+    snap = ({k: v.clone() for k, v in model.state_dict().items()},
+            {k: v.clone() if torch.is_tensor(v) else v for k, v in opt.state_dict().items()})
+    outs = []
+    for _ in range(2):
+        model.load_state_dict(snap[0])
+        opt.load_state_dict(snap[1])
+        step(batch)
+        outs.append({k: v.clone() for k, v in model.state_dict().items()})
+    torch.backends.cudnn.deterministic = False
+    differ = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+    print(f"two identical bf16 {desc} steps from one state: {len(outs[0]) - len(differ)} of "
+          f"{len(outs[0])} parameters bit-identical (cuDNN deterministic) [{ident}]")
+    if differ:
+        raise AssertionError(f"not bit-identical: {differ[:5]}")
+    del outs, snap
+
+    # --- where the time goes: one kernel-path step under the profiler
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=act) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    cuda_rows = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in cuda_rows) / 1e3
+    split = {what: sum(e.self_device_time_total for e in cuda_rows if any(
+        k in e.key for k in keys)) / 1e3 for what, keys in kernels.items()}
+    table = events.table(sort_by="self_device_time_total", row_limit=20,
+                         max_name_column_width=70)
+    print(f"profile of one bf16 kernel-path {desc} step: device busy {busy:.1f} ms of "
+          f"{wall:.1f} ms wall under the profiler (device idle {100 * (1 - busy / wall):.1f} "
+          f"%); " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f" ({100 * sum(split.values()) / busy:.1f} % of busy), the rest "
+          f"{busy - sum(split.values()):.1f} ms [{ident}]\n{table}")
+    results[f"snail_{name}_profile"] = dict(busy_ms=busy, wall_ms=wall, **split)
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def phase_snail_steps(ident, seed, results):
+    import torch
+
+    dev = torch.device("cuda")
     for name, cfg in SNAIL.items():
         nb = cfg["fields"]["num_blocks"]
-        batch = snail_batch(cfg, seed + 80, dev)
-        desc = (f"PixelSNAIL {name} ({nb}x{cfg['fields']['num_layers_per_block']}x"
-                f"{cfg['fields']['model_dim']}d, {cfg['grid']}, batch {cfg['batch']})")
-
-        # --- fp32: one step's loss and gradients, kernel path vs plain path,
-        # the same dropout masks and mixup (one generator state for both)
-        model = make_snail(cfg["fields"], seed + 81, dev)
-
-        def loss_and_grads():
-            model.zero_grad(set_to_none=True)
-            gen = prior_train.step_generator(seed, 0, dev)
-            loss, _ = prior_train.prior_loss_fn(model, batch, train=True, generator=gen)
-            loss.backward()
-            return float(loss.detach()), {n: q.grad.clone() for n, q in model.named_parameters()}
-
-        reset_counts()
-        loss_k, grads_k = loss_and_grads()
-        got = launch_counts()
-        with plain_path():
-            loss_p, grads_p = loss_and_grads()
-        torch.cuda.synchronize()
-        if got["flash_attention_fwd"] != nb or got["flash_attention_bwd"] != nb:
-            raise AssertionError(f"{desc}: K8 launches {got} for {nb} attention blocks")
-        gmax = max(float(g.abs().max()) for g in grads_p.values())
-        grad_err = {n: float((grads_k[n] - grads_p[n]).abs().max())
-                    / max(float(grads_p[n].abs().max()), 1e-3 * gmax) for n in grads_p}
-        worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
-        loss_err = abs(loss_k - loss_p) / abs(loss_p)
-        print(f"fp32 {desc} train step: loss kernel {loss_k:.7g} plain {loss_p:.7g} (rel "
-              f"{loss_err:.2e}); gradients of {len(grads_p)} tensors, worst max|d| over "
-              f"max(max|ref|, 1e-3 max grad): " + ", ".join(f"{n} {e:.2e}" for n, e in worst)
-              + f" [{ident}]")
-        if loss_err > STEP_LOSS_TOL or worst[0][1] > STEP_GRAD_TOL or not np.isfinite(loss_k):
-            raise AssertionError(f"fp32 {desc}: the kernel path disagrees with the plain path")
-        results[f"snail_{name}_fp32"] = dict(loss_rel=loss_err, grad_worst=worst[0][1])
-        del model, grads_k, grads_p
-        torch.cuda.empty_cache()
-
-        # --- bf16: launches per step, ms/step and peak memory per path
-        model = make_snail(cfg["fields"], seed + 81, dev, dtype=torch.bfloat16)
-        opt = AMSGrad(model.parameters(), lr=cfg["lr"])
-        step = prior_train.make_prior_train_step(model, opt, seed=seed)
-        reset_counts()
-        log = step(batch)
-        torch.cuda.synchronize()
-        got = launch_counts()
-        want = dict(dict.fromkeys(got, 0), flash_attention_fwd=nb, flash_attention_bwd=nb)
-        print(f"bf16 {desc} train step launches {got}, {nb} attention blocks imply {want} "
-              f"(loss {float(log['loss_mean']):.5g}) [{ident}]")
-        if got != want or not np.isfinite(float(log["loss_mean"])):
-            raise AssertionError(f"{desc}: launches {got} != {want} or a non-finite loss")
-        timing = {}
-        for path in ("kernel", "plain", "kernel", "plain"):
-            ctx = plain_path() if path == "plain" else contextlib.nullcontext()
-            with ctx:
-                torch.cuda.reset_peak_memory_stats()
-                ms = cuda_ms(lambda: step(batch), iters=3, warmup=1)
-                peak = torch.cuda.max_memory_allocated() / 2**30
-            timing.setdefault(path, []).append((ms, peak))
-            print(f"bf16 {desc} train step, {path} path: {ms:.2f} ms/step (mean of 3 after 1 "
-                  f"warm-up) peak {peak:.2f} GiB [{ident}]")
-        results[f"snail_{name}_bf16"] = timing
-
-        # --- two identical steps from one state: bit-identical parameters
-        torch.backends.cudnn.deterministic = True
-        snap = ({k: v.clone() for k, v in model.state_dict().items()},
-                {k: v.clone() if torch.is_tensor(v) else v for k, v in opt.state_dict().items()})
-        outs = []
-        for _ in range(2):
-            model.load_state_dict(snap[0])
-            opt.load_state_dict(snap[1])
-            step(batch)
-            outs.append({k: v.clone() for k, v in model.state_dict().items()})
-        torch.backends.cudnn.deterministic = False
-        differ = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
-        print(f"two identical bf16 {desc} steps from one state: {len(outs[0]) - len(differ)} of "
-              f"{len(outs[0])} parameters bit-identical (cuDNN deterministic) [{ident}]")
-        if differ:
-            raise AssertionError(f"not bit-identical: {differ[:5]}")
-        del outs, snap
-
-        # --- where the time goes: one kernel-path step under the profiler
-        act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        t0 = time.perf_counter()
-        with torch.profiler.profile(activities=act) as prof:
-            step(batch)
-            torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-        events = prof.key_averages()
-        cuda_rows = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in cuda_rows) / 1e3
-        k8 = {what: sum(e.self_device_time_total for e in cuda_rows if any(
-            k in e.key for k in keys)) / 1e3 for what, keys in (
-            ("K8 forward", ("flash_fwd",)), ("K8 backward", ("bwd_delta", "bwd_dkdv", "bwd_dq")))}
-        table = events.table(sort_by="self_device_time_total", row_limit=20,
-                             max_name_column_width=70)
-        print(f"profile of one bf16 kernel-path {desc} step: device busy {busy:.1f} ms of "
-              f"{wall:.1f} ms wall under the profiler; "
-              + ", ".join(f"{k} {v:.2f} ms" for k, v in k8.items())
-              + f" ({100 * sum(k8.values()) / busy:.1f} % of busy), the rest "
-              f"{busy - sum(k8.values()):.1f} ms [{ident}]\n{table}")
-        results[f"snail_{name}_profile"] = dict(busy_ms=busy, wall_ms=wall, **k8)
-        del model, opt
-        torch.cuda.empty_cache()
+        snail_step_checks(
+            ident, seed, results, name, cfg, snail_batch(cfg, seed + 80, dev),
+            dict(flash_attention_fwd=nb, flash_attention_bwd=nb),
+            {"K8 forward": ("flash_fwd",), "K8 backward": ("bwd_delta", "bwd_dkdv", "bwd_dq")})
 
 
 def phase_snail_cli(ident, counts, seed, work: Path):
@@ -2101,6 +2180,237 @@ def phase_wide_sample_main_path(ident, counts, results, seed, work: Path):
         torch.cuda.empty_cache()
 
 
+def k5_bound(n, s, d, itemsize, backward: bool):
+    """(ms, what bounds it, bytes, flops, exps, integer ops) of one K5 call
+    on (N, S, D) at p > 0: K8's bytes, products and exps (``k8_bound``), and
+    the mask once a causal logit: a Philox-10 per row and group of 4 keys
+    (10 rounds of two 32x32 products and two 3-way xors, 40 integer
+    operations) and a compare a logit, at the int32 rate; the largest of the
+    four times."""
+    _, _, nbytes, flops, logits = k8_bound(n, s, d, itemsize, backward)
+    ints = 40 * n * sum(i // 4 + 1 for i in range(s)) + logits
+    peak = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    t = {"bytes": nbytes / HBM_BPS,
+         "operations": max(flops / peak, logits / FP32_FLOPS, ints / INT32_OPS)}
+    by = max(t, key=t.get)
+    return 1e3 * t[by], by, nbytes, flops, logits, ints
+
+
+def phase_dropout_attention_kernels(ident, results, seed):
+    import torch
+    from vqvae3d_tpu_torch.ops import flash_attention as fa
+    from vqvae3d_tpu_torch.ops import flash_dropout_attention as fd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed + 100)
+    kseed = fd.draw_seed(torch.Generator(dev).manual_seed(seed + 101))
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, (n, s, d) in K5_SHAPES.items():
+        scale = d ** -0.5
+        q32, k32, v32, g32 = (torch.randn(n, s, d, generator=gen).to(dev) for _ in range(4))
+        # the plain version on the whole N at the ragged shape, on the first
+        # stream's 8 heads at the mid one (every row of each)
+        rows = n if s <= 2048 else 8
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).removeprefix("torch.")
+            q, k, v, g = (t.to(dtype) for t in (q32, k32, v32, g32))
+
+            def run(fn, nr, p=K5_P):
+                qq, kk, vv = (t[:nr].clone().requires_grad_() for t in (q, k, v))
+                o = fn(qq, kk, vv, scale, p, kseed)
+                return (o.detach(), *torch.autograd.grad(o, (qq, kk, vv), g[:nr]))
+
+            got = run(fd.flash_causal_dropout_attention, n)
+            again = run(fd.flash_causal_dropout_attention, n)
+            want = run(fd.flash_causal_dropout_attention_plain, rows)
+            rel = []
+            for tname, a, b, r in zip(("o", "dq", "dk", "dv"), got, again, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K5 {name} {key} {tname}: a second call differs")
+                err = float((a[:rows].float() - r.float()).abs().max())
+                scale_ = float(r.float().abs().max())
+                tol = K5_TOL[key][0 if tname == "o" else 1]
+                rel.append(f"{tname} {err:.3g} (max|ref| {scale_:.3g})")
+                if not err <= tol * scale_ or not torch.isfinite(a).all():
+                    raise AssertionError(f"K5 {name} {key} {tname}: max|d|={err:.3g} > "
+                                         f"{tol} x {scale_:.3g}")
+                if key == "float32":
+                    w = "fwd" if tname == "o" else "bwd"
+                    worst[w] = max(worst[w], err)
+            # p = 0: K8's function (K5 multiplies by 1 / (1 - p) = 1 where K8's
+            # compiler may fuse the scaling into the exponent's FMA, so the
+            # two round apart; K8's tolerance)
+            zero = run(lambda a, b, c, sc, p, _: fd.flash_causal_dropout_attention(a, b, c, sc, p),
+                       n, 0.0)
+            k8 = run(lambda a, b, c, sc, p, _: fa.flash_causal_attention(a, b, c, sc), n, 0.0)
+            vs_k8 = [float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+                     for a, b in zip(zero, k8)]
+            if max(vs_k8) > K8_TOL[key]:
+                raise AssertionError(f"K5 {name} {key}: at p = 0 it differs from K8: {vs_k8}")
+            print(f"K5 {name} (N={n} S={s} D={d}, p={K5_P}) {key}, plain on {rows} of {n} "
+                  f"rows: max|d| " + ", ".join(rel) + "; a second call bit-identical; at "
+                  f"p = 0 vs K8 max|d| / max|K8| (o, dq, dk, dv) "
+                  + ", ".join(f"{e:.2e}" for e in vs_k8) + f" [{ident}]")
+            del got, again, want, zero, k8
+            torch.cuda.empty_cache()
+
+        # the kernel's own mask against the plain Philox mask, bit for bit
+        with torch.no_grad():
+            _, mask = fd.flash_causal_dropout_attention(q32, k32, v32, scale, K5_P, kseed,
+                                                        collect_mask=True)
+        bad = kept = 0
+        for i0 in range(0, s, 512):
+            r = torch.arange(i0, min(i0 + 512, s), device=dev)
+            future = torch.arange(s, device=dev)[None] > r[:, None]
+            m = mask[:, i0:i0 + len(r)].bool()
+            bad += int((m != (fd.keep_mask(kseed, n, r, s, K5_P) | future)).sum())
+            kept += int((m & ~future).sum())
+        frac = kept / (n * s * (s + 1) / 2)
+        print(f"K5 {name}: the collected mask (N={n}, S={s}) differs from the plain Philox mask "
+              f"at {bad} logits; kept fraction of the causal logits {frac:.6f} (p = {K5_P})")
+        if bad or abs(frac - (1 - K5_P)) > 0.01:
+            raise AssertionError(f"K5 {name}: the kernel's mask is not the plain mask")
+        del mask
+
+        # times at the train path's dtype (bf16), the whole N
+        q, k, v, g = (t.to(torch.bfloat16) for t in (q32, k32, v32, g32))
+        with torch.no_grad():
+            ms_f = cuda_ms(lambda: fd.flash_dropout_attention_fwd(q, k, v, kseed, scale, K5_P), 10,
+                           warmup=3)
+            o, lse = fd.flash_dropout_attention_fwd(q, k, v, kseed, scale, K5_P)
+            ms_b = cuda_ms(lambda: fd.flash_dropout_attention_bwd(q, k, v, o, lse, g, kseed, scale,
+                                                                  K5_P), 10, warmup=3)
+            k8_f = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), 10, warmup=3)
+            o8, lse8 = fa.flash_attention_fwd(q, k, v, scale)
+            k8_b = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o8, lse8, g, scale), 10,
+                           warmup=3)
+            pms_f = cuda_ms(lambda: fd.flash_causal_dropout_attention_plain(
+                q, k, v, scale, K5_P, kseed), 3)
+
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fd.flash_causal_dropout_attention_plain(qq, kk, vv, scale, K5_P, kseed)
+        pms_b = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), g, retain_graph=True), 3)
+        del out, qq, kk, vv
+        bf, byf, nbf, flf, nexp, intf = k5_bound(n, s, d, 2, False)
+        bb, byb, nbb, flb, _, intb = k5_bound(n, s, d, 2, True)
+        print(f"K5 {name} (N={n} S={s} D={d}, p={K5_P}) bf16, per call: forward {ms_f:.4f} ms "
+              f"(K8 {k8_f:.4f}), plain {pms_f:.3f} ms, bound {bf:.4f} ms ({byf}: {nbf} B, {flf} "
+              f"flop, {nexp} exp, {intf} int32 op); backward {ms_b:.4f} ms (K8 {k8_b:.4f}), "
+              f"plain {pms_b:.3f} ms, bound {bb:.4f} ms ({byb}: {nbb} B, {flb} flop, {nexp} "
+              f"exp, {intb} int32 op); library: none (SDPA's dropout_p drops softmax weights "
+              f"after the softmax, another function) [{ident}]")
+        if name == "mid":  # the JSON line: per call at the mid PixelSNAIL's shape
+            results["flash_dropout_attention_fwd"] = dict(
+                max_abs_err=worst["fwd"], ms=ms_f, plain_ms=pms_f, bound_ms=bf, bound_by=byf,
+                library_ms=None)
+            results["flash_dropout_attention_bwd"] = dict(
+                max_abs_err=worst["bwd"], ms=ms_b, plain_ms=pms_b, bound_ms=bb, bound_by=byb,
+                library_ms=None)
+        del q, k, v, g, o, lse, o8, lse8, q32, k32, v32, g32
+        torch.cuda.empty_cache()
+
+
+def dropout_snail_batch(seed, device):
+    import torch
+
+    cfg, rng = SNAIL_DROPOUT, np.random.default_rng(seed)
+    f = cfg["fields"]
+    return {"data": torch.from_numpy(rng.integers(0, f["input_dim"], (cfg["batch"], *cfg["grid"]),
+                                                  dtype=np.int32)).to(device),
+            "condition": torch.from_numpy(rng.integers(
+                0, f["condition_dim"], (cfg["batch"], *cfg["cond"]), dtype=np.int32)).to(device)}
+
+
+def phase_dropout_snail_step(ident, seed, results):
+    import torch
+
+    nb = SNAIL_DROPOUT["fields"]["num_blocks"]
+    snail_step_checks(
+        ident, seed, results, "mid_dropout", SNAIL_DROPOUT,
+        dropout_snail_batch(seed + 110, torch.device("cuda")),
+        dict(flash_dropout_attention_fwd=nb, flash_dropout_attention_bwd=nb),
+        {"K5 forward": ("flash_dropout_fwd",),
+         "K5 backward": ("drop_delta", "drop_dkdv", "drop_dq")}, tols=DROPOUT_STEP_TOL)
+
+
+def phase_dropout_snail_cli(ident, counts, seed, work: Path):
+    """``train_prior`` at the conditioned mid PixelSNAIL with attention
+    dropout: 3 steps (validating at step 3) and ``--resume`` for one more,
+    then an uninterrupted 4-step run, bit-identical to the resumed one."""
+    import torch
+    from vqvae3d_tpu_torch.checkpoint import load_prior
+    from vqvae3d_tpu_torch.cli import train_prior
+    from vqvae3d_tpu_torch.data.code_store import CodeStoreWriter
+    from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL
+
+    cfg = SNAIL_DROPOUT
+    f = cfg["fields"]
+    rng = np.random.default_rng(seed + 120)
+    store = work / "snail_dropout_codes"
+    w = CodeStoreWriter(str(store), 2, [f["input_dim"], f["condition_dim"]], backend="file")
+    n = 40  # the 95 % split leaves 2 validation grids
+    for i in range(n):
+        w.write_sample(i, [rng.integers(0, f["input_dim"], cfg["grid"], dtype=np.int32),
+                           rng.integers(0, f["condition_dim"], cfg["cond"], dtype=np.int32)])
+    w.close()
+    nb, val_batches = f["num_blocks"], (n - int(n * 0.95)) // cfg["batch"]
+    flags = [str(store), "0", "--use-model", "pixelsnail", "--model-dim", str(f["model_dim"]),
+             "--num-blocks", str(nb), "--num-layers-per-block", str(f["num_layers_per_block"]),
+             "--batch-size", str(cfg["batch"]), "--val-every-steps", "3",
+             "--log-every-n-steps", "1", "--device", "cuda", "--seed", str(seed)]
+    total, final = {}, {}
+    torch.backends.cudnn.deterministic = True  # the resumed and the whole run compared bitwise
+    try:
+        for run, extra, steps, vals in [
+                ("train", ["--max-steps", "3", "--ckpt-dir", str(work / "sd_parts")], 3, 1),
+                ("resume", ["--max-steps", "4", "--resume", "--ckpt-dir", str(work / "sd_parts")],
+                 1, 1),
+                ("whole", ["--max-steps", "4", "--ckpt-dir", str(work / "sd_whole")], 4, 2)]:
+            reset_counts()
+            t0 = time.perf_counter()
+            model, opt, step = train_prior.main(train_prior.parse_arguments(flags + extra))
+            torch.cuda.synchronize()
+            got = launch_counts()
+            # K5 forward and backward each train step; K8 in each validation
+            # (eval: no attention dropout)
+            want = dict(dict.fromkeys(got, 0), flash_dropout_attention_fwd=nb * steps,
+                        flash_dropout_attention_bwd=nb * steps,
+                        flash_attention_fwd=nb * vals * val_batches)
+            print(f"train_prior --use-model pixelsnail (conditioned mid, attention dropout "
+                  f"{model.config.attention_dropout_prob}) {run}: {steps} step(s) to step {step} "
+                  f"in {time.perf_counter() - t0:.1f} s (host clock, data and checkpoints "
+                  f"included); launches {got}; implied {want} [{ident}]")
+            if (step != {"train": 3, "resume": 4, "whole": 4}[run] or opt.count != step
+                    or got != want or not isinstance(model, PixelSNAIL)
+                    or model.config.condition_dim != f["condition_dim"]
+                    or model.config.attention_dropout_prob != f["attention_dropout_prob"]):
+                raise AssertionError(f"{run}: step {step}, optimizer count {opt.count}, "
+                                     f"launches {got} != {want}, config {model.config}")
+            if run != "whole":
+                for k, v in got.items():
+                    total[k] = total.get(k, 0) + v
+            final[run] = {k: v.clone() for k, v in model.state_dict().items()}
+            del model, opt
+    finally:
+        torch.backends.cudnn.deterministic = False
+    differ = [k for k in final["whole"] if not torch.equal(final["whole"][k], final["resume"][k])]
+    logs = [json.loads(line)
+            for line in (work / "sd_parts" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss_mean"] for r in logs if "train_loss_mean" in r]
+    val = [r["val_loss_mean"] for r in logs if "val_loss_mean" in r]
+    loaded, lcfg = load_prior(work / "sd_parts")
+    print(f"3 + 1 resumed steps vs 4 uninterrupted: {len(final['whole']) - len(differ)} of "
+          f"{len(final['whole'])} parameters bit-identical; train losses by step {losses}; val "
+          f"losses {val}; load_prior gives a {type(loaded).__name__} ({lcfg.num_blocks} blocks, "
+          f"condition_dim {lcfg.condition_dim}, {lcfg.dtype})")
+    if (differ or len(losses) != 4 or len(val) != 2 or not np.all(np.isfinite(losses + val))
+            or not isinstance(loaded, PixelSNAIL)):
+        raise AssertionError(f"the resumed run does not replay the whole one ({differ[:5]}) or "
+                             "its losses are missing or not finite")
+    for k, v in total.items():
+        counts[k] = counts.get(k, 0) + v
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2156,6 +2466,12 @@ def main():
                 ident, results, args.seed)),
             ("wide sampling main path", lambda: phase_wide_sample_main_path(
                 ident, counts, results, args.seed, Path(tmp))),
+            ("dropout attention kernel vs plain", lambda: phase_dropout_attention_kernels(
+                ident, results, args.seed)),
+            ("PixelSNAIL train step with attention dropout", lambda: phase_dropout_snail_step(
+                ident, args.seed, results)),
+            ("PixelSNAIL train CLI with attention dropout", lambda: phase_dropout_snail_cli(
+                ident, counts, args.seed, Path(tmp))),
         ]
         for name, fn in phases:
             t0 = time.perf_counter()
@@ -2191,6 +2507,10 @@ def main():
                                 "vqvae3d_tpu/models/causal_blocks.py:675"),
         "row_decode_wide": ("vqvae3d_tpu_torch/csrc/row_decode_wide.cu",
                             "vqvae3d_tpu/ops/decode_row.py:290"),
+        "flash_dropout_attention_fwd": ("vqvae3d_tpu_torch/csrc/flash_dropout_attention.cu",
+                                        "vqvae3d_tpu/ops/flash_dropout_attention.py:365"),
+        "flash_dropout_attention_bwd": ("vqvae3d_tpu_torch/csrc/flash_dropout_attention_bwd.cu",
+                                        "vqvae3d_tpu/ops/flash_dropout_attention.py:365"),
     }
     missing = [name for name in meta if not counts.get(name)]
     if missing:

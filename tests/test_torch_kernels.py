@@ -2,6 +2,7 @@
 stack forward and backward, K4 PixelCNN causal segment forward and
 backward, K7 small-channel conv weight gradient, K6 one row of cached
 PixelCNN sampling, narrow and wide, K8 causal flash attention forward and
+backward, K5 causal flash attention with logit dropout forward and
 backward).
 
 This file imports no jax, so its card tests also run on a machine that has
@@ -31,7 +32,12 @@ On the CPU:
     masks and backward ranges, transcribed in float64, against the autograd
     of ``flash_causal_attention_plain`` to 1e-5, at S = 1, 77 and 130;
   * the wide K6 (csrc/row_decode_wide.cu): its flat offsets, partial-sum
-    chunks and phase order, transcribed, against ``row_decode_plain``.
+    chunks and phase order, transcribed, against ``row_decode_plain``;
+  * K5 (csrc/flash_dropout_attention*.cu): K8's loops with the Philox
+    counters of each chunk (forward), the (64 x 64) tile of keep bits in
+    shared memory (dk/dv) and the groups of 4 keys (dq), transcribed in
+    float64, against the autograd of ``flash_causal_dropout_attention_plain``
+    to 1e-5, at S = 1, 77 and 130, p = 0.5 and 0.9.
 On a card (marker ``gpu``; skipped here with the reason):
   * K1 against ``l2_argmin_plain``: equal indices wherever the two best
     codes are more than 1e-5 apart (relative), at the path's three shapes;
@@ -65,7 +71,17 @@ On a card (marker ``gpu``; skipped here with the reason):
     second call; its causality (gradients and a forward impulse);
   * the wide K6 against ``row_decode_plain`` at C=256/br=64/K=256
     conditioned and C=512/br=128/K=512: teacher-forced logits and caches
-    within 1e-5 of max|ref|, free-running indices except near ties.
+    within 1e-5 of max|ref|, free-running indices except near ties;
+  * K5 against the autograd of ``flash_causal_dropout_attention_plain`` at
+    S in {1, 77, 128, 300, 2049}, D in {8, 16, 32}, p = 0.5: fp32 within
+    1e-5 (o) and 1e-4 (gradients) of max|ref|, bf16 within 1e-2 (o) and
+    4e-2 (gradients: the kernel's delta reads the bf16-rounded o where the
+    plain autograd differentiates the fp32 softmax, and each ds = P (dP -
+    delta) is a difference of two nearly equal sums), bit-identical on a
+    second call; the collected mask equals
+    the plain Philox mask bit for bit; at p = 0 it equals K8 within K8's
+    tolerance; its causality;
+    rows whose every key is dropped (p = 0.999) average their past values.
 """
 import numpy as np
 import pytest
@@ -78,6 +94,7 @@ from vqvae3d_tpu_torch.ops import (
     conv3d,
     decode_row,
     flash_attention,
+    flash_dropout_attention,
     quantizer_ops,
     stack_kernel,
 )
@@ -333,7 +350,9 @@ def _counts():
             conv3d.dw_conv3d.launches, decode_row.row_decode.launches,
             causal_kernel.causal_stack_fused.launches, causal_kernel.causal_stack_bwd.launches,
             flash_attention.flash_causal_attention.launches,
-            flash_attention.flash_attention_bwd.launches, decode_row.row_decode.wide_launches)
+            flash_attention.flash_attention_bwd.launches, decode_row.row_decode.wide_launches,
+            flash_dropout_attention.flash_causal_dropout_attention.launches,
+            flash_dropout_attention.flash_dropout_attention_bwd.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -380,6 +399,14 @@ def test_cpu_tensors_take_the_plain_versions():
         q, k, v, 0.3).detach())
     o.sum().backward()
     assert torch.isfinite(q.grad).all()
+    # K5: likewise, with its seed
+    seed = torch.tensor([3, 4])
+    o = flash_dropout_attention.flash_causal_dropout_attention(q, k, v, 0.3, 0.5, seed)
+    np.testing.assert_array_equal(o.detach(), flash_dropout_attention.
+                                  flash_causal_dropout_attention_plain(q, k, v, 0.3, 0.5, seed)
+                                  .detach())
+    o.sum().backward()
+    assert torch.isfinite(k.grad).all()
     # K6 at a wide width: the plain row
     st, rows, dfin, sprev = _k6_row(64, 16, 32, 2, 1, 3, False, True, 5, "cpu")
     assert decode_row.uses_wide_kernel(64, 16, 32, 3)
@@ -488,6 +515,107 @@ def test_k8_tiles_and_masks(s, d):
     for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
         b = b.detach().numpy()
         # the scale at least 1 (the inputs' own): at S = 1, dq and dk are zero
+        err, ref = float(np.abs(a - b).max()), max(float(np.abs(b).max()), 1.0)
+        assert err <= 1e-5 * ref, f"{name}: max|d|={err:.3g} > 1e-5 x {ref:.3g}"
+
+
+def _k5_bits(seed, n, rows, groups, p):
+    """The keep bits of csrc/philox.cuh::keep4 for rows x groups of 4 keys:
+    (len(rows), 4 len(groups)) bool, key 4 g + r in column 4 (g - g0) + r."""
+    words = flash_dropout_attention.philox4x32_10(
+        torch.as_tensor(groups, dtype=torch.int64)[None, :],
+        torch.as_tensor(rows, dtype=torch.int64)[:, None], n, 0, int(seed[0]), int(seed[1]))
+    bits = torch.stack(torch.broadcast_tensors(*words), -1).flatten(-2)
+    return (bits >= flash_dropout_attention.keep_threshold(p)).numpy()
+
+
+def _emulate_k5_fwd(q, k, v, scale, seed, p, bq=64, bk=64, ch=16):
+    """numpy transcription of csrc/flash_dropout_attention.cu (float64): K8's
+    forward loops; per chunk of ch keys, the 4 Philox groups (k0 + c0) / 4 +
+    g of each row; kept logits scaled by 1 / (1 - p), dropped ones -1e3."""
+    n_, s_, d_ = q.shape
+    o, lse = np.zeros_like(q), np.zeros((n_, s_))
+    for n in range(n_):
+        for q0 in range(0, s_, bq):
+            rows = np.arange(q0, min(q0 + bq, s_))
+            m = np.full(len(rows), -np.inf)
+            l, acc = np.zeros(len(rows)), np.zeros((len(rows), d_))
+            for k0 in range(0, min(q0 + bq, s_), bk):
+                ks, vs = np.zeros((bk, d_)), np.zeros((bk, d_))
+                ks[:min(bk, s_ - k0)] = k[n, k0:k0 + bk]
+                vs[:min(bk, s_ - k0)] = v[n, k0:k0 + bk]
+                jn = np.minimum(bk, rows - k0 + 1)
+                for c0 in range(0, bk, ch):
+                    act = c0 < jn
+                    j = c0 + np.arange(ch)
+                    kept = _k5_bits(seed, n, rows, (k0 + c0) // 4 + np.arange(ch // 4), p)
+                    sc = np.where(kept, (q[n, rows] @ ks[j].T) * scale / (1 - p), -1e3)
+                    sc = np.where(j[None] < jn[:, None], sc, -np.inf)
+                    mn = np.maximum(m, sc.max(1))
+                    alpha = np.exp(np.where(act, m - mn, 0.0))
+                    pr = np.where(j[None] < jn[:, None], np.exp(sc - mn[:, None]), 0.0)
+                    l = np.where(act, l * alpha + pr.sum(1), l)
+                    acc = np.where(act[:, None], acc * alpha[:, None] + pr @ vs[j], acc)
+                    m = np.where(act, mn, m)
+            o[n, rows] = acc / l[:, None]
+            lse[n, rows] = m + np.log(l)
+    return o, lse
+
+
+def _emulate_k5_bwd(q, k, v, o, lse, do, scale, seed, p, bq=64, bk=64):
+    """numpy transcription of csrc/flash_dropout_attention_bwd.cu (float64):
+    delta; dk, dv per key tile over the query tiles from its diagonal, each
+    tile's bits built row by row (16 groups of the tile's 64 keys) and read
+    by column; dq per query row over groups of 4 keys, dropped keys
+    skipped."""
+    n_, s_, d_ = q.shape
+    inv = 1 / (1 - p)
+    delta = (do * o).sum(-1)
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+    for n in range(n_):
+        for k0 in range(0, s_, bk):
+            for q0 in range(k0, s_, bq):
+                tile_rows = np.arange(q0, min(q0 + bq, s_))
+                bits = _k5_bits(seed, n, tile_rows, k0 // 4 + np.arange(bk // 4), p)
+                for j in range(k0, min(k0 + bk, s_)):
+                    ii = np.arange(max(j - q0, 0), min(bq, s_ - q0))
+                    kept = bits[ii, j - k0]
+                    i = ii + q0
+                    pr = np.exp(np.where(kept, (q[n, i] @ k[n, j]) * scale * inv, -1e3)
+                                - lse[n, i])
+                    ds = np.where(kept, pr * (do[n, i] @ v[n, j] - delta[n, i]) * inv, 0.0)
+                    dv[n, j] += pr @ do[n, i]
+                    dk[n, j] += ds @ q[n, i]
+            dk[n, k0:k0 + bk] *= scale
+        for i in range(s_):
+            for k0 in range(0, (i // bq) * bq + 1, bk):
+                jn = min(bk, i - k0 + 1)
+                for g0 in range(0, jn, 4):
+                    kept = _k5_bits(seed, n, [i], [(k0 + g0) // 4], p)[0]
+                    for r in range(4):
+                        j = k0 + g0 + r
+                        if g0 + r < jn and kept[r]:
+                            pr = np.exp((q[n, i] @ k[n, j]) * scale * inv - lse[n, i])
+                            dq[n, i] += pr * (do[n, i] @ v[n, j] - delta[n, i]) * inv * k[n, j]
+            dq[n, i] *= scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("s,d,p", [(1, 8, 0.5), (77, 16, 0.9), (130, 8, 0.5)])
+def test_k5_tiles_counters_and_masks(s, d, p):
+    """K5's loops, Philox counters and bit layouts (a transcription in float64)
+    against the autograd of the plain version (fp32), to 1e-5 of max|ref|."""
+    rng = np.random.default_rng(s + d)
+    q, k, v, g = (rng.standard_normal((2, s, d)) for _ in range(4))
+    scale, seed = d ** -0.5, (123456789, 2**32 - 5)
+    o, lse = _emulate_k5_fwd(q, k, v, scale, seed, p)
+    got = (o, *_emulate_k5_bwd(q, k, v, o, lse, g, scale, seed, p))
+    qt, kt, vt = (torch.tensor(a, dtype=torch.float32, requires_grad=True) for a in (q, k, v))
+    ot = flash_dropout_attention.flash_causal_dropout_attention_plain(
+        qt, kt, vt, scale, p, torch.tensor(seed))
+    want = (ot, *torch.autograd.grad(ot, (qt, kt, vt), torch.tensor(g, dtype=torch.float32)))
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        b = b.detach().numpy()
         err, ref = float(np.abs(a - b).max()), max(float(np.abs(b).max()), 1.0)
         assert err <= 1e-5 * ref, f"{name}: max|d|={err:.3g} > 1e-5 x {ref:.3g}"
 
@@ -1121,3 +1249,121 @@ def test_k6_wide_kernel_matches_plain_on_card(cuda_device, c, br, k, b, cond, s2
         ties, beyond = decode_row.sampling_disagreements(lg_path, gum, 0.1, free)
         assert beyond == 0, f"{beyond} indices disagree beyond a near tie ({ties} ties)"
     assert decode_row.row_decode.wide_launches == before + 4
+
+
+def _k5_seed(device, a=987654321, b=2**32 - 11):
+    return torch.tensor([a, b], dtype=torch.int64, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("s", [1, 77, 128, 300, 2049])
+def test_k5_kernel_matches_plain_on_card(cuda_device, s, d, dtype):
+    """K5 forward and backward against the autograd of the plain version at
+    p = 0.5 (tolerances in the module docstring); a second call
+    bit-identical; the collected mask equals the plain Philox mask."""
+    fd = flash_dropout_attention
+    q, k, v = _qkv(6, s, d, s * 10 + d, cuda_device, dtype)
+    g = _qkv(6, s, d, s * 10 + d + 1, cuda_device, dtype)[0]
+    scale, seed = d ** -0.5, _k5_seed(cuda_device)
+    tols = (1e-5, 1e-4) if dtype == torch.float32 else (1e-2, 4e-2)
+
+    def run(fn):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fn(qq, kk, vv, scale, 0.5, seed)
+        return (o.detach(), *torch.autograd.grad(o, (qq, kk, vv), g))
+
+    fwd, bwd = fd.flash_causal_dropout_attention.launches, fd.flash_dropout_attention_bwd.launches
+    got, again = run(fd.flash_causal_dropout_attention), run(fd.flash_causal_dropout_attention)
+    want = run(fd.flash_causal_dropout_attention_plain)
+    torch.cuda.synchronize()
+    assert fd.flash_causal_dropout_attention.launches == fwd + 2
+    assert fd.flash_dropout_attention_bwd.launches == bwd + 2
+    for name, a, b, r in zip(("o", "dq", "dk", "dv"), got, again, want):
+        tol = tols[0] if name == "o" else tols[1]
+        assert a.dtype == dtype and torch.equal(a, b), f"{name} not bit-identical"
+        err, scale_ = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+        assert err <= tol * max(scale_, 1e-30), f"{name}: max|d|={err:.3g} > {tol} x {scale_:.3g}"
+    if s <= 300:
+        _, mask = fd.flash_causal_dropout_attention(q, k, v, scale, 0.5, seed, collect_mask=True)
+        keep = fd.keep_mask(seed, 6, torch.arange(s, device=cuda_device), s, 0.5)
+        tril = torch.ones(s, s, dtype=torch.bool, device=cuda_device).tril()
+        assert torch.equal(mask.bool()[:, tril], keep[:, tril]) and mask[:, ~tril].eq(1).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.5, 0.9])
+def test_k5_collected_mask_is_the_plain_mask_on_card(cuda_device, p):
+    fd = flash_dropout_attention
+    q, k, v = _qkv(5, 333, 8, 1, cuda_device, torch.float32)
+    for seed in (_k5_seed(cuda_device), _k5_seed(cuda_device, 0, 0), _k5_seed(cuda_device, 7, 1)):
+        _, mask = fd.flash_causal_dropout_attention(q, k, v, 0.3, p, seed, collect_mask=True)
+        keep = fd.keep_mask(seed, 5, torch.arange(333, device=cuda_device), 333, p)
+        want = keep | torch.ones(333, 333, dtype=torch.bool, device=cuda_device).triu(1)
+        assert torch.equal(mask.bool(), want)
+
+
+@pytest.mark.gpu
+def test_k5_at_p0_equals_k8_on_card(cuda_device):
+    """At p = 0 K5 (no Philox call) is K8's function: fp32 within 1e-5 and
+    bf16 within 1e-2 of max|K8| (K5's extra multiply by 1 / (1 - p) = 1 may
+    round apart from K8's fused exponent argument)."""
+    fd = flash_dropout_attention
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(6, 300, 16, 2, cuda_device, dtype)
+        g = _qkv(6, 300, 16, 3, cuda_device, dtype)[0]
+
+        def run(fn):
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            o = fn(qq, kk, vv)
+            return (o.detach(), *torch.autograd.grad(o, (qq, kk, vv), g))
+
+        got = run(lambda a, b, c: fd.flash_causal_dropout_attention(a, b, c, 0.25, 0.0))
+        want = run(lambda a, b, c: flash_attention.flash_causal_attention(a, b, c, 0.25))
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+            err, ref = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+            assert err <= tol * ref, f"{dtype} {name}: max|d|={err:.3g} > {tol} x {ref:.3g}"
+
+
+@pytest.mark.gpu
+def test_k5_is_causal_on_card(cuda_device):
+    """The gradient of query row i is exactly zero on every key and value row
+    after i, and a key or value after i never moves o[i] (the mask is a
+    function of the seed alone)."""
+    fd = flash_dropout_attention
+    q, k, v = _qkv(2, 150, 8, 3, cuda_device, torch.float32)
+    seed = _k5_seed(cuda_device)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    o = fd.flash_causal_dropout_attention(qq, kk, vv, 8 ** -0.5, 0.5, seed)
+    for i in (0, 63, 64, 149):
+        dq, dk, dv = torch.autograd.grad(o[:, i].sum(), (qq, kk, vv), retain_graph=True)
+        assert not dk[:, i + 1:].any() and not dv[:, i + 1:].any(), f"row {i} sees its future"
+        # its own key may be dropped (-1e3 beside kept logits: P = 0), so
+        # only its past as a whole is sure to be seen
+        assert dq[:, i + 1:].eq(0).all() and dv[:, :i + 1].abs().sum() > 0
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 100:] += 1.0
+    v2[:, 100:] -= 1.0
+    with torch.no_grad():
+        base = fd.flash_causal_dropout_attention(q, k, v, 8 ** -0.5, 0.5, seed)
+        moved = fd.flash_causal_dropout_attention(q, k2, v2, 8 ** -0.5, 0.5, seed)
+    assert torch.equal(base[:, :100], moved[:, :100])
+
+
+@pytest.mark.gpu
+def test_k5_all_dropped_rows_on_card(cuda_device):
+    """p = 0.999: nearly every row has all its keys dropped and averages its
+    past values (the -1e3 logits tie); the kernel equals the plain version."""
+    fd = flash_dropout_attention
+    q, k, v = _qkv(4, 200, 8, 4, cuda_device, torch.float32)
+    seed = _k5_seed(cuda_device)
+    o, mask = fd.flash_causal_dropout_attention(q, k, v, 0.3, 0.999, seed, collect_mask=True)
+    tril = torch.ones(200, 200, dtype=torch.bool, device=cuda_device).tril()
+    dropped = ~(mask.bool() & tril).any(-1)
+    assert dropped.float().mean() > 0.8
+    mean_past = torch.cumsum(v, 1) / torch.arange(1, 201, device=cuda_device)[None, :, None]
+    assert float((o[dropped] - mean_past[dropped]).abs().max()) <= 1e-5
+    want = fd.flash_causal_dropout_attention_plain(q, k, v, 0.3, 0.999, seed)
+    assert float((o - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -23,8 +23,10 @@ the JAX attention takes its dense path, as it does off the TPU.
     dropout p = 0.5 on keep masks given to both as data;
   * causality: perturbing the input at v leaves every logit at raster
     positions <= v bit-identical;
-  * attention dropout > 0 at S <= 2048 trains on the dense path; the card's
-    S > 2048 case (kernel K5, not ported) raises before any launch;
+  * attention dropout > 0 at S <= 2048 trains on the dense path; beyond
+    S = 2048 the route is kernel K5 (its plain version on the CPU,
+    ``tests/test_torch_flash_dropout.py``), decided before any launch; K5
+    raises on a device with no kernel;
   * the weight bridge is the exact inverse of the JAX converter, and prior
     checkpoints and config files read across packages.
 """
@@ -54,6 +56,7 @@ from vqvae3d_tpu_torch.models.causal_blocks import (
 from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL, PixelSNAILConfig
 from vqvae3d_tpu_torch.models.prior_utils import generate_background, idx_to_one_hot
 from vqvae3d_tpu_torch.ops.flash_attention import flash_causal_attention_plain
+from vqvae3d_tpu_torch.ops.flash_dropout_attention import flash_causal_dropout_attention
 from vqvae3d_tpu_torch.train import prior_train
 from vqvae3d_tpu_torch.train.state import AMSGrad
 
@@ -379,12 +382,19 @@ def test_attention_dropout_trains_and_the_k5_case_raises():
     loss, _ = prior_train.prior_loss_fn(model, batch, train=True, generator=gen)
     loss.backward()
     assert all(torch.isfinite(q.grad).all() for q in model.parameters())
-    # the dispatch, decided from the device, the dropout and S before a launch
+    # the dispatch, decided from the device, the dropout and S before a launch:
+    # dropout at S > 2048 takes K5 (its plain version on the CPU); the K5 case
+    # raises only where no kernel exists
     assert attention_path("cuda", False, 8192) == "flash"
     assert attention_path("cuda", True, 2048) == "dense"
-    assert attention_path("cpu", False, 8192) == attention_path("cpu", True, 8192) == "dense"
+    assert attention_path("cpu", False, 8192) == attention_path("cpu", True, 2048) == "dense"
+    assert attention_path("cuda", True, 2049) == attention_path("cpu", True, 8192) == "flash_dropout"
+    with pytest.raises(NotImplementedError, match="no path"):
+        attention_path("mps", True, 2049)
+    qkv = [torch.zeros(2, 4, 8, device="meta") for _ in range(3)]
     with pytest.raises(NotImplementedError, match="K5"):
-        attention_path("cuda", True, 2049)
+        flash_causal_dropout_attention(*qkv, 0.3, 0.5, torch.zeros(2, dtype=torch.int64,
+                                                                  device="meta"))
 
 
 def test_weight_bridge_and_checkpoint_interchange(tmp_path):

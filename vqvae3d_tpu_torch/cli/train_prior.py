@@ -20,8 +20,11 @@ multi-host flags raise ``NotImplementedError``: multi-GPU training is not
 ported yet. ``--scan-stacks`` / ``--remat-scan`` are the JAX package's TPU
 layout switches of the PixelCNN, accepted and ignored.
 
-The published top prior (reference slurm-jobs/train_pixelcnn_top.job) and
-the bottom PixelSNAIL (jobs/train_pixelsnail_bottom.sh):
+The published top prior (reference slurm-jobs/train_pixelcnn_top.job), the
+bottom PixelSNAIL (jobs/train_pixelsnail_bottom.sh) and the mid PixelSNAIL
+conditioned on the bottom codes at the config's dropout defaults (causal and
+attention dropout 0.5; bench_prior.py's "mid_pixelsnail"), whose attention
+dropout at S = 8192 runs kernel K5:
 
     python -m vqvae3d_tpu_torch.cli.train_prior codes/ 0 --use-model pixelcnn \\
         --model-dim 16 --num-resblocks 50 --bottleneck-divisor 4 \\
@@ -30,6 +33,8 @@ the bottom PixelSNAIL (jobs/train_pixelsnail_bottom.sh):
         --model-dim 512 --num-blocks 3 --num-layers-per-block 5 \\
         --causal-dropout-prob 0.5 --attention-dropout-prob 0 --mixup-alpha 0.4 \\
         --use-conditioning False --batch-size 6
+    python -m vqvae3d_tpu_torch.cli.train_prior codes/ 1 --use-model pixelsnail \\
+        --model-dim 256 --num-blocks 8 --num-layers-per-block 5 --batch-size 1
 """
 from __future__ import annotations
 

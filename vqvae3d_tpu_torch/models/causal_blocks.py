@@ -34,11 +34,14 @@ PixelSNAIL's parts (JAX ``causal_blocks.py:666-920``):
     the dropout and S before any launch (``attention_path``): with attention
     dropout off, kernel K8 (``ops/flash_attention.py``) on a card and the
     dense path at the JAX dense path's rounding on the CPU (what the JAX
-    package runs off the TPU); with dropout on, the dense path with the
-    reference's pre-mask logit dropout (kept logits / (1 − p), dropped ones
-    −1e3) up to S = 2048 on either device (as JAX does on the TPU too), and
-    beyond that on a card a ``NotImplementedError`` naming kernel K5
-    (``flash_causal_dropout_attention``), which is not ported yet.
+    package runs off the TPU); with dropout on, the reference's pre-mask
+    logit dropout (kept logits × 1/(1 − p), dropped ones −1e3) on the dense
+    path up to S = 2048 on either device (as JAX does on the TPU too), and
+    beyond that kernel K5 (``ops/flash_dropout_attention.py``) on a card and
+    its plain version, O(S·chunk) memory, on the CPU. Every dropout route
+    draws one Philox seed per call from the step's generator and takes its
+    keep mask from ``flash_dropout_attention.keep_mask``, so the routes of
+    one step see the same mask.
   * ``CausalAttentionPixelBlock``: N causal blocks, then attention keyed on
     [stack | out | background] and queried on [out | background], with the
     reference's swapped roles, then an ``out_proj`` block with the attention
@@ -62,6 +65,11 @@ from vqvae3d_tpu_torch.ops.conv3d import (
     zeros_init,
 )
 from vqvae3d_tpu_torch.ops.flash_attention import flash_causal_attention
+from vqvae3d_tpu_torch.ops.flash_dropout_attention import (
+    draw_seed,
+    flash_causal_dropout_attention,
+    keep_mask,
+)
 
 Stack = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 SCALARS = ("1a", "1b", "2a", "2b", "3a", "3b", "4")
@@ -273,21 +281,14 @@ DENSE_MAX_SEQ = 2048
 
 
 def attention_path(device_type: str, dropout_active: bool, seq: int) -> str:
-    """Which path ``CausalAttention`` takes: 'flash' (kernel K8) or 'dense';
-    raises where the path needs a kernel that is not ported."""
+    """Which path ``CausalAttention`` takes: 'flash' (kernel K8),
+    'flash_dropout' (kernel K5 on a card, its plain version on the CPU) or
+    'dense'; raises for a device with no path."""
+    if device_type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"CausalAttention: no path for device {device_type}")
     if dropout_active:
-        if seq <= DENSE_MAX_SEQ or device_type == "cpu":
-            return "dense"
-        raise NotImplementedError(
-            f"attention dropout at S={seq} > {DENSE_MAX_SEQ} on {device_type} needs kernel K5 "
-            "(vqvae3d_tpu/ops/flash_dropout_attention.py:flash_causal_dropout_attention), "
-            "which is not ported yet (ROADMAP Queue 1, slice 5b); train with "
-            "--attention-dropout-prob 0, as the published PixelSNAIL jobs do")
-    if device_type == "cpu":
-        return "dense"
-    if device_type == "cuda":
-        return "flash"
-    raise NotImplementedError(f"CausalAttention: no path for device {device_type}")
+        return "dense" if seq <= DENSE_MAX_SEQ else "flash_dropout"
+    return "flash" if device_type == "cuda" else "dense"
 
 
 def _heads(x: torch.Tensor, nh: int) -> torch.Tensor:
@@ -296,24 +297,18 @@ def _heads(x: torch.Tensor, nh: int) -> torch.Tensor:
     return x.reshape(b, nh, c // nh, -1).transpose(-1, -2)
 
 
-def _unheads(o: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """(B, nh, S, dv) -> (B, nh·dv, *grid of ``like``)."""
-    b, nh, _, dv = o.shape
-    return o.transpose(-1, -2).reshape(b, nh * dv, *like.shape[2:])
-
-
 def dense_causal_attention(q, k, v, sm_scale: float, dropout_prob: float = 0.0,
-                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """The JAX dense path (``causal_blocks.py:815-831``) on (B, nh, S, dh)
-    heads, at its rounding: q scaled in its dtype, the logits' product in the
-    input dtype then fp32, the optional pre-mask logit dropout, the causal
-    mask, an fp32 softmax, the weights cast to v's dtype for the product."""
-    s = q.shape[-2]
+                           seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX dense path (``causal_blocks.py:815-831``) on (N, S, dh) heads,
+    at its rounding: q scaled in its dtype, the logits' product in the input
+    dtype then fp32, the optional pre-mask logit dropout (the keep mask of
+    ``keep_mask(seed, ...)``), the causal mask, an fp32 softmax, the weights
+    cast to v's dtype for the product."""
+    n, s = q.shape[:2]
     logits = ((q * sm_scale) @ k.transpose(-1, -2)).float()
     if dropout_prob > 0:
-        keep = torch.rand(logits.shape, generator=generator,
-                          device=generator.device if generator is not None else q.device)
-        logits = torch.where(keep < 1.0 - dropout_prob, logits / (1.0 - dropout_prob), -1e3)
+        keep = keep_mask(seed, n, torch.arange(s, device=q.device), s, dropout_prob)
+        logits = torch.where(keep, logits * (1.0 / (1.0 - dropout_prob)), -1e3)
     mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
     weights = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
     return weights.to(v.dtype) @ v
@@ -322,8 +317,12 @@ def dense_causal_attention(q, k, v, sm_scale: float, dropout_prob: float = 0.0,
 class CausalAttention(nn.Module):
     """Multi-head causal self-attention over the flattened (s0, s1, s2)
     sequence, applied per stream (reference layers.py:613-647). No
-    parameters. On the flash path the three streams and the heads fold into
-    the kernel's N, so one call is one K8 launch."""
+    parameters. The three streams and the heads fold into N of an (N, S, dh)
+    call (n = stream·B·nh + batch·nh + head), so one attention block is one
+    K8 or K5 launch. In training with dropout, one seed per call (two 32-bit
+    words, a device tensor: no host sync) is drawn from ``generator`` before
+    the path is chosen (JAX's ``seed_from_rng(make_rng('dropout'))``,
+    ``causal_blocks.py:779-785``)."""
 
     def __init__(self, num_heads: int = 8, dropout_prob: float = 0.5):
         super().__init__()
@@ -337,22 +336,27 @@ class CausalAttention(nn.Module):
         if ck % nh or cv % nh:
             raise ValueError(f"{ck} key and {cv} value channels over {nh} heads")
         seq = keys[0][0, 0].numel()
-        dropout_active = train and self.dropout_prob > 0
+        dev = keys[0].device
+        p = self.dropout_prob if train else 0.0
+        seed = draw_seed(generator, dev) if p > 0 else None
         sm_scale = (ck // nh) ** -0.5
-        path = attention_path(keys[0].device.type, dropout_active, seq)
-        if path == "dense":
-            return tuple(_unheads(dense_causal_attention(
-                _heads(q, nh), _heads(k, nh), _heads(v, nh), sm_scale,
-                self.dropout_prob if dropout_active else 0.0, generator), v)
-                for k, q, v in zip(keys, queries, values))
+        path = attention_path(dev.type, p > 0, seq)
 
         def fold(stack):  # 3 x (B, C, ...) -> (3·B·nh, S, dh)
             return torch.stack([_heads(x, nh) for x in stack]).flatten(0, 2)
 
+        q, k, v = fold(queries), fold(keys), fold(values)
+        if path == "dense":
+            out = dense_causal_attention(q, k, v, sm_scale, p, seed)
+        elif path == "flash":
+            out = flash_causal_attention(q, k, v, sm_scale)
+        else:
+            out = flash_causal_dropout_attention(q, k, v, sm_scale, p, seed)
         b = keys[0].shape[0]
-        out = flash_causal_attention(fold(queries), fold(keys), fold(values), sm_scale)
         out = out.reshape(3, b, nh, seq, cv // nh)
-        return tuple(_unheads(out[i], values[i]) for i in range(3))
+        # (B, nh, S, dv) -> (B, nh·dv, *grid)
+        return tuple(out[i].transpose(-1, -2).reshape(b, cv, *values[i].shape[2:])
+                     for i in range(3))
 
 
 class CausalAttentionPixelBlock(nn.Module):

@@ -12,15 +12,19 @@ every causal block adds its projection.
 The forward computes in ``config.dtype`` (or the ``dtype`` it is given), as
 the JAX module does, and returns fp32 logits. Its causal blocks are the stock
 modules (the PixelSNAIL widths, 256 and 512, are past kernel K4's); its
-attention takes kernel K8 on a card when attention dropout is off
+attention takes kernel K8 on a card when attention dropout is off, and in
+training with attention dropout kernel K5 beyond S = 2048 (the mid level's
+32x32x8, S = 8192) and the dense path up to it
 (``causal_blocks.CausalAttention``). Two kinds of dropout in training:
 
   * channel dropout of the causal blocks: one (L, B, 3·Cb) 0/1 keep mask for
     the L = 1 + num_blocks·(num_layers_per_block + 1) blocks in order
     (to_causal, then per attention block its inner blocks and out_proj),
     passed in as data or drawn from ``generator``;
-  * attention dropout (the dense path's pre-mask logit dropout), drawn from
-    the same ``generator``.
+  * attention dropout (the reference's pre-mask logit dropout): one Philox
+    seed per attention block, drawn from the same ``generator`` in block
+    order; the keep mask is a function of that seed alone, whichever route
+    the block takes.
 
 Module attributes follow the reference torch tree (``to_causal``,
 ``layers.N.causal_layers.M``, ``layers.N.key_value_proj``,

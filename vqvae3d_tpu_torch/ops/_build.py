@@ -31,7 +31,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
-_p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_p, _i, _i64, _f, _u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float,
+                          ctypes.c_uint32)
 # C entry points: name -> argtypes (every one returns an int error code)
 SIGNATURES = {
     # K1a: x, embed, e2, out, n, k, d, stream
@@ -74,6 +75,12 @@ SIGNATURES = {
     # K8 backward: is_bf16, q, k, v, o, do, lse, delta, dq, dk, dv, N, S, D,
     #     scale, stream
     "vq_flash_attn_bwd": [_i] + [_p] * 10 + [_i] * 3 + [_f, _p],
+    # K5: is_bf16, q, k, v, o, lse, seed, mask, N, S, D, scale, thr, inv_keep,
+    #     stream
+    "vq_flash_dropout_fwd": [_i] + [_p] * 7 + [_i] * 3 + [_f, _u32, _f, _p],
+    # K5 backward: is_bf16, q, k, v, o, do, lse, delta, seed, dq, dk, dv, N, S,
+    #     D, scale, thr, inv_keep, stream
+    "vq_flash_dropout_bwd": [_i] + [_p] * 11 + [_i] * 3 + [_f, _u32, _f, _p],
 }
 
 _lock = threading.Lock()
