@@ -25,7 +25,8 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      both pad modes, fp32 and bf16, one block and the stack's full depth,
      against the autograd of the plain stack; K7 (small-channel conv dW) at
      every qualifying conv of the stem-2 train step against the plain dW;
-     each timed beside its plain version (K7 also beside cuDNN's wgrad).
+     each timed beside its plain version (K7 also beside cuDNN's wgrad, the
+     two in turns, and the seven convs summed).
   5. the stem-2 full-config train step at 512x512x128: one fp32 step on the
      kernel path against the plain path (loss, every gradient, the new EMA
      state); bf16 ms/step of both paths with peak memory; the launches per
@@ -75,7 +76,9 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      2 GiB each); a second call bit-identical; the causality of the kernel
      on the card (the gradients of a row reach no later key or value, later
      keys and values never move it); bf16 times beside the plain version,
-     SDPA (the library call, timed only) and the bound.
+     SDPA (the library call, timed only; the forward and SDPA in turns) and
+     the bound with its terms (bytes, tensor-core products, exps at the
+     special-function rate).
  13. the two published PixelSNAIL train steps (jobs/train_pixelsnail_
      bottom.sh: 3x5x512d, 8x8x2, batch 6, causal dropout 0.5, mixup 0.4;
      jobs/train_pixelsnail_mid_downscaled.sh: 8x5x256d, 32x32x8, batch 1,
@@ -231,8 +234,10 @@ SNAIL = {
 K8_SHAPES = {"bottom": (3 * 6 * 8, 128, 16), "mid": (3 * 1 * 8, 8192, 8)}
 # K8 vs its plain version, per output and gradient: max|d| <= tol x max|ref|.
 # fp32: the same fp32 math summed in another order (online softmax, tiles).
-# bf16: both widen the inputs, compute in fp32 and round o and each gradient
-# to bf16 once; a flip of that rounding is 2^-8 of the value.
+# bf16: both widen the inputs, compute in fp32, round P to bf16 for P.V (the
+# kernel at each key tile's running max, the plain version at the row's max)
+# and round o and each gradient to bf16 once; a flip of a rounding is 2^-8
+# of the value.
 K8_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the conditioned mid PixelSNAIL of bench_prior.py:150-166 ("mid_pixelsnail",
 # jobs/train_pixelsnail_mid): 8x5x256d over 256 codes, conditioned on the
@@ -263,6 +268,10 @@ DROPOUT_STEP_TOL = (1e-5, 1e-4)
 # lanes plus the 64 FMA lanes that also take IMAD, at 1.98 GHz (the clock of
 # the fp32 peak; Hopper architecture white paper)
 INT32_OPS = 132 * 128 * 1.98e9
+# the exps an H100 SXM can retire: per SM and clock, 16 results of its
+# special-function units (MUFU.EX2), at the same 1.98 GHz (Hopper
+# architecture white paper)
+SFU_OPS = 132 * 16 * 1.98e9
 # the published wide PixelCNNs and their sampling jobs (jobs/train_pixelcnn_mid.sh,
 # jobs/train_pixelcnn_bottom.sh, jobs/sample_mid.sh, jobs/sample_bottom.sh):
 # mid 45 x 256 over 256 codes conditioned on the bottom's 512, 32x32x8 at
@@ -685,6 +694,32 @@ def smallc_convs(model, x):
     return seen
 
 
+def prior_smallc_convs(seed, device):
+    """The causal convs of one top-prior train step that take the small-channel
+    backward (K7; csrc/dw_conv3d.cu's kernels smaller than 3x3x3):
+    [(Cin, Cout, kernel, padded input spatial)], from a no-grad bf16 forward of
+    the published top prior cut to one block, with hooks on the mask-'A'
+    block's causal convs (``prior_step_launches`` counts the same convs)."""
+    import torch
+    from vqvae3d_tpu_torch.models.causal_blocks import CausalConv
+    from vqvae3d_tpu_torch.ops.conv3d import SMALLC_MAX
+    from vqvae3d_tpu_torch.train import prior_train
+
+    model = make_prior(dict(TOP_PRIOR, num_resblocks=1), seed, device, dtype=torch.bfloat16)
+    seen, hooks = [], []
+    for m in model.layers[0].modules():
+        if (isinstance(m, CausalConv) and tuple(m.weight.shape[2:]) != (1, 1, 1)
+                and max(m.weight.shape[:2]) <= SMALLC_MAX):
+            hooks.append(m.register_forward_pre_hook(lambda mod, a: seen.append((
+                mod.weight.shape[1], mod.weight.shape[0], tuple(mod.weight.shape[2:]),
+                tuple(s + f + b for s, (f, b) in zip(a[0].shape[2:], mod.pads))))))
+    with torch.no_grad():
+        prior_train.prior_loss_fn(model, code_batch(seed, device), train=False)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
 def phase_train_kernels(ident, results, seed):
     import torch
     import torch.nn.functional as F
@@ -832,19 +867,59 @@ def phase_train_kernels(ident, results, seed):
                   f"{auto_err / scale:.2e} (tol {auto_tol:.3g})")
             k7["max_abs_err"] = max(k7["max_abs_err"], err)
         xp, g = xp32.to(torch.bfloat16), g32.to(torch.bfloat16)
-        ms = cuda_ms(lambda: conv3d.dw_conv3d(xp, g, (3, 3, 3)), 5)
+        # the kernel and cuDNN's wgrad in turns, twice (warmed up at this shape)
+        turns = [(cuda_ms(lambda: conv3d.dw_conv3d(xp, g, (3, 3, 3)), 5, warmup=2),
+                  cuda_ms(lambda: torch.nn.grad.conv3d_weight(xp, (cb, cb, 3, 3, 3), g), 5,
+                          warmup=2)) for _ in range(2)]
+        ms = sum(t[0] for t in turns) / len(turns)
+        lms = sum(t[1] for t in turns) / len(turns)
         pms = cuda_ms(lambda: conv3d.dw_conv3d_plain(xp, g, (3, 3, 3)), 2)
-        lms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(xp, (cb, cb, 3, 3, 3), g), 5)
         nvox = int(np.prod(spatial))
         bms, k7["bound_by"] = bound_ms(2 * cb * (int(np.prod(padded)) + nvox) + 4 * 27 * cb * cb,
                                        2 * 27 * cb * cb * nvox, BF16_FLOPS)
         print(f"K7 dw_conv3d C={cb}->{cb} 3x3x3 over {spatial}: bf16 kernel {ms:.4f} ms "
-              f"plain {pms:.4f} ms cuDNN wgrad "
-              f"{lms:.4f} ms bound {bms:.4f} ms [{ident}]")
+              f"plain {pms:.4f} ms cuDNN wgrad {lms:.4f} ms ({ms / lms:.2f}x; in turns "
+              + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in turns)
+              + f") bound {bms:.4f} ms [{ident}]")
         k7["ms"] += ms
         k7["plain_ms"] += pms
         k7["library_ms"] += lms
         k7["bound_ms"] += bms
+    print(f"K7 the {len(convs)} convs of a stem-2 step, bf16: kernel {k7['ms']:.4f} ms, cuDNN "
+          f"wgrad {k7['library_ms']:.4f} ms ({k7['ms'] / k7['library_ms']:.2f}x), plain "
+          f"{k7['plain_ms']:.4f} ms, bound {k7['bound_ms']:.4f} ms [{ident}]")
+
+    # --- K7 at the top-prior step's causal convs: kernels (2,3,3), (1,2,3),
+    # (1,1,2), whose bf16 route skips taps and warps a 3x3x3 kernel uses
+    pconvs = prior_smallc_convs(seed + 51, dev)
+    results["prior_smallc_convs"] = pconvs
+    if sorted(ks for _, _, ks, _ in pconvs) != [(1, 1, 2), (1, 2, 3), (2, 3, 3)]:
+        raise AssertionError(f"top-prior K7 convs {pconvs}: expected kernels (2,3,3), "
+                             "(1,2,3) and (1,1,2)")
+    for cin, cout, ks, padded in pconvs:
+        out = tuple(p - k + 1 for p, k in zip(padded, ks))
+        xp32 = torch.randn(1, cin, *padded, generator=gen).to(dev)
+        g32 = torch.randn(1, cout, *out, generator=gen).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            xp, g = xp32.to(dtype), g32.to(dtype)
+            got = conv3d.dw_conv3d(xp, g, ks)
+            again = conv3d.dw_conv3d(xp, g, ks)
+            want = conv3d.dw_conv3d_plain(xp, g, ks)
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            if not torch.equal(got, again) or not err <= K7_TOL * scale:
+                raise AssertionError(f"K7 top prior C={cin}->{cout} {ks} {dtype}: max|d| "
+                                     f"{err:.3g} > {K7_TOL} x {scale:.3g} or not deterministic")
+            k7["max_abs_err"] = max(k7["max_abs_err"], err)
+            key = str(dtype).removeprefix("torch.")
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: conv3d.dw_conv3d(xp, g, ks), 5, warmup=2)
+                lms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(xp, (cout, cin, *ks), g), 5,
+                              warmup=2)
+                timing = f"; kernel {ms:.4f} ms, cuDNN wgrad {lms:.4f} ms [{ident}]"
+            else:
+                timing = ""
+            print(f"K7 top prior C={cin}->{cout} {ks} over {out} {key}: max|d|/max|ref| vs plain "
+                  f"{err / scale:.2e} (tol {K7_TOL}), a second call bit-identical{timing}")
     results["dw_conv3d"] = k7
 
 
@@ -1665,21 +1740,39 @@ def phase_prior_cli(ident, counts, seed, work: Path):
         counts[k] = counts.get(k, 0) + total[k] + got[k]
 
 
+def attention_terms(nbytes, flops, itemsize, exps, ints=0):
+    """The least time (ms) of each term of an attention call: the bytes at
+    the memory rate, the products at the tensor-core rate of the dtype (fp32:
+    the CUDA-core rate), the exps at the special-function rate and the int32
+    operations (K5's mask) at the int32 rate."""
+    peak = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    return {"bytes": 1e3 * nbytes / HBM_BPS, "products": 1e3 * flops / peak,
+            "exps": 1e3 * exps / SFU_OPS, "int32": 1e3 * ints / INT32_OPS}
+
+
+def bound_of(terms):
+    """(ms, "bytes" or "operations", the term that bounds) of attention_terms."""
+    top = max(terms, key=terms.get)
+    return terms[top], "bytes" if top == "bytes" else "operations", top
+
+
+def terms_text(terms):
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in terms.items() if v)
+
+
 def k8_bound(n, s, d, itemsize, backward: bool):
-    """(ms, what bounds it, bytes, flops, exps) of one K8 call on (N, S, D):
-    q, k, v read once and o and the fp32 log-sum-exp written once (backward:
-    q, k, v, o, do and the log-sum-exp read, dq, dk, dv written); per causal
-    logit (N S (S + 1) / 2 of them) 4 D flops and one exp forward (q.k,
-    p.v), 10 D flops and one exp backward (q.k, do.v, dv, dk, dq). Products
-    at the tensor-core rate of the dtype (fp32: the CUDA-core rate), exps at
-    the fp32 rate; the larger of the three times."""
+    """(ms, what bounds it, bytes, flops, exps, the terms' times) of one K8
+    call on (N, S, D): q, k, v read once and o and the fp32 log-sum-exp
+    written once (backward: q, k, v, o, do and the log-sum-exp read, dq, dk,
+    dv written); per causal logit (N S (S + 1) / 2 of them) 4 D flops and one
+    exp forward (q.k, p.v), 10 D flops and one exp backward (q.k, do.v, dv,
+    dk, dq); the largest of the terms' times (``attention_terms``)."""
     logits = n * s * (s + 1) // 2
     nbytes = (8 if backward else 4) * n * s * d * itemsize + 4 * n * s
     flops = (10 if backward else 4) * d * logits
-    peak = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
-    t = {"bytes": nbytes / HBM_BPS, "operations": max(flops / peak, logits / FP32_FLOPS)}
-    by = max(t, key=t.get)
-    return 1e3 * t[by], by, nbytes, flops, logits
+    terms = attention_terms(nbytes, flops, itemsize, logits)
+    ms, by, _ = bound_of(terms)
+    return ms, by, nbytes, flops, logits, terms
 
 
 def phase_attention_kernels(ident, results, seed):
@@ -1718,7 +1811,7 @@ def phase_attention_kernels(ident, results, seed):
                 if not err <= K8_TOL[key] * scale_ or not torch.isfinite(a).all():
                     raise AssertionError(f"K8 {name} {key} {tname}: max|d|={err:.3g} > "
                                          f"{K8_TOL[key]} x {scale_:.3g}")
-                if key == "float32":
+                if key == "bfloat16":  # the dtype of the times in the JSON line
                     w = "fwd" if tname == "o" else "bwd"
                     worst[w] = max(worst[w], err)
             print(f"K8 {name} (N={n} S={s} D={d}) {key}, plain on {rows} of {n} rows: max|d| "
@@ -1726,38 +1819,48 @@ def phase_attention_kernels(ident, results, seed):
             del got, again, want
             torch.cuda.empty_cache()
 
-        # causality on the card: the gradient of query row i is exactly zero
-        # on every key and value row after i; keys and values after i never
-        # move o[i]
-        qq, kk, vv = (t.clone().requires_grad_() for t in (q32, k32, v32))
-        o = fa.flash_causal_attention(qq, kk, vv, scale)
-        for i in sorted({0, 63, 64, s // 2, s - 2, s - 1}):
-            dq, dk, dv = torch.autograd.grad(o[:, i].sum(), (qq, kk, vv), retain_graph=True)
-            if dk[:, i + 1:].any() or dv[:, i + 1:].any() or dq[:, :i].any() or dq[:, i + 1:].any():
-                raise AssertionError(f"K8 {name}: the gradient of row {i} reaches other rows "
-                                     "than its past")
-            if not dv[:, i].any():
-                raise AssertionError(f"K8 {name}: row {i} does not see itself")
-        cut = s // 2
-        k2, v2 = k32.clone(), v32.clone()
-        k2[:, cut + 1:] += 1.0
-        v2[:, cut + 1:] -= 1.0
-        with torch.no_grad():
-            moved = fa.flash_causal_attention(q32, k2, v2, scale)
-            if not torch.equal(moved[:, :cut + 1], o.detach()[:, :cut + 1]):
-                raise AssertionError(f"K8 {name}: a key or value after row {cut} moved it")
-        print(f"K8 {name}: causality on the card clean (gradients of 6 rows, a forward impulse)")
-        del qq, kk, vv, o
+        # causality on the card, at both dtypes (bf16: the tensor-core forward):
+        # the gradient of query row i is exactly zero on every key and value row
+        # after i; keys and values after i never move o[i]
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).removeprefix("torch.")
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            o = fa.flash_causal_attention(qq, kk, vv, scale)
+            for i in sorted({0, 63, 64, s // 2, s - 2, s - 1}):
+                dq, dk, dv = torch.autograd.grad(o[:, i].sum(), (qq, kk, vv), retain_graph=True)
+                if (dk[:, i + 1:].any() or dv[:, i + 1:].any() or dq[:, :i].any()
+                        or dq[:, i + 1:].any()):
+                    raise AssertionError(f"K8 {name} {key}: the gradient of row {i} reaches "
+                                         "other rows than its past")
+                if not dv[:, i].any():
+                    raise AssertionError(f"K8 {name} {key}: row {i} does not see itself")
+            cut = s // 2
+            k2, v2 = k.clone(), v.clone()
+            k2[:, cut + 1:] += 1.0
+            v2[:, cut + 1:] -= 1.0
+            with torch.no_grad():
+                moved = fa.flash_causal_attention(q, k2, v2, scale)
+                if not torch.equal(moved[:, :cut + 1], o.detach()[:, :cut + 1]):
+                    raise AssertionError(f"K8 {name} {key}: a key or value after row {cut} "
+                                         "moved it")
+            print(f"K8 {name} {key}: causality on the card clean (gradients of 6 rows, a "
+                  "forward impulse)")
+            del qq, kk, vv, o, dq, dk, dv, moved
 
         # times at the train path's dtype (bf16), the whole N
         q, k, v, g = (t.to(torch.bfloat16) for t in (q32, k32, v32, g32))
         with torch.no_grad():
-            ms_f = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), 10, warmup=2)
+            # the forward and SDPA in turns, twice (warmed up at this shape)
+            turns = [(cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), 10, warmup=2),
+                      cuda_ms(lambda: F.scaled_dot_product_attention(
+                          q[:, None], k[:, None], v[:, None], is_causal=True, scale=scale),
+                          10, warmup=2)) for _ in range(2)]
+            ms_f = sum(t[0] for t in turns) / len(turns)
+            lib_f = sum(t[1] for t in turns) / len(turns)
             o, lse = fa.flash_attention_fwd(q, k, v, scale)
             ms_b = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, scale), 10, warmup=2)
             pms_f = cuda_ms(lambda: fa.flash_causal_attention_plain(q, k, v, scale), 3)
-            lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q[:, None], k[:, None], v[:, None], is_causal=True, scale=scale), 10, warmup=2)
 
         def bwd_only(fn):  # the backward alone, on a graph built once
             qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -1771,13 +1874,15 @@ def phase_attention_kernels(ident, results, seed):
         torch.cuda.empty_cache()
         lib_b = bwd_only(lambda a, b, c: F.scaled_dot_product_attention(
             a[:, None], b[:, None], c[:, None], is_causal=True, scale=scale))
-        bf, byf, nbf, flf, nexp = k8_bound(n, s, d, 2, False)
-        bb, byb, nbb, flb, _ = k8_bound(n, s, d, 2, True)
-        print(f"K8 {name} (N={n} S={s} D={d}) bf16, per call: forward {ms_f:.4f} ms, plain "
-              f"{pms_f:.3f} ms, SDPA {lib_f:.4f} ms, bound {bf:.4f} ms ({byf}: {nbf} B, {flf} "
-              f"flop, {nexp} exp); backward {ms_b:.4f} ms, plain {pms_b:.3f} ms, SDPA "
-              f"{lib_b:.4f} ms, bound {bb:.4f} ms ({byb}: {nbb} B, {flb} flop, {nexp} exp) "
-              f"[{ident}]")
+        bf, byf, nbf, flf, nexp, tf = k8_bound(n, s, d, 2, False)
+        bb, byb, nbb, flb, _, tb = k8_bound(n, s, d, 2, True)
+        print(f"K8 {name} (N={n} S={s} D={d}) bf16, per call: forward {ms_f:.4f} ms (in turns "
+              f"with SDPA: " + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in turns) + f"), plain "
+              f"{pms_f:.3f} ms, SDPA {lib_f:.4f} ms ({ms_f / lib_f:.2f}x), bound {bf:.4f} ms "
+              f"({byf}, {bound_of(tf)[2]}: {nbf} B, {flf} flop, {nexp} exp; {terms_text(tf)}); "
+              f"backward {ms_b:.4f} ms, plain {pms_b:.3f} ms, SDPA {lib_b:.4f} ms "
+              f"({ms_b / lib_b:.2f}x), bound {bb:.4f} ms ({byb}, {bound_of(tb)[2]}: {nbb} B, "
+              f"{flb} flop, {nexp} exp; {terms_text(tb)}) [{ident}]")
         if name == "mid":  # the JSON line: per call at the mid PixelSNAIL's shape
             results["flash_attention_fwd"] = dict(max_abs_err=worst["fwd"], ms=ms_f,
                                                   plain_ms=pms_f, bound_ms=bf, bound_by=byf,
@@ -2181,19 +2286,17 @@ def phase_wide_sample_main_path(ident, counts, results, seed, work: Path):
 
 
 def k5_bound(n, s, d, itemsize, backward: bool):
-    """(ms, what bounds it, bytes, flops, exps, integer ops) of one K5 call
-    on (N, S, D) at p > 0: K8's bytes, products and exps (``k8_bound``), and
-    the mask once a causal logit: a Philox-10 per row and group of 4 keys
-    (10 rounds of two 32x32 products and two 3-way xors, 40 integer
-    operations) and a compare a logit, at the int32 rate; the largest of the
-    four times."""
-    _, _, nbytes, flops, logits = k8_bound(n, s, d, itemsize, backward)
+    """(ms, what bounds it, bytes, flops, exps, integer ops, the terms'
+    times) of one K5 call on (N, S, D) at p > 0: K8's bytes, products and
+    exps (``k8_bound``), and the mask once a causal logit: a Philox-10 per
+    row and group of 4 keys (10 rounds of two 32x32 products and two 3-way
+    xors, 40 integer operations) and a compare a logit, at the int32 rate;
+    the largest of the four times."""
+    _, _, nbytes, flops, logits, _ = k8_bound(n, s, d, itemsize, backward)
     ints = 40 * n * sum(i // 4 + 1 for i in range(s)) + logits
-    peak = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
-    t = {"bytes": nbytes / HBM_BPS,
-         "operations": max(flops / peak, logits / FP32_FLOPS, ints / INT32_OPS)}
-    by = max(t, key=t.get)
-    return 1e3 * t[by], by, nbytes, flops, logits, ints
+    terms = attention_terms(nbytes, flops, itemsize, logits, ints)
+    ms, by, _ = bound_of(terms)
+    return ms, by, nbytes, flops, logits, ints, terms
 
 
 def phase_dropout_attention_kernels(ident, results, seed):
@@ -2234,7 +2337,7 @@ def phase_dropout_attention_kernels(ident, results, seed):
                 if not err <= tol * scale_ or not torch.isfinite(a).all():
                     raise AssertionError(f"K5 {name} {key} {tname}: max|d|={err:.3g} > "
                                          f"{tol} x {scale_:.3g}")
-                if key == "float32":
+                if key == "bfloat16":  # the dtype of the times in the JSON line
                     w = "fwd" if tname == "o" else "bwd"
                     worst[w] = max(worst[w], err)
             # p = 0: K8's function (K5 multiplies by 1 / (1 - p) = 1 where K8's
@@ -2291,14 +2394,15 @@ def phase_dropout_attention_kernels(ident, results, seed):
         out = fd.flash_causal_dropout_attention_plain(qq, kk, vv, scale, K5_P, kseed)
         pms_b = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), g, retain_graph=True), 3)
         del out, qq, kk, vv
-        bf, byf, nbf, flf, nexp, intf = k5_bound(n, s, d, 2, False)
-        bb, byb, nbb, flb, _, intb = k5_bound(n, s, d, 2, True)
+        bf, byf, nbf, flf, nexp, intf, tf = k5_bound(n, s, d, 2, False)
+        bb, byb, nbb, flb, _, intb, tb = k5_bound(n, s, d, 2, True)
         print(f"K5 {name} (N={n} S={s} D={d}, p={K5_P}) bf16, per call: forward {ms_f:.4f} ms "
-              f"(K8 {k8_f:.4f}), plain {pms_f:.3f} ms, bound {bf:.4f} ms ({byf}: {nbf} B, {flf} "
-              f"flop, {nexp} exp, {intf} int32 op); backward {ms_b:.4f} ms (K8 {k8_b:.4f}), "
-              f"plain {pms_b:.3f} ms, bound {bb:.4f} ms ({byb}: {nbb} B, {flb} flop, {nexp} "
-              f"exp, {intb} int32 op); library: none (SDPA's dropout_p drops softmax weights "
-              f"after the softmax, another function) [{ident}]")
+              f"(K8 {k8_f:.4f}), plain {pms_f:.3f} ms, bound {bf:.4f} ms ({byf}, "
+              f"{bound_of(tf)[2]}: {nbf} B, {flf} flop, {nexp} exp, {intf} int32 op; "
+              f"{terms_text(tf)}); backward {ms_b:.4f} ms (K8 {k8_b:.4f}), plain {pms_b:.3f} "
+              f"ms, bound {bb:.4f} ms ({byb}, {bound_of(tb)[2]}: {nbb} B, {flb} flop, {nexp} "
+              f"exp, {intb} int32 op; {terms_text(tb)}); library: none (SDPA's dropout_p "
+              f"drops softmax weights after the softmax, another function) [{ident}]")
         if name == "mid":  # the JSON line: per call at the mid PixelSNAIL's shape
             results["flash_dropout_attention_fwd"] = dict(
                 max_abs_err=worst["fwd"], ms=ms_f, plain_ms=pms_f, bound_ms=bf, bound_by=byf,

@@ -53,9 +53,11 @@ On a card (marker ``gpu``; skipped here with the reason):
     max|ref| in fp32 and 6e-2 in bf16 (the reference rounds its gradients
     and cuDNN's dW to bf16, the kernel sums dW in fp32), bit-identical on a
     second call;
-  * K7 against ``dw_conv3d_plain`` within 1e-5 of max|ref| in fp32 and bf16
-    (bf16 products are exact in fp32; only the order of the fp32 sums
-    differs), bit-identical on a second call;
+  * K7 against ``dw_conv3d_plain`` within 1e-5 of max|ref| in fp32 (the
+    CUDA-core route) and bf16 (the tensor-core route; bf16 products are exact
+    in fp32, only the order of the fp32 sums differs), bit-identical on a
+    second call, at Cin != Cout, C = 32, and a main-path-like C = 9 over
+    (66, 66, 18) outputs, ragged against the 4x4x16 bricks;
   * K4 against ``causal_stack_plain`` and its autograd, 3 blocks, at odd
     grid sizes, B = 1 and 2, with and without a condition, and with a
     p = 0.5 keep mask: the no-save forward within 1e-4 (fp32) and 3e-2
@@ -66,9 +68,11 @@ On a card (marker ``gpu``; skipped here with the reason):
     of ``causal_reach`` on the kernel's forward (impulses) and backward
     (gradients);
   * K8 against the autograd of ``flash_causal_attention_plain`` at
-    S ∈ {1, 77, 128, 300}, D ∈ {8, 16}: fp32 within 1e-5 of max|ref|, bf16
-    within 1e-2 (both round o and the gradients once), bit-identical on a
-    second call; its causality (gradients and a forward impulse);
+    S ∈ {1, 63, 64, 65, 77, 128, 300, 4096}, D ∈ {8, 16, 32}: fp32 (the
+    CUDA-core route) within 1e-5 of max|ref|, bf16 (the tensor-core forward)
+    within 1e-2 (both round P for P.V, o and the gradients once),
+    bit-identical on a second call; its causality (gradients and a forward
+    impulse);
   * the wide K6 against ``row_decode_plain`` at C=256/br=64/K=256
     conditioned and C=512/br=128/K=512: teacher-forced logits and caches
     within 1e-5 of max|ref|, free-running indices except near ties;
@@ -838,16 +842,24 @@ def test_k3_bwd_kernel_matches_plain_on_card(cuda_device, c, pad_mode, dtype, mo
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cin,cout,spatial", [(9, 9, (18, 18, 10)), (2, 4, (34, 34, 18)),
-                                              (16, 16, (10, 10, 6)), (32, 32, (6, 6, 4))])
-def test_k7_kernel_matches_plain_on_card(cuda_device, cin, cout, spatial, dtype):
+                                              (16, 16, (10, 10, 6)), (32, 32, (6, 6, 4)),
+                                              (9, 9, (68, 68, 20)), (5, 3, (9, 11, 17))])
+@pytest.mark.parametrize("ksize", [(3, 3, 3), (2, 3, 3), (1, 2, 3), (1, 1, 2)])
+def test_k7_kernel_matches_plain_on_card(cuda_device, cin, cout, spatial, dtype, ksize):
+    """K7 (bf16: the tensor-core route) against the plain dW within 1e-5 of
+    max|ref|, bit-identical on a second call; ``spatial`` is the padded
+    input's, so the C = 9 case's 3x3x3 outputs are 66 x 66 x 18, ragged
+    against the 4 x 4 x 16 bricks, and the last case's D extents are odd
+    (staged a position a load, the others two). The kernels smaller than
+    3x3x3 are the top prior's causal convs (mask 'A' and 'B')."""
     gen = torch.Generator(device=cuda_device).manual_seed(cin * 100 + cout)
     xp = torch.randn(2, cin, *spatial, device=cuda_device, generator=gen).to(dtype)
-    g = torch.randn(2, cout, *(s - 2 for s in spatial), device=cuda_device,
+    g = torch.randn(2, cout, *(s - k + 1 for s, k in zip(spatial, ksize)), device=cuda_device,
                     generator=gen).to(dtype)
     launches = conv3d.dw_conv3d.launches
-    got = conv3d.dw_conv3d(xp, g, (3, 3, 3))
-    again = conv3d.dw_conv3d(xp, g, (3, 3, 3))
-    want = conv3d.dw_conv3d_plain(xp, g, (3, 3, 3))
+    got = conv3d.dw_conv3d(xp, g, ksize)
+    again = conv3d.dw_conv3d(xp, g, ksize)
+    want = conv3d.dw_conv3d_plain(xp, g, ksize)
     torch.cuda.synchronize()
     assert conv3d.dw_conv3d.launches == launches + 2
     assert torch.equal(got, again) and got.dtype == torch.float32
@@ -1168,13 +1180,15 @@ def _qkv(n, s, d, seed, device, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 16])
-@pytest.mark.parametrize("s", [1, 77, 128, 300])
+@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 77, 128, 300, 4096])
 def test_k8_kernel_matches_plain_on_card(cuda_device, s, d, dtype):
     """K8 forward and backward against the autograd of the plain version:
     fp32 within 1e-5 of max|ref| (the same fp32 math summed in another
-    order), bf16 within 1e-2 (both round o and the gradients to bf16 once; a
-    flip of that rounding is 2^-8 of the value); a second call bit-identical."""
+    order), bf16 within 1e-2 (the tensor-core forward and the plain version
+    round P to bf16 for P.V, and both round o and the gradients to bf16
+    once; a flip of a rounding is 2^-8 of the value); a second call
+    bit-identical."""
     q, k, v = _qkv(6, s, d, s * 10 + d, cuda_device, dtype)
     g = _qkv(6, s, d, s * 10 + d + 1, cuda_device, dtype)[0]
     scale = d ** -0.5
@@ -1198,10 +1212,12 @@ def test_k8_kernel_matches_plain_on_card(cuda_device, s, d, dtype):
 
 
 @pytest.mark.gpu
-def test_k8_is_causal_on_card(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_is_causal_on_card(cuda_device, dtype):
     """The gradient of query row i is exactly zero on every key and value row
-    after i, and a key or value after i never moves o[i]."""
-    q, k, v = _qkv(2, 150, 8, 3, cuda_device, torch.float32)
+    after i, and a key or value after i never moves o[i]; at both dtypes, so
+    both forward routes (bf16: the tensor cores) are held to it."""
+    q, k, v = _qkv(2, 150, 8, 3, cuda_device, dtype)
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
     o = flash_attention.flash_causal_attention(qq, kk, vv, 8 ** -0.5)
     for i in (0, 63, 64, 149):

@@ -174,6 +174,50 @@ def test_causal_attention_and_plain_kernel_match_jax():
     _rel(o.numpy(), want[0], what="flash_causal_attention_plain")
 
 
+def _tpu_flash_forward_one_block(q, k, v, sm_scale):
+    """The bundled Pallas TPU flash_attention's forward math
+    (jax/experimental/pallas/ops/tpu/flash_attention.py:395-472, causal),
+    as jnp, for a sequence that fits its one key block (the JAX model's
+    blocks are 128 keys, models/causal_blocks.py:695): s = q.k^T in fp32
+    times sm_scale, the causal mask added as -0.7 x the fp32 max, p =
+    exp(s - m), l = sum p in fp32, o = dot(p.astype(v.dtype), v) in fp32
+    times 1 / l. Returns o before and after its cast to the input dtype."""
+    dims = (((2,), (2,)), ((0,), (0,)))
+    s = jax.lax.dot_general(q, k, dims, preferred_element_type=jnp.float32) * sm_scale
+    rows = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1)
+    cols = jax.lax.broadcasted_iota(jnp.int32, s.shape, 2)
+    s = s + jnp.where(cols <= rows, 0.0, -0.7 * float(jnp.finfo(jnp.float32).max))
+    m = s.max(-1, keepdims=True)
+    p = jnp.exp(s - m)
+    l = p.sum(-1, keepdims=True)
+    o = jax.lax.dot_general(p.astype(v.dtype), v, (((2,), (1,)), ((0,), (0,))),
+                            preferred_element_type=jnp.float32) * (1.0 / l)
+    return o, o.astype(q.dtype)
+
+
+def test_plain_kernel_rounds_p_where_the_tpu_kernel_does():
+    """K8's plain version at bf16 rounds the unnormalised P to bf16 for P.V
+    and keeps l in fp32, as the TPU kernel does: its o before the last
+    rounding within 1e-4 of max|ref| of the TPU math's (room for a flip of
+    one P's rounding where the two exps differ in their last bit; without
+    rounding P the two differ by ~1e-3), and its bf16 o within 2^-8 of
+    max|ref| of the TPU kernel's bf16 o (each rounds o to bf16 once)."""
+    rng = np.random.default_rng(11)
+    n, seq, dh = 6, 100, 8
+    q, k, v = (rng.standard_normal((n, seq, dh)).astype(np.float32) for _ in range(3))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want32, want16 = _tpu_flash_forward_one_block(jq, jk, jv, dh ** -0.5)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    from vqvae3d_tpu_torch.ops.flash_attention import _plain_attention_fp32
+
+    _rel(_plain_attention_fp32(tq, tk, tv, dh ** -0.5).numpy(), np.asarray(want32), rel=1e-4,
+         what="o before its rounding")
+    got = flash_causal_attention_plain(tq, tk, tv, dh ** -0.5)
+    assert got.dtype == torch.bfloat16
+    _rel(got.float().numpy(), np.asarray(want16.astype(jnp.float32)), rel=2**-8,
+         what="bf16 o")
+
+
 def _block_state_dict(tree):
     sd = {}
     _causal_block(tree["causal_0"], "causal_layers.0", sd)

@@ -52,9 +52,9 @@ SIGNATURES = {
         _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i64, _p, _p, _p, _p, _p,
         _i64, _i, _i, _i, _i, _i, _i, _i, _i, _p,
     ],
-    # K7: is_bf16, x, g, dw, part, nchunks, batch, cin, cout, hp, wp, dp, kh,
-    #     kw, kd, stream
-    "vq_dw_conv3d": [_i, _p, _p, _p, _p, _i, _i64, _i, _i, _i, _i, _i, _i, _i, _i, _p],
+    # K7: is_bf16, tensor_cores, x, g, dw, part, nchunks, batch, cin, cout, hp,
+    #     wp, dp, kh, kw, kd, brick_h, brick_w, brick_d, stream
+    "vq_dw_conv3d": [_i, _i, _p, _p, _p, _p, _i, _i64] + [_i] * 11 + [_p],
     # K4: is_bf16, x, cond, keep, denom, w1, be, wu, w3, wc, bc, sc, a2, a3, y,
     #     batch, s0, s1, s2, cu, cb, cc, cob_b, cob_u, stream
     "vq_causal_block_fwd": [_i, _p, _p, _p, _f] + [_p] * 10 + [_i64] + [_i] * 8 + [_p],

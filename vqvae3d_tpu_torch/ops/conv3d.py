@@ -84,16 +84,40 @@ def dw_conv3d_plain(xp: torch.Tensor, g: torch.Tensor, ksize) -> torch.Tensor:
     return torch.stack(taps, -1).reshape(*g.shape[1:2], xp.shape[1], kh, kw, kd)
 
 
-DW_TILE = 64  # output positions per shared-memory tile of K7 (csrc/dw_conv3d.cu)
+DW_TILE = 64  # output positions per shared-memory tile of K7's CUDA-core route
+# output positions per brick of K7's tensor-core route: csrc/dw_conv3d.cu
+# compiles this brick and refuses a launch that passes another
+DW_BRICK = (4, 4, 16)
+DW_TC_CTAS = 528  # its persistent CTAs at most: 4 on each of an H100's 132 SMs
+
+
+def dw_tensor_core_route(dtype: torch.dtype, ksize) -> bool:
+    """K7's route, the one place it is chosen: the tensor cores for bf16 and
+    kernels of at most 3 on every axis, else the CUDA cores (tensor cores
+    would round fp32 to TF32)."""
+    return dtype == torch.bfloat16 and max(ksize) <= 3
+
+
+def dw_chunks(batch: int, out_spatial, ksize, dtype: torch.dtype) -> int:
+    """K7's chunk count, a function of the shapes only (so repeats are
+    bit-identical): the tensor-core route's CTAs, one per brick up to
+    ``DW_TC_CTAS``; else chunks of at least 8 tiles of ``DW_TILE`` output
+    positions, at most 4096 (chunk, tap) CTAs."""
+    if dw_tensor_core_route(dtype, ksize):
+        bricks = batch * math.prod(-(-o // t) for o, t in zip(out_spatial, DW_BRICK))
+        return min(bricks, DW_TC_CTAS)
+    npos = batch * math.prod(out_spatial)
+    return max(1, min(-(-npos // (DW_TILE * 8)), 4096 // math.prod(ksize)))
 
 
 def dw_conv3d(xp: torch.Tensor, g: torch.Tensor, ksize) -> torch.Tensor:
     """fp32 weight gradient of a stride-1 VALID conv (see ``dw_conv3d_plain``).
 
     CPU tensors take ``dw_conv3d_plain``; CUDA tensors launch kernel K7
-    (fp32 or bf16 inputs, at most ``SMALLC_MAX`` channels each way) and add
-    one to ``dw_conv3d.launches``. Deterministic: the same inputs give a
-    bit-identical dW."""
+    (fp32 or bf16 inputs, at most ``SMALLC_MAX`` channels each way: bf16 with
+    a kernel of at most 3 a side on the tensor cores, the rest on the CUDA
+    cores) and add one to ``dw_conv3d.launches``. Deterministic: the same
+    inputs give a bit-identical dW."""
     if xp.device.type == "cpu":
         return dw_conv3d_plain(xp, g, ksize)
     if xp.device.type != "cuda":
@@ -107,16 +131,16 @@ def dw_conv3d(xp: torch.Tensor, g: torch.Tensor, ksize) -> torch.Tensor:
         raise ValueError(f"dw_conv3d: x {tuple(xp.shape)}, g {tuple(g.shape)}, kernel {ksize}")
     x = xp.contiguous()
     gg = g.to(xp.dtype).contiguous()
-    npos = g[:, 0].numel()
     kvol = kh * kw * kd
-    nchunks = max(1, min(-(-npos // (DW_TILE * 8)), 4096 // kvol))
+    tensor_cores = dw_tensor_core_route(xp.dtype, ksize)
+    nchunks = dw_chunks(b, g.shape[2:], ksize, xp.dtype)
     part = torch.empty(nchunks * kvol * cin * cout, dtype=torch.float32, device=xp.device)
     dw = torch.empty(cout, cin, kh, kw, kd, dtype=torch.float32, device=xp.device)
     _build.check(
         _build.library().vq_dw_conv3d(
-            int(xp.dtype == torch.bfloat16), x.data_ptr(), gg.data_ptr(), dw.data_ptr(),
-            part.data_ptr(), nchunks, b, cin, cout, hp, wp, dp, kh, kw, kd,
-            _build.stream_ptr(xp.device),
+            int(xp.dtype == torch.bfloat16), int(tensor_cores), x.data_ptr(), gg.data_ptr(),
+            dw.data_ptr(), part.data_ptr(), nchunks, b, cin, cout, hp, wp, dp, kh, kw, kd,
+            *DW_BRICK, _build.stream_ptr(xp.device),
         ),
         "dw_conv3d",
     )

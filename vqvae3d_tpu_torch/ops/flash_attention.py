@@ -10,11 +10,14 @@ off. On (N, S, D) tensors, N any fold of streams, batch and heads:
 
 (the diagonal included, so every row attends to at least itself).
 
-Rounding: q, k, v are widened to fp32; the dots, the softmax and the P.V sums
-are fp32 (P is never rounded to the input type); the output (and in the
-backward each gradient) is rounded to the input type once.
-``flash_causal_attention_plain`` is that math densely, in plain PyTorch: the
-(S, S) logits materialise, so it is a reference for small N S² only.
+Rounding: q, k, v are widened to fp32; the dots, the softmax, its row sums
+and the log-sum-exp are fp32. For bf16 inputs the unnormalised P is rounded
+to bf16 once, where the tensor-core forward feeds it to the P.V product (the
+TPU kernel's ``p.astype(v.dtype)`` before its fp32-accumulated dot); fp32
+inputs round nothing. The output (and in the backward each gradient) is
+rounded to the input type once. ``flash_causal_attention_plain`` is that math
+densely, in plain PyTorch: the (S, S) logits materialise, so it is a
+reference for small N S² only.
 
 ``flash_causal_attention`` is the dispatcher: a CPU tensor takes the plain
 version (autograd through it); a CUDA tensor runs ``_FlashCausal``, whose
@@ -38,12 +41,35 @@ HEAD_DIMS = (8, 16, 32)
 def flash_causal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  sm_scale: float) -> torch.Tensor:
     """The K8 contract densely: fp32 logits, causal mask, fp32 softmax and
-    P.V, the output rounded to q's dtype."""
+    P.V, the output rounded to q's dtype.
+
+    For bf16 inputs the unnormalised P = exp(s - m), m the row max, is
+    rounded to bf16 before P.V, as the kernel and the TPU kernel round it
+    (there at each key tile's running max, here at the row's final max: the
+    same rounding while a row's keys fit one tile, a bf16 step of P apart
+    beyond), and divided by l = sum P of the fp32 P. The rounding passes
+    the gradient straight through to the fp32 softmax, as K8's backward
+    recomputes P in fp32."""
+    return _plain_attention_fp32(q, k, v, sm_scale).to(q.dtype)
+
+
+def _plain_attention_fp32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          sm_scale: float) -> torch.Tensor:
+    """``flash_causal_attention_plain``'s fp32 o before its last rounding."""
     s = q.shape[-2]
     logits = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
     mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
-    return (p @ v.float()).to(q.dtype)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    if q.dtype == torch.bfloat16:
+        with torch.no_grad():  # in place: one (S, S) fp32 tensor besides the logits and p
+            e = logits.sub_(logits.amax(-1, keepdim=True)).exp_()
+            l = e.sum(-1, keepdim=True)
+            rounded = e.to(torch.bfloat16).float().div_(l)
+            del logits, e
+            rounded.sub_(p)
+        p = p + rounded
+    return p @ v.float()
 
 
 def _check(what: str, *ts: torch.Tensor) -> None:
@@ -64,6 +90,9 @@ def _check(what: str, *ts: torch.Tensor) -> None:
 def flash_attention_fwd(q, k, v, sm_scale: float):
     """Launch the K8 forward on contiguous CUDA tensors: (o, lse)."""
     _check("flash_attention_fwd", q, k, v)
+    if q.dtype == torch.bfloat16:
+        # the bf16 route copies 16-byte rows: a view that starts off that grid is copied
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     n, s, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(n, s, dtype=torch.float32, device=q.device)
