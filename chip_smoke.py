@@ -39,7 +39,8 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      against ``row_decode_plain`` at the top prior's row (51 layers, C=16,
      br=4, K=128, s2=32, B=1, conditioned), at B=2 unconditioned and at
      C=12/br=3: teacher-forced logits and caches within tolerance, free-running
-     indices equal except at counted near ties; per-row times and the bound.
+     indices equal except at counted near ties; per-row times and the bound,
+     and the voxel chain's clock64() cycles per layer-step.
   8. the sampling main path through the entry point: a seeded port checkpoint
      of the published top prior (PixelCNN 50x16, 128 codes, conditioned on
      256), a sample DB with two level-1 grids 32x32x8, then
@@ -69,8 +70,9 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      ``load_prior`` and one forward through K4, then ``sample_embeddings``
      of a 32x32x8 grid from the trained checkpoint.
  12. attention kernel vs plain: K8 (causal flash attention) forward and
-     backward against the dense ``flash_causal_attention_plain`` and its
-     autograd, fp32 and bf16, at the bottom PixelSNAIL's call (N = 144,
+     backward against the dense ``flash_causal_attention_plain`` and
+     ``flash_attention_bwd_plain`` (on the kernel's o), fp32 and bf16 (the
+     bf16 backward on the tensor cores), at the bottom PixelSNAIL's call (N = 144,
      S = 128, D = 16; every row) and the mid one's (N = 24, S = 8192, D = 8;
      the plain version on the first stream's 8 heads: its (S, S) logits are
      2 GiB each); a second call bit-identical; the causality of the kernel
@@ -78,7 +80,8 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      keys and values never move it); bf16 times beside the plain version,
      SDPA (the library call, timed only; the forward and SDPA in turns) and
      the bound with its terms (bytes, tensor-core products, exps at the
-     special-function rate).
+     special-function rate); the fp32 backward's time and the two-pass
+     backward's own floor (each exp twice) beside them.
  13. the two published PixelSNAIL train steps (jobs/train_pixelsnail_
      bottom.sh: 3x5x512d, 8x8x2, batch 6, causal dropout 0.5, mixup 0.4;
      jobs/train_pixelsnail_mid_downscaled.sh: 8x5x256d, 32x32x8, batch 1,
@@ -235,9 +238,9 @@ K8_SHAPES = {"bottom": (3 * 6 * 8, 128, 16), "mid": (3 * 1 * 8, 8192, 8)}
 # K8 vs its plain version, per output and gradient: max|d| <= tol x max|ref|.
 # fp32: the same fp32 math summed in another order (online softmax, tiles).
 # bf16: both widen the inputs, compute in fp32, round P to bf16 for P.V (the
-# kernel at each key tile's running max, the plain version at the row's max)
-# and round o and each gradient to bf16 once; a flip of a rounding is 2^-8
-# of the value.
+# kernel at each key tile's running max, the plain version at the row's max),
+# in the backward P for dv and ds for dk and dq, and round o and each
+# gradient to bf16 once; a flip of a rounding is 2^-8 of the value.
 K8_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the conditioned mid PixelSNAIL of bench_prior.py:150-166 ("mid_pixelsnail",
 # jobs/train_pixelsnail_mid): 8x5x256d over 256 codes, conditioned on the
@@ -1240,6 +1243,11 @@ def phase_sample_kernels(ident, results, seed):
         vk = vhc0.clone()
         ms = cuda_ms(lambda: decode_row.row_decode(*args, vk, gum, 5, TOP_TAU), 20, warmup=2)
         pms = cuda_ms(lambda: decode_row.row_decode_plain(*args, vk, gum, 5, TOP_TAU), 3)
+        # the voxel chain's own clock: clock64() around its layer loops
+        cycles = torch.zeros(b, 4, dtype=torch.int64, device=dev)
+        decode_row.row_decode(*args, vk, gum, 5, TOP_TAU, cycles=cycles)
+        per_step = decode_row.chain_cycles_per_layer_step(cycles, L, s2)
+        cyc = cycles[0].tolist()
         weights, row_bytes, flops = k6_cost(st, b, s2, k, cond)
         bms, by = bound_ms(weights + row_bytes, flops, FP32_FLOPS)
         print(f"K6 row_decode {name} (L={L} C={c} br={br} K={k} s2={s2} B={b}): "
@@ -1247,7 +1255,10 @@ def phase_sample_kernels(ident, results, seed):
               f"{float(lp.abs().max()):.3g}), caches {errs['caches']:.3g}; free-running "
               f"near ties {ties}, beyond {beyond}; per row (random inputs): kernel {ms:.4f} ms "
               f"(mean of 20), plain {pms:.2f} ms (mean of 3), bound {bms:.6f} ms ({by}: "
-              f"{weights} B of weights, {row_bytes} B of the row, {flops} flops) [{ident}]")
+              f"{weights} B of weights, {row_bytes} B of the row, {flops} flops); voxel chain "
+              f"{per_step:.1f} cycles per layer-step (clock64, batch element 0: layer loops "
+              f"{cyc[1]}, chain {cyc[0]}, staging and height-row step {cyc[2]}, staging "
+              f"{cyc[3]}) [{ident}]")
         if i == 0:  # the JSON line, per top grid: ms from the main path's own run
             rows = TOP_GRID[0] * TOP_GRID[1]
             gbms, gby = bound_ms(weights + rows * row_bytes, rows * flops, FP32_FLOPS)
@@ -1800,7 +1811,12 @@ def phase_attention_kernels(ident, results, seed):
 
             got = run(fa.flash_causal_attention, n)
             again = run(fa.flash_causal_attention, n)
-            want = run(fa.flash_causal_attention_plain, rows)
+            # o against the plain forward; dq, dk, dv against the plain backward
+            # on the kernel's o (which its backward read) and the plain lse
+            want = (fa.flash_causal_attention_plain(q[:rows], k[:rows], v[:rows], scale),
+                    *fa.flash_attention_bwd_plain(q[:rows], k[:rows], v[:rows], got[0][:rows],
+                                                  fa.causal_lse_plain(q[:rows], k[:rows], scale),
+                                                  g[:rows], scale))
             rel = []
             for tname, a, b, r in zip(("o", "dq", "dk", "dv"), got, again, want):
                 if not torch.equal(a, b):
@@ -1861,6 +1877,16 @@ def phase_attention_kernels(ident, results, seed):
             o, lse = fa.flash_attention_fwd(q, k, v, scale)
             ms_b = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, scale), 10, warmup=2)
             pms_f = cuda_ms(lambda: fa.flash_causal_attention_plain(q, k, v, scale), 3)
+            # the plain backward the kernel is held against, on the same o and
+            # the plain lse (computed once, outside the timing)
+            plse = fa.causal_lse_plain(q, k, scale)
+            pms_b = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, plse, g, scale), 3)
+            del plse
+            # the fp32 route (CUDA cores) at the same shape
+            o32, lse32 = fa.flash_attention_fwd(q32, k32, v32, scale)
+            ms_b32 = cuda_ms(lambda: fa.flash_attention_bwd(q32, k32, v32, o32, lse32, g32, scale),
+                             3, warmup=1)
+            del o32, lse32
 
         def bwd_only(fn):  # the backward alone, on a graph built once
             qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -1870,7 +1896,6 @@ def phase_attention_kernels(ident, results, seed):
             del out
             return ms
 
-        pms_b = bwd_only(lambda a, b, c: fa.flash_causal_attention_plain(a, b, c, scale))
         torch.cuda.empty_cache()
         lib_b = bwd_only(lambda a, b, c: F.scaled_dot_product_attention(
             a[:, None], b[:, None], c[:, None], is_causal=True, scale=scale))
@@ -1880,9 +1905,12 @@ def phase_attention_kernels(ident, results, seed):
               f"with SDPA: " + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in turns) + f"), plain "
               f"{pms_f:.3f} ms, SDPA {lib_f:.4f} ms ({ms_f / lib_f:.2f}x), bound {bf:.4f} ms "
               f"({byf}, {bound_of(tf)[2]}: {nbf} B, {flf} flop, {nexp} exp; {terms_text(tf)}); "
-              f"backward {ms_b:.4f} ms, plain {pms_b:.3f} ms, SDPA {lib_b:.4f} ms "
-              f"({ms_b / lib_b:.2f}x), bound {bb:.4f} ms ({byb}, {bound_of(tb)[2]}: {nbb} B, "
-              f"{flb} flop, {nexp} exp; {terms_text(tb)}) [{ident}]")
+              f"backward {ms_b:.4f} ms (fp32 route {ms_b32:.4f} ms), plain "
+              f"(flash_attention_bwd_plain) {pms_b:.3f} ms, SDPA {lib_b:.4f} ms "
+              f"({ms_b / lib_b:.2f}x), bound {bb:.4f} ms ({byb}, "
+              f"{bound_of(tb)[2]}: {nbb} B, {flb} flop, {nexp} exp; {terms_text(tb)}), the "
+              f"two-pass design's own floor {2 * tb['exps']:.4f} ms (each exp twice) "
+              f"[{ident}]")
         if name == "mid":  # the JSON line: per call at the mid PixelSNAIL's shape
             results["flash_attention_fwd"] = dict(max_abs_err=worst["fwd"], ms=ms_f,
                                                   plain_ms=pms_f, bound_ms=bf, bound_by=byf,

@@ -218,6 +218,73 @@ def test_plain_kernel_rounds_p_where_the_tpu_kernel_does():
          what="bf16 o")
 
 
+def _tpu_flash_backward_one_block(q, k, v, do, sm_scale):
+    """The bundled Pallas TPU flash_attention's backward math
+    (jax/experimental/pallas/ops/tpu/flash_attention.py:273-275 di,
+    :840-920 dk/dv, :1185-1261 dq; causal), as jnp, for a sequence in one
+    block, with the forward's o, m and l (:395-472): p = exp(s - m) / l in
+    fp32; dv = dot(p^T.astype(do.dtype), do); dp = do.v^T; ds = (dp - di) p
+    sm_scale; dk = dot(ds^T.astype(do.dtype), q); dq = dot(ds.astype(k.dtype),
+    k); every dot fp32-accumulated. Returns (o, lse = m + log l, dq, dk, dv),
+    the gradients before their cast to the input dtype and after it."""
+    f32 = jnp.float32
+    dims = (((2,), (2,)), ((0,), (0,)))
+    s = jax.lax.dot_general(q, k, dims, preferred_element_type=f32) * sm_scale
+    rows = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1)
+    cols = jax.lax.broadcasted_iota(jnp.int32, s.shape, 2)
+    s = s + jnp.where(cols <= rows, 0.0, -0.7 * float(jnp.finfo(f32).max))
+    m = s.max(-1, keepdims=True)
+    e = jnp.exp(s - m)
+    l = e.sum(-1, keepdims=True)
+    o = (jax.lax.dot_general(e.astype(v.dtype), v, (((2,), (1,)), ((0,), (0,))),
+                             preferred_element_type=f32) * (1.0 / l)).astype(q.dtype)
+    di = jnp.sum(o.astype(f32) * do.astype(f32), axis=-1)[..., None]
+    p = jnp.exp(s - m) * (1 / l)
+    tr = (((1,), (1,)), ((0,), (0,)))  # contract the query axis: p^T . x
+    dv = jax.lax.dot_general(p.astype(do.dtype), do, tr, preferred_element_type=f32)
+    dp = jax.lax.dot_general(do, v, dims, preferred_element_type=f32)
+    ds = (dp - di) * p * sm_scale
+    dk = jax.lax.dot_general(ds.astype(do.dtype), q, tr, preferred_element_type=f32)
+    dq = jax.lax.dot_general(ds.astype(k.dtype), k, (((2,), (1,)), ((0,), (0,))),
+                             preferred_element_type=f32)
+    grads = (dq, dk, dv)
+    return o, (m + jnp.log(l))[..., 0], grads, tuple(g.astype(q.dtype) for g in grads)
+
+
+def test_plain_backward_rounds_where_the_tpu_kernel_does():
+    """K8's plain backward at bf16 rounds P for dv and ds for dk and dq, as
+    the TPU kernel does: on the TPU forward's o and log-sum-exp, its fp32
+    gradients within 3e-4 of max|ref| of the TPU math's (room for a flip of
+    a rounding of P or ds where the two exps, exp(s - lse) and exp(s - m) / l,
+    differ in their last bits: up to 8e-5 measured over four seeds), and its
+    bf16 gradients within 2^-8 of max|ref| (each rounds once more). Without
+    the roundings the plain gradients lie more than 1e-3 away (1.2e-3 to
+    2.8e-3 measured), so the test tells the two apart."""
+    rng = np.random.default_rng(12)
+    n, seq, dh = 6, 100, 8
+    q, k, v, do = (rng.standard_normal((n, seq, dh)).astype(np.float32) for _ in range(4))
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+    o, lse, want32, want16 = _tpu_flash_backward_one_block(jq, jk, jv, jdo, dh ** -0.5)
+    from vqvae3d_tpu_torch.ops.flash_attention import _plain_bwd_fp32, flash_attention_bwd_plain
+
+    args = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    args += [torch.from_numpy(np.asarray(o.astype(jnp.float32))).to(torch.bfloat16),
+             torch.from_numpy(np.asarray(lse)),
+             torch.from_numpy(do).to(torch.bfloat16)]
+    got32 = _plain_bwd_fp32(*args, dh ** -0.5, rows=32)
+    got16 = flash_attention_bwd_plain(*args, dh ** -0.5, rows=32)
+    unrounded = _plain_bwd_fp32(*(a.float() if a.dtype == torch.bfloat16 else a for a in args),
+                                dh ** -0.5)
+    for name, a, a16, u, w, w16 in zip(("dq", "dk", "dv"), got32, got16, unrounded, want32,
+                                       want16):
+        _rel(a.numpy(), np.asarray(w), rel=3e-4, what=f"{name} before its rounding")
+        assert a16.dtype == torch.bfloat16
+        _rel(a16.float().numpy(), np.asarray(w16.astype(jnp.float32)), rel=2**-8,
+             what=f"bf16 {name}")
+        d = float(np.abs(u.numpy() - np.asarray(w)).max()) / float(np.abs(np.asarray(w)).max())
+        assert d > 1e-3, f"{name}: unrounded within {d:.3g} of the rounding TPU math"
+
+
 def _block_state_dict(tree):
     sd = {}
     _causal_block(tree["causal_0"], "causal_layers.0", sd)

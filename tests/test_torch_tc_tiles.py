@@ -1,6 +1,7 @@
-"""The tensor-core routes of K8's forward (csrc/flash_attention.cu::flash_fwd_tc)
-and K7 (csrc/dw_conv3d.cu::dw_tc), transcribed register by register in
-numpy, on the CPU, where no card runs them.
+"""The tensor-core routes of K8's forward (csrc/flash_attention.cu::flash_fwd_tc),
+K8's backward (csrc/flash_attention_bwd.cu::bwd_dkdv_tc, bwd_dq_tc) and K7
+(csrc/dw_conv3d.cu::dw_tc), transcribed register by register in numpy, on
+the CPU, where no card runs them.
 
 The transcriptions follow the kernels' index arithmetic: the lanes' fragment
 maps of mma.sync m16n8k8 / m16n8k16 (csrc/mma.cuh), ldmatrix (plain and
@@ -20,6 +21,15 @@ partition (K7). The products themselves are float64, so:
     agree within 1e-4 of max|ref| (room for a flip of one P's rounding where
     the two exps differ in their last bit; without P's rounding they differ
     by ~7e-4);
+  * K8's backward (K and V, or Q and dO, as A fragments; the other
+    operands' B fragments by plain ldmatrix for S^T / S and dP^T / dP and by
+    ldmatrix.trans for dV, dK and dQ; P^T and dS^T re-packed from C to A
+    fragments, rounded to bf16 where the kernel rounds them) against
+    ``flash_attention_bwd_plain`` on the same o and lse, within 1e-5 of
+    max|ref| unrounded (fp32) and 1e-3 rounded (bf16, before the last
+    rounding), at S in {1, 65, 130} and D in {8, 16, 32} (at S = 1, where dq
+    and dk are zero in exact arithmetic, within the fp32 residue of the plain
+    side's two sums in ds);
   * K7 against ``dw_conv3d_plain`` within 1e-5 of max|ref| (bf16 products
     are exact; only the order of the sums differs), at B = 2, Cin != Cout,
     output sizes that are no multiple of the bricks, and two chunk counts.
@@ -247,6 +257,213 @@ def test_k8_tensor_core_forward_matches_plain(s, d):
                 *(torch.tensor(a, dtype=dtype) for a in (q, k, v)), scale).double().numpy()
             err, ref = float(np.abs(o - want).max()), float(np.abs(want).max())
             assert err <= 1e-4 * ref, f"unrounded o: max|d|={err:.3g} > 1e-4 x {ref:.3g}"
+
+
+def a_frags(x, r0, d_):
+    """The A fragments of rows r0 (per lane), r0 + 8 of x (S, D), rows past S
+    as 0: csrc/flash_attention_bwd.cu::load_a, one (32, 4) or (32, 8) array a
+    k-step."""
+    s_ = x.shape[0]
+
+    def xv(r, col):
+        return np.where(r < s_, x[np.minimum(r, s_ - 1), col], 0.0)
+    r1 = r0 + 8
+    if d_ == 8:
+        return [np.stack([xv(r0, 2 * T), xv(r0, 2 * T + 1), xv(r1, 2 * T), xv(r1, 2 * T + 1)], 1)]
+    return [np.stack([xv(r, 16 * kk + 2 * T + hi + e) for hi in (0, 8) for r in (r0, r1)
+                      for e in (0, 1)], 1) for kk in range(d_ // 16)]
+
+
+def smem_rows(x, row0, d_):
+    """stage_rows: rows row0 .. row0 + 63 of x at the row stride, zero past S."""
+    rs = 8 if d_ == 8 else d_ + 8
+    sm = np.zeros(64 * rs)
+    for row in range(max(0, min(64, x.shape[0] - row0))):
+        sm[row * rs: row * rs + d_] = x[row0 + row]
+    return sm
+
+
+def mma_abt(a, xs, d_):
+    """mma_abt: C (16 x 64) = A . X^T, X's B fragments by plain ldmatrix."""
+    DB, RS = d_ // 8, 8 if d_ == 8 else d_ + 8
+    xb = []
+    for cc in range(2 * DB):
+        m = 4 * cc + (LANE >> 3)
+        r = ldmatrix(xs, (8 * (m // DB) + (LANE & 7)) * RS + 8 * (m % DB), 4, False)
+        xb += [r[:, 2 * i: 2 * i + 2] for i in range(4)]
+    c = np.zeros((8, 32, 4))
+    for nb in range(8):
+        if d_ == 8:
+            c[nb] = mma(c[nb], a[0], xb[nb], 8)
+        for kk in range(DB // 2):
+            c[nb] = mma(c[nb], a[kk], np.concatenate([xb[nb * DB + 2 * kk],
+                                                      xb[nb * DB + 2 * kk + 1]], 1), 16)
+    return c
+
+
+def mma_px(acc, pa, xs, d_):
+    """mma_px: acc (16 x D) += P (A fragments) . X, X's B fragments by
+    ldmatrix.trans."""
+    DB, RS = d_ // 8, 8 if d_ == 8 else d_ + 8
+    if d_ == 8:
+        for kk in (0, 2):
+            r = ldmatrix(xs, (16 * kk + LANE) * RS, 4, True)
+            acc[0] = mma(acc[0], pa[kk], r[:, :4], 16)
+            acc[0] = mma(acc[0], pa[kk + 1], r[:, 4:], 16)
+    else:
+        for kk in range(4):
+            for nd in range(0, DB, 2):
+                r = ldmatrix(xs, (16 * kk + (LANE & 15)) * RS + 8 * (nd + (LANE >> 4)), 4, True)
+                acc[nd] = mma(acc[nd], pa[kk], r[:, :4], 16)
+                acc[nd + 1] = mma(acc[nd + 1], pa[kk], r[:, 4:], 16)
+    return acc
+
+
+def pack_a(c, rnd):
+    """The C fragments of 8 n-blocks as the A fragments of 4 k-steps, rounded."""
+    return [rnd(np.concatenate([c[2 * kk], c[2 * kk + 1]], 1)) for kk in range(4)]
+
+
+def store_rows(out, acc, r0, d_):
+    """store_rows: rows (r0, r0 + 8) of acc (16 x D) where they are < S."""
+    for rows, e0 in ((r0, 0), (r0 + 8, 2)):
+        ok = rows < out.shape[0]
+        for nd in range(d_ // 8):
+            for e in (0, 1):
+                out[rows[ok], 8 * nd + 2 * T[ok] + e] = acc[nd][ok, e0 + e]
+
+
+def emulate_k8_bwd_tc(q, k, v, o, lse, do, scale, round_bf16):
+    """bwd_delta, bwd_dkdv_tc and bwd_dq_tc in numpy: (dq, dk, dv) before
+    their rounding."""
+    n_, s_, d_ = q.shape
+    nt, c = -(-s_ // 64), scale * np.log2(np.e)
+    rnd = bf16 if round_bf16 else (lambda a: a)
+    delta = (do * o).sum(-1)
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+    for n in range(n_):
+        # dk, dv: key tile kt, a warp's 16 key rows
+        for kt in range(nt):
+            for warp in range(4):
+                j0 = 64 * kt + 16 * warp + G
+                ka, va = a_frags(k[n], j0, d_), a_frags(v[n], j0, d_)
+                dka, dva = np.zeros((d_ // 8, 32, 4)), np.zeros((d_ // 8, 32, 4))
+                for qt in range(kt, nt):
+                    qs, dos = smem_rows(q[n], 64 * qt, d_), smem_rows(do[n], 64 * qt, d_)
+                    cols = 64 * qt + np.arange(64)
+                    ls = np.where(cols < s_, lse[n, np.minimum(cols, s_ - 1)], 0.0)
+                    dls = np.where(cols < s_, delta[n, np.minimum(cols, s_ - 1)], 0.0)
+                    s, dp = mma_abt(ka, qs, d_), mma_abt(va, dos, d_)
+                    col = 8 * np.arange(8)[:, None, None] + 2 * T[None, :, None] + (
+                        np.arange(4) & 1)[None, None]  # (nb, lane, e) -> query in the tile
+                    if qt == kt:
+                        key = np.where(np.arange(4) < 2, 0, 8)[None, None] + j0[None, :, None]
+                        s[64 * qt + col < key] = -np.inf
+                    p = np.exp2(s * c - ls[col] * np.log2(np.e))
+                    ds = p * (dp - dls[col]) * scale
+                    dva = mma_px(dva, pack_a(p, rnd), dos, d_)
+                    dka = mma_px(dka, pack_a(ds, rnd), qs, d_)
+                store_rows(dk[n], dka, j0, d_)
+                store_rows(dv[n], dva, j0, d_)
+        # dq: query tile qt (heavy first), a warp's 16 query rows
+        for y in range(nt):
+            qt = nt - 1 - y
+            for warp in range(4):
+                r0 = 64 * qt + 16 * warp + G
+                qa, doa = a_frags(q[n], r0, d_), a_frags(do[n], r0, d_)
+                rows = np.stack([r0, r0, r0 + 8, r0 + 8], 1)  # (lane, e)
+                ok = rows < s_
+                lb = np.where(ok, lse[n, np.minimum(rows, s_ - 1)], 0.0) * np.log2(np.e)
+                dl = np.where(ok, delta[n, np.minimum(rows, s_ - 1)], 0.0)
+                dqa = np.zeros((d_ // 8, 32, 4))
+                for kt in range(qt + 1):
+                    ks, vs = smem_rows(k[n], 64 * kt, d_), smem_rows(v[n], 64 * kt, d_)
+                    s, dp = mma_abt(qa, ks, d_), mma_abt(doa, vs, d_)
+                    if kt == qt:
+                        key = 64 * kt + 8 * np.arange(8)[:, None, None] + 2 * T[None, :, None] + (
+                            np.arange(4) & 1)[None, None]
+                        s[key > rows[None]] = -np.inf
+                    p = np.exp2(s * c - lb[None])
+                    ds = p * (dp - dl[None]) * scale
+                    dqa = mma_px(dqa, pack_a(ds, rnd), ks, d_)
+                store_rows(dq[n], dqa, r0, d_)
+    return dq, dk, dv
+
+
+def test_transposed_b_loads_and_a_repack_of_the_backward():
+    """The backward's extra fragment maps: K (16 key rows) as the A operand
+    of S^T = K Q^T with Q's rows by plain ldmatrix, and Q's rows by
+    ldmatrix.trans as dK's B operand; P^T's C fragments re-packed as dV's A
+    fragment. Each against the matrix product it stands for."""
+    rng = np.random.default_rng(3)
+    for d_ in (8, 16, 32):
+        kk_, qq = rng.standard_normal((16, d_)), rng.standard_normal((64, d_))
+        s = mma_abt(a_frags(kk_, G, d_), smem_rows(qq, 0, d_), d_)
+        want = kk_ @ qq.T
+        for nb in range(8):
+            np.testing.assert_allclose(s[nb], want[:, 8 * nb: 8 * nb + 8][C_MAP], atol=1e-12)
+        pt = rng.standard_normal((16, 64))
+        acc = mma_px(np.zeros((d_ // 8, 32, 4)), pack_a([pt[:, 8 * nb: 8 * nb + 8][C_MAP]
+                                                         for nb in range(8)], lambda a: a),
+                     smem_rows(qq, 0, d_), d_)
+        want = pt @ qq
+        for nd in range(d_ // 8):
+            np.testing.assert_allclose(acc[nd], want[:, 8 * nd: 8 * nd + 8][C_MAP], atol=1e-12)
+
+
+@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("s", [1, 65, 130])
+def test_k8_tensor_core_backward_matches_plain(s, d):
+    """bwd_dkdv_tc and bwd_dq_tc, transcribed, against
+    ``flash_attention_bwd_plain`` on the same o and lse: without rounding
+    within 1e-5 of max|ref| of its fp32 route; rounding P and dS to bf16 where
+    the kernel rounds them, within 1e-3 of max|ref| of its bf16 route before
+    the last rounding (room for a flip of one rounding where float64 and
+    fp32 exps differ in their last bit); one key tile, a ragged one and
+    three tiles, so both passes' diagonal, off-diagonal and ragged tiles."""
+    rng = np.random.default_rng(100 * s + d)
+    q, k, v, do = (bf16(rng.standard_normal((2, s, d))) for _ in range(4))
+    scale = d ** -0.5
+    logits = np.einsum("nid,njd->nij", q, k) * scale
+    logits[:, ~np.tri(s, dtype=bool)] = -np.inf
+    mx = logits.max(-1, keepdims=True)
+    lse = (np.log(np.exp(logits - mx).sum(-1, keepdims=True)) + mx)[..., 0]
+    o = bf16(np.einsum("nij,njd->nid", np.exp(logits - lse[..., None]), v))
+    for round_p, dtype, tol in ((False, torch.float32, 1e-5), (True, torch.bfloat16, 1e-3)):
+        got = emulate_k8_bwd_tc(q, k, v, o, lse, do, scale, round_p)
+        want = flash_attention._plain_bwd_fp32(
+            *(torch.tensor(a, dtype=dtype) for a in (q, k, v, o)),
+            torch.tensor(lse, dtype=torch.float32), torch.tensor(do, dtype=dtype), scale, rows=48)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            w = w.double().numpy()
+            err, ref = float(np.abs(a - w).max()), float(np.abs(w).max())
+            bound = tol * ref
+            if s == 1 and name != "dv":
+                # zero in exact arithmetic (ds = P (do.v - do.o), o = v): the
+                # plain side holds the residue of its two D-term fp32 sums,
+                # at most 2 (D - 1) 2^-24 sum|do v| to first order, times the
+                # scale, max|k| (dq) or max|q| (dk) and 1.01 (ds rounded)
+                other = k if name == "dq" else q
+                bound = max(bound, 2 * (d - 1) * 2**-24 * float(np.abs(do * v).sum(-1).max())
+                            * scale * float(np.abs(other).max()) * 1.01)
+            assert err <= bound, (f"{name} round_p={round_p}: max|d|={err:.3g} > {bound:.3g} "
+                                  f"(max|ref| {ref:.3g})")
+
+
+def test_plain_backward_is_the_autograd_of_the_plain_forward_in_fp32():
+    """At fp32 ``flash_attention_bwd_plain`` rounds nothing: it equals the
+    autograd of ``flash_causal_attention_plain`` within 1e-5 of max|ref|,
+    with a chunk of query rows that does not divide S."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v, g = (torch.randn(3, 70, 16, generator=gen) for _ in range(4))
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    o = flash_attention.flash_causal_attention_plain(qq, kk, vv, 0.25)
+    want = torch.autograd.grad(o, (qq, kk, vv), g)
+    lse = flash_attention.causal_lse_plain(q, k, 0.25, rows=16)
+    got = flash_attention.flash_attention_bwd_plain(q, k, v, o.detach(), lse, g, 0.25, rows=16)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err, ref = float((a - w).abs().max()), float(w.abs().max())
+        assert a.dtype == torch.float32 and err <= 1e-5 * ref, f"{name}: {err:.3g} / {ref:.3g}"
 
 
 def emulate_k7_tc(x, g, ksize, nchunks):

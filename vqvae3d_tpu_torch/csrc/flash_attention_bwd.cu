@@ -3,30 +3,59 @@
 // Replaces the backward of vqvae3d_tpu/models/causal_blocks.py:
 // _flash_causal_attention (the bundled Pallas flash_attention's custom VJP,
 // its dq and dkv kernels). The forward is csrc/flash_attention.cu; the
-// contract is in ops/flash_attention.py. With P[i, j] = exp(s[i, j] - lse[i])
-// for j <= i, s = q.k * scale:
+// contract and the plain version (flash_attention_bwd_plain) are in
+// ops/flash_attention.py. With P[i, j] = exp(s[i, j] - lse[i]) for j <= i,
+// s = q.k * scale:
 //
 //   delta[i] = sum_d do[i, d] o[i, d]
 //   dv[j]    = sum_{i >= j} P[i, j] do[i]
-//   ds[i, j] = P[i, j] (do[i] . v[j] - delta[i])
-//   dk[j]    = scale sum_{i >= j} ds[i, j] q[i]
-//   dq[i]    = scale sum_{j <= i} ds[i, j] k[j]
+//   ds[i, j] = P[i, j] (do[i] . v[j] - delta[i]) scale
+//   dk[j]    = sum_{i >= j} ds[i, j] q[i]
+//   dq[i]    = sum_{j <= i} ds[i, j] k[j]
 //
-// FlashAttention-2's split: one kernel for delta, one for dk and dv (a thread
-// per key row, walking the query tiles from its diagonal to S), one for dq (a
-// thread per query row, walking the key tiles up to its diagonal). P is
-// recomputed from the saved lse in both. Every sum is taken by one thread in
-// a fixed order, with no atomics, so two calls give bit-identical gradients.
-// Inputs are read as T and widened; every sum is fp32; the gradients are
-// rounded to T once at the end.
+// FlashAttention-2's split on both routes: one kernel for delta, one for dk
+// and dv (key-major, walking the query tiles from its diagonal to S), one for
+// dq (query-major, walking the key tiles up to its diagonal). P is recomputed
+// from the saved lse in both. Every sum is taken in a fixed order over a
+// fixed partition, with no atomics, so two calls give bit-identical
+// gradients. Keys and queries past S are zero-filled and past the diagonal
+// masked by index, so S need not be a multiple of the tiles. Two routes,
+// chosen by the dtype before any launch:
+//
+// bf16 (the training path): tensor cores, bwd_dkdv_tc and bwd_dq_tc, laid out
+// as the forward's flash_fwd_tc (4 warps x 16 rows a CTA, tiles of 64 on the
+// other axis staged by cp.async in two stages, mma.sync m16n8k8 at D = 8 and
+// m16n8k16 at D = 16, 32; fragment maps in csrc/mma.cuh).
+//  * dk/dv: a warp holds 16 key rows' K and V as A fragments and, per query
+//    tile, computes S^T = K Q^T and dP^T = V dO^T (Q's and dO's B fragments
+//    by plain ldmatrix), P^T = exp2(S^T scale log2(e) - lse log2(e)) and
+//    dS^T = P^T (dP^T - delta) scale in fp32 on the C fragments (lse and
+//    delta of the tile's 64 queries staged beside Q and dO), then
+//    dV += bf16(P^T) dO and dK += bf16(dS^T) Q: the C fragments packed into
+//    A fragments in registers, dO's and Q's B fragments by ldmatrix.trans.
+//  * dq: a warp holds 16 query rows' Q and dO as A fragments, computes S =
+//    Q K^T and dP = dO V^T per key tile, P and dS as above (lse and delta of
+//    its two rows in registers), dQ += bf16(dS) K with K by ldmatrix.trans.
+//  Tiles wholly off the diagonal run unmasked; the diagonal tile masks by
+//  index. Rounding as the TPU kernel's backward: P to bf16 for dV, dS (with
+//  its scale) to bf16 for dK and for dQ, every accumulation fp32, each
+//  gradient rounded to bf16 once.
+//
+// fp32: the CUDA cores, bwd_dkdv and bwd_dq (tensor cores would round to
+// TF32): a thread per key row (dk/dv) or per query row (dq), the tiles staged
+// in shared memory, nothing rounded but the gradients.
 //
 // What bounds it on the H100: at the published mid PixelSNAIL (N = 24,
-// S = 8192, D = 8, bf16) the two passes recompute the 0.8 G causal logits
-// twice: ~12 D flops a logit (q.k twice, do.v twice, dv, dk, dq) and two
-// exps, 77 GFLOP (78 us at the bf16 tensor-core rate) against ~25 MB of
-// operands and gradients. Operations bound it; this first version runs them
-// on the CUDA cores in fp32.
+// S = 8192, D = 8, bf16) one call has 0.8 G causal logits: 10 D flops each
+// (q.k, do.v, dv, dk, dq; 26 us at the bf16 tensor-core rate) against ~25 MB
+// of operands and gradients (7.5 us), and one exp a logit (0.19 ms at the
+// special-function rate). This design's two passes evaluate each exp twice,
+// so its own floor is ~0.39 ms, plus the ~10 CUDA-core instructions a logit
+// of the two passes' softmax arithmetic and packing (~0.24 ms at 33.5 T/s).
 #include "common.cuh"
+#include "mma.cuh"
+
+#include <math_constants.h>
 
 namespace {
 
@@ -195,17 +224,348 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
   }
 }
 
+// ---- bf16: tensor cores ----
+
+constexpr int TC_WARPS = 4, TC_T = 16 * TC_WARPS;  // 64 rows a CTA, tiles of 64
+constexpr float LOG2E = 1.4426950408889634f;
+using bf16 = __nv_bfloat16;
+
+template <int D>
+__host__ __device__ constexpr int row_stride() {  // shared row stride: ldmatrix without bank conflicts
+  return D == 8 ? 8 : D + 8;
+}
+
+template <int D>
+using AFrag = uint32_t[D == 8 ? 1 : D / 16][4];
+
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// the A fragments of rows r0 .. r0 + 15 of a row-major (S, D) tensor, straight
+// from device memory (rows past S read as 0): lane (g, t) holds rows r0 + g and
+// r0 + g + 8
+template <int D>
+__device__ __forceinline__ void load_a(AFrag<D>& a, const bf16* x, int r0, int S, int t) {
+  const uint32_t* x32 = reinterpret_cast<const uint32_t*>(x);
+  auto ld = [&](int row, int col) -> uint32_t {
+    return row < S ? x32[(static_cast<size_t>(row) * D + col) / 2] : 0u;
+  };
+  if constexpr (D == 8) {
+    a[0][0] = ld(r0, 2 * t);
+    a[0][1] = ld(r0 + 8, 2 * t);
+    a[0][2] = a[0][3] = 0u;
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      a[kk][0] = ld(r0, 16 * kk + 2 * t);
+      a[kk][1] = ld(r0 + 8, 16 * kk + 2 * t);
+      a[kk][2] = ld(r0, 16 * kk + 8 + 2 * t);
+      a[kk][3] = ld(r0 + 8, 16 * kk + 8 + 2 * t);
+    }
+  }
+}
+
+// rows row0 .. row0 + 63 of a row-major (S, D) tensor into shared memory at
+// the row stride, 16 bytes a copy, rows past S zero-filled
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int row0, int S,
+                                           int tid) {
+  constexpr int DB = D / 8;
+#pragma unroll
+  for (int e = tid; e < TC_T * DB; e += 32 * TC_WARPS) {
+    const int row = e / DB, c = e % DB, j = row0 + row;
+    vq::cp_async16(vq::smem_u32(dst + row * row_stride<D>() + 8 * c),
+                   src + static_cast<size_t>(j < S ? j : S - 1) * D + 8 * c, j < S ? 16 : 0);
+  }
+}
+
+// c (16 x 64) = a (16 x D) . x^T, x the 64 rows x D in shared memory: x's B
+// fragments by plain ldmatrix (matrix m = nb DB + db holds rows 8 nb .. 8 nb + 7
+// at d 8 db .. 8 db + 7); lane (g, t) gets rows (g, g + 8) x columns
+// 8 nb + 2 t, +1
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&c)[8][4], const AFrag<D>& a, const bf16* xs,
+                                        int lane) {
+  constexpr int DB = D / 8, RS = row_stride<D>();
+  uint32_t xb[8 * DB];
+#pragma unroll
+  for (int cc = 0; cc < 2 * DB; ++cc) {
+    const int m = 4 * cc + (lane >> 3), nb = m / DB, db = m % DB;
+    uint32_t r[4];
+    vq::ldsm_x4(r, vq::smem_u32(xs + (8 * nb + (lane & 7)) * RS + 8 * db));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) xb[4 * cc + i] = r[i];
+  }
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+    c[nb][0] = c[nb][1] = c[nb][2] = c[nb][3] = 0.f;
+    if constexpr (D == 8) {
+      vq::mma_1688(c[nb], a[0][0], a[0][1], xb[nb]);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DB / 2; ++kk)
+        vq::mma_16816(c[nb], a[kk], xb[nb * DB + 2 * kk], xb[nb * DB + 2 * kk + 1]);
+    }
+  }
+}
+
+// acc (16 x D) += pa (16 x 64, A fragments: k-step kk = columns 16 kk ..
+// 16 kk + 15) . x, x the 64 rows x D in shared memory: x's B fragments by
+// ldmatrix.trans (x's rows down the k axis)
+template <int D>
+__device__ __forceinline__ void mma_px(float (&acc)[D / 8][4], const uint32_t (&pa)[4][4],
+                                       const bf16* xs, int lane) {
+  constexpr int DB = D / 8, RS = row_stride<D>();
+  if constexpr (D == 8) {
+#pragma unroll
+    for (int kk = 0; kk < 4; kk += 2) {  // lane L addresses row 16 kk + L
+      uint32_t r[4];
+      vq::ldsm_x4_t(r, vq::smem_u32(xs + (16 * kk + lane) * RS));
+      vq::mma_16816(acc[0], pa[kk], r[0], r[1]);
+      vq::mma_16816(acc[0], pa[kk + 1], r[2], r[3]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nd = 0; nd < DB; nd += 2) {  // lanes 16-31 address d block nd + 1
+        uint32_t r[4];
+        vq::ldsm_x4_t(r, vq::smem_u32(xs + (16 * kk + (lane & 15)) * RS +
+                                      8 * (nd + (lane >> 4))));
+        vq::mma_16816(acc[nd], pa[kk], r[0], r[1]);
+        vq::mma_16816(acc[nd + 1], pa[kk], r[2], r[3]);
+      }
+  }
+}
+
+// rows (r0, r0 + 8) of acc (16 x D), rounded to bf16, into a row-major (S, D) tensor
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* x, const float (&acc)[D / 8][4], int r0,
+                                           int S, int t) {
+  uint32_t* x32 = reinterpret_cast<uint32_t*>(x);
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    if (r0 < S)
+      x32[(static_cast<size_t>(r0) * D + 8 * nd + 2 * t) / 2] = vq::pack_bf16(acc[nd][0], acc[nd][1]);
+    if (r0 + 8 < S)
+      x32[(static_cast<size_t>(r0 + 8) * D + 8 * nd + 2 * t) / 2] =
+          vq::pack_bf16(acc[nd][2], acc[nd][3]);
+  }
+}
+
+// dk, dv: grid (N, S / 64); key tile kt = blockIdx.y, so the tiles with the
+// most query tiles start first
+template <int D>
+__global__ void __launch_bounds__(32 * TC_WARPS)
+    bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int S, float scale,
+                float scale_log2) {
+  constexpr int DB = D / 8, RS = row_stride<D>();
+  __shared__ __align__(16) bf16 qs[2][TC_T * RS], dos[2][TC_T * RS];
+  __shared__ __align__(16) float ls[2][TC_T], dls[2][TC_T];
+  const int n = blockIdx.x, kt = blockIdx.y, nqt = (S + TC_T - 1) / TC_T;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const size_t base = static_cast<size_t>(n) * S * D;
+  const float* lsen = lse + static_cast<size_t>(n) * S;
+  const float* deln = delta + static_cast<size_t>(n) * S;
+  const int j0 = kt * TC_T + 16 * warp + g, j1 = j0 + 8;  // this lane's two key rows
+
+  AFrag<D> ka, va;
+  load_a<D>(ka, k + base, j0, S, t);
+  load_a<D>(va, v + base, j0, S, t);
+
+  // Q, dO, lse and delta of query tile qt into stage st; past S zero-filled
+  auto load_tile = [&](int qt, int st) {
+    stage_rows<D>(qs[st], q + base, qt * TC_T, S, tid);
+    stage_rows<D>(dos[st], dout + base, qt * TC_T, S, tid);
+    const int e = tid & (TC_T - 1), i = qt * TC_T + e;
+    const float* src = (tid < TC_T ? lsen : deln) + (i < S ? i : S - 1);
+    vq::cp_async4(vq::smem_u32((tid < TC_T ? ls[st] : dls[st]) + e), src, i < S ? 4 : 0);
+    vq::cp_async_commit();
+  };
+
+  float dka[DB][4], dva[DB][4];
+#pragma unroll
+  for (int nd = 0; nd < DB; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+
+  load_tile(kt, 0);
+  for (int qt = kt; qt < nqt; ++qt) {
+    const int st = (qt - kt) & 1;
+    if (qt + 1 < nqt) {
+      load_tile(qt + 1, st ^ 1);
+      vq::cp_async_wait<1>();
+    } else {
+      vq::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S^T and dP^T: lane holds keys (j0, j1) x queries qt 64 + 8 nb + 2 t, +1
+    float s[8][4], dp[8][4];
+    mma_abt<D>(s, ka, qs[st], lane);
+    mma_abt<D>(dp, va, dos[st], lane);
+    if (qt == kt) {  // the diagonal tile: queries before the key masked by index
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (qt * TC_T + 8 * nb + 2 * t + (e & 1) < (e < 2 ? j0 : j1)) s[nb][e] = -CUDART_INF_F;
+    }
+    // P^T and dS^T in fp32, packed as the bf16 A fragments of dV and dK
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls[st] + 8 * nb + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(dls[st] + 8 * nb + 2 * t);
+      const float lb0 = l2.x * LOG2E, lb1 = l2.y * LOG2E;
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = ex2(fmaf(s[nb][e], scale_log2, -((e & 1) ? lb1 : lb0)));
+        ds[e] = p[e] * (dp[nb][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+      }
+      pa[nb >> 1][2 * (nb & 1)] = vq::pack_bf16(p[0], p[1]);
+      pa[nb >> 1][2 * (nb & 1) + 1] = vq::pack_bf16(p[2], p[3]);
+      sa[nb >> 1][2 * (nb & 1)] = vq::pack_bf16(ds[0], ds[1]);
+      sa[nb >> 1][2 * (nb & 1) + 1] = vq::pack_bf16(ds[2], ds[3]);
+    }
+    mma_px<D>(dva, pa, dos[st], lane);
+    mma_px<D>(dka, sa, qs[st], lane);
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  store_rows<D>(dk + base, dka, j0, S, t);
+  store_rows<D>(dv + base, dva, j0, S, t);
+}
+
+// dq: grid (N, S / 64); query tile qt = gridDim.y - 1 - blockIdx.y, heavy first
+template <int D>
+__global__ void __launch_bounds__(32 * TC_WARPS)
+    bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, int S, float scale, float scale_log2) {
+  constexpr int DB = D / 8, RS = row_stride<D>();
+  __shared__ __align__(16) bf16 ks[2][TC_T * RS], vs[2][TC_T * RS];
+  const int n = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const size_t base = static_cast<size_t>(n) * S * D;
+  const int r0 = qt * TC_T + 16 * warp + g, r1 = r0 + 8;  // this lane's two query rows
+
+  AFrag<D> qa, doa;
+  load_a<D>(qa, q + base, r0, S, t);
+  load_a<D>(doa, dout + base, r0, S, t);
+  const size_t row = static_cast<size_t>(n) * S;
+  const float lb0 = r0 < S ? lse[row + r0] * LOG2E : 0.f, lb1 = r1 < S ? lse[row + r1] * LOG2E : 0.f;
+  const float dl0 = r0 < S ? delta[row + r0] : 0.f, dl1 = r1 < S ? delta[row + r1] : 0.f;
+
+  auto load_tile = [&](int kt, int st) {
+    stage_rows<D>(ks[st], k + base, kt * TC_T, S, tid);
+    stage_rows<D>(vs[st], v + base, kt * TC_T, S, tid);
+    vq::cp_async_commit();
+  };
+
+  float dqa[DB][4];
+#pragma unroll
+  for (int nd = 0; nd < DB; ++nd) dqa[nd][0] = dqa[nd][1] = dqa[nd][2] = dqa[nd][3] = 0.f;
+
+  load_tile(0, 0);
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int st = kt & 1;
+    if (kt < qt) {
+      load_tile(kt + 1, st ^ 1);
+      vq::cp_async_wait<1>();
+    } else {
+      vq::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S and dP: lane holds rows (r0, r1) x keys kt 64 + 8 nb + 2 t, +1
+    float s[8][4], dp[8][4];
+    mma_abt<D>(s, qa, ks[st], lane);
+    mma_abt<D>(dp, doa, vs[st], lane);
+    if (kt == qt) {  // the diagonal tile: keys after the row masked by index
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kt * TC_T + 8 * nb + 2 * t + (e & 1) > (e < 2 ? r0 : r1)) s[nb][e] = -CUDART_INF_F;
+    }
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(s[nb][e], scale_log2, -(e < 2 ? lb0 : lb1)));
+        ds[e] = p * (dp[nb][e] - (e < 2 ? dl0 : dl1)) * scale;
+      }
+      sa[nb >> 1][2 * (nb & 1)] = vq::pack_bf16(ds[0], ds[1]);
+      sa[nb >> 1][2 * (nb & 1) + 1] = vq::pack_bf16(ds[2], ds[3]);
+    }
+    mma_px<D>(dqa, sa, ks[st], lane);
+    __syncthreads();
+  }
+  store_rows<D>(dq + base, dqa, r0, S, t);
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                      void* dv, int N, int S, float scale, cudaStream_t st) {
+  const bf16 *qt = static_cast<const bf16*>(q), *kt = static_cast<const bf16*>(k);
+  const bf16 *vt = static_cast<const bf16*>(v), *dot = static_cast<const bf16*>(dout);
+  const int64_t rows = static_cast<int64_t>(N) * S;
+  bwd_delta<bf16, D><<<static_cast<unsigned>((rows + 255) / 256), 256, 0, st>>>(
+      static_cast<const bf16*>(o), dot, delta, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(N, (S + TC_T - 1) / TC_T);
+  const float sl2 = scale * LOG2E;
+  bwd_dkdv_tc<D><<<grid, 32 * TC_WARPS, 0, st>>>(qt, kt, vt, dot, lse, delta,
+                                                 static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                                 S, scale, sl2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dq_tc<D><<<grid, 32 * TC_WARPS, 0, st>>>(qt, kt, vt, dot, lse, delta,
+                                               static_cast<bf16*>(dq), S, scale, sl2);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_tc(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                        void* dv, int N, int S, int D, float scale, cudaStream_t s) {
+  switch (D) {
+    case 8: return launch_tc<8>(q, k, v, o, dout, lse, delta, dq, dk, dv, N, S, scale, s);
+    case 16: return launch_tc<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, N, S, scale, s);
+    case 32: return launch_tc<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, N, S, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// q, k, v, o, dout, dq, dk, dv: (N, S, D) contiguous, fp32 or bf16 (is_bf16);
-// lse (N, S) fp32 from the forward; delta (N, S) fp32 scratch.
+// q, k, v, o, dout, dq, dk, dv: (N, S, D) contiguous, fp32 or bf16 (is_bf16;
+// the bf16 route copies 16-byte rows, so its q, k, v, dout start 16-byte
+// aligned); lse (N, S) fp32 from the forward; delta (N, S) fp32 scratch.
+// D in {8, 16, 32}; N <= 65535 (grid.y of the fp32 route).
 extern "C" int vq_flash_attn_bwd(int is_bf16, const void* q, const void* k, const void* v,
                                  const void* o, const void* dout, const float* lse, float* delta,
                                  void* dq, void* dk, void* dv, int N, int S, int D, float scale,
                                  void* stream) {
   if (N <= 0 || N > 65535 || S <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, N, S, D, scale, s);
+  if (is_bf16) {
+    if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) & 15) {
+      return cudaErrorMisalignedAddress;
+    }
+    return dispatch_tc(q, k, v, o, dout, lse, delta, dq, dk, dv, N, S, D, scale, s);
+  }
   return dispatch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, N, S, D, scale, s);
 }

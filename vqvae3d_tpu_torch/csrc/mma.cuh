@@ -81,6 +81,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
                "r"(src_bytes));
 }
 
+// 4 bytes device -> shared (no alignment beyond 4), zero-filled when src_bytes is 0
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>

@@ -8,20 +8,19 @@
 // top config (L = 51 layers, C = 16, br = 4, K = 128, s2 = 32, B = 1) a row
 // moves ~0.26 MB (the stacked weights ~0.11 MB, the row's injections and
 // caches, the Gumbel table: ~0.08 us at 3.35 TB/s) and does ~1.5 MFLOP
-// (~0.02 us at 67 TFLOP/s fp32). The bound that holds is the serial one: the 32 voxels of a
-// row go through the 51 layers one after another, and each layer is a chain
-// of dependent steps (ELU, a C->br product reduced across lanes in four
-// shuffle rounds, ELU, the width taps, ELU, a br->C product), ~350 cycles by
-// instruction latencies alone: 32 x 51 x 350 cycles is ~0.3 ms a row at
-// 1.98 GHz, ~5 s for the 16,384 rows of a 128x128x32 grid. One warp runs the
-// chain, with nothing to hide its latencies behind (chip_smoke.py prints the
-// time per row beside both bounds). One row is one launch; B = 1 gives the
-// card one block.
+// (~0.02 us at 67 TFLOP/s fp32). The bound that holds is the serial one: the
+// 32 voxels of a row go through the 51 layers one after another, and each
+// layer is a chain of dependent steps (ELU, a C->br product reduced across
+// lanes, ELU, the width taps, ELU, a br->C product). One warp runs the chain,
+// with nothing to hide its latencies behind; chip_smoke.py prints the time
+// per row beside the bytes bound and the chain's cycles per layer-step, read
+// by clock64() (the ``cycles`` argument). One row is one launch; B = 1 gives
+// the card one block.
 //
 // Design (one block per batch element, 128+ threads):
 //  * staging: the stacked weights, layer 0's skip conv, this row's d2w and
 //    condition rows, w_in, w_out and the biases go to shared memory with
-//    cp.async: ~188 KB at the top config, under the 227 KB opt-in (the
+//    cp.async, 16 bytes a copy where the sizes allow: ~180 KB at the top config, under the 227 KB opt-in (the
 //    launcher refuses a config that does not fit). Read from device memory
 //    inside the chain, every weight would put an L2 round trip on the serial
 //    chain of every layer.
@@ -32,28 +31,32 @@
 //    hardware exp2 (see elu below).
 //  * phase 1 (the height-row step): thread p owns position p of the row and
 //    keeps its C-wide height-stream value in registers. Per layer it computes
-//    u, the C->br product, h2w into shared memory (phase 2 reads it), the new
-//    v-row; a barrier; then the 2x3 height taps over (cached v-row, this
-//    v-row), shifted along s2 with zero fill, read back from shared memory,
-//    the condition, and the br->C output with the residual. The v-row caches are
-//    updated IN PLACE in device memory: each position's cache is read before
-//    the barrier and written after it.
-//  * phase 2 (the voxel chain): one warp. Lane c owns channel c of the width
-//    stream (C <= 32). Per layer each lane computes its share of the C->br
-//    product and an xor-butterfly over the R = pow2 >= C lanes sums it; the
-//    butterfly leaves bitwise the same sums in each of those lanes, so each
-//    then computes the br-wide steps (ELU, width taps, ELU) itself, with no
-//    more exchange, and its own output channel (lanes >= R, in another
-//    group, compute sums of nothing; their values are never read). Layer 0's
-//    skip conv gathers its input with shuffles. The width taps' caches live
-//    in shared memory in two buffers by voxel parity, so one __syncwarp per
-//    voxel orders them; lanes >= R write theirs to a scratch slot (were all
-//    32 lanes to store to the cache, they would race). Logits: lane l owns
-//    codes l, l+32, ...; argmax of logits / tau + gumbel with a warp
-//    butterfly, ties to the lowest index. A voxel with a non-finite logit
-//    gets index -1, which the sampler reports; the next voxel then reads
-//    code 0's embedding. The sampled code's w_in row + b_in is the next
-//    voxel's layer-0 input.
+//    u, the C->br product and h2w, the new v-row; a barrier; then the 2x3
+//    height taps over (cached v-row, this v-row), shifted along s2 with zero
+//    fill, read back from shared memory, the condition, and the br->C output
+//    with the residual. The v-row caches are updated IN PLACE in device
+//    memory: each position's cache is read before the barrier and written
+//    after it. Phase 1 also leaves, for every (layer, voxel), the two addends
+//    of the voxel chain that do not depend on the voxel before:
+//    pre2 = d2w + h2w + s[2] (in place of d2w) and pre4 = cond + s[4] (in
+//    place of the condition).
+//  * phase 2 (the voxel chain): one warp, in groups of NL = MAXC / 2 lanes (8
+//    at the published C = 16, else 16); lane q of a group owns channels 2q and
+//    2q + 1 of the width stream. Per layer a lane computes its share of the
+//    C->br product over its channels and an xor butterfly over the group's
+//    lanes (3 or 4 rounds) sums it, bitwise the same in every lane of the
+//    group; each lane then computes the br-wide steps (ELU, width taps, ELU)
+//    itself and its own 2 output channels. The groups compute the same
+//    values; lane 0 stores. Off the chain: the residual starts the
+//    output's sum; the width taps' cached half, vc . wk[0], is computed by the
+//    voxel before and stored in place of vc (two buffers by voxel parity, so
+//    one __syncwarp per voxel orders them); each ELU's constants (see
+//    elu_shift). Layer 0's skip conv reads the sampled embedding from shared
+//    memory. Logits: the final channels go through shared memory, lane l owns
+//    codes 4l .. 4l + 3 at the published widths, else l, l+32, ...; argmax of
+//    logits / tau + gumbel with a warp butterfly, ties to the lowest index. A voxel with a non-finite logit gets index -1, which the
+//    sampler reports; the next voxel then reads code 0's embedding. The
+//    sampled code's w_in row + b_in is the next voxel's layer-0 input.
 #include <cuda_pipeline.h>
 #include <math_constants.h>
 
@@ -76,23 +79,23 @@ struct RowArgs {
   const int* forced;
   int* out;
   float* logits;
+  long long* cycles;  // null, or (B, 4): phase 2, its layer loops, staging + phase 1, staging
   int L, B, s2, C, br, ws, K, i1;
   float tau;
 };
 
 // Shared-memory layout, in floats; every region starts on 16 bytes (float4 reads).
 struct Smem {
-  int hw, d2w, cnd, w1, wk, w3, sc, b3, hw1, herf, herfb, hwk, hw3, hb3, skw, hskw, vc, hfin,
-      v, vp, wout, win, bout, bin, junk, total;
+  int pre2, pre4, w1, wk, w3, sc, b3, hw1, herf, herfb, hwk, hw3, hb3, skw, hskw, part, hfin,
+      v, vp, wout, win, bout, bin, emb, tot, total;
 };
 
 __host__ __device__ inline Smem smem_layout(int L, int s2, int C, int br, int ws, int K,
-                                            bool cond, bool l0_skip) {
+                                            bool l0_skip) {
   Smem m;
   int o = 0;
-  m.hw = o;    o += L * s2 * br; o = (o + 3) & ~3;
-  m.d2w = o;   o += L * s2 * br; o = (o + 3) & ~3;
-  m.cnd = o;   o += cond ? L * s2 * br : 0; o = (o + 3) & ~3;
+  m.pre2 = o;  o += L * s2 * br; o = (o + 3) & ~3;  // d2w until phase 1 rewrites it
+  m.pre4 = o;  o += L * s2 * br; o = (o + 3) & ~3;  // the condition until phase 1 rewrites it
   m.w1 = o;    o += L * C * br; o = (o + 3) & ~3;
   m.wk = o;    o += L * ws * br * br; o = (o + 3) & ~3;
   m.w3 = o;    o += L * br * C; o = (o + 3) & ~3;
@@ -106,7 +109,7 @@ __host__ __device__ inline Smem smem_layout(int L, int s2, int C, int br, int ws
   m.hb3 = o;   o += L * C; o = (o + 3) & ~3;
   m.skw = o;   o += l0_skip ? C * C : 0; o = (o + 3) & ~3;
   m.hskw = o;  o += l0_skip ? C * C : 0; o = (o + 3) & ~3;
-  m.vc = o;    o += 2 * L * (ws - 1) * br; o = (o + 3) & ~3;  // two buffers, by voxel parity
+  m.part = o;  o += 2 * L * ((br + 3) & ~3); o = (o + 3) & ~3;  // vc . wk[0], two buffers
   m.hfin = o;  o += s2 * C; o = (o + 3) & ~3;
   m.v = o;     o += s2 * br; o = (o + 3) & ~3;
   m.vp = o;    o += s2 * br; o = (o + 3) & ~3;
@@ -114,7 +117,8 @@ __host__ __device__ inline Smem smem_layout(int L, int s2, int C, int br, int ws
   m.win = o;   o += K * C; o = (o + 3) & ~3;
   m.bout = o;  o += K; o = (o + 3) & ~3;
   m.bin = o;   o += C; o = (o + 3) & ~3;
-  m.junk = o;  o += 8;
+  m.emb = o;   o += C; o = (o + 3) & ~3;  // the sampled code's embedding (layer 0's skip conv)
+  m.tot = o;   o += C; o = (o + 3) & ~3;  // the final channels of a voxel (its logits)
   m.total = o;
   return m;
 }
@@ -123,33 +127,67 @@ __device__ __forceinline__ void cp4(float* dst, const float* src) {
   __pipeline_memcpy_async(dst, src, sizeof(float));
 }
 
+// n floats device -> shared: 16 bytes a copy where both ends and n allow it, else 4
 __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) cp4(dst + i, src + i);
+  if ((((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) | (n & 3)) == 0) {
+    for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x)
+      __pipeline_memcpy_async(dst + i, src + i, 16);
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) cp4(dst + i, src + i);
+  }
 }
 
-// ELU as the TPU kernel computes it (vqvae3d_tpu/ops/fused_block.py:_elu):
-// exp(x) - 1 for x <= 0, with the hardware exp2 (__expf: a multiply and
-// MUFU.EX2, relative error ~2^-21). Three ELUs sit on each layer's chain,
-// and expm1f or expf would add their range handling to it.
-__device__ __forceinline__ float elu(float x) { return x > 0.f ? x : __expf(x) - 1.f; }
+// ELU as the TPU kernel computes it (vqvae3d_tpu/ops/fused_block.py:_elu,
+// exp(x) - 1 for x <= 0), with the hardware exp2, in the form both phases'
+// chains take: elu(a + c) + s with its operands split so the chain runs one
+// FFMA, MUFU.EX2 (ex2.approx.ftz, relative error ~2^-22) and an FADD, then a
+// select: for a + c > 0 it is a + (c + s), else exp2(a log2(e) + c log2(e)) +
+// (s - 1). The constants come off the chain (``shift``). The same function
+// as elu(a + c) + s in fp32 up to the rounding of the exponent's argument;
+// __expf would add a range check and two multiplies to the chain, expm1f or
+// expf their range handling.
+struct Shift {
+  float neg_c, c_s, c_l2e, s_m1;
+};
+
+__device__ __forceinline__ Shift shift(float c, float s) {
+  return {-c, c + s, c * 1.4426950408889634f, s - 1.f};
+}
+
+__device__ __forceinline__ float elu_shift(float a, const Shift& k) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(fmaf(a, 1.4426950408889634f, k.c_l2e)));
+  return a > k.neg_c ? a + k.c_s : e + k.s_m1;
+}
+
+// lanes a group of the voxel chain, 2 channels a lane (at the top config 8
+// lanes of 2 channels ran faster than 4 of 4, whose four ELUs a lane queue on
+// MUFU; the generic widths (MAXC = 32) take 16 lanes, which spill fewer
+// registers than 8 of 4)
+template <int MAXC>
+__host__ __device__ constexpr int group_lanes() {
+  return MAXC / 2;
+}
 
 template <int MAXC, int MAXBR, int MAXKM, bool EXACT>
 __global__ void __launch_bounds__(256) row_decode_kernel(RowArgs a) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
+  // clock64() is read only when the caller asks for the cycles
+  const bool probe = a.cycles != nullptr;
+  const long long t_start = probe ? clock64() : 0;
   const int L = a.L, B = a.B, s2 = a.s2;
   const int C = EXACT ? MAXC : a.C, br = EXACT ? MAXBR : a.br, K = EXACT ? 32 * MAXKM : a.K;
   constexpr int ws = 2;  // the k = 3 width conv of a mask-'B' branch
   const bool cond = a.cnd != nullptr, l0_skip = a.skw != nullptr;
-  const Smem m = smem_layout(L, s2, C, br, ws, K, cond, l0_skip);
+  const Smem m = smem_layout(L, s2, C, br, ws, K, l0_skip);
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int bs = (br + 3) & ~3;  // a layer's slot in the part buffers
 
   // ---- staging: weights and this row's d2w / condition rows, asynchronously
   const int row = s2 * br;
-  for (int i = tid; i < L * row; i += nt) {
-    const int li = i / row;
-    const int off = (li * B + b) * row + (i - li * row);
-    cp4(sm + m.d2w + i, a.d2w + off);
-    if (cond) cp4(sm + m.cnd + i, a.cnd + off);
+  for (int li = 0; li < L; ++li) {
+    stage(sm + m.pre2 + li * row, a.d2w + static_cast<size_t>(li * B + b) * row, row);
+    if (cond) stage(sm + m.pre4 + li * row, a.cnd + static_cast<size_t>(li * B + b) * row, row);
   }
   stage(sm + m.w1, a.w1, L * C * br);
   stage(sm + m.wk, a.wk, L * ws * br * br);
@@ -170,10 +208,12 @@ __global__ void __launch_bounds__(256) row_decode_kernel(RowArgs a) {
   stage(sm + m.win, a.w_in, K * C);
   stage(sm + m.bout, a.b_out, K);
   stage(sm + m.bin, a.b_in, C);
-  for (int i = tid; i < 2 * L * br; i += nt) sm[m.vc + i] = 0.f;
+  for (int i = tid; i < 2 * L * bs; i += nt) sm[m.part + i] = 0.f;
+  for (int i = tid; i < C; i += nt) sm[m.emb + i] = 0.f;
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
+  const long long t_staged = probe ? clock64() : 0;
 
   // ---- phase 1: the height-row step, thread p = position p of the row
   const bool act = tid < s2;
@@ -184,19 +224,36 @@ __global__ void __launch_bounds__(256) row_decode_kernel(RowArgs a) {
     h[c] = (act && c < C) ? sm[m.bin + c] : 0.f;
     sp[c] = (act && c < C) ? a.sprev[(b * s2 + p) * C + c] : 0.f;
   }
+  // this position's d2h and cached v-row of the next layer, loaded a layer ahead
+  float nd2h[MAXBR], nvhc[MAXBR];
+  auto fetch = [&](int li) {
+    const size_t cache = (static_cast<size_t>(li * B + b) * s2 + p) * br;
+#pragma unroll
+    for (int j = 0; j < MAXBR; ++j) {
+      nd2h[j] = (act && j < br) ? a.d2h[cache + j] : 0.f;
+      nvhc[j] = (act && j < br) ? a.vhc[cache + j] : 0.f;
+    }
+  };
+  fetch(0);
   for (int li = 0; li < L; ++li) {
     const float* scl = sm + m.sc + li * 8;
     const size_t cache = (static_cast<size_t>(li * B + b) * s2 + p) * br;
+    float d2h[MAXBR], vhc[MAXBR];
+#pragma unroll
+    for (int j = 0; j < MAXBR; ++j) d2h[j] = nd2h[j], vhc[j] = nvhc[j];
+    if (li + 1 < L) fetch(li + 1);  // another address than this layer's in-place write
+    const int pos = (li * s2 + p) * br;  // this position's pre2 / pre4 of layer li
     float v[MAXBR];
     if (act) {
       float tp[MAXBR];
 #pragma unroll
       for (int j = 0; j < MAXBR; ++j) tp[j] = 0.f;
       const float* hw1 = sm + m.hw1 + li * C * br;
+      const Shift su = shift(scl[0], scl[1]);
 #pragma unroll
       for (int c = 0; c < MAXC; ++c) {
         if (c < C) {
-          float u = elu((li == 0 ? sp[c] : h[c]) + scl[0]) + scl[1];
+          float u = elu_shift(li == 0 ? sp[c] : h[c], su);
           if (li == 0 && a.i1 == 0) u = 0.f;
 #pragma unroll
           for (int j = 0; j < MAXBR; ++j)
@@ -210,10 +267,10 @@ __global__ void __launch_bounds__(256) row_decode_kernel(RowArgs a) {
 #pragma unroll
           for (int i = 0; i < MAXBR; ++i)
             if (i < br) hw = fmaf(tp[i], sm[m.herf + (li * br + i) * br + j], hw);
-          sm[m.hw + (li * s2 + p) * br + j] = hw;
-          v[j] = elu(tp[j] + a.d2h[cache + j] + scl[2]) + scl[3];
+          sm[m.pre2 + pos + j] = sm[m.pre2 + pos + j] + hw + scl[2];  // d2w + h2w + s[2]
+          v[j] = elu_shift(tp[j], shift(d2h[j] + scl[2], scl[3]));
           sm[m.v + p * br + j] = v[j];
-          sm[m.vp + p * br + j] = a.vhc[cache + j];
+          sm[m.vp + p * br + j] = vhc[j];
         }
       }
     }
@@ -249,8 +306,9 @@ __global__ void __launch_bounds__(256) row_decode_kernel(RowArgs a) {
       float w3v[MAXBR];
 #pragma unroll
       for (int o = 0; o < MAXBR; ++o) {
-        const float c2 = (cond && o < br) ? sm[m.cnd + (li * s2 + p) * br + o] : 0.f;
-        w3v[o] = o < br ? elu(b2[o] + c2 + scl[4]) + scl[5] : 0.f;
+        const float c2 = (cond && o < br) ? sm[m.pre4 + pos + o] : 0.f;
+        w3v[o] = o < br ? elu_shift(b2[o], shift(c2 + scl[4], scl[5])) : 0.f;
+        if (o < br) sm[m.pre4 + pos + o] = c2 + scl[4];  // cond + s[4]
       }
       const float* w3 = sm + m.hw3 + li * br * C;
       const bool skip = li == 0 && l0_skip;  // layer 0's skip conv of the row above
@@ -286,157 +344,217 @@ __global__ void __launch_bounds__(256) row_decode_kernel(RowArgs a) {
   }
   __syncthreads();
 
-  // ---- phase 2: the voxel chain, one warp, lane c = channel c
+  // ---- phase 2: the voxel chain, one warp in groups of NL lanes
   if (tid >= 32) return;
-  const int lane = tid;
-  const bool cv = lane < C;
-  const int cl = cv ? lane : 0;
-  const int R = EXACT ? MAXC : (C <= 1 ? 1 : 1 << (32 - __clz(C - 1)));  // pow2 >= C
+  const long long t_chain = probe ? clock64() : 0;
+  long long in_layers = 0;
+  constexpr int NL = group_lanes<MAXC>(), CPL = MAXC / NL;
+  static_assert(MAXC % NL == 0 && (NL & (NL - 1)) == 0, "lanes a group: a power of 2 dividing MAXC");
+  const int lane = tid, c0 = (lane % NL) * CPL;  // this lane's channels c0 .. c0 + CPL - 1
   const int km = (K + 31) / 32;
-  const float bin_c = cv ? sm[m.bin + lane] : 0.f;
   const bool forced = a.forced != nullptr;
-  const int nslot = L * br;  // width tap cache: one slot (ws = 2) per layer
+  // the codes of lane l: 4 l .. 4 l + 3 at the published widths (one float4
+  // of a w_out row), else l, l + 32, ...; either way in increasing order
+  auto code = [&](int mm) { return EXACT ? 4 * lane + mm : lane + 32 * mm; };
+  float bin[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) bin[i] = c0 + i < C ? sm[m.bin + c0 + i] : 0.f;
 
-  // One layer's operands of one voxel, in registers: a layer's loads go out
-  // together, as float4 reads when the widths are EXACT. (Loading the next
-  // layer's during this one's chain would make the loop body larger: with
-  // one warp, instruction fetch sits on the chain too.)
+  // One layer's operands of one voxel, in registers (vector reads at the
+  // published widths). Loaded one layer ahead of their use, the top row ran
+  // slower (more registers live across the layer).
   struct Layer {
-    float s[8], w1[MAXBR], wk[2][MAXBR][MAXBR], w3[MAXBR], b3, d2w[MAXBR], hw[MAXBR],
-        cn[MAXBR], vc[MAXBR];
+    float s[8], w1[CPL][MAXBR], wk[2][MAXBR][MAXBR], w3[MAXBR][CPL], b3[CPL], pre2[MAXBR],
+        pre4[MAXBR], part[MAXBR];
   };
   auto ld4 = [](float* d, const float* src) {  // src 16-byte aligned
     const float4 q = *reinterpret_cast<const float4*>(src);
     d[0] = q.x, d[1] = q.y, d[2] = q.z, d[3] = q.w;
   };
-  auto load = [&](int li, int i2, const float* vc_rd, Layer& w) {
+  auto ld2 = [](float* d, const float* src) {  // src 8-byte aligned
+    const float2 q = *reinterpret_cast<const float2*>(src);
+    d[0] = q.x, d[1] = q.y;
+  };
+  auto load = [&](int li, int i2, const float* part_rd, Layer& w) {
     const int r = (li * s2 + i2) * br;
-    if constexpr (EXACT && MAXBR == 4) {
+    if constexpr (EXACT && MAXBR == 4 && CPL == 2) {
       ld4(w.s, sm + m.sc + li * 8);
       ld4(w.s + 4, sm + m.sc + li * 8 + 4);
-      ld4(w.w1, sm + m.w1 + (li * C + cl) * 4);
-      ld4(w.d2w, sm + m.d2w + r);
-      ld4(w.hw, sm + m.hw + r);
-      if (cond) ld4(w.cn, sm + m.cnd + r);
-      else w.cn[0] = w.cn[1] = w.cn[2] = w.cn[3] = 0.f;
-      ld4(w.vc, vc_rd + li * 4);
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) ld4(w.w1[i], sm + m.w1 + (li * C + c0 + i) * 4);
+      ld4(w.pre2, sm + m.pre2 + r);
+      ld4(w.pre4, sm + m.pre4 + r);
+      ld4(w.part, part_rd + li * 4);
 #pragma unroll
       for (int t = 0; t < 2; ++t)
 #pragma unroll
         for (int i = 0; i < 4; ++i) ld4(w.wk[t][i], sm + m.wk + ((li * 2 + t) * 4 + i) * 4);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) w.w3[i] = sm[m.w3 + (li * 4 + i) * C + cl];
+      for (int o = 0; o < 4; ++o) ld2(w.w3[o], sm + m.w3 + (li * 4 + o) * C + c0);
+      ld2(w.b3, sm + m.b3 + li * C + c0);
     } else {
 #pragma unroll
       for (int k = 0; k < 8; ++k) w.s[k] = sm[m.sc + li * 8 + k];
 #pragma unroll
       for (int i = 0; i < MAXBR; ++i) {
         const bool ok = i < br;
-        w.w1[i] = ok ? sm[m.w1 + (li * C + cl) * br + i] : 0.f;
-        w.w3[i] = ok ? sm[m.w3 + (li * br + i) * C + cl] : 0.f;
-        w.d2w[i] = ok ? sm[m.d2w + r + i] : 0.f;
-        w.hw[i] = ok ? sm[m.hw + r + i] : 0.f;
-        w.cn[i] = (ok && cond) ? sm[m.cnd + r + i] : 0.f;
-        w.vc[i] = ok ? vc_rd[li * br + i] : 0.f;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const bool cok = ok && c0 + c < C;
+          w.w1[c][i] = cok ? sm[m.w1 + (li * C + c0 + c) * br + i] : 0.f;
+          w.w3[i][c] = cok ? sm[m.w3 + (li * br + i) * C + c0 + c] : 0.f;
+        }
+        w.pre2[i] = ok ? sm[m.pre2 + r + i] : 0.f;
+        w.pre4[i] = ok ? sm[m.pre4 + r + i] : 0.f;
+        w.part[i] = ok ? part_rd[li * bs + i] : 0.f;
 #pragma unroll
         for (int t = 0; t < 2; ++t)
 #pragma unroll
           for (int o = 0; o < MAXBR; ++o)
             w.wk[t][i][o] = (ok && o < br) ? sm[m.wk + ((li * 2 + t) * br + i) * br + o] : 0.f;
       }
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) w.b3[c] = c0 + c < C ? sm[m.b3 + li * C + c0 + c] : 0.f;
     }
-    w.b3 = sm[m.b3 + li * C + cl];
   };
 
-  float sprev_c = 0.f;  // parse_input of the voxel before i2; zero at i2 = 0
+  float sprev[CPL];  // parse_input of the voxel before i2; zero at i2 = 0
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) sprev[i] = 0.f;
   for (int i2 = 0; i2 < s2; ++i2) {
     // loads this voxel needs only after its chain: started now, used at the end
     float g[MAXKM];
 #pragma unroll
     for (int mm = 0; mm < MAXKM; ++mm) {
-      const int k = lane + 32 * mm;
+      const int k = code(mm);
       g[mm] = (!forced && mm < km && k < K) ? __ldg(a.gum + (i2 * B + b) * K + k) : 0.f;
     }
-    const float dfin_c = cv ? __ldg(a.dfin + (b * s2 + i2) * C + lane) : 0.f;
-    // width tap caches: voxel i2 reads buffer i2 % 2 and writes the other one
-    const float* vc_rd = sm + m.vc + (i2 & 1) * nslot;
-    float* vc_wr = sm + m.vc + ((i2 + 1) & 1) * nslot;
+    // the part buffers: voxel i2 reads buffer i2 % 2 and writes the other one
+    const float* part_rd = sm + m.part + (i2 & 1) * L * bs;
+    float* part_wr = sm + m.part + ((i2 + 1) & 1) * L * bs;
 
-    float w_c = bin_c;  // parse_input of the unsampled voxel
-    // layer 0 (mask 'A': its input is the voxel before, its skip conv) is
-    // peeled off the loop, so the 50 mask-'B' layers' body holds none of it
+    float w[CPL];  // parse_input of the unsampled voxel
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) w[i] = bin[i];
+    // one layer: layer 0 (mask 'A': its input is the voxel before, its skip
+    // conv) is peeled off the loop, so the 50 mask-'B' layers' body holds none of it
     auto step = [&](int li, const Layer& cur, auto first) {
       constexpr bool kFirst = decltype(first)::value;
-      float u = elu((kFirst ? sprev_c : w_c) + cur.s[0]) + cur.s[1];
-      if ((kFirst && i2 == 0) || !cv) u = 0.f;
-      float t[MAXBR];
+      // the residual: this layer's output accumulates onto its input (layer
+      // 0: onto its skip conv of the voxel before), started off the chain
+      float out[CPL];
 #pragma unroll
-      for (int j = 0; j < MAXBR; ++j) t[j] = u * cur.w1[j];
+      for (int c = 0; c < CPL; ++c) out[c] = cur.b3[c] + w[c];
+      if constexpr (kFirst) {
+        if (l0_skip) {
 #pragma unroll
-      for (int off = R >> 1; off >= 1; off >>= 1) {
+          for (int c = 0; c < CPL; ++c) {
+            float sk = 0.f;
+            for (int cc = 0; cc < C; ++cc)
+              sk = fmaf(sm[m.emb + cc], c0 + c < C ? sm[m.skw + cc * C + c0 + c] : 0.f, sk);
+            out[c] = cur.b3[c] + sk;
+          }
+        }
+      }
+      // u = elu(w + s[0]) + s[1], then this lane's share of the C->br product,
+      // in two partial sums (even and odd channels)
+      const Shift su = shift(cur.s[0], cur.s[1]);
+      float t[MAXBR], t2[MAXBR];
+#pragma unroll
+      for (int j = 0; j < MAXBR; ++j) t[j] = t2[j] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        float u = elu_shift(kFirst ? sprev[c] : w[c], su);
+        if (kFirst && i2 == 0) u = 0.f;
+#pragma unroll
+        for (int j = 0; j < MAXBR; ++j) {
+          if (c & 1) t2[j] = fmaf(u, cur.w1[c][j], t2[j]);
+          else t[j] = fmaf(u, cur.w1[c][j], t[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < MAXBR; ++j) t[j] += t2[j];
+#pragma unroll
+      for (int off = 1; off < NL; off <<= 1) {
 #pragma unroll
         for (int j = 0; j < MAXBR; ++j) t[j] += __shfl_xor_sync(kFull, t[j], off);
       }
-      float v[MAXBR], b2[MAXBR];
+      // v = elu(t + pre2) + s[3]; the taps: the cached half [v of the voxel
+      // before] . wk[0], computed by that voxel, + v . wk[1] (two partial sums);
+      // and this voxel's v . wk[0] for the next one, off the chain
+      float v[MAXBR], b2[MAXBR], b2o[MAXBR], nxt[MAXBR];
 #pragma unroll
       for (int j = 0; j < MAXBR; ++j) {
-        v[j] = j < br ? elu(t[j] + cur.d2w[j] + cur.hw[j] + cur.s[2]) + cur.s[3] : 0.f;
-        b2[j] = 0.f;
+        v[j] = j < br ? elu_shift(t[j], shift(cur.pre2[j], cur.s[3])) : 0.f;
+        b2[j] = cur.part[j];
+        b2o[j] = nxt[j] = 0.f;
       }
-      // taps [cached v of the previous voxel, v]
 #pragma unroll
       for (int i = 0; i < MAXBR; ++i) {
 #pragma unroll
         for (int o = 0; o < MAXBR; ++o) {
-          b2[o] = fmaf(cur.vc[i], cur.wk[0][i][o], b2[o]);
-          b2[o] = fmaf(v[i], cur.wk[1][i][o], b2[o]);
+          if (i & 1) b2o[o] = fmaf(v[i], cur.wk[1][i][o], b2o[o]);
+          else b2[o] = fmaf(v[i], cur.wk[1][i][o], b2[o]);
+          nxt[o] = fmaf(v[i], cur.wk[0][i][o], nxt[o]);
         }
       }
-      // lanes < R hold the same v; lanes >= R summed another group of lanes
-      // and write theirs to a scratch slot (a select, not a branch)
-      float* dst = lane < R ? vc_wr + li * br : sm + m.junk;
+      if (lane == 0) {
 #pragma unroll
-      for (int i = 0; i < MAXBR; ++i)
-        if (i < br) dst[i] = v[i];
-      float out = cur.b3;
+        for (int o = 0; o < MAXBR; ++o)
+          if (o < br) part_wr[li * bs + o] = nxt[o];
+      }
+      // w3v = elu(b2 + pre4) + s[5], then this lane's CPL output channels
+      float out2[CPL];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) out2[c] = 0.f;
 #pragma unroll
       for (int o = 0; o < MAXBR; ++o) {
-        const float w3v = elu(b2[o] + cur.cn[o] + cur.s[4]) + cur.s[5];
-        if (o < br) out = fmaf(w3v, cur.w3[o], out);
-      }
-      float sk = w_c;  // the residual
-      if constexpr (kFirst) {
-        if (l0_skip) {  // layer 0's skip conv of the voxel before
-          sk = 0.f;
-          for (int cc = 0; cc < C; ++cc)
-            sk = fmaf(__shfl_sync(kFull, sprev_c, cc), sm[m.skw + cc * C + cl], sk);
+        const float w3v = elu_shift(b2[o] + b2o[o], shift(cur.pre4[o], cur.s[5]));
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          if (o < br) {
+            if (o & 1) out2[c] = fmaf(w3v, cur.w3[o][c], out2[c]);
+            else out[c] = fmaf(w3v, cur.w3[o][c], out[c]);
+          }
         }
       }
-      w_c = cv ? out + sk : 0.f;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) w[c] = c0 + c < C ? out[c] + out2[c] : 0.f;
     };
+    const long long t0 = probe ? clock64() : 0;
     {
       Layer cur;
-      load(0, i2, vc_rd, cur);
+      load(0, i2, part_rd, cur);
       step(0, cur, std::true_type{});
     }
     for (int li = 1; li < L; ++li) {
       Layer cur;
-      load(li, i2, vc_rd, cur);
+      load(li, i2, part_rd, cur);
       step(li, cur, std::false_type{});
     }
+    if (probe) in_layers += clock64() - t0;
 
-    const float total = cv ? dfin_c + sm[m.hfin + i2 * C + lane] + w_c : 0.f;
+    // the final channels through shared memory, then the logits
+    if (lane < NL) {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int ch = c0 + c;
+        if (ch < C)
+          sm[m.tot + ch] = __ldg(a.dfin + (b * s2 + i2) * C + ch) + sm[m.hfin + i2 * C + ch] + w[c];
+      }
+    }
+    __syncwarp();
     float lg[MAXKM];
 #pragma unroll
     for (int mm = 0; mm < MAXKM; ++mm) {
-      const int k = lane + 32 * mm;
+      const int k = code(mm);
       lg[mm] = (mm < km && k < K) ? sm[m.bout + k] : 0.f;
     }
     for (int cc = 0; cc < C; ++cc) {
-      const float x = __shfl_sync(kFull, total, cc);
+      const float x = sm[m.tot + cc];
 #pragma unroll
       for (int mm = 0; mm < MAXKM; ++mm) {
-        const int k = lane + 32 * mm;
+        const int k = code(mm);
         if (mm < km && k < K) lg[mm] = fmaf(x, sm[m.wout + cc * K + k], lg[mm]);
       }
     }
@@ -444,7 +562,7 @@ __global__ void __launch_bounds__(256) row_decode_kernel(RowArgs a) {
     if (forced) {
 #pragma unroll
       for (int mm = 0; mm < MAXKM; ++mm) {
-        const int k = lane + 32 * mm;
+        const int k = code(mm);
         if (mm < km && k < K) a.logits[(b * s2 + i2) * K + k] = lg[mm];
       }
       idx = a.forced[b * s2 + i2];
@@ -453,7 +571,7 @@ __global__ void __launch_bounds__(256) row_decode_kernel(RowArgs a) {
       int bk = K;
 #pragma unroll
       for (int mm = 0; mm < MAXKM; ++mm) {
-        const int k = lane + 32 * mm;
+        const int k = code(mm);
         if (mm < km && k < K) {
           const float z = lg[mm] / a.tau + g[mm];
           if (z > best) {
@@ -473,21 +591,33 @@ __global__ void __launch_bounds__(256) row_decode_kernel(RowArgs a) {
       bool bad = false;
 #pragma unroll
       for (int mm = 0; mm < MAXKM; ++mm)
-        bad |= mm < km && lane + 32 * mm < K && !isfinite(lg[mm]);
+        bad |= mm < km && code(mm) < K && !isfinite(lg[mm]);
       idx = __any_sync(kFull, bad) ? -1 : bk;
     }
     if (lane == 0) a.out[b * s2 + i2] = idx;
-    sprev_c = cv ? sm[m.win + max(idx, 0) * C + lane] + bin_c : 0.f;
-    // this voxel's tap writes are visible to the next voxel's reads, and its
-    // reads are done before the next voxel writes the other buffer
+    const int e = max(idx, 0);
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int ch = c0 + c;
+      sprev[c] = ch < C ? sm[m.win + e * C + ch] + bin[c] : 0.f;
+      if (lane < NL && ch < C) sm[m.emb + ch] = sprev[c];
+    }
+    // this voxel's part and embedding writes are visible to the next voxel's
+    // reads, and its reads are done before the next voxel writes
     __syncwarp();
+  }
+  if (probe && lane == 0) {
+    long long* cy = a.cycles + 4 * b;
+    cy[0] = clock64() - t_chain;
+    cy[1] = in_layers;
+    cy[2] = t_chain - t_start;
+    cy[3] = t_staged - t_start;
   }
 }
 
 template <int MAXC, int MAXBR, int MAXKM, bool EXACT>
 cudaError_t launch(const RowArgs& a, cudaStream_t stream) {
-  const Smem m = smem_layout(a.L, a.s2, a.C, a.br, a.ws, a.K, a.cnd != nullptr,
-                             a.skw != nullptr);
+  const Smem m = smem_layout(a.L, a.s2, a.C, a.br, a.ws, a.K, a.skw != nullptr);
   const size_t bytes = static_cast<size_t>(m.total) * sizeof(float);
   if (bytes > 232448) return cudaErrorInvalidValue;
   // the opt-in above 48 KB is a per-device attribute of the function
@@ -513,7 +643,9 @@ cudaError_t launch(const RowArgs& a, cudaStream_t stream) {
 
 // The contract of ops/decode_row.py; every tensor fp32 (forced and out
 // int32) and contiguous; cnd, skw and hskw (together), forced and logits may
-// be null.
+// be null. cycles: null, or (B, 4) int64 that receive, per batch element, the
+// clock64() cycles of the voxel chain (phase 2), of its layer loops alone, of
+// the staging and phase 1, and of the staging alone.
 extern "C" int vq_row_decode(const float* w1, const float* wk, const float* w3,
                              const float* b3, const float* sc, const float* hw1,
                              const float* herf, const float* herfb, const float* hwk,
@@ -524,14 +656,14 @@ extern "C" int vq_row_decode(const float* w1, const float* wk, const float* w3,
                              const float* cnd, const float* dfin, const float* sprev,
                              float* vhc, const float* gum, const int* forced, int* out,
                              float* logits, int L, int B, int s2, int C, int br, int ws, int K,
-                             int i1, float tau, void* stream) {
+                             int i1, float tau, long long* cycles, void* stream) {
   if (L <= 0 || B <= 0 || s2 <= 0 || s2 > 256 || C <= 0 || C > 32 || br <= 0 || br > 8 ||
       ws != 2 || K <= 0 || K > 512 || (forced == nullptr) != (logits == nullptr) ||
       (skw == nullptr) != (hskw == nullptr))
     return cudaErrorInvalidValue;
   RowArgs a{w1, wk, w3, b3, sc, hw1, herf, herfb, hwk, hw3, hb3, skw, hskw,
             w_in, b_in, w_out, b_out, d2h, d2w, cnd, dfin, sprev, vhc, gum, forced,
-            out, logits, L, B, s2, C, br, ws, K, i1, tau};
+            out, logits, cycles, L, B, s2, C, br, ws, K, i1, tau};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the published top config's widths exactly, and every other width
   if (C == 16 && br == 4 && K == 128) return launch<16, 4, 4, true>(a, s);

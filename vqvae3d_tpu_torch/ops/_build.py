@@ -66,9 +66,9 @@ SIGNATURES = {
     + [_i64] + [_i] * 9 + [_p],
     # K6: w1, wk, w3, b3, sc, hw1, herf, herfb, hwk, hw3, hb3, skw, hskw,
     #     w_in, b_in, w_out, b_out, d2h, d2w, cnd, dfin, sprev, vhc, gumbel,
-    #     forced, out, logits, L, B, s2, C, br, ws, K, i1, tau, stream
-    "vq_row_decode": [_p] * 27 + [_i] * 8 + [ctypes.c_float, _p],
-    # K6 wide: the same arguments as vq_row_decode
+    #     forced, out, logits, L, B, s2, C, br, ws, K, i1, tau, cycles, stream
+    "vq_row_decode": [_p] * 27 + [_i] * 8 + [ctypes.c_float, _p, _p],
+    # K6 wide: the same arguments as vq_row_decode but cycles
     "vq_row_decode_wide": [_p] * 27 + [_i] * 8 + [ctypes.c_float, _p],
     # K8: is_bf16, q, k, v, o, lse, N, S, D, scale, stream
     "vq_flash_attn_fwd": [_i] + [_p] * 5 + [_i] * 3 + [_f, _p],

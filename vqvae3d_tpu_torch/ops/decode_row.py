@@ -220,9 +220,14 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 
 
 def row_decode(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
-               i1: int, tau: float, forced_idx: Optional[torch.Tensor] = None):
+               i1: int, tau: float, forced_idx: Optional[torch.Tensor] = None,
+               cycles: Optional[torch.Tensor] = None):
     """Sample one row (the module docstring's contract). CPU tensors take
-    ``row_decode_plain``; CUDA tensors launch kernel K6."""
+    ``row_decode_plain``; CUDA tensors launch kernel K6. ``cycles``, a (B, 4)
+    int64 CUDA tensor, asks the narrow kernel for its clock64() cycles per
+    batch element: the voxel chain, its layer loops alone, the staging and
+    the height-row step, the staging alone (``chain_cycles_per_layer_step``
+    reads them)."""
     dev = d2w_row.device
     if dev.type == "cpu":
         return row_decode_plain(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc,
@@ -265,20 +270,23 @@ def row_decode(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
             raise ValueError(f"row_decode: forced_idx {tuple(forced_idx.shape)}, expected {(B, s2)}")
         forced = forced_idx.to(device=dev, dtype=torch.int32).contiguous()
         logits = torch.empty(B, s2, K, dtype=f32, device=dev)
+    if cycles is not None and (wide or tuple(cycles.shape) != (B, 4)
+                               or cycles.dtype != torch.int64 or cycles.device != dev):
+        raise ValueError(f"row_decode: cycles takes a (B, 4) int64 tensor on {dev} and the "
+                         f"narrow kernel; got {tuple(cycles.shape)} {cycles.dtype}, wide={wide}")
     out = torch.empty(B, s2, dtype=torch.int32, device=dev)
     lib = _build.library()
-    _build.check(
-        (lib.vq_row_decode_wide if wide else lib.vq_row_decode)(
-            *(_ptr(st.get(k)) for k in ("w1", "wk", "w3", "b3", "sc", "hw1", "herf", "herfb",
+    args = [*(_ptr(st.get(k)) for k in ("w1", "wk", "w3", "b3", "sc", "hw1", "herf", "herfb",
                                          "hwk", "hw3", "hb3", "skw", "hskw", "w_in", "b_in",
                                          "w_out", "b_out")),
             d2h_row.data_ptr(), d2w_row.data_ptr(), _ptr(cnd_row), dfin_row.data_ptr(),
             sprev_row.data_ptr(), vhc.data_ptr(), gumbel.data_ptr(), _ptr(forced),
-            out.data_ptr(), _ptr(logits),
-            L, B, s2, C, br, ws, K, int(i1), ctypes.c_float(tau), _build.stream_ptr(dev),
-        ),
-        "row_decode",
-    )
+            out.data_ptr(), _ptr(logits), L, B, s2, C, br, ws, K, int(i1), ctypes.c_float(tau)]
+    if wide:
+        err = lib.vq_row_decode_wide(*args, _build.stream_ptr(dev))
+    else:
+        err = lib.vq_row_decode(*args, _ptr(cycles), _build.stream_ptr(dev))
+    _build.check(err, "row_decode")
     if wide:
         row_decode.wide_launches += 1
     else:
@@ -286,6 +294,13 @@ def row_decode(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
     if forced_idx is not None:
         return out, vhc, logits
     return out, vhc
+
+
+def chain_cycles_per_layer_step(cycles: torch.Tensor, L: int, s2: int) -> float:
+    """The narrow K6's clock64() cycles per layer-step of its voxel chain
+    (``row_decode``'s ``cycles``: the layer loops' cycles over s2 voxels x L
+    layers), the mean over the batch elements."""
+    return float(cycles[:, 1].double().mean()) / (s2 * L)
 
 
 row_decode.launches = 0  # the narrow kernel (csrc/row_decode.cu)

@@ -13,11 +13,14 @@ off. On (N, S, D) tensors, N any fold of streams, batch and heads:
 Rounding: q, k, v are widened to fp32; the dots, the softmax, its row sums
 and the log-sum-exp are fp32. For bf16 inputs the unnormalised P is rounded
 to bf16 once, where the tensor-core forward feeds it to the P.V product (the
-TPU kernel's ``p.astype(v.dtype)`` before its fp32-accumulated dot); fp32
-inputs round nothing. The output (and in the backward each gradient) is
-rounded to the input type once. ``flash_causal_attention_plain`` is that math
-densely, in plain PyTorch: the (S, S) logits materialise, so it is a
-reference for small N S² only.
+TPU kernel's ``p.astype(v.dtype)`` before its fp32-accumulated dot); the
+tensor-core backward rounds the normalised P for dv and ds (with its scale)
+for dk and dq, as the TPU kernel's backward does; fp32 inputs round nothing.
+The output (and in the backward each gradient) is rounded to the input type
+once. ``flash_causal_attention_plain`` is the forward's math densely, in
+plain PyTorch: the (S, S) logits materialise, so it is a reference for small
+N S² only; ``flash_attention_bwd_plain`` is the backward's, query rows a
+chunk at a time, on the lse of ``causal_lse_plain``.
 
 ``flash_causal_attention`` is the dispatcher: a CPU tensor takes the plain
 version (autograd through it); a CUDA tensor runs ``_FlashCausal``, whose
@@ -48,8 +51,8 @@ def flash_causal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     (there at each key tile's running max, here at the row's final max: the
     same rounding while a row's keys fit one tile, a bf16 step of P apart
     beyond), and divided by l = sum P of the fp32 P. The rounding passes
-    the gradient straight through to the fp32 softmax, as K8's backward
-    recomputes P in fp32."""
+    the gradient straight through to the fp32 softmax; the backward that
+    rounds as K8's does is ``flash_attention_bwd_plain``."""
     return _plain_attention_fp32(q, k, v, sm_scale).to(q.dtype)
 
 
@@ -70,6 +73,60 @@ def _plain_attention_fp32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             rounded.sub_(p)
         p = p + rounded
     return p @ v.float()
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, sm_scale: float, rows: int = 1024):
+    """K8's backward densely: (dq, dk, dv) in q's dtype from the forward's
+    o and fp32 log-sum-exp ``lse`` (N, S).
+
+    P = exp(s - lse) in fp32 (s = q.k sm_scale, causal), delta = rowsum(do o)
+    in fp32, dv = P^T do, ds = P (do.v^T - delta) sm_scale, dk = ds^T q, dq =
+    ds k, every sum fp32. For bf16 inputs P is rounded to bf16 for dv and
+    ds for dk and dq, where the kernel's tensor-core route and the TPU
+    kernel round them (the bundled Pallas backward: ``p.T.astype(do.dtype)``,
+    ``ds.T.astype(do.dtype)``, ``ds.astype(k.dtype)``); fp32 rounds nothing.
+    Query rows go ``rows`` at a time, so the logits held are (N, rows, S)."""
+    return tuple(g.to(q.dtype) for g in _plain_bwd_fp32(q, k, v, o, lse, do, sm_scale, rows))
+
+
+def causal_lse_plain(q, k, sm_scale: float, rows: int = 1024) -> torch.Tensor:
+    """The forward's fp32 log-sum-exp (N, S) densely, for
+    ``flash_attention_bwd_plain``: logsumexp over the causal logits q.k
+    sm_scale, query rows ``rows`` at a time."""
+    s_len = q.shape[-2]
+    out = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    keys = torch.arange(s_len, device=q.device)
+    for r0 in range(0, s_len, rows):
+        r1 = min(r0 + rows, s_len)
+        logits = (q[:, r0:r1].float() @ k.float().transpose(-1, -2)) * sm_scale
+        logits.masked_fill_(keys[None, :] > torch.arange(r0, r1, device=q.device)[:, None],
+                            float("-inf"))
+        out[:, r0:r1] = torch.logsumexp(logits, -1)
+    return out
+
+
+def _plain_bwd_fp32(q, k, v, o, lse, do, sm_scale: float, rows: int = 1024):
+    """``flash_attention_bwd_plain``'s fp32 gradients before their last rounding."""
+    bf16 = q.dtype == torch.bfloat16
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (lambda t: t)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = (dof * o.float()).sum(-1)
+    s_len = q.shape[-2]
+    dq, dk, dv = torch.empty_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    keys = torch.arange(s_len, device=q.device)
+    for r0 in range(0, s_len, rows):
+        r1 = min(r0 + rows, s_len)
+        logits = (qf[:, r0:r1] @ kf.transpose(-1, -2)) * sm_scale
+        future = keys[None, :] > torch.arange(r0, r1, device=q.device)[:, None]
+        p = (logits - lse[:, r0:r1, None]).exp_().masked_fill_(future, 0.0)
+        del logits
+        dv += rnd(p).transpose(-1, -2) @ dof[:, r0:r1]
+        ds = rnd(p.mul_((dof[:, r0:r1] @ vf.transpose(-1, -2)).sub_(delta[:, r0:r1, None]))
+                 .mul_(sm_scale))
+        del p
+        dk += ds.transpose(-1, -2) @ qf[:, r0:r1]
+        dq[:, r0:r1] = ds @ kf
+    return dq, dk, dv
 
 
 def _check(what: str, *ts: torch.Tensor) -> None:
@@ -106,8 +163,10 @@ def flash_attention_fwd(q, k, v, sm_scale: float):
 
 def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float):
     """Launch the K8 backward (delta, dk/dv, dq) on contiguous CUDA tensors:
-    (dq, dk, dv)."""
+    (dq, dk, dv). bf16 takes the tensor-core route, fp32 the CUDA cores."""
     _check("flash_attention_bwd", q, k, v, o, do)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, do))
     n, s, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(n, s, dtype=torch.float32, device=q.device)
