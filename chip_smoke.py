@@ -23,15 +23,23 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
   4. train kernels vs plain: K1b (lookup + EMA statistics) at the three
      lookups; the K3 backward at every (C, spatial) of the stem-2 stacks,
      both pad modes, fp32 and bf16, one block and the stack's full depth,
-     against the autograd of the plain stack; K7 (small-channel conv dW) at
-     every qualifying conv of the stem-2 train step against the plain dW;
-     each timed beside its plain version (K7 also beside cuDNN's wgrad, the
-     two in turns, and the seven convs summed).
+     against the autograd of the plain stack (bf16: its weight contractions
+     on the tensor cores, fp32 on the CUDA cores), a second call
+     bit-identical; K7 (small-channel conv dW) at every qualifying conv of
+     the stem-2 train step against the plain dW; each timed beside its plain
+     version (K7 also beside cuDNN's wgrad, the two in turns, and the seven
+     convs summed); K3's backward per shape and per step at both routes,
+     with its device split by torch.profiler (the dW2 contraction, the
+     other contractions, their reduce, the elementwise kernels) and the dW2
+     contraction beside its bytes bound and cuDNN's wgrad of the same conv
+     (in turns).
   5. the stem-2 full-config train step at 512x512x128: one fp32 step on the
      kernel path against the plain path (loss, every gradient, the new EMA
      state); bf16 ms/step of both paths with peak memory; the launches per
      step against what the config implies; two identical steps from one
-     state give bit-identical parameters and EMA state; a profiler breakdown.
+     state give bit-identical parameters and EMA state; a profiler breakdown
+     (device busy; K3 backward's dW2 contraction, other contractions,
+     reduce and elementwise kernels; the rest of the step).
   6. the train main path through the entry points: three synthetic scans,
      ``train_vqvae`` for 3 steps (validating at step 3), then ``--resume``
      for one more, then ``extract_embeddings`` on the checkpoint it wrote.
@@ -95,16 +103,21 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      at both configs on a seeded code store, 3 steps (validating at step 3)
      and ``--resume`` for one more, K8 launches against what the steps and
      validations imply, then ``load_prior``.
- 15. wide sampling kernel vs plain: the wide K6 against ``row_decode_plain``
-     at the published mid (46 layers, C=256, br=64, K=256, conditioned,
-     s2=8, B=10) and bottom (51 layers, C=512, br=128, K=512, s2=2, B=20)
-     PixelCNN rows: teacher-forced logits and caches, free-running indices;
-     per-row times beside the plain row and the bound.
+ 15. wide sampling kernel vs plain: the latency of an exchange between the
+     cluster's CTAs (a cluster barrier, and the kernel's st.async exchange;
+     a probe kernel of the kernel's cluster size); the wide K6 against
+     ``row_decode_plain`` at the published mid (46 layers, C=256, br=64,
+     K=256, conditioned, s2=8, B=10) and bottom (51 layers, C=512, br=128,
+     K=512, s2=2, B=20) PixelCNN rows: teacher-forced logits and caches,
+     free-running indices, a second call bit-identical, a NaN logit giving
+     -1; per-row times beside the plain row, the bound and the design's
+     exchange floor.
  16. the wide sampling main path: seeded checkpoints of the published mid
      and bottom PixelCNNs, ``sample_embeddings`` of a full 32x32x8 grid at
      batch 10 (conditioned on 8x8x2 grids) and a full 8x8x2 grid at batch
-     20, tau 0.1, with the wide K6's launches; then the cached sampler
-     teacher-forced over the whole grids against the one-shot forward.
+     20, tau 0.1, with the wide K6's launches and its share of the device's
+     busy time and of the wall; then the cached sampler teacher-forced over
+     the whole grids against the one-shot forward.
  17. dropout attention kernel vs plain: K5 (causal flash attention with the
      reference's pre-mask logit dropout, p = 0.5) forward and backward
      against ``flash_causal_dropout_attention_plain`` and its autograd, fp32
@@ -137,6 +150,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -333,6 +347,42 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms_by_name(fn, calls: int = 1) -> dict:
+    """Device milliseconds per call of fn by CUDA kernel name, from
+    torch.profiler (rows whose device type is CUDA)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def k3_bwd_split(by_name: dict) -> dict:
+    """K3 backward's device time by part: the dW2 contraction (its first
+    pass: the 27-tap contract_tc or contract_partial), the other
+    contractions (dW1, dW3, the scalar sums), their second pass
+    (contract_reduce), the five elementwise kernels (bwd_*), and the rest."""
+    split = dict.fromkeys(("dW2", "other contractions", "reduce", "elementwise", "rest"), 0.0)
+    for name, ms in by_name.items():
+        if "contract_reduce" in name:
+            split["reduce"] += ms
+        elif "contract_" in name and ", 27>" in name:
+            split["dW2"] += ms
+        elif "contract_" in name or "scalars_kernel" in name:
+            split["other contractions"] += ms
+        elif "bwd_pre" in name or "bwd_mid" in name or "bwd_post" in name or \
+                "bwd_dgrad" in name or "bwd_dx" in name:
+            split["elementwise"] += ms
+        else:
+            split["rest"] += ms
+    return split
 
 
 @contextlib.contextmanager
@@ -787,6 +837,13 @@ def phase_train_kernels(ident, results, seed):
                     wg = [t.clone().requires_grad_() for t in ws]
                     y = stack_kernel.preact_stack_fused(xg, *wg, pad_mode)
                     got = torch.autograd.grad(y, [xg, *wg], gy)
+                    if depth == "one":  # a second call: bit-identical (both routes)
+                        y2 = stack_kernel.preact_stack_fused(xg, *wg, pad_mode)
+                        again = torch.autograd.grad(y2, [xg, *wg], gy)
+                        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                            raise AssertionError(f"K3 bwd C={c} {spatial} {pad_mode} {dtype}: "
+                                                 "two identical calls differ")
+                        del y2, again
                     with plain_path():
                         xr = x.clone().requires_grad_()
                         wr = [t.clone().requires_grad_() for t in ws]
@@ -810,14 +867,20 @@ def phase_train_kernels(ident, results, seed):
                     del y, got, yr, want
             if pad_mode == "wrap":  # the config's pad mode, training dtype bf16
                 nb = min(deepest, 10)
-                xb, gb = x32.to(torch.bfloat16), g32.to(torch.bfloat16)
                 ws = [t[:nb] for t in w]
-                saves = torch.empty((nb, 1, *spatial, c), dtype=torch.bfloat16, device=dev)
-                stack_kernel._forward_cuda(xb, *ws, "wrap", saves=saves)
-                ms = cuda_ms(lambda: stack_kernel.preact_stack_bwd(saves, gb, *ws, "wrap"), 3) / nb
-                with plain_path():
+                routes = {}
+                for dtype in (torch.float32, torch.bfloat16):  # CUDA cores, tensor cores
+                    xd, gd = x32.to(dtype), g32.to(dtype)
+                    saves = torch.empty((nb, 1, *spatial, c), dtype=dtype, device=dev)
+                    stack_kernel._forward_cuda(xd, *ws, "wrap", saves=saves)
+                    bwd_fn = functools.partial(stack_kernel.preact_stack_bwd, saves, gd, *ws,
+                                               "wrap")
+                    routes[dtype] = (cuda_ms(bwd_fn, 3) / nb,
+                                     k3_bwd_split(device_ms_by_name(bwd_fn, 2)))
+                with plain_path():  # bf16, the last saves
                     pms = cuda_ms(lambda: stack_kernel.preact_stack_bwd_plain(
-                        saves, gb, *ws, "wrap"), 1) / nb
+                        saves, gd, *ws, "wrap"), 1) / nb
+                (ms, split), (ms32, split32) = routes[torch.bfloat16], routes[torch.float32]
                 cb = max(c // 2, 1)
                 nvox = int(np.prod(spatial))
                 # x and g read, dx written (bf16), fp32 dW and scalars written; 3x the
@@ -825,15 +888,51 @@ def phase_train_kernels(ident, results, seed):
                 nbytes = 3 * nvox * c * 2 + (2 * c * cb + 27 * cb * cb) * (2 + 4) + 64
                 bms, bwd["bound_by"] = bound_ms(nbytes, 3 * k3_block_cost(c, spatial, 2)[1],
                                                 BF16_FLOPS)
-                print(f"K3 bwd C={c} {spatial} bf16 per block: kernel {ms:.4f} ms plain "
-                      f"{pms:.4f} ms bound {bms:.4f} ms x{per_step} blocks/step [{ident}]")
+                # the dW2 contraction alone: gt3 and a2 read once (bf16), dW2 written
+                # (fp32); beside it cuDNN's weight gradient of the same 3x3x3 conv (a2
+                # circularly pre-padded), in turns with the backward's profile, both
+                # sides the device time of their kernels by torch.profiler (the
+                # contraction's first pass; its share of contract_reduce is "reduce")
+                d2bms, _ = bound_ms(2 * nvox * cb * 2 + 27 * cb * cb * 4,
+                                    2 * 27 * cb * cb * nvox, BF16_FLOPS)
+                a2p = conv3d.pad3d(torch.randn(1, cb, *spatial, generator=gen).to(dev)
+                                   .to(torch.bfloat16), 1, "wrap")
+                gt3 = torch.randn(1, cb, *spatial, generator=gen).to(dev).to(torch.bfloat16)
+                turns = [(k3_bwd_split(device_ms_by_name(bwd_fn, 2))["dW2"] / nb,
+                          sum(device_ms_by_name(lambda: torch.nn.grad.conv3d_weight(
+                              a2p, (cb, cb, 3, 3, 3), gt3), 5).values())) for _ in range(2)]
+                d2 = sum(t[0] for t in turns) / len(turns)
+                lms = sum(t[1] for t in turns) / len(turns)
+                print(f"K3 bwd C={c} {spatial} per block: bf16 (tensor-core contractions) "
+                      f"{ms:.4f} ms, fp32 (CUDA-core contractions) {ms32:.4f} ms, plain bf16 "
+                      f"{pms:.4f} ms, bound {bms:.4f} ms; x{per_step} blocks/step [{ident}]")
+                print(f"  device split per block, bf16: "
+                      + ", ".join(f"{k} {v / nb:.4f}" for k, v in split.items())
+                      + "; fp32: " + ", ".join(f"{k} {v / nb:.4f}" for k, v in split32.items())
+                      + f" ms; dW2 contraction bf16 {d2:.4f} ms (bound {d2bms:.4f} ms, bytes), "
+                      f"cuDNN wgrad of the same conv {lms:.4f} ms ({d2 / lms:.2f}x; both device "
+                      f"time by torch.profiler; in turns "
+                      + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in turns) + f") [{ident}]")
+                del saves, routes, bwd_fn
                 bwd["ms"] += ms * per_step
                 bwd["plain_ms"] += pms * per_step
                 bwd["bound_ms"] += bms * per_step
-                del saves
+                for key, val in (("fp32_ms", ms32), ("dw2_ms", d2), ("dw2_fp32_ms",
+                                 split32["dW2"] / nb), ("dw2_bound_ms", d2bms), ("wgrad_ms", lms)):
+                    bwd[key] = bwd.get(key, 0.0) + val * per_step
+                bwd.setdefault("split", dict.fromkeys(split, 0.0))
+                for k, v in split.items():
+                    bwd["split"][k] += v / nb * per_step
             torch.cuda.empty_cache()
     print("K3 bwd worst max|d|/max|ref| by (dtype, depth): "
           + ", ".join(f"{k[0]} {k[1]}: {v:.3g}" for k, v in sorted(worst.items())))
+    print(f"K3 bwd per stem-2 step: bf16 {bwd['ms']:.2f} ms (tensor-core contractions), fp32 "
+          f"{bwd['fp32_ms']:.2f} ms (CUDA-core contractions), plain bf16 {bwd['plain_ms']:.2f} ms, "
+          f"bound {bwd['bound_ms']:.3f} ms; bf16 device split "
+          + ", ".join(f"{k} {v:.2f}" for k, v in bwd["split"].items())
+          + f" ms; dW2 contraction bf16 {bwd['dw2_ms']:.2f} ms (fp32 route "
+          f"{bwd['dw2_fp32_ms']:.2f}), bound {bwd['dw2_bound_ms']:.3f} ms, cuDNN wgrad of the "
+          f"same convs {bwd['wgrad_ms']:.2f} ms (both device time by torch.profiler) [{ident}]")
     results["preact_stack_bwd"] = bwd
 
     # --- K7 at every qualifying conv of the stem-2 train step
@@ -1074,8 +1173,13 @@ def phase_train_step(ident, seed, results):
     busy = sum(e.self_device_time_total for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     table = events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=70)
+    split = k3_bwd_split({e.key: e.self_device_time_total / 1e3 for e in events
+                          if e.device_type == torch.autograd.DeviceType.CUDA})
     print(f"profile of one bf16 kernel-path train step: device busy {busy:.1f} ms of "
-          f"{wall:.1f} ms wall under the profiler [{ident}]\n{table}")
+          f"{wall:.1f} ms wall under the profiler; K3 backward: dW2 contraction "
+          f"{split['dW2']:.1f} ms, other contractions {split['other contractions']:.1f}, "
+          f"reduce {split['reduce']:.1f}, elementwise {split['elementwise']:.1f}; the rest of "
+          f"the step {split['rest']:.1f} ms [{ident}]\n{table}")
     del model, opt
     torch.cuda.empty_cache()
 
@@ -2161,11 +2265,25 @@ def phase_snail_cli(ident, counts, seed, work: Path):
 
 def phase_wide_k6_kernels(ident, results, seed):
     import torch
-    from vqvae3d_tpu_torch.ops import decode_row
+    from vqvae3d_tpu_torch.ops import _build, decode_row
     from vqvae3d_tpu_torch.sample.ar_sample import draw_gumbel
     from vqvae3d_tpu_torch.sample.cached_sample import _extract_layers
 
     dev = torch.device("cuda")
+    # the latency of an exchange between the CTAs: a cluster of the kernel's
+    # size passing cluster barriers, or the kernel's st.async exchanges (a
+    # float from every CTA into every CTA, waited on an mbarrier), and nothing
+    # else (the difference of two counts: no launch cost)
+    lib, stream = _build.library(), _build.stream_ptr(dev)
+    n = decode_row.WIDE_CLUSTER
+    exchange_ms = {}
+    for kind, mode in (("barrier", 0), ("st.async", 1)):
+        t1, t2 = (cuda_ms(lambda: _build.check(
+            lib.vq_cluster_exchange_probe(mode, it, stream), "cluster_exchange_probe"), 5,
+            warmup=2) for it in (2000, 4000))
+        exchange_ms[kind] = (t2 - t1) / 2000
+    print(f"exchange latency at a cluster of {n} CTAs: " + ", ".join(
+        f"{kind} {1e3 * v:.3f} us" for kind, v in exchange_ms.items()) + f" [{ident}]")
     for i, (name, cfg) in enumerate(WIDE.items()):
         f = cfg["fields"]
         model = make_prior(f, seed + 100 + i, dev)
@@ -2194,12 +2312,20 @@ def phase_wide_k6_kernels(ident, results, seed):
             if not err <= K6_TOL * scale or not torch.isfinite(got).all():
                 raise AssertionError(f"wide K6 {name}, teacher-forced {what}: max|d|={err:.3g} "
                                      f"> {K6_TOL} x {scale:.3g}")
-        free, _ = decode_row.row_decode(*args, vhc0.clone(), gum, 5, TOP_TAU)
+        free, v1 = decode_row.row_decode(*args, vhc0.clone(), gum, 5, TOP_TAU)
+        again, v2 = decode_row.row_decode(*args, vhc0.clone(), gum, 5, TOP_TAU)
+        if not (torch.equal(free, again) and torch.equal(v1, v2)):
+            raise AssertionError(f"wide K6 {name}: two identical calls differ")
         _, _, lpath = decode_row.row_decode_plain(*args, vhc0.clone(), gum, 5, TOP_TAU,
                                                   forced_idx=free)
         ties, beyond = decode_row.sampling_disagreements(lpath, gum, TOP_TAU, free)
         if beyond:
             raise AssertionError(f"wide K6 {name}: {beyond} sampled indices disagree beyond a tie")
+        bad = dict(st, b_out=st["b_out"].clone())
+        bad["b_out"][k - 1] = float("nan")  # the last CTA's columns
+        nan_idx, _ = decode_row.row_decode(bad, *args[1:], vhc0.clone(), gum, 5, TOP_TAU)
+        if not bool((nan_idx == -1).all()):
+            raise AssertionError(f"wide K6 {name}: a non-finite logit did not give -1")
         vk = vhc0.clone()
         ms = cuda_ms(lambda: decode_row.row_decode(*args, vk, gum, 5, TOP_TAU), 10, warmup=2)
         pms = cuda_ms(lambda: decode_row.row_decode_plain(*args, vk, gum, 5, TOP_TAU), 2)
@@ -2207,13 +2333,19 @@ def phase_wide_k6_kernels(ident, results, seed):
         rows = cfg["grid"][0] * cfg["grid"][1]
         bms, by = bound_ms(weights + row_bytes, flops, FP32_FLOPS)
         gbms, gby = bound_ms(weights + rows * row_bytes, rows * flops, FP32_FLOPS)
+        # the design's own floor: its exchanges in sequence, three a layer-step of
+        # the voxel chain (the height-row step has none)
+        floor = s2 * L * 3 * exchange_ms["st.async"]
         print(f"wide K6 row_decode {name} (L={L} C={c} br={br} K={k} s2={s2} B={b}, "
               f"{'conditioned' if cond else 'unconditioned'}): teacher-forced max|d| logits "
               f"{errs['logits']:.3g} (max|ref| {float(lp.abs().max()):.3g}), caches "
-              f"{errs['caches']:.3g}; free-running near ties {ties}, beyond {beyond}; per row: "
+              f"{errs['caches']:.3g}; free-running near ties {ties}, beyond {beyond}; a second "
+              f"call bit-identical; a NaN logit gives -1; per row at a cluster of {n} CTAs: "
               f"kernel {ms:.4f} ms (mean of 10), plain {pms:.2f} ms (mean of 2), bound "
               f"{bms:.5f} ms ({by}: {weights} B of weights, {row_bytes} B of the row, {flops} "
-              f"flops); per grid of {rows} rows: bound {gbms:.4f} ms ({gby}) [{ident}]")
+              f"flops), exchange floor {floor:.4f} ms ({s2} x {L} layer-steps x 3 exchanges x "
+              f"{1e3 * exchange_ms['st.async']:.3f} us); per grid of {rows} rows: bound "
+              f"{gbms:.4f} ms ({gby}) [{ident}]")
         if name == "mid":  # the JSON line, per row of the mid grid
             results["row_decode_wide"] = dict(max_abs_err=errs["logits"], plain_ms=pms,
                                               bound_ms=bms, bound_by=by, library_ms=None)
@@ -2261,6 +2393,8 @@ def phase_wide_sample_main_path(ident, counts, results, seed, work: Path):
                    and e.device_type == torch.autograd.DeviceType.CUDA]
         k6_ms = sum(e.self_device_time_total for e in k6_rows) / 1e3
         k6_n = sum(e.count for e in k6_rows)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
         rows = grid[0] * grid[1]
         want = dict(dict.fromkeys(got, 0), row_decode_wide=rows)
         db = create_or_load_db(db_path, level)
@@ -2269,7 +2403,9 @@ def phase_wide_sample_main_path(ident, counts, results, seed, work: Path):
               f"--batch-size {b} --tau {TOP_TAU}: {wall:.2f} s wall (host clock, under the "
               f"device-only profiler), {start.elapsed_time(end) / 1e3:.2f} s between CUDA events; "
               f"wide K6 device time {k6_ms:.1f} ms over {k6_n} kernels "
-              f"({k6_ms / max(k6_n, 1):.4f} ms a row); launches {got}, the grid implies {want}; "
+              f"({k6_ms / max(k6_n, 1):.4f} ms a row), {100 * k6_ms / busy:.1f} % of the device's "
+              f"busy {busy:.1f} ms and {100 * k6_ms / (1e3 * wall):.1f} % of the wall; launches "
+              f"{got}, the grid implies {want}; "
               f"grids {grids.shape} codes {grids.min()}..{grids.max()}, "
               f"{len(np.unique(grids))} distinct [{ident}]")
         # the wrappers' counts are the launch check; the profiler only times

@@ -35,8 +35,10 @@ On the CPU:
     lane groups and channel ownership of the voxel chain, the cached tap
     halves and the shared-memory exchanges, transcribed, against
     ``row_decode_plain``;
-  * the wide K6 (csrc/row_decode_wide.cu): its flat offsets, partial-sum
-    chunks and phase order, transcribed, against ``row_decode_plain``;
+  * the wide K6 (csrc/row_decode_wide.cu): its cluster partition (each
+    CTA's column slices, the exchanges and gathers, the strided parts of
+    each product, the argmax across the CTAs) at cluster sizes 8 and 16 and
+    widths they do not divide, transcribed, against ``row_decode_plain``;
   * K5 (csrc/flash_dropout_attention*.cu): K8's loops with the Philox
     counters of each chunk (forward), the (64 x 64) tile of keep bits in
     shared memory (dk/dv) and the groups of 4 keys (dq), transcribed in
@@ -52,7 +54,8 @@ On a card (marker ``gpu``; skipped here with the reason):
   * K1b against ``l2_argmin_stats_plain``: indices equal except at genuine
     ties, counts exact where the indices agree, dw within 1e-5 of max|dw|,
     and bit-identical on a second call;
-  * the K3 backward against the autograd of ``preact_stack_plain``: dx, dW1-3
+  * the K3 backward (bf16: its weight contractions on the tensor cores)
+    against the autograd of ``preact_stack_plain``: dx, dW1-3
     and the scalar grads of a 3-block stack, per tensor within 1e-4 of
     max|ref| in fp32 and 6e-2 in bf16 (the reference rounds its gradients
     and cuDNN's dW to bf16, the kernel sums dW in fp32), bit-identical on a
@@ -81,8 +84,10 @@ On a card (marker ``gpu``; skipped here with the reason):
     fp32 residue of the two sums in ds), bit-identical on a second call; its
     causality (gradients and a forward impulse);
   * the wide K6 against ``row_decode_plain`` at C=256/br=64/K=256
-    conditioned and C=512/br=128/K=512: teacher-forced logits and caches
-    within 1e-5 of max|ref|, free-running indices except near ties;
+    conditioned, C=512/br=128/K=512 and the CPU transcription's widths, at
+    cluster sizes 8 and 16: teacher-forced logits and caches within 1e-5 of
+    max|ref|, free-running indices except near ties, a second call
+    bit-identical; a non-finite logit gives -1;
   * K5 against the autograd of ``flash_causal_dropout_attention_plain`` at
     S in {1, 77, 128, 300, 2049}, D in {8, 16, 32}, p = 0.5: fp32 within
     1e-5 (o) and 1e-4 (gradients) of max|ref|, bf16 within 1e-2 (o) and
@@ -94,6 +99,8 @@ On a card (marker ``gpu``; skipped here with the reason):
     tolerance; its causality;
     rows whose every key is dropped (p = 0.999) average their past values.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -631,92 +638,160 @@ def test_k5_tiles_counters_and_masks(s, d, p):
         assert err <= 1e-5 * ref, f"{name}: max|d|={err:.3g} > 1e-5 x {ref:.3g}"
 
 
-def _emulate_k6_wide(st, d2h, d2w, cnd, dfin, sprev, vhc, gum, i1, tau, forced=None, nt=512):
-    """numpy transcription of csrc/row_decode_wide.cu (float64): every weight
-    and row tensor read through the kernel's flat offsets, the C -> br and
-    2br -> br products split into nt / br partial sums over the kernel's
-    chunks, phase 1 over the row's positions, phase 2 over its voxels."""
-    f = {k: np.asarray(t, np.float64).ravel() for k, t in st.items()}
+def _emulate_k6_wide(st, d2h, d2w, cnd, dfin, sprev, vhc, gum, i1, tau, forced=None, n=16,
+                     nt=256):
+    """numpy transcription of csrc/row_decode_wide.cu (float64): one cluster
+    of n CTAs. Phase 1 (the height-row step): CTA r takes batch rows r,
+    r + n, ... at full width, its products in tasks of 8 or 4 rows whose
+    inputs are split over lp lanes (``lanes_rows``: from the rows and
+    columns alone), the six height taps one product over their inputs side
+    by side, and stores h2w and the final row into the columns' owners. Phase 2 (the
+    voxel chain): CTA r owns columns [r jb, r jb + jb) of br (jc of C, jk of
+    K; ceil splits, zero-filled past the width, never stored); each product
+    computes its own columns for all B rows in warp tasks whose inputs are
+    split over LP lanes (``lanes_for``, k = part + LP i) and summed by the
+    xor shuffles' tree; the activations a product needs in full are each
+    CTA's own columns, stored into every CTA (the ``gather`` points below);
+    the argmax per CTA over its columns, then over the CTAs' winners in rank
+    order."""
+    f = {k: np.asarray(t, np.float64) for k, t in st.items()}
     L, B, s2, br = d2w.shape
     C, K = dfin.shape[-1], gum.shape[-1]
-    d2h, d2w, vhc = (np.asarray(t, np.float64).ravel().copy() for t in (d2h, d2w, vhc))
-    cnd = None if cnd is None else np.asarray(cnd, np.float64).ravel()
-    dfin, sprev, gum = (np.asarray(t, np.float64).ravel() for t in (dfin, sprev, gum))
-    elu = _elu
-    skip0 = "skw" in f
-    nparts = nt // br
-    cchunk, tchunk = -(-C // nparts), -(-2 * br // nparts)
+    R = B * s2
+    d2h, d2w = (np.asarray(t, np.float64).reshape(L, R, br) for t in (d2h, d2w))
+    vhc = np.asarray(vhc, np.float64).reshape(L, R, br).copy()
+    cnd = np.zeros((L, R, br)) if cnd is None else np.asarray(cnd, np.float64).reshape(L, R, br)
+    dfin, sprev = (np.asarray(t, np.float64).reshape(R, C) for t in (dfin, sprev))
+    gum = np.asarray(gum, np.float64)
+    elu, skip0 = _elu, "skw" in f
+    jb, jc, jk = -(-br // n), -(-C // n), -(-K // n)
+    nw = nt // 32
+
+    def lanes_for(rows, kd, cols):  # the lanes a warp task splits its inputs over
+        njt = -(-cols // 4)
+        costs = [(-(-(-(-rows // 2) * -(-njt * lp // 32)) // nw) * (14 * -(-kd // lp) + 16 * lg), -lp)
+                 for lp, lg in ((32, 5), (16, 4), (8, 3), (4, 2))]
+        return -min(costs)[1]
+
+    def butterfly(parts):  # the lane of part 0 after the xor shuffles over the parts
+        while len(parts) > 1:
+            half = len(parts) // 2
+            parts = [parts[2 * i] + parts[2 * i + 1] for i in range(half)]
+        return parts[0]
+
+    def product(x, w, cols=None):  # warp tasks: the inputs split over LP lanes, then the shuffles
+        lp = lanes_for(x.shape[0], x.shape[1], w.shape[1] if cols is None else cols)
+        return butterfly([x[:, part::lp] @ w[part::lp] for part in range(lp)])
+
+    def lanes_rows(rows, cols):  # phase 1: the most lanes that keep every task in one pass
+        nrc, lp = -(-rows // (8 if rows > 4 else 4)), 32
+        while lp > 4 and nrc * (cols // 4) * lp > nt:
+            lp //= 2
+        return lp
+
+    def product_rows(x, w):  # phase 1: tasks of 8 or 4 rows, the inputs over lp lanes
+        lp = lanes_rows(x.shape[0], w.shape[1])
+        return butterfly([x[:, part::lp] @ w[part::lp] for part in range(lp)])
+
+    def own(a, r, j):  # columns [r j, r j + j) of a's last axis, zero past it
+        o = np.zeros(a.shape[:-1] + (j,))
+        v = min(max(a.shape[-1] - r * j, 0), j)
+        o[..., :v] = a[..., r * j:r * j + v]
+        return o
+
+    def gather(xs, width):  # every CTA's own columns, in rank order
+        return np.concatenate(xs, -1)[..., :width]
+
+    sc = f["sc"]
+    hw = [np.zeros((L, R, jb)) for _ in range(n)]  # the owners' columns
+    hf = [np.zeros((R, jc)) for _ in range(n)]
+    for r in range(n):  # ---- phase 1: CTA r's batch rows b = r, r + n, ... at full width
+        nb_ = len(range(r, B, n))
+        rows = np.array([b * s2 + p for b in range(r, B, n) for p in range(s2)], int)
+        if not nb_:
+            continue
+        h = np.tile(f["b_in"], (len(rows), 1))
+        for li in range(L):
+            s = sc[li]
+            u = elu((sprev[rows] if li == 0 else h) + s[0]) + s[1]
+            if li == 0 and i1 == 0:
+                u = np.zeros_like(u)
+            vp = vhc[li][rows].copy()  # read before this CTA writes its rows
+            tp = product_rows(u, f["hw1"][li])
+            v1 = elu(tp + d2h[li][rows] + s[2]) + s[3]
+            hwv = f["herfb"][li] + product_rows(tp, f["herf"][li])
+            for q in range(n):  # h2w into the columns' owners
+                hw[q][li][rows] = own(hwv, q, jb)
+            xs = []  # the six tap inputs side by side: [cached v-row, v1] at p + j1 - 1
+            for src in (vp, v1):
+                for j1 in range(3):
+                    x = np.zeros((nb_, s2, br))
+                    lo, hi = max(0, 1 - j1), min(s2, s2 + 1 - j1)
+                    x[:, lo:hi] = src.reshape(nb_, s2, br)[:, lo + j1 - 1:hi + j1 - 1]
+                    xs.append(x.reshape(-1, br))
+            b2 = product_rows(np.concatenate(xs, 1), f["hwk"][li].reshape(6 * br, br))
+            w3v = elu(b2 + cnd[li][rows] + s[4]) + s[5]
+            vhc[li][rows] = v1
+            po = product_rows(w3v, f["hw3"][li])
+            if li == 0 and skip0:  # accumulated onto the same lanes' outputs
+                h = f["hb3"][li] + (po + product_rows(sprev[rows], f["hskw"]))
+            else:
+                h = f["hb3"][li] + po + h
+        for q in range(n):  # the final row into the owners' columns
+            hf[q][rows] = own(h, q, jc)
     out = np.zeros((B, s2), np.int64)
     logits = np.zeros((B, s2, K))
-
-    def rowoff(li, b, p):
-        return ((li * B + b) * s2 + p) * br
-
-    for b in range(B):
-        sp = sprev[b * s2 * C:(b + 1) * s2 * C].reshape(s2, C)
-        h = np.tile(f["b_in"][:C], (s2, 1))
-        hw = np.zeros((L, s2, br))
+    vc = [np.zeros((L, B, jb)) for _ in range(n)]
+    idx = None
+    for i2 in range(s2):  # ---- phase 2
+        xw = [own(np.tile(f["b_in"], (B, 1)), r, jc) for r in range(n)]
+        sv = np.zeros((B, C)) if i2 == 0 else f["w_in"][np.maximum(idx, 0)] + f["b_in"]
         for li in range(L):
-            sc = f["sc"][li * 8:li * 8 + 8]
-            u1 = elu((sp if li == 0 else h) + sc[0]) + sc[1]
-            if li == 0 and i1 == 0:
-                u1 = np.zeros_like(u1)
-            w1 = f["hw1"][li * C * br:(li + 1) * C * br].reshape(C, br)
-            tp = u1 @ w1
-            herf = f["herf"][li * br * br:(li + 1) * br * br].reshape(br, br)
-            hw[li] = f["herfb"][li * br:(li + 1) * br] + tp @ herf
-            r = np.array([rowoff(li, b, p) for p in range(s2)])[:, None] + np.arange(br)
-            v1 = elu(tp + d2h[r] + sc[2]) + sc[3]
-            vp = vhc[r].copy()
-            vhc[r] = v1
-            b2 = np.zeros((s2, br))
-            for p in range(s2):
-                for j1 in range(3):
-                    qq = p + j1 - 1
-                    if 0 <= qq < s2:
-                        o0 = ((li * 2 + 0) * 3 + j1) * br * br
-                        o1 = ((li * 2 + 1) * 3 + j1) * br * br
-                        b2[p] += vp[qq] @ f["hwk"][o0:o0 + br * br].reshape(br, br)
-                        b2[p] += v1[qq] @ f["hwk"][o1:o1 + br * br].reshape(br, br)
-            cn = 0.0 if cnd is None else cnd[r]
-            w3v1 = elu(b2 + cn + sc[4]) + sc[5]
-            acc = f["hb3"][li * C:(li + 1) * C] + w3v1 @ f["hw3"][li * br * C:(li + 1) * br * C] \
-                .reshape(br, C)
-            h = acc + (sp @ f["hskw"].reshape(C, C) if li == 0 and skip0 else h)
-        sv = np.zeros(C)
-        vc = np.zeros((L, br))
-        for i2 in range(s2):
-            w = f["b_in"][:C].copy()
-            for li in range(L):
-                sc = f["sc"][li * 8:li * 8 + 8]
-                u = elu((sv if li == 0 else w) + sc[0]) + sc[1]
-                if li == 0 and i2 == 0:
-                    u = np.zeros(C)
-                w1 = f["w1"][li * C * br:(li + 1) * C * br].reshape(C, br)
-                t = sum(u[pp * cchunk:min(C, (pp + 1) * cchunk)]
-                        @ w1[pp * cchunk:min(C, (pp + 1) * cchunk)] for pp in range(nparts))
-                r = rowoff(li, b, i2) + np.arange(br)
-                v = elu(t + d2w[r] + hw[li, i2] + sc[2]) + sc[3]
-                x = np.concatenate([vc[li], v])
-                wk = f["wk"][li * 2 * br * br:(li + 1) * 2 * br * br].reshape(2 * br, br)
-                b2 = sum(x[pp * tchunk:min(2 * br, (pp + 1) * tchunk)]
-                         @ wk[pp * tchunk:min(2 * br, (pp + 1) * tchunk)] for pp in range(nparts))
-                cn = 0.0 if cnd is None else cnd[r]
-                w3v = elu(b2 + cn + sc[4]) + sc[5]
-                vc[li] = v
-                acc = f["b3"][li * C:(li + 1) * C] + w3v @ f["w3"][li * br * C:(li + 1) * br * C] \
-                    .reshape(br, C)
-                w = acc + (sv @ f["skw"].reshape(C, C) if li == 0 and skip0 else w)
-            tot = dfin[(b * s2 + i2) * C:(b * s2 + i2 + 1) * C] + h[i2] + w
-            lg = f["b_out"] + tot @ f["w_out"].reshape(C, K)
-            logits[b, i2] = lg
-            if forced is not None:
-                idx = int(forced[b, i2])
-            else:
-                z = lg / tau + gum[(i2 * B + b) * K:(i2 * B + b + 1) * K]
-                idx = int(np.argmax(z)) if np.isfinite(lg).all() else -1
-            out[b, i2] = idx
-            sv = f["w_in"][max(idx, 0) * C:(max(idx, 0) + 1) * C] + f["b_in"][:C]
+            s = sc[li]
+            rows = np.arange(B) * s2 + i2
+            xu = []
+            for r in range(n):
+                u = elu((own(sv, r, jc) if li == 0 else xw[r]) + s[0]) + s[1]
+                u[:, min(max(C - r * jc, 0), jc):] = 0
+                xu.append(np.zeros_like(u) if li == 0 and i2 == 0 else u)
+            u = gather(xu, C)  # barrier, gather
+            xv = [elu(product(u, own(f["w1"][li], r, jb))
+                      + own(d2w[li][rows], r, jb) + hw[r][li][rows] + s[2]) + s[3]
+                  for r in range(n)]
+            v = gather(xv, br)  # barrier, gather
+            x3 = []
+            for r in range(n):
+                both = product(v, np.concatenate([own(f["wk"][li, 1], r, jb),
+                                                  own(f["wk"][li, 0], r, jb)], 1),
+                               2 * (-(-jb // 4) * 4))
+                b2 = vc[r][li] + both[:, :jb]  # one task: the tap now and the cached half
+                vc[r][li] = both[:, jb:]
+                x3.append(elu(b2 + own(cnd[li][rows], r, jb) + s[4]) + s[5])
+            w3v = gather(x3, br)  # barrier, gather
+            for r in range(n):
+                acc = own(f["b3"][li], r, jc) + product(w3v, own(f["w3"][li], r, jc))
+                if li == 0 and skip0:  # w_in[idx] . skw, then b_in . skw (0 before voxel 0)
+                    if i2:
+                        acc = acc + product(f["w_in"][np.maximum(idx, 0)], own(f["skw"], r, jc))
+                        acc = acc + product(f["b_in"][None], own(f["skw"], r, jc))
+                else:
+                    acc = acc + xw[r]
+                xw[r] = acc
+        tot = gather([own(dfin[rows], r, jc) + hf[r][rows] + xw[r] for r in range(n)], C)
+        best, bk, bad = np.full(B, -np.inf), np.full(B, K), np.zeros(B, bool)
+        for r in range(n):  # barrier; each CTA's columns, then its winners in rank order
+            lg = own(f["b_out"], r, jk) + product(tot, own(f["w_out"], r, jk))
+            nk = min(max(K - r * jk, 0), jk)
+            lg = lg[:, :nk]
+            logits[:, i2, r * jk:r * jk + nk] = lg
+            z = lg / tau + gum[i2][:, r * jk:r * jk + nk]
+            for b in range(B):
+                bad[b] |= not np.isfinite(lg[b]).all()
+                if nk and z[b].max() > best[b]:  # the first of equal z stays
+                    best[b], bk[b] = z[b].max(), r * jk + int(np.argmax(z[b]))
+        idx = np.asarray(forced)[:, i2].astype(np.int64) if forced is not None \
+            else np.where(bad, -1, bk)
+        out[:, i2] = idx
     return out, vhc.reshape(L, B, s2, br), logits
 
 
@@ -846,24 +921,71 @@ def test_k6_chain_lanes_and_offsets(c, br, k, b, cond, l0_skip):
 
 @pytest.mark.parametrize("c,br,k,cond,s2", [(64, 16, 32, True, 3), (96, 32, 40, False, 2)])
 def test_k6_wide_offsets_and_partials(c, br, k, cond, s2):
-    """The wide K6's flat offsets, partial-sum chunks (C and 2br over
-    512 / br parts) and phase order, transcribed, against row_decode_plain:
-    teacher-forced logits and caches within 1e-5 of max|ref|, free-running
-    indices equal."""
+    """The wide K6's partition at the cluster size the wrapper picks (column
+    slices, exchanges, strided parts, the argmax across the CTAs),
+    transcribed, against row_decode_plain: teacher-forced logits and caches
+    within 1e-5 of max|ref|, free-running indices equal."""
     st, rows, dfin, sprev = _k6_row(c, br, k, 3, 2, s2, cond, True, c + br, "cpu")
     d2h, d2w, cnd, vhc0 = rows
     cnd = cnd if cond else None
     gum = draw_gumbel((s2, 2, k), torch.Generator().manual_seed(4), "cpu")
     forced = torch.randint(0, k, (2, s2), generator=torch.Generator().manual_seed(5))
+    n = decode_row.WIDE_CLUSTER
     for frc in (forced, None):
         vp = vhc0.clone()
         want = decode_row.row_decode_plain(st, d2h, d2w, cnd, dfin, sprev, vp, gum, 2, 0.5,
                                            forced_idx=frc)
-        idx, vh, lg = _emulate_k6_wide(st, d2h, d2w, cnd, dfin, sprev, vhc0, gum, 2, 0.5, frc)
+        idx, vh, lg = _emulate_k6_wide(st, d2h, d2w, cnd, dfin, sprev, vhc0, gum, 2, 0.5, frc, n)
         np.testing.assert_array_equal(idx, want[0].numpy())
         assert np.abs(vh - vp.numpy()).max() <= 1e-5 * float(vp.abs().max())
         if frc is not None:
             assert np.abs(lg - want[2].numpy()).max() <= 1e-5 * float(want[2].abs().max())
+
+
+@pytest.mark.parametrize("c,br,k,b,cond,s2,n,l0_skip", [
+    (64, 16, 32, 3, True, 3, 16, True),
+    (96, 32, 40, 1, False, 1, 8, True),
+    (64, 32, 32, 3, False, 3, 8, False),
+    (96, 16, 40, 1, True, 3, 16, True),
+    (72, 24, 30, 3, True, 3, 16, True),   # n divides none of C, br, K: ranks 12-15 own no br column
+    (40, 20, 30, 1, False, 3, 8, True),   # br and K past n's multiple
+])
+def test_k6_wide_cluster_partition(c, br, k, b, cond, s2, n, l0_skip):
+    """The wide K6's cluster partition, transcribed, at both cluster sizes:
+    ceil column splits (widths n does not divide leave the last CTAs short
+    or empty), the gathers after each exchange, phase 1 a few positions at a
+    time, the products' strided parts, the cached tap halves, the argmax per
+    CTA and across the CTAs in rank order, the caches written in place, at
+    i1 = 0 and 2; against row_decode_plain: teacher-forced logits and caches
+    within 1e-5 of max|ref|, free-running indices equal."""
+    st, rows, dfin, sprev = _k6_row(c, br, k, 3, b, s2, cond, l0_skip, c * b + br, "cpu")
+    d2h, d2w, cnd, vhc0 = rows
+    cnd = cnd if cond else None
+    gum = draw_gumbel((s2, b, k), torch.Generator().manual_seed(8), "cpu")
+    forced = torch.randint(0, k, (b, s2), generator=torch.Generator().manual_seed(9))
+    for frc, i1 in ((forced, 2), (None, 2), (None, 0)):
+        vp = vhc0.clone()
+        sp = sprev if i1 else torch.zeros_like(sprev)
+        want = decode_row.row_decode_plain(st, d2h, d2w, cnd, dfin, sp, vp, gum, i1, 0.5,
+                                           forced_idx=frc)
+        idx, vh, lg = _emulate_k6_wide(st, d2h, d2w, cnd, dfin, sp, vhc0, gum, i1, 0.5, frc, n)
+        np.testing.assert_array_equal(idx, want[0].numpy())
+        assert np.abs(vh - vp.numpy()).max() <= 1e-5 * float(vp.abs().max())
+        if frc is not None:
+            assert np.abs(lg - want[2].numpy()).max() <= 1e-5 * float(want[2].abs().max())
+
+
+def test_k6_wide_cluster_size_and_layout():
+    """The wide kernel's cluster size and CTA width are the CUDA source's
+    constants; a row it does not take (C or br no multiple of 4, more batch
+    rows than a CTA's threads) raises in the wrapper before any launch."""
+    src = (Path(decode_row.__file__).parent.parent / "csrc" / "row_decode_wide.cu").read_text()
+    assert f"constexpr int NT = {decode_row.WIDE_THREADS};" in src
+    assert f"constexpr int kCluster = {decode_row.WIDE_CLUSTER};" in src
+    decode_row.check_wide_row(20, 512, 128)
+    for b, c, br in ((2, 66, 16), (2, 64, 18), (257, 64, 16)):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            decode_row.check_wide_row(b, c, br)
 
 
 @pytest.fixture
@@ -944,30 +1066,35 @@ def _plain_grads(x, ws, gy, pad_mode, monkeypatch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pad_mode", ["wrap", "zeros"])
-@pytest.mark.parametrize("c", [2, 9, 18, 72, 256])
+@pytest.mark.parametrize("c", [2, 9, 18, 72, 80, 256])
 def test_k3_bwd_kernel_matches_plain_on_card(cuda_device, c, pad_mode, dtype, monkeypatch):
+    """bf16 takes the tensor-core contractions (Cb = 1 to 128: tiles of 32
+    past 32, Cb = 40 ragged against them), fp32 the CUDA cores; a volume
+    inside one brick and a batch of 2 ragged against the 4 x 4 x 16 bricks
+    on every axis."""
     rng = np.random.default_rng(500 + c)
     ws = [t.to(cuda_device) for t in _stack(rng, 3, c, std=0.1)]
-    x = torch.from_numpy(rng.standard_normal((1, c, 12, 10, 6)).astype(np.float32))
-    x = x.to(cuda_device, dtype)
-    gy = torch.from_numpy(rng.standard_normal((1, c, 12, 10, 6)).astype(np.float32))
-    gy = gy.to(cuda_device, dtype)
-    before = stack_kernel.preact_stack_bwd.launches
-    runs = []
-    for _ in range(2):
-        xg = x.clone().requires_grad_()
-        wg = [t.clone().requires_grad_() for t in ws]
-        y = stack_kernel.preact_stack_fused(xg, *wg, pad_mode)
-        runs.append(torch.autograd.grad(y, [xg, *wg], gy))
-    want = _plain_grads(x, ws, gy, pad_mode, monkeypatch)
-    torch.cuda.synchronize()
-    assert stack_kernel.preact_stack_bwd.launches == before + 6
-    tol = 1e-4 if dtype == torch.float32 else 6e-2
-    for name, a, a2, b in zip(("dx", "dw1", "dw2", "dw3", "dsc"), *runs, want):
-        assert torch.equal(a, a2), f"{name}: two identical backward passes differ"
-        scale = float(b.float().abs().max())
-        err = float((a.float() - b.float()).abs().max())
-        assert err <= tol * scale, f"{name}: max|d|={err:.3g} > {tol} x {scale:.3g}"
+    for shape in ((1, c, 12, 10, 6), (2, c, 9, 7, 19)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        x = x.to(cuda_device, dtype)
+        gy = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        gy = gy.to(cuda_device, dtype)
+        before = stack_kernel.preact_stack_bwd.launches
+        runs = []
+        for _ in range(2):
+            xg = x.clone().requires_grad_()
+            wg = [t.clone().requires_grad_() for t in ws]
+            y = stack_kernel.preact_stack_fused(xg, *wg, pad_mode)
+            runs.append(torch.autograd.grad(y, [xg, *wg], gy))
+        want = _plain_grads(x, ws, gy, pad_mode, monkeypatch)
+        torch.cuda.synchronize()
+        assert stack_kernel.preact_stack_bwd.launches == before + 6
+        tol = 1e-4 if dtype == torch.float32 else 6e-2
+        for name, a, a2, b in zip(("dx", "dw1", "dw2", "dw3", "dsc"), *runs, want):
+            assert torch.equal(a, a2), f"{shape} {name}: two identical backward passes differ"
+            scale = float(b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            assert err <= tol * scale, f"{shape} {name}: max|d|={err:.3g} > {tol} x {scale:.3g}"
 
 
 @pytest.mark.gpu
@@ -1387,11 +1514,19 @@ def test_k8_is_causal_on_card(cuda_device, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("c,br,k,b,cond,s2", [(256, 64, 256, 3, True, 8),
-                                              (512, 128, 512, 4, False, 2)])
+                                              (512, 128, 512, 4, False, 2),
+                                              (256, 64, 256, 10, True, 8),
+                                              (512, 128, 512, 20, False, 2),
+                                              (64, 16, 32, 3, True, 3),
+                                              (96, 32, 40, 1, False, 1),
+                                              (72, 24, 30, 3, True, 3)])
 def test_k6_wide_kernel_matches_plain_on_card(cuda_device, c, br, k, b, cond, s2):
-    """The wide K6 (the mid and bottom priors' widths, a few layers) against
-    ``row_decode_plain``: teacher-forced logits and caches within 1e-5 of
-    max|ref|, free-running indices equal except at near ties."""
+    """The wide K6 (the mid and bottom priors' widths, a few layers, at a
+    small batch and at the published batches, which run the kernel's
+    instantiations for those shapes; the CPU transcription's shapes, one
+    whose widths the cluster of 16 does not divide) against ``row_decode_plain``: teacher-forced logits and caches
+    within 1e-5 of max|ref|, free-running indices equal except at near ties,
+    a second call bit-identical."""
     st, rows, dfin, sprev = _k6_row(c, br, k, 4, b, s2, cond, True, c + b, cuda_device)
     assert decode_row.uses_wide_kernel(c, br, k, s2)
     d2h, d2w, cnd, vhc0 = rows
@@ -1411,12 +1546,40 @@ def test_k6_wide_kernel_matches_plain_on_card(cuda_device, c, br, k, b, cond, s2
         for name, got, want in (("logits", lg_k, lg_p), ("vhc", vk, vp)):
             err, scale = float((got - want).abs().max()), float(want.abs().max())
             assert err <= 1e-5 * scale, f"{name}: max|d|={err:.3g} > 1e-5 x {scale:.3g}"
-        free, _ = decode_row.row_decode(st, d2h, d2w, cnd, dfin, sp, vhc0.clone(), gum, i1, 0.1)
+        free, v1 = decode_row.row_decode(st, d2h, d2w, cnd, dfin, sp, vhc0.clone(), gum, i1, 0.1)
+        again, v2 = decode_row.row_decode(st, d2h, d2w, cnd, dfin, sp, vhc0.clone(), gum, i1,
+                                          0.1)
+        assert torch.equal(free, again) and torch.equal(v1, v2), "two calls differ"
         _, _, lg_path = decode_row.row_decode_plain(st, d2h, d2w, cnd, dfin, sp, vhc0.clone(),
                                                     gum, i1, 0.1, forced_idx=free)
         ties, beyond = decode_row.sampling_disagreements(lg_path, gum, 0.1, free)
         assert beyond == 0, f"{beyond} indices disagree beyond a near tie ({ties} ties)"
-    assert decode_row.row_decode.wide_launches == before + 4
+    assert decode_row.row_decode.wide_launches == before + 6
+
+
+@pytest.mark.gpu
+def test_k6_wide_kernel_reports_non_finite_logits(cuda_device):
+    st, rows, dfin, sprev = _k6_row(64, 16, 40, 3, 3, 3, False, True, 8, cuda_device)
+    st["b_out"][39] = float("nan")  # K = 40 over 16 CTAs of 3 columns: the last owner, CTA 13
+    gum = draw_gumbel((3, 3, 40), torch.Generator(cuda_device).manual_seed(2), cuda_device)
+    idx, _ = decode_row.row_decode(st, rows[0], rows[1], None, dfin, sprev, rows[3].clone(), gum,
+                                   2, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(idx.cpu(), torch.full((3, 3), -1, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+def test_k6_wide_kernel_refuses_a_row_that_does_not_fit(cuda_device):
+    """A row whose state does not fit a CTA's shared memory (here the h2w
+    injections alone, 3 x 20 x 256 x 4 floats a CTA) is refused by the
+    kernel's entry point, with no launch."""
+    st, rows, dfin, sprev = _k6_row(128, 64, 40, 3, 20, 256, False, True, 9, cuda_device)
+    gum = draw_gumbel((256, 20, 40), torch.Generator(cuda_device).manual_seed(3), cuda_device)
+    before = decode_row.row_decode.wide_launches
+    with pytest.raises(RuntimeError, match="row_decode"):
+        decode_row.row_decode(st, rows[0], rows[1], None, dfin, sprev, rows[3].clone(), gum, 2,
+                              0.1)
+    assert decode_row.row_decode.wide_launches == before
 
 
 def _k5_seed(device, a=987654321, b=2**32 - 11):

@@ -32,7 +32,15 @@ partition (K7). The products themselves are float64, so:
     side's two sums in ds);
   * K7 against ``dw_conv3d_plain`` within 1e-5 of max|ref| (bf16 products
     are exact; only the order of the sums differs), at B = 2, Cin != Cout,
-    output sizes that are no multiple of the bricks, and two chunk counts.
+    output sizes that are no multiple of the bricks, and two chunk counts;
+  * K3 backward's tensor-core contractions (csrc/preact_stack_bwd.cu::
+    contract_tc: the bricks of gt3 and a2 with the halo by K3's index
+    arithmetic, circular for 'wrap' and zero for 'zeros', the channel tiles
+    past 32, the tap split, the per-brick flush and the chunk partition of
+    ``stack_kernel.contract_chunks``; dW1 and dW3 over flat bricks) against
+    the autograd of the plain block's conv (dW2) and the plain contraction
+    (dW1, dW3) within 1e-5 of max|ref|, at Cb in {1, 9, 36, 40}, both pad
+    modes, volumes that are no multiple of the brick.
 
 This file imports no jax.
 """
@@ -43,7 +51,7 @@ import numpy as np
 import pytest
 import torch
 
-from vqvae3d_tpu_torch.ops import conv3d, flash_attention
+from vqvae3d_tpu_torch.ops import conv3d, flash_attention, stack_kernel
 
 LANE = np.arange(32)
 G, T = LANE >> 2, LANE & 3  # the lane's group (row) and thread in the group
@@ -599,3 +607,154 @@ def test_k7_routes_and_chunks():
     assert conv3d.dw_chunks(1, (16, 16, 4), (3, 3, 3), torch.bfloat16) == 16
     assert conv3d.dw_chunks(1, (256, 256, 64), (3, 3, 3), torch.float32) == 4096 // 27
     assert conv3d.dw_chunks(2, (5, 6, 7), (3, 3, 3), torch.float32) == 1
+
+
+def emulate_k3_contract_tc(a, b, shape, ntaps, wrap, chunks):
+    """contract_tc + contract_reduce in numpy: out (ntaps, P, Q) =
+    sum_v a[v][p] b[v_t][q] over the channels-last (nvox, P) and (nvox, Q)
+    scratch tensors of a (B, H, W, D) volume, v_t the forward conv's
+    neighbour at tap t (ntaps = 27) or v itself (ntaps = 1)."""
+    b_, h, w, d = shape
+    nvox, P = a.shape
+    Q = b.shape[1]
+    tbh, tbw, tbd = stack_kernel.TC_BRICK
+    xh, xw, xd = tbh + 2, tbw + 2, tbd + 2
+    grows = tbh * tbw * tbd
+    assert grows == stack_kernel.TC_FLAT_BRICK
+    m16 = 16 if P <= 16 else 32
+    n8 = 8 if Q <= 8 else 16 if Q <= 16 else 32
+    mbk, nbk = m16 // 16, n8 // 8
+    nbw = min(nbk, 2)
+    tw, taps = (3, 9) if ntaps == 27 else (1, 1)
+    warps = tw * mbk * (nbk // nbw)
+    as_, bs_ = m16 + 8, (8 if n8 == 8 else n8 + 8)
+    mtiles, ntiles = -(-P // m16), -(-Q // n8)
+    assert mtiles * ntiles == int(np.ceil(P / stack_kernel.TC_TILE) * np.ceil(Q / stack_kernel.TC_TILE))
+    nb3 = (-(-h // tbh), -(-w // tbw), -(-d // tbd))
+    nbricks = b_ * int(np.prod(nb3)) if ntaps == 27 else -(-nvox // grows)
+    part = np.zeros((chunks, ntaps, P, Q))
+
+    def halo(c, n):  # halo_axis
+        return np.where((c >= 0) & (c < n), c, np.where(wrap & (c == -1), n - 1,
+                                                         np.where(wrap & (c == n), 0, -1)))
+
+    def stage(src, vox, width, c0, stride):  # load8 rows: zero past the channels or for v < 0
+        sm = np.zeros((len(vox), stride))
+        n = max(0, min(width, src.shape[1] - c0))
+        sm[:, :n] = np.where(vox[:, None] >= 0, src[np.maximum(vox, 0), c0:c0 + n], 0)
+        return sm.ravel()
+
+    flat = np.arange(grows)
+    for tile in range(mtiles * ntiles):
+        pa, qb = tile % mtiles * m16, tile // mtiles * n8
+        for cta in range(chunks):
+            tot = np.zeros((warps, taps, nbw, 32, 4))
+            for br in range(cta, nbricks, chunks):  # the persistent loop
+                if ntaps == 27:
+                    bd, r = br % nb3[2], br // nb3[2]
+                    bw, r = r % nb3[1], r // nb3[1]
+                    bh, bb = r % nb3[0], r // nb3[0]
+                    hh, ww, dd = flat // (tbd * tbw) + bh * tbh, flat // tbd % tbw + bw * tbw, \
+                        flat % tbd + bd * tbd
+                    avox = np.where((hh < h) & (ww < w) & (dd < d),
+                                    ((bb * h + hh) * w + ww) * d + dd, -1)
+                    xr = np.arange(xh * xw * xd)
+                    hx = halo(bh * tbh + xr // (xd * xw) - 1, h)
+                    wx = halo(bw * tbw + xr // xd % xw - 1, w)
+                    dx = halo(bd * tbd + xr % xd - 1, d)
+                    bvox = np.where((hx < 0) | (wx < 0) | (dx < 0), -1,
+                                    ((bb * h + hx) * w + wx) * d + dx)
+                else:
+                    avox = np.where(br * grows + flat < nvox, br * grows + flat, -1)
+                    bvox = avox
+                asm = stage(a, avox, m16, pa, as_)
+                bsm = stage(b, bvox, n8, qb, bs_)
+                for warp in range(warps):
+                    ti, mb, nb0 = warp % tw, warp // tw % mbk, warp // (tw * mbk) * nbw
+                    acc = np.zeros((taps, nbw, 32, 4))
+                    for line in range(grows // 16):
+                        fa = ldmatrix(asm, (line * 16 + (LANE & 7) + 8 * (LANE >> 4)) * as_
+                                      + 16 * mb + 8 * (LANE >> 3 & 1), 4, True)
+                        for tp in range(taps):
+                            xr0 = (((line // tbw + ti) * xw + line % tbw + tp // 3) * xd + tp % 3
+                                   if ntaps == 27 else line * 16)
+                            if nbw == 2:
+                                fb = ldmatrix(bsm, (xr0 + (LANE & 7) + 8 * (LANE >> 3 & 1)) * bs_
+                                              + 8 * (nb0 + (LANE >> 4)), 4, True)
+                                acc[tp, 0] = mma(acc[tp, 0], fa, fb[:, :4], 16)
+                                acc[tp, 1] = mma(acc[tp, 1], fa, fb[:, 4:], 16)
+                            else:
+                                fb = ldmatrix(bsm, (xr0 + (LANE & 15)) * bs_ + 8 * nb0, 2, True)
+                                acc[tp, 0] = mma(acc[tp, 0], fa, fb, 16)
+                    tot[warp] += acc  # the per-brick flush
+            for warp in range(warps):
+                ti, mb, nb0 = warp % tw, warp // tw % mbk, warp // (tw * mbk) * nbw
+                for tp in range(taps):
+                    for u in range(nbw):
+                        for e in range(4):
+                            pp = pa + 16 * mb + G + 8 * (e >> 1)
+                            qq = qb + 8 * (nb0 + u) + 2 * T + (e & 1)
+                            ok = (pp < P) & (qq < Q)
+                            part[cta, ti * 9 + tp if ntaps == 27 else 0, pp[ok], qq[ok]] = \
+                                tot[warp, tp, u, ok, e]
+    out = np.zeros((ntaps, P, Q))
+    for ch in range(chunks):  # contract_reduce: the chunks in order
+        out += part[ch]
+    return out
+
+
+@pytest.mark.parametrize("cb,shape,pad_mode", [
+    (1, (2, 5, 6, 18), "wrap"),
+    (9, (1, 5, 6, 17), "zeros"),
+    (9, (2, 3, 2, 3), "wrap"),
+    (36, (1, 5, 3, 17), "wrap"),
+    (40, (1, 3, 5, 6), "zeros"),
+])
+def test_k3_bwd_tensor_core_contractions_match_plain(cb, shape, pad_mode):
+    """dW2 (27 taps over bricks with the halo: ragged on every axis, the
+    volume smaller than a brick, wrapped and zero-filled halos, Cb past 32 in
+    tiles of 32) against the autograd of the plain block's conv, dW1 and dW3
+    (one tap over flat bricks, C = 2 Cb, tiles past 32 on both operands)
+    against the plain contraction; the chunks of ``contract_plan`` and a
+    persistent loop of several bricks a CTA."""
+    rng = np.random.default_rng(cb * 10 + len(pad_mode))
+    b_, h, w, d = shape
+    c, nvox = 2 * cb, b_ * h * w * d
+    gt3, a2 = (bf16(rng.standard_normal((nvox, cb))) for _ in range(2))
+    gt2, gu3 = bf16(rng.standard_normal((nvox, cb))), bf16(rng.standard_normal((nvox, c)))
+    a1, a3 = bf16(rng.standard_normal((nvox, c))), bf16(rng.standard_normal((nvox, cb)))
+    # dW2: the autograd of the plain block's 3x3x3 conv with cotangent gt3
+    x = torch.from_numpy(a2.reshape(b_, h, w, d, cb)).permute(0, 4, 1, 2, 3)
+    w2 = torch.zeros(cb, cb, 3, 3, 3, dtype=torch.float64, requires_grad=True)
+    y = torch.nn.functional.conv3d(conv3d.pad3d(x, 1, pad_mode), w2)
+    (want2,) = torch.autograd.grad(y, w2, torch.from_numpy(gt3.reshape(b_, h, w, d, cb))
+                                   .permute(0, 4, 1, 2, 3))
+    want2 = want2.numpy().reshape(cb, cb, 27).transpose(2, 0, 1)  # (tap, out, in)
+    chunks, need = stack_kernel.contract_plan(b_, h, w, d, c, cb)
+    assert need >= max(chunks[0], chunks[2]) * c * cb and need >= chunks[1] * 27 * cb * cb
+    cases = [(gt3, a2, 27, want2, chunks[1]), (gt2, a1, 1, (gt2.T @ a1)[None], chunks[0]),
+             (gu3, a3, 1, (gu3.T @ a3)[None], chunks[2])]
+    if cb == 9:  # a persistent loop over several bricks
+        cases.append((gt3, a2, 27, want2, 3))
+    for a, b, ntaps, want, ch in cases:
+        got = emulate_k3_contract_tc(a, b, shape, ntaps, pad_mode == "wrap", ch)
+        err, ref = float(np.abs(got - want).max()), float(np.abs(want).max())
+        assert err <= 1e-5 * ref, f"{ntaps} taps, {ch} chunks: max|d|={err:.3g} > 1e-5 x {ref:.3g}"
+
+
+def test_k3_bwd_routes_and_chunks():
+    """bf16 takes the tensor cores, fp32 the CUDA cores; the brick and tile
+    the chunks are counted in are the ones the CUDA source compiles; the
+    chunk count is a function of the shapes (one CTA a brick, at most
+    ``TC_CTAS`` over the channel tiles)."""
+    src = (Path(conv3d.__file__).parent.parent / "csrc" / "preact_stack_bwd.cu").read_text()
+    brick = re.search(r"constexpr int TBH = (\d+), TBW = (\d+), TBD = (\d+);", src)
+    assert tuple(int(v) for v in brick.groups()) == stack_kernel.TC_BRICK
+    assert conv3d.stack_bwd_tensor_core_route(torch.bfloat16)
+    assert not conv3d.stack_bwd_tensor_core_route(torch.float32)
+    assert stack_kernel.contract_chunks(2048, 9, 9) == stack_kernel.TC_CTAS
+    assert stack_kernel.contract_chunks(64, 36, 36) == 64
+    assert stack_kernel.contract_chunks(4096, 128, 256) == stack_kernel.TC_CTAS // 32
+    assert stack_kernel.contract_chunks(1, 128, 128) == 1
+    (c1, c2, c3), need = stack_kernel.contract_plan(1, 128, 128, 32, 18, 9)
+    assert (c1, c2, c3) == (528, 528, 528) and need == 528 * 27 * 81

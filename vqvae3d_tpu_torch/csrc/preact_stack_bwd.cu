@@ -50,7 +50,36 @@
 // inside and across CTAs): no atomics, the same inputs give bit-identical
 // gradients. The packed transposed weights (w1t, w2t, w3t) come from the
 // wrapper, in the forward's [group][...][COB] layout.
+//
+// The weight contractions have two routes, chosen by the wrapper from the
+// dtype before the launch (ops/conv3d.py::stack_bwd_tensor_core_route):
+//  * fp32: contract_partial on the CUDA cores (tensor cores would round fp32
+//    to TF32): a thread per (p, q) pair loops over its chunk's voxels, 27
+//    neighbour indices a voxel for dW2.
+//  * bf16: contract_tc, an implicit GEMM on mma.sync m16n8k16 in K7's design
+//    (dw_conv3d.cu::dw_tc), on K3's channels-last scratch tensors. dW2 is the
+//    weight gradient of the block's 3x3x3 conv: a persistent CTA walks
+//    bricks of 4 x 4 x 16 output voxels (16 lines of 16 along D), stages
+//    each brick's gt3 (positions x Cb_out) once and its a2 with the
+//    one-voxel halo (6 x 6 x 18 positions x Cb_in) once in shared memory,
+//    the halo by `shifted`'s arithmetic (circular for 'wrap', zero outside
+//    the volume for 'zeros'); per tap dW2_tap += Gt3^T (Cb_out x 16) .
+//    A2_tap (16 x Cb_in), gt3's A fragment loaded once a line for all 27
+//    taps. dW1 and dW3 are the same GEMM with one tap over bricks of 256
+//    consecutive voxels. A CTA takes a tile of at most 32 x 32 channels
+//    (grid y: Cb runs up to 128 on the stem-2 path), its warps split the
+//    taps (one kh each) and the m- and n-blocks (at least 8 warps stage the
+//    tiles; those past the products' wait). The tensor cores' fp32 sums
+//    are flushed into CUDA-core fp32 sums every brick (long chains lose
+//    bits); each CTA writes one partial, which contract_reduce sums in chunk
+//    order: the chunk count is a function of the shapes alone, passed in by
+//    the wrapper (ops/stack_kernel.py::contract_chunks). bf16 x bf16
+//    products are exact in fp32, so the route computes the CUDA-core route's
+//    sums in another order.
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -388,6 +417,228 @@ cudaError_t contract(const TA* A, int P, const TB* B, int Q, float* out, float* 
   return cudaGetLastError();
 }
 
+// ---- bf16 contractions on the tensor cores (contract_tc)
+
+constexpr int TBH = 4, TBW = 4, TBD = 16;  // a dW2 brick (ops/stack_kernel.py TC_BRICK)
+constexpr int XH = TBH + 2, XW = TBW + 2, XD = TBD + 2;  // its a2 tile with the halo
+constexpr int XROWS = XH * XW * XD;
+constexpr int GROWS = TBH * TBW * TBD;  // a brick's voxels; a 1-tap brick's too (TC_FLAT_BRICK)
+
+template <int N8, int M16, int NTAPS>  // B's tile padded to 8, 16 or 32 channels, A's to 16 or 32
+struct CtShape {
+  static constexpr int NB = N8 / 8, MB = M16 / 16;  // n-blocks of 8, m-blocks of 16
+  static constexpr int NBW = NB < 2 ? NB : 2;       // n-blocks a warp
+  static constexpr int TW = NTAPS == 27 ? 3 : 1;    // tap groups (one kh each)
+  static constexpr int TAPS = NTAPS == 27 ? 9 : 1;  // taps a warp
+  static constexpr int WARPS = TW * MB * (NB / NBW);  // the warps of the products
+  static constexpr int THREADS = WARPS < 8 ? 256 : 32 * WARPS;  // all of them stage the tiles
+  static constexpr int BS = N8 == 8 ? 8 : N8 + 8;   // row strides (bf16): the 8 rows of
+  static constexpr int AS = M16 + 8;                //   an ldmatrix on distinct banks
+  static constexpr int BROWS = NTAPS == 27 ? XROWS : GROWS;
+  static constexpr int SMEM = (BROWS * BS + GROWS * AS) * 2;
+};
+
+// Channels c .. c + 7 of voxel v of a channels-last (nvox, cc) bf16 tensor as
+// one 16-byte shared row; channels past cc and v < 0 read as 0. vec: cc is a
+// multiple of 8 and the tensor 16-byte aligned, so the row is one load.
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* src, int64_t v, int cc, int c,
+                                       bool vec) {
+  if (v < 0 || c >= cc) return make_uint4(0u, 0u, 0u, 0u);
+  const __nv_bfloat16* p = src + v * cc + c;
+  if (vec) return *reinterpret_cast<const uint4*>(p);
+  uint32_t r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = c + 2 * i < cc ? __bfloat16_as_ushort(p[2 * i]) : 0u;
+    const uint32_t hi = c + 2 * i + 1 < cc ? __bfloat16_as_ushort(p[2 * i + 1]) : 0u;
+    r[i] = lo | (hi << 16);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// Coordinate c of an axis of extent n as a brick's halo sees it: c inside,
+// c - n or c + n one step outside for 'wrap' (shifted's arithmetic), else -1
+// (zero). Only voxels outside the volume, whose gt3 rows are zero, read
+// further out.
+__device__ __forceinline__ int halo_axis(int c, int n, int wrap) {
+  if (c >= 0 && c < n) return c;
+  if (wrap && c == -1) return n - 1;
+  if (wrap && c == n) return 0;
+  return -1;
+}
+
+// Pass 1 of out[t][p][q] = sum_v A[v][p] * B[v_t][q] on the tensor cores:
+// CTA (chunk, tile) sums bricks chunk, chunk + gridDim.x, ... for the
+// channels of its tile (grid y: m-tiles fastest) and writes them to its
+// partial part[chunk][t][p][q].
+template <int N8, int M16, int NTAPS>
+__global__ void __launch_bounds__(CtShape<N8, M16, NTAPS>::THREADS)
+    contract_tc(const __nv_bfloat16* __restrict__ A, int P, const __nv_bfloat16* __restrict__ B,
+                int Q, float* __restrict__ part, int64_t batch, int h, int w, int d, int wrap) {
+  using S = CtShape<N8, M16, NTAPS>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* as = bs + S::BROWS * S::BS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ti = warp % S::TW, mb = warp / S::TW % S::MB, nb0 = warp / (S::TW * S::MB) * S::NBW;
+  const int mtiles = (P + M16 - 1) / M16;
+  const int pa = static_cast<int>(blockIdx.y) % mtiles * M16;
+  const int qb = static_cast<int>(blockIdx.y) / mtiles * N8;
+  const int64_t nvox = batch * h * w * static_cast<int64_t>(d);
+  const int nbh = (h + TBH - 1) / TBH, nbw = (w + TBW - 1) / TBW, nbd = (d + TBD - 1) / TBD;
+  const int64_t nbricks = NTAPS == 27 ? batch * nbh * nbw * nbd : (nvox + GROWS - 1) / GROWS;
+  const bool avec = P % 8 == 0 && (reinterpret_cast<uintptr_t>(A) & 15) == 0;
+  const bool bvec = Q % 8 == 0 && (reinterpret_cast<uintptr_t>(B) & 15) == 0;
+  float tot[S::TAPS][S::NBW][4];
+#pragma unroll
+  for (int tp = 0; tp < S::TAPS; ++tp)
+#pragma unroll
+    for (int u = 0; u < S::NBW; ++u) tot[tp][u][0] = tot[tp][u][1] = tot[tp][u][2] = tot[tp][u][3] = 0.f;
+
+  for (int64_t br = blockIdx.x; br < nbricks; br += gridDim.x) {
+    int64_t b = 0;
+    int h0 = 0, w0 = 0, d0 = 0;
+    if (NTAPS == 27) {
+      int64_t r = br;
+      d0 = static_cast<int>(r % nbd) * TBD;
+      r /= nbd;
+      w0 = static_cast<int>(r % nbw) * TBW;
+      r /= nbw;
+      h0 = static_cast<int>(r % nbh) * TBH;
+      b = r / nbh;
+    }
+    // A: the brick's voxels, row (hh * TBW + ww) * TBD + dd (a 1-tap brick: br * GROWS + row)
+    for (int e = tid; e < GROWS * (M16 / 8); e += blockDim.x) {
+      const int row = e % GROWS, cg = e / GROWS;
+      int64_t v;
+      if (NTAPS == 27) {
+        const int hh = h0 + row / (TBD * TBW), ww = w0 + row / TBD % TBW, dd = d0 + row % TBD;
+        v = hh < h && ww < w && dd < d ? ((b * h + hh) * w + ww) * static_cast<int64_t>(d) + dd : -1;
+      } else {
+        v = br * GROWS + row < nvox ? br * GROWS + row : -1;
+      }
+      *reinterpret_cast<uint4*>(as + row * S::AS + 8 * cg) = load8(A, v, P, pa + 8 * cg, avec);
+    }
+    // B: the brick's voxels with the halo, row (hh * XW + ww) * XD + dd at
+    // voxel (h0 + hh - 1, w0 + ww - 1, d0 + dd - 1)
+    for (int e = tid; e < S::BROWS * (N8 / 8); e += blockDim.x) {
+      const int row = e % S::BROWS, cg = e / S::BROWS;
+      int64_t v;
+      if (NTAPS == 27) {
+        const int hh = halo_axis(h0 + row / (XD * XW) - 1, h, wrap);
+        const int ww = halo_axis(w0 + row / XD % XW - 1, w, wrap);
+        const int dd = halo_axis(d0 + row % XD - 1, d, wrap);
+        v = hh < 0 || ww < 0 || dd < 0 ? -1 : ((b * h + hh) * w + ww) * static_cast<int64_t>(d) + dd;
+      } else {
+        v = br * GROWS + row < nvox ? br * GROWS + row : -1;
+      }
+      *reinterpret_cast<uint4*>(bs + row * S::BS + 8 * cg) = load8(B, v, Q, qb + 8 * cg, bvec);
+    }
+    __syncthreads();
+
+    float acc[S::TAPS][S::NBW][4];
+#pragma unroll
+    for (int tp = 0; tp < S::TAPS; ++tp)
+#pragma unroll
+      for (int u = 0; u < S::NBW; ++u) acc[tp][u][0] = acc[tp][u][1] = acc[tp][u][2] = acc[tp][u][3] = 0.f;
+    for (int line = 0; line < (warp < S::WARPS ? GROWS / 16 : 0); ++line) {
+      // A's fragment (p x 16 voxels): lanes 8q .. 8q+7 address voxels
+      // 8 (q / 2) + 0..7 of the line at p 16 mb + 8 (q % 2)
+      uint32_t a[4];
+      vq::ldsm_x4_t(a, vq::smem_u32(as + (line * 16 + (lane & 7) + 8 * (lane >> 4)) * S::AS +
+                                    16 * mb + 8 * ((lane >> 3) & 1)));
+#pragma unroll
+      for (int tp = 0; tp < S::TAPS; ++tp) {
+        // the B row of the line's voxel 0 at tap (ti, tp / 3, tp % 3)
+        const int xr = NTAPS == 27
+                           ? ((line / TBW + ti) * XW + line % TBW + tp / 3) * XD + tp % 3
+                           : line * 16;
+        if constexpr (S::NBW == 2) {
+          // lanes 8q .. 8q+7: voxels 8 (q % 2) + 0..7 at q-channels 8 (nb0 + q / 2)
+          uint32_t bf[4];
+          vq::ldsm_x4_t(bf, vq::smem_u32(bs + (xr + (lane & 7) + 8 * ((lane >> 3) & 1)) * S::BS +
+                                         8 * (nb0 + (lane >> 4))));
+          vq::mma_16816(acc[tp][0], a, bf[0], bf[1]);
+          vq::mma_16816(acc[tp][1], a, bf[2], bf[3]);
+        } else {
+          uint32_t bf[2];
+          vq::ldsm_x2_t(bf, vq::smem_u32(bs + (xr + (lane & 15)) * S::BS + 8 * nb0));
+          vq::mma_16816(acc[tp][0], a, bf[0], bf[1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int tp = 0; tp < S::TAPS; ++tp)  // the per-brick flush
+#pragma unroll
+      for (int u = 0; u < S::NBW; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot[tp][u][e] += acc[tp][u][e];
+    __syncthreads();  // the tiles are refilled for the next brick
+  }
+
+  if (warp >= S::WARPS) return;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* out = part + static_cast<int64_t>(blockIdx.x) * NTAPS * P * Q;
+#pragma unroll
+  for (int tp = 0; tp < S::TAPS; ++tp) {
+    const int tap = NTAPS == 27 ? ti * 9 + tp : 0;
+#pragma unroll
+    for (int u = 0; u < S::NBW; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = pa + 16 * mb + gq + 8 * (e >> 1), q = qb + 8 * (nb0 + u) + 2 * tq + (e & 1);
+        if (p < P && q < Q) out[(static_cast<int64_t>(tap) * P + p) * Q + q] = tot[tp][u][e];
+      }
+  }
+}
+
+template <int N8, int M16, int NTAPS>
+cudaError_t contract_tc_launch(const __nv_bfloat16* A, int P, const __nv_bfloat16* B, int Q,
+                               float* out, float* part, int64_t part_len, int nchunks,
+                               int64_t batch, int h, int w, int d, int wrap, cudaStream_t s) {
+  using S = CtShape<N8, M16, NTAPS>;
+  const int64_t E = static_cast<int64_t>(NTAPS) * P * Q;
+  if (nchunks < 1 || nchunks * E > part_len) return cudaErrorInvalidValue;
+  if (S::SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(contract_tc<N8, M16, NTAPS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (e != cudaSuccess) return e;
+  }
+  const int tiles = ((P + M16 - 1) / M16) * ((Q + N8 - 1) / N8);
+  contract_tc<N8, M16, NTAPS><<<dim3(nchunks, tiles), S::THREADS, S::SMEM, s>>>(
+      A, P, B, Q, part, batch, h, w, d, wrap);
+  contract_reduce<<<static_cast<unsigned>((E + kRed - 1) / kRed), kRed, 0, s>>>(
+      part, out, nchunks, static_cast<int>(E));
+  return cudaGetLastError();
+}
+
+// The tile shapes: A's channels P padded to 16 or 32 (tiles of 32 past 32),
+// B's Q to 8, 16 or 32 (likewise).
+template <int NTAPS, int M16>
+cudaError_t contract_tc_q(const __nv_bfloat16* A, int P, const __nv_bfloat16* B, int Q,
+                          float* out, float* part, int64_t part_len, int nchunks, int64_t batch,
+                          int h, int w, int d, int wrap, cudaStream_t s) {
+  if (Q <= 8)
+    return contract_tc_launch<8, M16, NTAPS>(A, P, B, Q, out, part, part_len, nchunks, batch, h,
+                                             w, d, wrap, s);
+  if (Q <= 16)
+    return contract_tc_launch<16, M16, NTAPS>(A, P, B, Q, out, part, part_len, nchunks, batch,
+                                              h, w, d, wrap, s);
+  return contract_tc_launch<32, M16, NTAPS>(A, P, B, Q, out, part, part_len, nchunks, batch, h,
+                                            w, d, wrap, s);
+}
+
+template <int NTAPS>
+cudaError_t contract_tc_pq(const __nv_bfloat16* A, int P, const __nv_bfloat16* B, int Q,
+                           float* out, float* part, int64_t part_len, int nchunks, int64_t batch,
+                           int h, int w, int d, int wrap, cudaStream_t s) {
+  if (P <= 16)
+    return contract_tc_q<NTAPS, 16>(A, P, B, Q, out, part, part_len, nchunks, batch, h, w, d,
+                                    wrap, s);
+  return contract_tc_q<NTAPS, 32>(A, P, B, Q, out, part, part_len, nchunks, batch, h, w, d, wrap,
+                                  s);
+}
+
 // The scalar sums, per (kernel, group) pair, -> the block's 8 scalar grads.
 __global__ void scalars_kernel(const float* __restrict__ s, float* __restrict__ dsc, int gb,
                                int gc) {
@@ -427,9 +678,9 @@ inline int groups_of(int n, int cob) { return (n + cob - 1) / cob; }
 template <typename T>
 cudaError_t block_bwd(const T* x, const T* gy, const T* w1, const T* w2, const T* w3,
                       const T* w1t, const T* w2t, const T* w3t, const float* sc, T* work,
-                      float* sv, float* part, int64_t part_len, T* dx, float* dw1, float* dw2,
-                      float* dw3, float* dsc, int64_t batch, int h, int w, int d, int c, int cb,
-                      int cob_b, int cob_c, int wrap, cudaStream_t s) {
+                      float* sv, float* part, int64_t part_len, const int* tc_chunks, T* dx,
+                      float* dw1, float* dw2, float* dw3, float* dsc, int64_t batch, int h, int w,
+                      int d, int c, int cb, int cob_b, int cob_c, int wrap, cudaStream_t s) {
   const int64_t nvox = batch * h * w * static_cast<int64_t>(d);
   if (nvox == 0) return cudaErrorInvalidValue;
   T* a1 = work;
@@ -459,12 +710,28 @@ cudaError_t block_bwd(const T* x, const T* gy, const T* w1, const T* w2, const T
   if (err != cudaSuccess) return err;
   const int64_t plen = part_len - nsv;  // the last nsv floats hold the scalar sums
   float* ssum = part + plen;
-  err = contract<T, T, 1>(gt2, cb, a1, c, dw1, part, plen, nvox, h, w, d, wrap, s);
-  if (err != cudaSuccess) return err;
-  err = contract<T, T, 1>(gu3, c, a3, cb, dw3, part, plen, nvox, h, w, d, wrap, s);
-  if (err != cudaSuccess) return err;
-  err = contract<T, T, 27>(gt3, cb, a2, cb, dw2, part, plen, nvox, h, w, d, wrap, s);
-  if (err != cudaSuccess) return err;
+  if (tc_chunks != nullptr) {  // the tensor-core route (bf16 only)
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      err = contract_tc_pq<1>(gt2, cb, a1, c, dw1, part, plen, tc_chunks[0], batch, h, w, d, wrap,
+                              s);
+      if (err != cudaSuccess) return err;
+      err = contract_tc_pq<27>(gt3, cb, a2, cb, dw2, part, plen, tc_chunks[1], batch, h, w, d,
+                               wrap, s);
+      if (err != cudaSuccess) return err;
+      err = contract_tc_pq<1>(gu3, c, a3, cb, dw3, part, plen, tc_chunks[2], batch, h, w, d, wrap,
+                              s);
+      if (err != cudaSuccess) return err;
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  } else {
+    err = contract<T, T, 1>(gt2, cb, a1, c, dw1, part, plen, nvox, h, w, d, wrap, s);
+    if (err != cudaSuccess) return err;
+    err = contract<T, T, 1>(gu3, c, a3, cb, dw3, part, plen, nvox, h, w, d, wrap, s);
+    if (err != cudaSuccess) return err;
+    err = contract<T, T, 27>(gt3, cb, a2, cb, dw2, part, plen, nvox, h, w, d, wrap, s);
+    if (err != cudaSuccess) return err;
+  }
   err = contract<float, float, 1>(sv, nsv, nullptr, 1, ssum, part, plen, nvox, h, w, d, wrap,
                                   s);
   if (err != cudaSuccess) return err;
@@ -482,36 +749,44 @@ cudaError_t block_bwd(const T* x, const T* gy, const T* w1, const T* w2, const T
 // inner over output channels), w3t [Gb][C][cob_b] (W3^T). sc holds the
 // block's 8 fp32 scalars. work is scratch of nvox * (2C + 5Cb) elements of
 // the activation type, sv nvox * (4Gb + 4Gc) floats, part part_len floats
-// (>= max(2^20, 27 Cb^2, C Cb) + 4Gb + 4Gc is always enough). Outputs (fp32):
-// dw1 (Cb, C), dw2 (27, Cb_out, Cb_in) with tap = (kh * 3 + kw) * 3 + kd,
-// dw3 (C, Cb), dsc (8,). dx must not alias gy or x.
-extern "C" int vq_preact_block_bwd(int is_bf16, const void* x, const void* gy, const void* w1,
-                                   const void* w2, const void* w3, const void* w1t,
-                                   const void* w2t, const void* w3t, const void* sc, void* work,
-                                   void* sv, void* part, int64_t part_len, void* dx, void* dw1,
-                                   void* dw2, void* dw3, void* dsc, int64_t batch, int h, int w,
-                                   int d, int c, int cb, int cob_b, int cob_c, int wrap,
-                                   void* stream) {
+// (>= max(2^20, 27 Cb^2, C Cb) + 4Gb + 4Gc is always enough on the CUDA-core
+// route; the tensor-core route's partials need chunks x taps x P x Q more,
+// ops/stack_kernel.py::contract_plan). tensor_cores (bf16 only) takes the
+// tensor-core route with chunks_w1, chunks_w2, chunks_w3 CTAs a tile for the
+// dW1, dW2 and dW3 contractions (the wrapper's contract_chunks). Outputs
+// (fp32): dw1 (Cb, C), dw2 (27, Cb_out, Cb_in) with tap = (kh * 3 + kw) * 3 +
+// kd, dw3 (C, Cb), dsc (8,). dx must not alias gy or x.
+extern "C" int vq_preact_block_bwd(int is_bf16, int tensor_cores, const void* x, const void* gy,
+                                   const void* w1, const void* w2, const void* w3,
+                                   const void* w1t, const void* w2t, const void* w3t,
+                                   const void* sc, void* work, void* sv, void* part,
+                                   int64_t part_len, int chunks_w1, int chunks_w2, int chunks_w3,
+                                   void* dx, void* dw1, void* dw2, void* dw3, void* dsc,
+                                   int64_t batch, int h, int w, int d, int c, int cb, int cob_b,
+                                   int cob_c, int wrap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* scf = static_cast<const float*>(sc);
   float* svf = static_cast<float*>(sv);
   float* pf = static_cast<float*>(part);
   float *d1 = static_cast<float*>(dw1), *d2 = static_cast<float*>(dw2),
         *d3 = static_cast<float*>(dw3), *ds = static_cast<float*>(dsc);
+  if (tensor_cores && !is_bf16) return cudaErrorInvalidValue;
+  const int chunks[3] = {chunks_w1, chunks_w2, chunks_w3};
+  const int* tc = tensor_cores ? chunks : nullptr;
   if (is_bf16) {
     using T = __nv_bfloat16;
     return block_bwd<T>(static_cast<const T*>(x), static_cast<const T*>(gy),
                         static_cast<const T*>(w1), static_cast<const T*>(w2),
                         static_cast<const T*>(w3), static_cast<const T*>(w1t),
                         static_cast<const T*>(w2t), static_cast<const T*>(w3t), scf,
-                        static_cast<T*>(work), svf, pf, part_len, static_cast<T*>(dx), d1, d2,
-                        d3, ds, batch, h, w, d, c, cb, cob_b, cob_c, wrap, s);
+                        static_cast<T*>(work), svf, pf, part_len, tc, static_cast<T*>(dx), d1,
+                        d2, d3, ds, batch, h, w, d, c, cb, cob_b, cob_c, wrap, s);
   }
   using F = float;
   return block_bwd<F>(static_cast<const F*>(x), static_cast<const F*>(gy),
                       static_cast<const F*>(w1), static_cast<const F*>(w2),
                       static_cast<const F*>(w3), static_cast<const F*>(w1t),
                       static_cast<const F*>(w2t), static_cast<const F*>(w3t), scf,
-                      static_cast<F*>(work), svf, pf, part_len, static_cast<F*>(dx), d1, d2, d3,
-                      ds, batch, h, w, d, c, cb, cob_b, cob_c, wrap, s);
+                      static_cast<F*>(work), svf, pf, part_len, nullptr, static_cast<F*>(dx), d1,
+                      d2, d3, ds, batch, h, w, d, c, cb, cob_b, cob_c, wrap, s);
 }

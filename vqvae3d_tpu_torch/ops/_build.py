@@ -45,12 +45,12 @@ SIGNATURES = {
         _i, _p, _p, _p, _p, _p, _p, _p, _p, _i64, _i, _i, _i, _i, _i,
         _i, _i, _i, _p,
     ],
-    # K3 backward: is_bf16, x, gy, w1, w2, w3, w1t, w2t, w3t, sc, work, sv,
-    #     part, part_len, dx, dw1, dw2, dw3, dsc, batch, h, w, d, c, cb,
-    #     cob_b, cob_c, wrap, stream
+    # K3 backward: is_bf16, tensor_cores, x, gy, w1, w2, w3, w1t, w2t, w3t, sc,
+    #     work, sv, part, part_len, chunks_w1, chunks_w2, chunks_w3, dx, dw1,
+    #     dw2, dw3, dsc, batch, h, w, d, c, cb, cob_b, cob_c, wrap, stream
     "vq_preact_block_bwd": [
-        _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i64, _p, _p, _p, _p, _p,
-        _i64, _i, _i, _i, _i, _i, _i, _i, _i, _p,
+        _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i64, _i, _i, _i, _p, _p, _p,
+        _p, _p, _i64, _i, _i, _i, _i, _i, _i, _i, _i, _p,
     ],
     # K7: is_bf16, tensor_cores, x, g, dw, part, nchunks, batch, cin, cout, hp,
     #     wp, dp, kh, kw, kd, brick_h, brick_w, brick_d, stream
@@ -70,6 +70,9 @@ SIGNATURES = {
     "vq_row_decode": [_p] * 27 + [_i] * 8 + [ctypes.c_float, _p, _p],
     # K6 wide: the same arguments as vq_row_decode but cycles
     "vq_row_decode_wide": [_p] * 27 + [_i] * 8 + [ctypes.c_float, _p],
+    # the wide K6's exchange alone, at its cluster size: exchange (0: a
+    #     cluster barrier, 1: st.async and an mbarrier), iters, stream
+    "vq_cluster_exchange_probe": [_i, _i, _p],
     # K8: is_bf16, q, k, v, o, lse, N, S, D, scale, stream
     "vq_flash_attn_fwd": [_i] + [_p] * 5 + [_i] * 3 + [_f, _p],
     # K8 backward: is_bf16, q, k, v, o, do, lse, delta, dq, dk, dv, N, S, D,

@@ -98,6 +98,13 @@ def dw_tensor_core_route(dtype: torch.dtype, ksize) -> bool:
     return dtype == torch.bfloat16 and max(ksize) <= 3
 
 
+def stack_bwd_tensor_core_route(dtype: torch.dtype) -> bool:
+    """K3 backward's route for its weight contractions (dW1, dW2, dW3), the
+    one place it is chosen: the tensor cores for bf16, the CUDA cores for
+    fp32 (tensor cores would round fp32 to TF32)."""
+    return dtype == torch.bfloat16
+
+
 def dw_chunks(batch: int, out_spatial, ksize, dtype: torch.dtype) -> int:
     """K7's chunk count, a function of the shapes only (so repeats are
     bit-identical): the tensor-core route's CTAs, one per brick up to

@@ -26,7 +26,10 @@ layer 0's skip conv is kept.
 the kernel from the widths before the launch (``uses_wide_kernel``): the
 narrow ``csrc/row_decode.cu`` (C <= 32, br <= 8: the top prior), counted on
 ``row_decode.launches``, or the wide ``csrc/row_decode_wide.cu`` (the 256-
-and 512-wide mid and bottom priors), counted on ``row_decode.wide_launches``;
+and 512-wide mid and bottom priors: one cluster of ``WIDE_CLUSTER``
+CTAs per row call, the height-row step split by batch rows and the voxel
+chain by output columns for all batch rows), counted on
+``row_decode.wide_launches``;
 on CPU tensors it runs ``row_decode_plain``, which computes the same contract
 op by op; any other device raises. Both update the height v-row caches ``vhc`` IN
 PLACE and also return them.
@@ -214,6 +217,19 @@ def uses_wide_kernel(C: int, br: int, K: int, s2: int) -> bool:
     return not (C <= 32 and br <= 8 and K <= 512 and s2 <= 256)
 
 
+WIDE_CLUSTER = 16  # CTAs a cluster of the wide kernel (csrc/row_decode_wide.cu kCluster)
+WIDE_THREADS = 256  # threads a CTA of the wide kernel (csrc/row_decode_wide.cu NT)
+
+
+def check_wide_row(B: int, C: int, br: int):
+    """Raise before any launch on a row the wide kernel does not take: C or
+    br no multiple of 4 (its rows are read as float4), or more batch rows
+    than a CTA has threads. Its C entry point also refuses a row whose state
+    does not fit a CTA's shared memory."""
+    if C % 4 or br % 4 or B > WIDE_THREADS:
+        raise ValueError(f"row_decode: the wide kernel takes C and br multiples of 4 and B <= "
+                         f"{WIDE_THREADS}; got C={C} br={br} B={B}")
+
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
@@ -259,6 +275,8 @@ def row_decode(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
                              f"(contiguous: {t.is_contiguous()}), expected {want} fp32 "
                              f"contiguous on {dev}")
     wide = uses_wide_kernel(C, br, K, s2)
+    if wide:
+        check_wide_row(B, C, br)
     if ws != 2 or br > 512:
         raise ValueError(f"row_decode: the kernels take ws = 2 and br <= 512 (the wide one "
                          f"also checks that the row's state fits shared memory); got L={L} "

@@ -34,11 +34,13 @@ The JAX package's resident/streaming/tiled variants and its s2d stack folds
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from vqvae3d_tpu_torch.ops import _build
-from vqvae3d_tpu_torch.ops.conv3d import conv3d
+from vqvae3d_tpu_torch.ops.conv3d import conv3d, stack_bwd_tensor_core_route
 
 
 def preact_fixup_same(x, w1, w2, w3, sc8, *, pad_mode: str):
@@ -172,12 +174,40 @@ def preact_stack_bwd_plain(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
     return (g, *(torch.stack(t[::-1]) for t in zip(*grads)))
 
 
+TC_BRICK = (4, 4, 16)  # the bricks of the backward's tensor-core dW2 (csrc/preact_stack_bwd.cu)
+TC_FLAT_BRICK = 256  # consecutive voxels of a dW1 / dW3 brick
+TC_TILE = 32  # channels of a CTA's tile per operand, at most
+TC_CTAS = 528  # CTAs of a tensor-core contraction at most: 4 on each of an H100's 132 SMs
+
+
+def contract_chunks(n_bricks: int, p: int, q: int) -> int:
+    """CTAs per channel tile of a tensor-core contraction out[t][p][q] over
+    ``n_bricks`` bricks, a function of the shapes only (so repeats are
+    bit-identical): one per brick, at most ``TC_CTAS`` over all tiles of at
+    most ``TC_TILE`` x ``TC_TILE`` channels."""
+    tiles = math.ceil(p / TC_TILE) * math.ceil(q / TC_TILE)
+    return max(1, min(n_bricks, TC_CTAS // tiles))
+
+
+def contract_plan(b: int, h: int, w: int, d: int, c: int, cb: int):
+    """The tensor-core route's (chunks of dW1, dW2, dW3) for one block and
+    the partial floats they need."""
+    flat = math.ceil(b * h * w * d / TC_FLAT_BRICK)
+    bricks = b * math.prod(math.ceil(n / t) for n, t in zip((h, w, d), TC_BRICK))
+    chunks = (contract_chunks(flat, cb, c), contract_chunks(bricks, cb, cb),
+              contract_chunks(flat, c, cb))
+    need = max(chunks[0] * cb * c, chunks[1] * 27 * cb * cb, chunks[2] * c * cb)
+    return chunks, need
+
+
 def preact_stack_bwd(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
     """The stack's backward on the card: one K3-backward launch per block,
     last block first (each adds one to ``preact_stack_bwd.launches``).
     saves (NB, B, H, W, D, C) are the blocks' inputs, gy the cotangent of the
     stack output. Returns (dx, dw1s, dw2s, dw3s, dsc8), the weight gradients
-    as fp32 sums in the reference layouts."""
+    as fp32 sums in the reference layouts. The weight contractions take the
+    tensor cores in bf16 and the CUDA cores in fp32
+    (``conv3d.stack_bwd_tensor_core_route``)."""
     _check(gy, w1s, w2s, w3s, sc8, pad_mode)
     nb, cb, c = w1s.shape[:3]
     b, _, h, w, d = gy.shape
@@ -190,7 +220,9 @@ def preact_stack_bwd(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
     nsv = 4 * gb + 4 * gc
     work = torch.empty(nvox * (2 * c + 5 * cb), dtype=dt, device=gy.device)
     sv = torch.empty(nvox * nsv, dtype=torch.float32, device=gy.device)
-    part_len = max(2**20, 27 * cb * cb, c * cb) + nsv
+    tensor_cores = stack_bwd_tensor_core_route(dt)
+    chunks, need = contract_plan(b, h, w, d, c, cb) if tensor_cores else ((0, 0, 0), 0)
+    part_len = max(2**20, 27 * cb * cb, c * cb, need) + nsv
     part = torch.empty(part_len, dtype=torch.float32, device=gy.device)
     f32 = dict(dtype=torch.float32, device=gy.device)
     dw1, dw2 = torch.empty(nb, cb, c, **f32), torch.empty(nb, 27, cb, cb, **f32)
@@ -203,10 +235,10 @@ def preact_stack_bwd(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
         dx = bufs[i % 2]
         _build.check(
             lib.vq_preact_block_bwd(
-                int(dt == torch.bfloat16), saves[j].data_ptr(), g.data_ptr(),
+                int(dt == torch.bfloat16), int(tensor_cores), saves[j].data_ptr(), g.data_ptr(),
                 w1p[j].data_ptr(), w2p[j].data_ptr(), w3p[j].data_ptr(),
                 w1t[j].data_ptr(), w2t[j].data_ptr(), w3t[j].data_ptr(), sc[j].data_ptr(),
-                work.data_ptr(), sv.data_ptr(), part.data_ptr(), part_len, dx.data_ptr(),
+                work.data_ptr(), sv.data_ptr(), part.data_ptr(), part_len, *chunks, dx.data_ptr(),
                 dw1[j].data_ptr(), dw2[j].data_ptr(), dw3[j].data_ptr(), dsc[j].data_ptr(),
                 b, h, w, d, c, cb, _cob(cb), _cob(c), int(pad_mode == "wrap"), stream,
             ),
