@@ -9,7 +9,11 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      lookups of a 512x512x128 volume; K3 (the 'same'-block stack forward) at
      every distinct (C, spatial) of the published full config, both pad
      modes, fp32 and bf16, one block and a 50-block stack. Times with CUDA
-     events.
+     events: bf16 per block on its route (``conv3d.stack_fwd_route``: the
+     fused tensor-core or CUDA-core brick, or the three kernels) beside the
+     parent's three kernels and, at the stem-2 shapes, cuDNN's 3x3x3 Cb ->
+     Cb conv of the block (a yardstick of the conv part), in turns; their
+     sums a stem-1 and a stem-2 volume.
   2. the serving main path through the entry points: two synthetic int16 CT
      volumes (512x512x128, from --seed) written as NRRD, a port checkpoint at
      the published full config (literal stem, seeded weights perturbed so
@@ -18,8 +22,10 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      outputs and the K1a/K3 launch counts the config implies are checked.
   3. the full-config forward in fp32, kernels vs plain: indices
      equal except at genuine ties, decoded volume within tolerance; then bf16
-     per-volume latency of the kernel and the plain path, stems 1 and 2, with
-     peak device memory.
+     per-volume latency of the kernel path, the kernel path with K3's
+     forward on the parent's three kernels and the plain path, stems 1 and
+     2, with peak device memory, and K3's forward device time a volume on
+     both routes.
   4. train kernels vs plain: K1b (lookup + EMA statistics) at the three
      lookups; the K3 backward at every (C, spatial) of the stem-2 stacks,
      both pad modes, fp32 and bf16, one block and the stack's full depth,
@@ -37,9 +43,10 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      kernel path against the plain path (loss, every gradient, the new EMA
      state); bf16 ms/step of both paths with peak memory; the launches per
      step against what the config implies; two identical steps from one
-     state give bit-identical parameters and EMA state; a profiler breakdown
-     (device busy; K3 backward's dW2 contraction, other contractions,
-     reduce and elementwise kernels; the rest of the step).
+     state give bit-identical parameters and EMA state; bf16 ms/step also
+     with K3's forward on the parent's three kernels; a profiler breakdown
+     (device busy; K3 forward; K3 backward's dW2 contraction, other
+     contractions, reduce and elementwise kernels; the rest of the step).
   6. the train main path through the entry points: three synthetic scans,
      ``train_vqvae`` for 3 steps (validating at step 3), then ``--resume``
      for one more, then ``extract_embeddings`` on the checkpoint it wrote.
@@ -63,12 +70,15 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      one block with a p = 0.5 keep mask, fp32 and bf16: outputs, dx, the
      condition's gradient and every union-weight gradient; the causality of
      the kernel (impulses forward, gradients backward) against
-     ``causal_reach``; times beside the plain versions and the bounds.
+     ``causal_reach``; times beside the plain versions and the bounds; the
+     bf16 backward on its tensor-core route and on the parent's CUDA-core
+     kernels, in turns, with each one's device time by kernel.
  10. the top prior's train step at full width (PixelCNN 50x16, 128 codes,
      conditioned on 256, 128x128x32, batch 1): one fp32 step on the kernel
      path against the plain path (loss, every gradient); bf16 ms/step of both
-     paths with peak memory; the launches per step against what 50 blocks
-     imply; two identical steps from one state give bit-identical
+     paths and of the kernel path with K4's backward on the parent's
+     CUDA-core kernels, with peak memory; the launches per step against what
+     50 blocks imply; two identical steps from one state give bit-identical
      parameters; a profiler breakdown.
  11. the prior train main path through the entry points: a synthetic code
      store (level 0 128x128x32 over 128 codes, level 1 32x32x8 over 256),
@@ -108,16 +118,19 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      a probe kernel of the kernel's cluster size); the wide K6 against
      ``row_decode_plain`` at the published mid (46 layers, C=256, br=64,
      K=256, conditioned, s2=8, B=10) and bottom (51 layers, C=512, br=128,
-     K=512, s2=2, B=20) PixelCNN rows: teacher-forced logits and caches,
-     free-running indices, a second call bit-identical, a NaN logit giving
-     -1; per-row times beside the plain row, the bound and the design's
-     exchange floor.
+     K=512, s2=2, B=20) PixelCNN rows, at mid B=32 and bottom B=24 (run as
+     sub-batches that fit a CTA's shared memory) and at C=40 / br=10
+     (conditioned, s2=8, padded to multiples of 4): teacher-forced logits
+     and caches, free-running indices, a second call bit-identical, a NaN
+     logit giving -1; per-row times beside the plain row, the bound and the
+     design's exchange floor.
  16. the wide sampling main path: seeded checkpoints of the published mid
      and bottom PixelCNNs, ``sample_embeddings`` of a full 32x32x8 grid at
-     batch 10 (conditioned on 8x8x2 grids) and a full 8x8x2 grid at batch
-     20, tau 0.1, with the wide K6's launches and its share of the device's
-     busy time and of the wall; then the cached sampler teacher-forced over
-     the whole grids against the one-shot forward.
+     batch 10 (conditioned on 8x8x2 grids) and full 8x8x2 grids at batch
+     20 and 24 (two sub-batches a row), tau 0.1, with the wide K6's launches
+     and its share of the device's busy time and of the wall; then the
+     cached sampler teacher-forced over the whole grids against the
+     one-shot forward.
  17. dropout attention kernel vs plain: K5 (causal flash attention with the
      reference's pre-mask logit dropout, p = 0.5) forward and backward
      against ``flash_causal_dropout_attention_plain`` and its autograd, fp32
@@ -302,6 +315,20 @@ WIDE = {
 }
 
 
+# phase 15's wide rows: the published batches (one call a row, their own
+# instantiations), batches that the wrapper splits into sub-batches, and a
+# width that it pads to multiples of 4 (model_dim 40, br 10; depth cut to 10)
+WIDE_ROWS = [("mid", WIDE["mid"]["fields"], 10, 8), ("bottom", WIDE["bottom"]["fields"], 20, 2),
+             ("mid B=32", WIDE["mid"]["fields"], 32, 8),
+             ("bottom B=24", WIDE["bottom"]["fields"], 24, 2),
+             ("C=40 br=10", dict(input_dim=256, condition_dim=512, model_dim=40,
+                                 num_resblocks=10, dropout_prob=0.0), 10, 8)]
+# phase 16's sampling runs: the published jobs, and the bottom grid at a
+# batch that the wide kernel runs as two sub-batches a row
+WIDE_SAMPLING = [("mid", WIDE["mid"], 10), ("bottom", WIDE["bottom"], 20),
+                 ("bottom --batch-size 24", WIDE["bottom"], 24)]
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     """The least time the card could take: the larger of bytes over the
     memory rate and operations over the peak rate for their type, in ms;
@@ -382,6 +409,48 @@ def k3_bwd_split(by_name: dict) -> dict:
             split["elementwise"] += ms
         else:
             split["rest"] += ms
+    return split
+
+
+K3_FWD_KERNELS = ("fused_tc", "fused_cc", "pre_kernel", "conv_kernel", "post_kernel")
+K4_BWD_KERNELS = ("bwd_", "dwu_partial", "contract_", "scalars_kernel", "tc_pre", "tc_mid",
+                  "tc_dgrad", "reduce_segs")
+
+
+@contextlib.contextmanager
+def parent_routes(k3_fwd: bool = False, k4_bwd: bool = False):
+    """Run K3's forward on its three-kernel design and/or K4's backward on its
+    CUDA-core kernels, the parent's bf16 routes, to time them beside the
+    redesigned ones in one run (both are kernels of the port; the route
+    functions choose the redesigned ones)."""
+    from vqvae3d_tpu_torch.ops import causal_kernel, stack_kernel
+
+    saved = stack_kernel.stack_fwd_route, causal_kernel.causal_bwd_tensor_core_route
+    if k3_fwd:
+        stack_kernel.stack_fwd_route = lambda dtype, cb: "three_kernels"
+    if k4_bwd:
+        causal_kernel.causal_bwd_tensor_core_route = lambda dtype, cu, cb, cc: False
+    try:
+        yield
+    finally:
+        stack_kernel.stack_fwd_route, causal_kernel.causal_bwd_tensor_core_route = saved
+
+
+def k4_bwd_split(by_name: dict) -> dict:
+    """K4 backward's device time by kernel: the parent's six elementwise
+    kernels, its contractions (contract_partial, dwu_partial), their reduce
+    and the scalar kernel; the tensor-core route's tc_pre, tc_mid, tc_dgrad
+    and reduce_segs."""
+    split = {}
+    for name, ms in by_name.items():
+        for key in ("bwd_pre", "bwd_mid", "bwd_post", "bwd_gcond", "bwd_dgrad", "bwd_dx",
+                    "contract_partial", "dwu_partial", "contract_reduce", "scalars_kernel",
+                    "tc_pre", "tc_mid", "tc_dgrad", "reduce_segs"):
+            if key in name:
+                split[key] = split.get(key, 0.0) + ms
+                break
+        else:
+            split["rest"] = split.get("rest", 0.0) + ms
     return split
 
 
@@ -501,8 +570,9 @@ def k3_weights(c: int, nb: int, gen, device):
 
 def phase_kernels(ident, results, seed):
     import torch
+    import torch.nn.functional as F
     from vqvae3d_tpu_torch.models.vqvae import VQVAEConfig
-    from vqvae3d_tpu_torch.ops import quantizer_ops, stack_kernel
+    from vqvae3d_tpu_torch.ops import conv3d, quantizer_ops, stack_kernel
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(seed)
@@ -533,14 +603,17 @@ def phase_kernels(ident, results, seed):
     results["l2_argmin"] = k1
 
     # --- K3 at every distinct (C, spatial) of the full config, both stems
-    shapes = {}
+    shapes, stem2 = {}, {}
     for stem in (1, 2):
         c2 = VQVAEConfig(**FULL, base_network_channels=4 * stem, stem_space_to_depth=stem)
         for _, c, spatial, n in c2.same_stacks(VOLUME):
             shapes.setdefault((c, spatial), 0)
             if stem == 1:
                 shapes[(c, spatial)] += n  # blocks per literal-stem volume
+            else:
+                stem2[(c, spatial)] = stem2.get((c, spatial), 0) + n
     k3 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None)
+    per_volume_ms = {"stem 1": [0.0, 0.0], "stem 2": [0.0, 0.0]}  # [redesign, parent]
     worst = {}
     for (c, spatial), per_volume in sorted(shapes.items(), key=lambda kv: -np.prod(kv[0][1])):
         x32 = torch.randn(1, c, *spatial, generator=gen).to(dev)
@@ -567,18 +640,47 @@ def phase_kernels(ident, results, seed):
                           f"max|d|={err:.3g} max|ref|={scale:.3g}")
             if pad_mode == "wrap":  # the config's pad mode, serving dtype bf16
                 xb, ws = x32.to(torch.bfloat16), tuple(t[:10] for t in w)
+                cb = max(c // 2, 1)
+                route = conv3d.stack_fwd_route(torch.bfloat16, cb)
+                # in turns: the route's kernel, the parent's three kernels, cuDNN's
+                # 3x3x3 Cb -> Cb conv of the block (zeros padding; a yardstick of
+                # the conv part at the stem-2 shapes, not a port of it)
+                a2 = torch.randn(1, cb, *spatial, generator=gen).to(dev, torch.bfloat16)
+                w2 = w[1][0].to(torch.bfloat16)
+                turns = {"kernel": [], "parent": [], "cudnn": []}
                 with torch.inference_mode():
-                    ms = cuda_ms(lambda: stack_kernel.preact_stack_fused(xb, *ws, "wrap"), 3) / 10
+                    for _ in range(2):
+                        turns["kernel"].append(cuda_ms(
+                            lambda: stack_kernel.preact_stack_fused(xb, *ws, "wrap"), 3) / 10)
+                        with parent_routes(k3_fwd=True):
+                            turns["parent"].append(cuda_ms(
+                                lambda: stack_kernel.preact_stack_fused(xb, *ws, "wrap"), 3) / 10)
+                        if (c, spatial) in stem2:
+                            turns["cudnn"].append(cuda_ms(
+                                lambda: F.conv3d(a2, w2, padding=1), 10, warmup=2))
                     pms = cuda_ms(lambda: stack_kernel.preact_stack_plain(
                         xb, *ws, pad_mode="wrap"), 1) / 10
-                print(f"K3 C={c} {spatial} bf16 per block: kernel {ms:.4f} ms plain {pms:.4f} ms "
-                      f"x{per_volume} blocks/volume [{ident}]")
+                ms, parent = min(turns["kernel"]), min(turns["parent"])
+                cudnn = (" cuDNN conv " + ", ".join(f"{v:.4f}" for v in turns["cudnn"])
+                         if turns["cudnn"] else "")
+                print(f"K3 C={c} {spatial} bf16 per block, route {route}: kernel "
+                      + ", ".join(f"{v:.4f}" for v in turns["kernel"]) + " ms, parent's three "
+                      f"kernels " + ", ".join(f"{v:.4f}" for v in turns["parent"])
+                      + f" ms ({ms / parent:.2f}x),{cudnn} plain {pms:.4f} ms; blocks a volume: "
+                      f"stem 1 {per_volume}, stem 2 {stem2.get((c, spatial), 0)} [{ident}]")
+                per_volume_ms["stem 1"][0] += ms * per_volume
+                per_volume_ms["stem 1"][1] += parent * per_volume
+                per_volume_ms["stem 2"][0] += ms * stem2.get((c, spatial), 0)
+                per_volume_ms["stem 2"][1] += parent * stem2.get((c, spatial), 0)
                 k3["ms"] += ms * per_volume
                 bms, k3["bound_by"] = bound_ms(*k3_block_cost(c, spatial, 2), BF16_FLOPS)
                 k3["bound_ms"] += bms * per_volume
                 k3["plain_ms"] += pms * per_volume
     print(f"K3 worst max|d|/max|ref| by (dtype, blocks): "
           + ", ".join(f"{k[0]} {k[1]}: {v:.3g}" for k, v in sorted(worst.items())))
+    print("K3 bf16 forward a volume (sum over its shapes of blocks x the best turn): "
+          + ", ".join(f"{k} {v[0]:.2f} ms (the parent's three kernels {v[1]:.2f})"
+                      for k, v in per_volume_ms.items()) + f" [{ident}]")
     results["preact_stack_fwd"] = k3
 
 
@@ -705,12 +807,25 @@ def phase_forward(ident, seed):
     latency = {}
     for stem in (1, 2):
         model, _ = make_model(stem, seed, torch.bfloat16, dev)
-        for path in ("kernel", "plain", "kernel", "plain"):
-            ctx = plain_path() if path == "plain" else contextlib.nullcontext()
+        # K3's device time a volume on its routes and on the parent's three kernels
+        k3_dev = {}
+        for path in ("kernel", "parent K3", "kernel", "parent K3"):
+            ctx = parent_routes(k3_fwd=True) if path == "parent K3" else contextlib.nullcontext()
+            with ctx, torch.inference_mode():
+                by = device_ms_by_name(lambda: model(x))
+            k3_dev.setdefault(path, []).append(sum(v for k, v in by.items() if any(
+                n in k for n in K3_FWD_KERNELS)))
+        print(f"bf16 stem={stem}: K3 forward device time a volume (profiler): "
+              + ", ".join(f"{k} " + ", ".join(f"{v:.2f}" for v in vs) + " ms"
+                          for k, vs in k3_dev.items()) + f" [{ident}]")
+        latency[(stem, "k3_device")] = k3_dev
+        for path in ("kernel", "parent K3", "plain", "kernel", "parent K3", "plain"):
+            ctx = (plain_path() if path == "plain" else parent_routes(k3_fwd=True)
+                   if path == "parent K3" else contextlib.nullcontext())
             with ctx, torch.inference_mode():
                 torch.cuda.reset_peak_memory_stats()
                 run = lambda: model(x)  # noqa: E731
-                ms = cuda_ms(run, iters=3 if path == "kernel" else 2)
+                ms = cuda_ms(run, iters=2 if path == "plain" else 3)
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 out, _ = model(x)
                 if not torch.isfinite(out).all():
@@ -1134,8 +1249,9 @@ def phase_train_step(ident, seed, results):
     if got != want or not np.isfinite(float(log["loss"])):
         raise AssertionError(f"train step launches {got} != {want} or non-finite loss")
     timing = {}
-    for path in ("kernel", "plain", "kernel", "plain"):
-        ctx = plain_path() if path == "plain" else contextlib.nullcontext()
+    for path in ("kernel", "parent K3", "plain", "kernel", "parent K3", "plain"):
+        ctx = (plain_path() if path == "plain" else parent_routes(k3_fwd=True)
+               if path == "parent K3" else contextlib.nullcontext())
         with ctx:
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: step(batch), iters=3, warmup=1)
@@ -1173,13 +1289,16 @@ def phase_train_step(ident, seed, results):
     busy = sum(e.self_device_time_total for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     table = events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=70)
-    split = k3_bwd_split({e.key: e.self_device_time_total / 1e3 for e in events
-                          if e.device_type == torch.autograd.DeviceType.CUDA})
+    by_name = {e.key: e.self_device_time_total / 1e3 for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    split = k3_bwd_split(by_name)
+    k3_fwd = sum(v for k, v in by_name.items() if any(n in k for n in K3_FWD_KERNELS))
     print(f"profile of one bf16 kernel-path train step: device busy {busy:.1f} ms of "
-          f"{wall:.1f} ms wall under the profiler; K3 backward: dW2 contraction "
-          f"{split['dW2']:.1f} ms, other contractions {split['other contractions']:.1f}, "
-          f"reduce {split['reduce']:.1f}, elementwise {split['elementwise']:.1f}; the rest of "
-          f"the step {split['rest']:.1f} ms [{ident}]\n{table}")
+          f"{wall:.1f} ms wall under the profiler; K3 forward {k3_fwd:.1f} ms; K3 backward: dW2 "
+          f"contraction {split['dW2']:.1f} ms, other contractions "
+          f"{split['other contractions']:.1f}, reduce {split['reduce']:.1f}, elementwise "
+          f"{split['elementwise']:.1f}; the rest of the step {split['rest'] - k3_fwd:.1f} ms "
+          f"[{ident}]\n{table}")
     del model, opt
     torch.cuda.empty_cache()
 
@@ -1624,8 +1743,23 @@ def phase_prior_kernels(ident, results, seed):
         ms_ns = cuda_ms(lambda: ck.causal_stack_fused(x, cond, None, 0.0, w_top), 3)
         ms_f = cuda_ms(lambda: ck._forward_cuda(x, cond, None, 0.0, w_top, saves=saves), 3)
         pms_f = cuda_ms(lambda: ck.causal_stack_plain(x, cond, None, 0.0, w_top), 1)
-        ms_b = cuda_ms(lambda: ck.causal_stack_bwd(saves, gy, cond, None, 0.0, w_top), 3)
+        # the backward on its route (bf16: the tensor cores) and on the parent's
+        # CUDA-core kernels, in turns, and each one's device time by kernel
+        turns, splits = {True: [], False: []}, {}
+        for tc in (True, False, False, True):
+            with parent_routes(k4_bwd=not tc):
+                turns[tc].append(cuda_ms(lambda: ck.causal_stack_bwd(
+                    saves, gy, cond, None, 0.0, w_top), 3))
+                splits[tc] = k4_bwd_split(device_ms_by_name(lambda: ck.causal_stack_bwd(
+                    saves, gy, cond, None, 0.0, w_top)))
+        ms_b = min(turns[True])
         pms_b = cuda_ms(lambda: ck.causal_stack_bwd_plain(saves, gy, cond, None, 0.0, w_top), 1)
+    for tc, name in ((True, "tensor-core route"), (False, "the parent's CUDA-core kernels")):
+        print(f"K4 backward bf16, {nb} blocks (one train step), {name}: "
+              + ", ".join(f"{v:.3f}" for v in turns[tc]) + " ms; device split "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(splits[tc].items(),
+                                                            key=lambda kv: -kv[1]))
+              + f" ms [{ident}]")
     nvox = int(np.prod(TOP_GRID))
     (fb, ff), (bb, bf) = k4_cost(nvox, cu, cb, cc, 2)
     bms_f, by_f = bound_ms(nb * fb, nb * ff, BF16_FLOPS)
@@ -1717,8 +1851,9 @@ def phase_prior_step(ident, seed, results):
     if got != want or not np.isfinite(float(log["loss_mean"])):
         raise AssertionError(f"prior train step launches {got} != {want} or non-finite loss")
     timing = {}
-    for path in ("kernel", "plain", "kernel", "plain"):
-        ctx = plain_path() if path == "plain" else contextlib.nullcontext()
+    for path in ("kernel", "parent K4", "plain", "kernel", "parent K4", "plain"):
+        ctx = (plain_path() if path == "plain" else parent_routes(k4_bwd=True)
+               if path == "parent K4" else contextlib.nullcontext())
         with ctx:
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: step(batch), iters=3, warmup=1)
@@ -1758,7 +1893,7 @@ def phase_prior_step(ident, seed, results):
     k4 = {what: sum(e.self_device_time_total for e in cuda_rows if any(
         k in e.key for k in keys)) / 1e3 for what, keys in (
         ("K4 forward", ("fwd_pre", "fwd_conv", "fwd_post")),
-        ("K4 backward", ("bwd_", "dwu_partial", "contract_", "scalars_kernel")))}
+        ("K4 backward", K4_BWD_KERNELS))}
     table = events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=70)
     print(f"profile of one bf16 kernel-path top-prior step: device busy {busy:.1f} ms of "
           f"{wall:.1f} ms wall under the profiler; "
@@ -2284,14 +2419,13 @@ def phase_wide_k6_kernels(ident, results, seed):
         exchange_ms[kind] = (t2 - t1) / 2000
     print(f"exchange latency at a cluster of {n} CTAs: " + ", ".join(
         f"{kind} {1e3 * v:.3f} us" for kind, v in exchange_ms.items()) + f" [{ident}]")
-    for i, (name, cfg) in enumerate(WIDE.items()):
-        f = cfg["fields"]
+    for i, (name, f, b, s2) in enumerate(WIDE_ROWS):
         model = make_prior(f, seed + 100 + i, dev)
         st = decode_row.stack_row_weights(_extract_layers(model), model.parse_input.weight,
                                           model.parse_input.bias, model.parse_output.weight,
                                           model.parse_output.bias)
         L, c, br = st["w1"].shape
-        k, b, s2 = f["input_dim"], cfg["batch"], cfg["grid"][2]
+        k = f["input_dim"]
         cond = f["condition_dim"] > 0
         assert decode_row.uses_wide_kernel(c, br, k, s2)
         gen = torch.Generator(dev).manual_seed(seed + 110 + i)
@@ -2303,7 +2437,9 @@ def phase_wide_k6_kernels(ident, results, seed):
         forced = torch.randint(0, k, (b, s2), device=dev, generator=gen)
         args = (st, d2h, d2w, cnd, dfin, sprev)
         vk, vp = vhc0.clone(), vhc0.clone()
+        before = decode_row.row_decode.wide_launches
         _, _, lk = decode_row.row_decode(*args, vk, gum, 5, TOP_TAU, forced_idx=forced)
+        calls = decode_row.row_decode.wide_launches - before
         _, _, lp = decode_row.row_decode_plain(*args, vp, gum, 5, TOP_TAU, forced_idx=forced)
         errs = {}
         for what, got, want in (("logits", lk, lp), ("caches", vk, vp)):
@@ -2330,14 +2466,16 @@ def phase_wide_k6_kernels(ident, results, seed):
         ms = cuda_ms(lambda: decode_row.row_decode(*args, vk, gum, 5, TOP_TAU), 10, warmup=2)
         pms = cuda_ms(lambda: decode_row.row_decode_plain(*args, vk, gum, 5, TOP_TAU), 2)
         weights, row_bytes, flops = k6_cost(st, b, s2, k, cond)
-        rows = cfg["grid"][0] * cfg["grid"][1]
+        rows = {8: 32 * 32, 2: 8 * 8}[s2]  # the rows of the level's grid (mid, bottom)
         bms, by = bound_ms(weights + row_bytes, flops, FP32_FLOPS)
         gbms, gby = bound_ms(weights + rows * row_bytes, rows * flops, FP32_FLOPS)
         # the design's own floor: its exchanges in sequence, three a layer-step of
         # the voxel chain (the height-row step has none)
         floor = s2 * L * 3 * exchange_ms["st.async"]
         print(f"wide K6 row_decode {name} (L={L} C={c} br={br} K={k} s2={s2} B={b}, "
-              f"{'conditioned' if cond else 'unconditioned'}): teacher-forced max|d| logits "
+              f"{'conditioned' if cond else 'unconditioned'}; {calls} kernel call(s) a row: "
+              f"sub-batches {decode_row.wide_row_batches(L, b, s2, -(-c // 4) * 4, -(-br // 4) * 4, k)}"
+              f"): teacher-forced max|d| logits "
               f"{errs['logits']:.3g} (max|ref| {float(lp.abs().max()):.3g}), caches "
               f"{errs['caches']:.3g}; free-running near ties {ties}, beyond {beyond}; a second "
               f"call bit-identical; a NaN logit gives -1; per row at a cluster of {n} CTAs: "
@@ -2359,14 +2497,22 @@ def phase_wide_sample_main_path(ident, counts, results, seed, work: Path):
     from vqvae3d_tpu_torch.cli import sample_embeddings
     from vqvae3d_tpu_torch.data.sample_db import add_samples, create_or_load_db, save_db
     from vqvae3d_tpu_torch.models.prior_utils import idx_to_one_hot
-    from vqvae3d_tpu_torch.sample.cached_sample import cached_ancestral_sample
+    from vqvae3d_tpu_torch.ops import decode_row
+    from vqvae3d_tpu_torch.sample.cached_sample import _extract_layers, cached_ancestral_sample
 
     dev = torch.device("cuda")
-    for i, (name, cfg) in enumerate(WIDE.items()):
-        f, grid, b, level = cfg["fields"], cfg["grid"], cfg["batch"], cfg["level"]
+    for i, (name, cfg, b) in enumerate(WIDE_SAMPLING):
+        f, grid, level = cfg["fields"], cfg["grid"], cfg["level"]
         model = make_prior(f, seed + 120 + i, "cpu")
-        save_prior(work / f"prior_{name}", model)
-        db_path = work / f"samples_{name}.db"
+        st = decode_row.stack_row_weights(_extract_layers(model), model.parse_input.weight,
+                                          model.parse_input.bias, model.parse_output.weight,
+                                          model.parse_output.bias)
+        (L, c, br), k = st["w1"].shape, f["input_dim"]
+        calls = len(decode_row.wide_row_batches(L, b, grid[2], c, br, k))
+        slug = name.replace(" --batch-size ", "_b")
+        del st
+        save_prior(work / f"prior_{slug}", model)
+        db_path = work / f"samples_{slug}.db"
         pool = None
         if cfg["cond"] is not None:  # two grids of the next-coarser level to condition on
             db = create_or_load_db(db_path, level + 1)
@@ -2381,7 +2527,7 @@ def phase_wide_sample_main_path(ident, counts, results, seed, work: Path):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             start.record()
             new = sample_embeddings.main(sample_embeddings.parse_arguments([
-                "--model-checkpoint", str(work / f"prior_{name}"), "--db-path", str(db_path),
+                "--model-checkpoint", str(work / f"prior_{slug}"), "--db-path", str(db_path),
                 "--level", str(level), "--size", *map(str, grid), "--num-samples", str(b),
                 "--batch-size", str(b), "--tau", str(TOP_TAU), "--sampler", "cached",
                 "--seed", str(seed), "--device", "cuda"]))
@@ -2396,14 +2542,15 @@ def phase_wide_sample_main_path(ident, counts, results, seed, work: Path):
         busy = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
         rows = grid[0] * grid[1]
-        want = dict(dict.fromkeys(got, 0), row_decode_wide=rows)
+        want = dict(dict.fromkeys(got, 0), row_decode_wide=rows * calls)
         db = create_or_load_db(db_path, level)
         grids = np.stack([np.asarray(db[level][u]["data"]) for u in new])
-        print(f"sample_embeddings {name} --level {level} --size {grid} --num-samples {b} "
+        print(f"sample_embeddings {slug} --level {level} --size {grid} --num-samples {b} "
               f"--batch-size {b} --tau {TOP_TAU}: {wall:.2f} s wall (host clock, under the "
               f"device-only profiler), {start.elapsed_time(end) / 1e3:.2f} s between CUDA events; "
               f"wide K6 device time {k6_ms:.1f} ms over {k6_n} kernels "
-              f"({k6_ms / max(k6_n, 1):.4f} ms a row), {100 * k6_ms / busy:.1f} % of the device's "
+              f"({k6_ms / max(k6_n, 1):.4f} ms a kernel, {calls} a row: "
+              f"{k6_ms * calls / max(k6_n, 1):.4f} ms a row), {100 * k6_ms / busy:.1f} % of the device's "
               f"busy {busy:.1f} ms and {100 * k6_ms / (1e3 * wall):.1f} % of the wall; launches "
               f"{got}, the grid implies {want}; "
               f"grids {grids.shape} codes {grids.min()}..{grids.max()}, "
@@ -2422,7 +2569,7 @@ def phase_wide_sample_main_path(ident, counts, results, seed, work: Path):
             counts[k] = counts.get(k, 0) + v
         if name == "mid":  # the JSON line: per row, the main path's mean
             results["row_decode_wide"]["ms"] = k6_ms / k6_n
-        results[f"wide_sample_{name}_s"] = wall
+        results[f"wide_sample_{slug}_s"] = wall
 
         # exactness at full width: teacher-forced cached logits vs the one-shot forward
         model = model.to(dev)

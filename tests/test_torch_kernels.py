@@ -976,16 +976,80 @@ def test_k6_wide_cluster_partition(c, br, k, b, cond, s2, n, l0_skip):
 
 
 def test_k6_wide_cluster_size_and_layout():
-    """The wide kernel's cluster size and CTA width are the CUDA source's
-    constants; a row it does not take (C or br no multiple of 4, more batch
-    rows than a CTA's threads) raises in the wrapper before any launch."""
+    """The wide kernel's cluster size, CTA width and mbarrier count are the
+    CUDA source's constants; a row it does not take as it is (C or br no
+    multiple of 4, more batch rows than a CTA's threads) is padded to
+    multiples of 4 and split into sub-batches of at most a CTA's threads by
+    the wrapper before any launch."""
     src = (Path(decode_row.__file__).parent.parent / "csrc" / "row_decode_wide.cu").read_text()
     assert f"constexpr int NT = {decode_row.WIDE_THREADS};" in src
     assert f"constexpr int kCluster = {decode_row.WIDE_CLUSTER};" in src
-    decode_row.check_wide_row(20, 512, 128)
-    for b, c, br in ((2, 66, 16), (2, 64, 18), (257, 64, 16)):
-        with pytest.raises(ValueError, match="multiples of 4"):
-            decode_row.check_wide_row(b, c, br)
+    assert f"constexpr int kMbars = {decode_row.WIDE_MBARS};" in src
+    assert decode_row.wide_row_batches(51, 20, 2, 512, 128, 512) == ((0, 20),)
+    for (b, c, br), plan in (((2, 66, 16), ((0, 2),)), ((2, 64, 18), ((0, 2),)),
+                             ((257, 64, 16), ((0, 256), (256, 257)))):
+        cp, brp = decode_row._align4(c), decode_row._align4(br)
+        assert cp % 4 == 0 and brp % 4 == 0 and cp - c < 4 and brp - br < 4
+        assert decode_row.wide_row_batches(2, b, 1, cp, brp, 32) == plan
+
+
+def test_k6_wide_batch_plan_at_the_published_widths():
+    """The transcription of layout() at an H100's 232,448 bytes: the mid
+    prior (46 layers, C 256, br 64, s2 8, K 256) takes B <= 21, the bottom
+    prior (51, 512, 128, 2, 512) B <= 20 (228,016 bytes); the published
+    batches (10, 20) run as one call, larger ones as the largest sub-batches
+    that fit, in order; a row that does not fit at B = 1 stays one call,
+    which the kernel refuses."""
+    mid, bottom = (46, 8, 256, 64, 256), (51, 2, 512, 128, 512)
+    lay = decode_row.wide_layout_bytes
+    assert decode_row.WIDE_SMEM_OPTIN == 232448
+    assert lay(51, 20, 2, 512, 128, 512) == 228016
+    for (L, s2, c, br, k), most in ((mid, 21), (bottom, 20)):
+        assert lay(L, most, s2, c, br, k) <= 232448 < lay(L, most + 1, s2, c, br, k)
+    plan = decode_row.wide_row_batches
+    assert plan(46, 10, 8, 256, 64, 256) == ((0, 10),)
+    assert plan(51, 20, 2, 512, 128, 512) == ((0, 20),)
+    assert plan(46, 32, 8, 256, 64, 256) == ((0, 21), (21, 32))
+    assert plan(51, 24, 2, 512, 128, 512) == ((0, 20), (20, 24))
+    assert plan(3, 20, 256, 128, 64, 40) == ((0, 20),)  # does not fit at B = 1
+
+
+@pytest.mark.parametrize("c,br,k,b,cond,s2,limit", [
+    (40, 10, 30, 3, True, 8, None),     # br padded to 12
+    (66, 16, 32, 2, False, 3, None),    # C padded to 68
+    (63, 21, 32, 2, True, 3, None),     # C and br padded to 64 and 24
+    (64, 16, 32, 257, False, 1, None),  # more batch rows than a CTA's threads
+    (64, 16, 32, 7, True, 3, 3),        # a shared memory that fits 3 rows: 3 + 3 + 1
+    (40, 10, 30, 5, True, 4, 2),        # padded and split
+])
+def test_k6_wide_split_and_padded_rows_equal_one_call(c, br, k, b, cond, s2, limit):
+    """``wide_row_decode`` with ``row_decode_plain`` as its step (the
+    kernel's launch on a card) against one unpadded, unsplit
+    ``row_decode_plain`` call on the whole batch: indices equal, logits
+    and caches within 1e-5 of max|ref| (zero-padded channels add zeros;
+    batch rows are independent), teacher-forced and free-running."""
+    st, rows, dfin, sprev = _k6_row(c, br, k, 3, b, s2, cond, True, c + b + s2, "cpu")
+    d2h, d2w, cnd, vhc0 = rows
+    cnd = cnd if cond else None
+    lim = decode_row.WIDE_SMEM_OPTIN if limit is None else decode_row.wide_layout_bytes(
+        3, limit, s2, decode_row._align4(c), decode_row._align4(br), k)
+    plan = decode_row.wide_row_batches(3, b, s2, decode_row._align4(c), decode_row._align4(br),
+                                       k, lim)
+    assert len(plan) == (1 if limit is None and b <= 256 else -(-b // (limit or 256)))
+    gum = draw_gumbel((s2, b, k), torch.Generator().manual_seed(5), "cpu")
+    forced = torch.randint(0, k, (b, s2), generator=torch.Generator().manual_seed(6))
+    for frc in (forced, None):
+        vs, vp = vhc0.clone(), vhc0.clone()
+        got = decode_row.wide_row_decode(decode_row.row_decode_plain, st, d2h, d2w, cnd, dfin,
+                                         sprev, vs, gum, 2, 0.5, frc, lim)
+        want = decode_row.row_decode_plain(st, d2h, d2w, cnd, dfin, sprev, vp, gum, 2, 0.5,
+                                           forced_idx=frc)
+        assert got[1] is vs
+        assert torch.equal(got[0], want[0])
+        pairs = [(vs, vp)] + ([(got[2], want[2])] if frc is not None else [])
+        for a, r in pairs:
+            assert a.shape == r.shape
+            assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
 @pytest.fixture
@@ -995,6 +1059,41 @@ def cuda_device():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad_mode", ["wrap", "zeros"])
+@pytest.mark.parametrize("c,shape", [(2, (9, 7, 20)), (8, (5, 6, 17)), (10, (4, 4, 8)),
+                                     (18, (9, 7, 20)), (72, (5, 3, 6)), (256, (3, 2, 2)),
+                                     (32, (8, 8, 2))])
+def test_k3_fused_forward_on_card(cuda_device, c, shape, pad_mode, monkeypatch):
+    """K3's bf16 forward on its fused routes (``stack_fwd_route``: the tensor
+    cores for Cb >= 5, the CUDA cores below) against the plain stack within
+    3e-2 of max|ref| (as the three kernels), bit-identical on a second call;
+    the CUDA-core brick computes in the three kernels' order, so it equals
+    them bit for bit."""
+    rng = np.random.default_rng(400 + c)
+    ws = tuple(t.to(cuda_device) for t in _stack(rng, 3, c, std=0.1))
+    x = torch.from_numpy(rng.standard_normal((2, c, *shape)).astype(np.float32))
+    x = x.to(cuda_device, torch.bfloat16)
+    cb = max(c // 2, 1)
+    route = conv3d.stack_fwd_route(torch.bfloat16, cb)
+    assert route == ("fused_tc" if cb >= 5 else "fused_cc")
+    launches = stack_kernel.preact_stack_fused.launches
+    with torch.inference_mode():
+        got = stack_kernel.preact_stack_fused(x, *ws, pad_mode)
+        again = stack_kernel.preact_stack_fused(x, *ws, pad_mode)
+        with monkeypatch.context() as m:  # the three kernels' route
+            m.setattr(stack_kernel, "stack_fwd_route", lambda dtype, cb: "three_kernels")
+            parent = stack_kernel.preact_stack_fused(x, *ws, pad_mode)
+        want = stack_kernel.preact_stack_plain(x, *ws, pad_mode=pad_mode)
+    torch.cuda.synchronize()
+    assert stack_kernel.preact_stack_fused.launches == launches + 9  # 3 calls x 3 blocks
+    assert torch.equal(got, again), "two identical calls differ"
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 3e-2 * scale
+    if route == "fused_cc":
+        assert torch.equal(got, parent)
 
 
 @pytest.mark.gpu
@@ -1386,6 +1485,31 @@ def test_k4_bwd_kernel_matches_plain_on_card(cuda_device, case, dtype):
         assert err <= tol * scale, f"output {i}: max|d|={err:.3g} > {tol} x {scale:.3g}"
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(K4_CASES)))
+def test_k4_bwd_routes_agree_on_card(cuda_device, case, monkeypatch):
+    """bf16 takes the tensor-core backward at the cases' widths; it agrees with
+    the CUDA-core kernels per tensor within 6e-2 of max|ref| (both round where
+    the plain autograd rounds; their fp32 sums run in other orders)."""
+    x, gy, cond, keep, p, w = _k4_inputs(K4_CASES[case], torch.bfloat16, cuda_device, 950 + case)
+    nb, cu, cb = w.w1e.shape
+    assert conv3d.causal_bwd_tensor_core_route(torch.bfloat16, cu, cb,
+                                               0 if cond is None else cond.shape[-1])
+    saves = torch.empty((nb, *x.shape), dtype=x.dtype, device=cuda_device)
+    with torch.no_grad():
+        causal_kernel._forward_cuda(x, cond, keep, p, w, saves=saves)
+        tc = causal_kernel.causal_stack_bwd(saves, gy, cond, keep, p, w)
+        with monkeypatch.context() as m:  # the CUDA-core kernels' route
+            m.setattr(causal_kernel, "causal_bwd_tensor_core_route", lambda *shape: False)
+            cc = causal_kernel.causal_stack_bwd(saves, gy, cond, keep, p, w)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(tc, cc)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            err, scale = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+            assert err <= 6e-2 * scale, f"output {i}: max|d|={err:.3g} > 6e-2 x {scale:.3g}"
+
+
 def _causal_blocks(c, bd, nb, seed):
     from vqvae3d_tpu_torch.models.causal_blocks import PreActFixupCausalResBlock
 
@@ -1555,6 +1679,45 @@ def test_k6_wide_kernel_matches_plain_on_card(cuda_device, c, br, k, b, cond, s2
         ties, beyond = decode_row.sampling_disagreements(lg_path, gum, 0.1, free)
         assert beyond == 0, f"{beyond} indices disagree beyond a near tie ({ties} ties)"
     assert decode_row.row_decode.wide_launches == before + 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,br,k,layers,b,cond,s2", [(256, 64, 256, 46, 32, True, 8),
+                                                     (512, 128, 512, 51, 24, False, 2),
+                                                     (40, 10, 64, 11, 10, True, 8),
+                                                     (66, 16, 40, 4, 300, False, 3)])
+def test_k6_wide_split_and_padded_rows_on_card(cuda_device, c, br, k, layers, b, cond, s2):
+    """Rows the wide kernel runs as sub-batches (the mid and bottom priors at
+    their full depth and B = 32, 24; B = 300 > a CTA's threads) or with
+    widths padded to multiples of 4 (C 40 / br 10, C 66) against
+    ``row_decode_plain`` on the whole batch: one launch per sub-batch,
+    teacher-forced logits and caches within 1e-5 of max|ref|, free-running
+    indices equal except at near ties, a second call bit-identical."""
+    st, rows, dfin, sprev = _k6_row(c, br, k, layers, b, s2, cond, True, c + b, cuda_device)
+    d2h, d2w, cnd, vhc0 = rows
+    cnd = cnd if cond else None
+    calls = len(decode_row.wide_row_batches(layers, b, s2, -(-c // 4) * 4, -(-br // 4) * 4, k))
+    gum = draw_gumbel((s2, b, k), torch.Generator(cuda_device).manual_seed(4), cuda_device)
+    forced = torch.randint(0, k, (b, s2), device=cuda_device)
+    before = decode_row.row_decode.wide_launches
+    vk, vp = vhc0.clone(), vhc0.clone()
+    idx_k, _, lg_k = decode_row.row_decode(st, d2h, d2w, cnd, dfin, sprev, vk, gum, 3, 0.1,
+                                           forced_idx=forced)
+    _, _, lg_p = decode_row.row_decode_plain(st, d2h, d2w, cnd, dfin, sprev, vp, gum, 3, 0.1,
+                                             forced_idx=forced)
+    torch.cuda.synchronize()
+    assert decode_row.row_decode.wide_launches == before + calls
+    assert torch.equal(idx_k, forced.int())
+    for name, got, want in (("logits", lg_k, lg_p), ("vhc", vk, vp)):
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        assert err <= 1e-5 * scale, f"{name}: max|d|={err:.3g} > 1e-5 x {scale:.3g}"
+    free, v1 = decode_row.row_decode(st, d2h, d2w, cnd, dfin, sprev, vhc0.clone(), gum, 3, 0.1)
+    again, v2 = decode_row.row_decode(st, d2h, d2w, cnd, dfin, sprev, vhc0.clone(), gum, 3, 0.1)
+    assert torch.equal(free, again) and torch.equal(v1, v2), "two calls differ"
+    _, _, lg_path = decode_row.row_decode_plain(st, d2h, d2w, cnd, dfin, sprev, vhc0.clone(), gum,
+                                                3, 0.1, forced_idx=free)
+    ties, beyond = decode_row.sampling_disagreements(lg_path, gum, 0.1, free)
+    assert beyond == 0, f"{beyond} indices disagree beyond a near tie ({ties} ties)"
 
 
 @pytest.mark.gpu

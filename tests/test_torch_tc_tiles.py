@@ -51,7 +51,7 @@ import numpy as np
 import pytest
 import torch
 
-from vqvae3d_tpu_torch.ops import conv3d, flash_attention, stack_kernel
+from vqvae3d_tpu_torch.ops import causal_kernel, conv3d, flash_attention, stack_kernel
 
 LANE = np.arange(32)
 G, T = LANE >> 2, LANE & 3  # the lane's group (row) and thread in the group
@@ -758,3 +758,457 @@ def test_k3_bwd_routes_and_chunks():
     assert stack_kernel.contract_chunks(1, 128, 128) == 1
     (c1, c2, c3), need = stack_kernel.contract_plan(1, 128, 128, 32, 18, 9)
     assert (c1, c2, c3) == (528, 528, 528) and need == 528 * 27 * 81
+
+
+def _fused_inputs(c, shape, seed):
+    """bf16-exact x (B, C, H, W, D) and one block's weights and scalars, float64."""
+    rng = np.random.default_rng(seed)
+    b_, h, w, d = shape
+    cb = max(c // 2, 1)
+    x = bf16(rng.standard_normal((b_, c, h, w, d)))
+    w1 = bf16(rng.standard_normal((cb, c, 1, 1, 1)) * c ** -0.5)
+    w2 = bf16(rng.standard_normal((cb, cb, 3, 3, 3)) * (27 * cb) ** -0.5)
+    w3 = bf16(rng.standard_normal((c, cb, 1, 1, 1)) * cb ** -0.5)
+    sc8 = bf16(rng.standard_normal(8) * 0.3)
+    return tuple(torch.from_numpy(t) for t in (x, w1, w2, w3, sc8))
+
+
+def _halo_voxels(k0, kdims, shape, wrap):
+    """brick_conv.cuh halo_voxel for every row of a brick's halo."""
+    b_, h, w, d = shape
+    (bb, h0, w0, d0), (bh, bw, bd) = k0, kdims
+    r = np.arange((bh + 2) * (bw + 2) * (bd + 2))
+
+    def axis(cc, n):  # halo_axis
+        return np.where((cc >= 0) & (cc < n), cc, np.where(wrap & (cc == -1), n - 1,
+                                                           np.where(wrap & (cc == n), 0, -1)))
+
+    hh = axis(h0 + r // ((bd + 2) * (bw + 2)) - 1, h)
+    ww = axis(w0 + r // (bd + 2) % (bw + 2) - 1, w)
+    dd = axis(d0 + r % (bd + 2) - 1, d)
+    return np.where((hh < 0) | (ww < 0) | (dd < 0), -1, ((bb * h + hh) * w + ww) * d + dd)
+
+
+def _bricks(shape, kdims):
+    """brick_conv.cuh brick_of over every brick index, d fastest."""
+    b_, h, w, d = shape
+    bh, bw, bd = kdims
+    nb = (-(-h // bh), -(-w // bw), -(-d // bd))
+    for idx in range(b_ * int(np.prod(nb))):
+        i = idx
+        d0, i = i % nb[2] * bd, i // nb[2]
+        w0, i = i % nb[1] * bw, i // nb[1]
+        yield i // nb[0], i % nb[0] * bh, w0, d0
+
+
+def _brick_rows(k0, kdims, shape):
+    """brick_voxel and halo_base for every row of a brick."""
+    b_, h, w, d = shape
+    (bb, h0, w0, d0), (bh, bw, bd) = k0, kdims
+    r = np.arange(bh * bw * bd)
+    oh, ow, od = r // (bw * bd), r // bd % bw, r % bd
+    vox = np.where((h0 + oh < h) & (w0 + ow < w) & (d0 + od < d),
+                   ((bb * h + h0 + oh) * w + w0 + ow) * d + d0 + od, -1)
+    return vox, (oh * (bw + 2) + ow) * (bd + 2) + od
+
+
+def _elu(v):
+    return np.where(v > 0, v, np.expm1(np.minimum(v, 0)))
+
+
+def emulate_k3_fused(x, w1s, w2s, w3s, sc8, pad_mode, route, voxels=None):
+    """csrc/preact_stack.cu fused_tc (lane by lane: the staging tile, the
+    ldmatrix addresses, the implicit GEMM's halo rows a lane addresses, the
+    fragments of every product) or fused_cc (voxel by voxel), in float64
+    with no rounding; weights through ``pack_fused_weights``, the brick of
+    ``fused_brick`` at ``fused_voxels`` (or ``voxels``). Returns y (B, C, H,
+    W, D)."""
+    b_, c, h, w, d = x.shape
+    shape = (b_, h, w, d)
+    cb = w1s.shape[0]
+    xl = x.permute(0, 2, 3, 4, 1).reshape(-1, c).numpy()
+    w1f, w2f, w3f = (t[0].double().numpy() for t in
+                     stack_kernel.pack_fused_weights(w1s[None], w2s[None], w3s[None], route))
+    cbp = stack_kernel.fused_cbp(route, cb)
+    b1a, b1b, b2a, b2b, b3a, b3b, b4, scale = sc8.numpy()
+    a1 = lambda v: _elu(v + b1a) + b1b  # noqa: E731
+    a2f = lambda v: _elu(v + b2a) + b2b  # noqa: E731
+    a3f = lambda v: _elu(v + b3a) + b3b  # noqa: E731
+    kdims = stack_kernel.fused_brick(
+        h, w, d, voxels or stack_kernel.fused_voxels(route, cbp, b_ * h * w * d))
+    wrap = pad_mode == "wrap"
+    y = np.full_like(xl, np.nan)
+    for k0 in _bricks(shape, kdims):
+        hv = _halo_voxels(k0, kdims, shape, wrap)
+        vox, base = _brick_rows(k0, kdims, shape)
+        nh = len(hv)
+        hw_, hd_ = kdims[1] + 2, kdims[2] + 2
+        offs = [(kh * hw_ + kw) * hd_ + kd for kh in range(3) for kw in range(3) for kd in range(3)]
+        if route == "fused_cc":
+            halo = np.where(hv[:, None] >= 0, a2f(a1(xl[np.maximum(hv, 0)]) @ w1f.T), 0.0)
+            halo[:, cb:] = 0.0
+            acc = sum(halo[base + off] @ w2f[tap].T for tap, off in enumerate(offs))
+            a3 = a3f(acc)[:, :cb]
+            out = (a3 @ w3f[:, :cb].T) * scale + b4
+            ok = vox >= 0
+            y[vox[ok]] = out[ok] + xl[vox[ok]]
+            continue
+        nt, as_, k1 = cbp // 8, cbp + 8, w1f.shape[1]
+        arow, acol = (LANE & 7) + 8 * (LANE >> 3 & 1), 8 * (LANE >> 4)
+
+        def fb(wm, n0, kk0):  # B fragment of w [N][K] at n-block n0, k-step kk0 (two ldg32)
+            return wm[n0 * 8 + b_map(16)[1], kk0 + b_map(16)[0]]
+
+        halo = np.zeros(nh * as_)
+        for mt in range(-(-nh // 16)):  # 1. a2 of the halo rows
+            acc = np.zeros((nt, 32, 4))
+            sr = mt * 16 + (LANE >> 1)
+            sv = np.where(sr < nh, hv[np.minimum(sr, nh - 1)], -1)
+            for kk0 in range(0, k1, 16):
+                stg = np.zeros(16 * 24)
+                for j in range(8):
+                    ch = kk0 + 8 * (LANE & 1) + j
+                    val = np.where((sv >= 0) & (ch < c),
+                                   a1(xl[np.maximum(sv, 0), np.minimum(ch, c - 1)]), 0.0)
+                    stg[(LANE >> 1) * 24 + 8 * (LANE & 1) + j] = val
+                fa = ldmatrix(stg, arow * 24 + acol, 4, False)
+                for n in range(nt):
+                    acc[n] = mma(acc[n], fa, fb(w1f, n, kk0), 16)
+            for half in range(2):
+                r = mt * 16 + G + 8 * half
+                inside = (r < nh) & (hv[np.minimum(r, nh - 1)] >= 0)
+                for n in range(nt):
+                    for e in range(2):
+                        col = n * 8 + 2 * T + e
+                        val = np.where(inside & (col < cb), a2f(acc[n][:, 2 * half + e]), 0.0)
+                        halo[(r * as_ + col)[r < nh]] = val[r < nh]
+        a3s = np.zeros(len(vox) * as_)
+        for mt in range(len(vox) // 16):  # 2. the conv, 3. W3 and y, m-tile by m-tile
+            m0 = 16 * mt
+            a0 = base[m0 + arow] * as_ + acol
+            acc = np.zeros((nt, 32, 4))
+            for tap, off in enumerate(offs):
+                for kk0 in range(0, cbp, 16):
+                    fa = ldmatrix(halo, a0 + off * as_ + kk0, 4, False)
+                    for n in range(nt):
+                        acc[n] = mma(acc[n], fa, fb(w2f[tap], n, kk0), 16)
+            for half in range(2):
+                r = m0 + G + 8 * half
+                for n in range(nt):
+                    for e in range(2):
+                        col = n * 8 + 2 * T + e
+                        a3s[r * as_ + col] = np.where(col < cb, a3f(acc[n][:, 2 * half + e]), 0)
+            ntc = -(-c // 8)
+            for n0 in range(0, ntc, 8):
+                acc2 = np.zeros((8, 32, 4))
+                for kk0 in range(0, cbp, 16):
+                    fa = ldmatrix(a3s, (m0 + arow) * as_ + kk0 + acol, 4, False)
+                    for j in range(min(8, ntc - n0)):
+                        acc2[j] = mma(acc2[j], fa, fb(w3f, n0 + j, kk0), 16)
+                for half in range(2):
+                    v = vox[m0 + G + 8 * half]
+                    for j in range(min(8, ntc - n0)):
+                        for e in range(2):
+                            cc = (n0 + j) * 8 + 2 * T + e
+                            ok = (v >= 0) & (cc < c)
+                            y[v[ok], cc[ok]] = (acc2[j][ok, 2 * half + e] * scale + b4
+                                                + xl[v[ok], cc[ok]])
+    return torch.from_numpy(y.reshape(b_, h, w, d, c)).permute(0, 4, 1, 2, 3)
+
+
+@pytest.mark.parametrize("c,shape,pad_mode,route,voxels", [
+    (18, (1, 5, 6, 17), "zeros", "fused_tc", None),  # Cb 9 padded to 16, C to 32 / 24
+    (18, (2, 3, 2, 3), "wrap", "fused_tc", None),  # the volume smaller than a brick
+    (10, (1, 4, 4, 8), "zeros", "fused_tc", None),  # Cb 5, the tensor cores' smallest
+    (72, (1, 3, 5, 6), "wrap", "fused_tc", None),   # Cb 36 padded to 48, C to 80 / 72
+    (16, (1, 5, 6, 17), "wrap", "fused_tc", 256),   # the brick of 256 voxels (two m-tiles)
+    (4, (1, 5, 6, 17), "wrap", "fused_cc", None),
+    (4, (1, 9, 10, 18), "zeros", "fused_cc", 1024),  # four voxels a thread
+    (8, (2, 3, 4, 5), "zeros", "fused_cc", None),
+    (3, (1, 2, 2, 3), "wrap", "fused_cc", None),    # Cb 1, a 2 x 2 x 3 volume
+])
+def test_k3_fused_forward_matches_plain(c, shape, pad_mode, route, voxels):
+    """K3's fused bf16 forward, transcribed (``emulate_k3_fused``), against
+    the plain block (``preact_fixup_same``) in float64 on bf16-exact inputs:
+    the brick gather with wrapped and zero halos, the padding of Cb and C to
+    the mma's widths, the implicit GEMM's rows and the fragments of the
+    three products, within 1e-10 of max|ref| (only the order of the sums
+    differs)."""
+    x, w1, w2, w3, sc8 = _fused_inputs(c, shape, c * 100 + shape[-1])
+    want = stack_kernel.preact_fixup_same(x, w1, w2, w3, sc8, pad_mode=pad_mode)
+    got = emulate_k3_fused(x, w1, w2, w3, sc8, pad_mode, route, voxels)
+    err, ref = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= 1e-10 * ref, f"max|d|={err:.3g} > 1e-10 x {ref:.3g}"
+
+
+def test_k3_fused_routes_and_bricks():
+    """bf16 takes the fused kernel (the tensor cores from Cb = 5 to 128, the
+    CUDA cores below), fp32 and wider Cb the three kernels; the brick sizes
+    are the CUDA source's; the published grids' bricks."""
+    src = (Path(conv3d.__file__).parent.parent / "csrc" / "preact_stack.cu").read_text()
+    for name, route in (("kTcVox", "fused_tc"), ("kCcVox", "fused_cc")):
+        assert f"constexpr int {name} = {stack_kernel.FUSED_BRICK_VOXELS[route]};" in src
+    route = conv3d.stack_fwd_route
+    assert [route(torch.bfloat16, cb) for cb in (1, 2, 4, 5, 9, 36, 128, 129)] == \
+        ["fused_cc"] * 3 + ["fused_tc"] * 4 + ["three_kernels"]
+    assert route(torch.float32, 9) == "three_kernels" and route(torch.float32, 2) == "three_kernels"
+    assert [stack_kernel.fused_cbp("fused_tc", cb) for cb in (5, 9, 36, 64, 128)] == \
+        [16, 16, 48, 64, 128]
+    assert [stack_kernel.fused_cbp("fused_cc", cb) for cb in (1, 2, 3, 4)] == [1, 2, 4, 4]
+    assert stack_kernel.fused_voxels("fused_tc", 16, 128 * 128 * 32) == 256
+    assert stack_kernel.fused_voxels("fused_tc", 48, 128 * 128 * 32) == 128
+    assert stack_kernel.fused_voxels("fused_tc", 32, 8 * 8 * 2) == 128
+    assert stack_kernel.fused_voxels("fused_cc", 4, 64 * 64 * 16) == 1024
+    assert stack_kernel.fused_voxels("fused_cc", 2, 32 * 32 * 8) == 256
+    brick = stack_kernel.fused_brick
+    assert brick(128, 128, 32, 128) == (2, 4, 16) and brick(512, 512, 128, 256) == (4, 4, 16)
+    assert brick(32, 32, 8, 128) == (4, 4, 8) and brick(16, 16, 4, 128) == (4, 8, 4)
+    assert brick(8, 8, 2, 128) == (8, 8, 2)
+    for shp in ((128, 128, 32), (8, 8, 2), (3, 5, 7), (2, 2, 1)):
+        for v in (128, 256):
+            assert np.prod(brick(*shp, v)) == v
+
+
+def _c_tile(frag):
+    """A 16 x 8 tile from its C fragments (32, 4)."""
+    out = np.zeros((16, 8))
+    out[C_MAP] = frag
+    return out
+
+
+def emulate_k4_bwd_tc(saves, gy, cond, keep, p, w, ctas=None):
+    """csrc/causal_stack_bwd.cu's tensor-core route (tc_pre, tc_mid,
+    tc_dgrad, reduce_segs) in numpy, float64 and unrounded but for gm's split
+    into a bf16 hi half and a lo half: ``bwd_plan``'s bricks and persistent
+    CTAs, the halo rows of both convs (the forward's one s0-row behind, the
+    transposed one's ahead, zero outside the grid), the conv, its transpose
+    and dWU lane by lane (ldmatrix of each lane's halo row, .trans for the
+    products with K over voxels, the fragments of mma.sync), the 1x1 products
+    on the gathered tiles, the per-CTA partials summed in CTA order and
+    scattered by segment. Returns what ``causal_stack_bwd_plain`` returns."""
+    ck = causal_kernel
+    nb, cu, cb = w.w1e.shape
+    b_, s0, s1, s2, _ = gy.shape
+    cc = 0 if cond is None else cond.shape[-1]
+    (n0, n1, n2), (cm, cd) = ck.bwd_plan(b_, s0, s1, s2)
+    cm, cd = (ctas, ctas) if ctas else (cm, cd)
+    pk = {k: v.double().numpy() for k, v in ck.pack_bwd_tc_weights(w).items()}
+    lm, ld = ck.bwd_partial_lens(cu, cb, cc)
+    nvox = b_ * s0 * s1 * s2
+    cup, bs_ = pk["w3"].shape[-1], 24
+    h1, h2 = n1 + 2, n2 + 2
+    nh = (n0 + 1) * h1 * h2
+    nbr = (-(-s0 // n0), -(-s1 // n1), -(-s2 // n2))
+    nbricks = b_ * int(np.prod(nbr))
+    g = gy.reshape(nvox, cu).double().numpy()
+    cf = None if cond is None else cond.reshape(nvox, cc).double().numpy()
+    gcond = None if cond is None else np.zeros((nvox, cc))
+    r = np.arange(n0 * n1 * n2)
+    hr = np.arange(nh)
+    base = ((r // (n1 * n2)) * h1 + r // n2 % n1) * h2 + r % n2
+    fwd_off = [((t // 9) * h1 + t // 3 % 3) * h2 + t % 3 for t in range(18)]
+    bwd_off = [((1 - t // 9) * h1 + 2 - t // 3 % 3) * h2 + 2 - t % 3 for t in range(18)]
+    arow, acol = (LANE & 7) + 8 * (LANE >> 3 & 1), 8 * (LANE >> 4)
+
+    def brick(bi):
+        i = bi
+        i2, i = i % nbr[2] * n2, i // nbr[2]
+        i1, i = i % nbr[1] * n1, i // nbr[1]
+        bb, i0 = i // nbr[0], i % nbr[0] * n0
+        a, bq, c = i0 + r // (n1 * n2), i1 + r // n2 % n1, i2 + r % n2
+        rows = np.where((a < s0) & (bq < s1) & (c < s2), ((bb * s0 + a) * s1 + bq) * s2 + c, -1)
+
+        def halo(o0):
+            a, bq, c = i0 + o0 + hr // (h1 * h2), i1 - 1 + hr // h2 % h1, i2 - 1 + hr % h2
+            ok = (a >= 0) & (a < s0) & (bq >= 0) & (bq < s1) & (c >= 0) & (c < s2)
+            return bb, rows, np.where(ok, ((bb * s0 + a) * s1 + bq) * s2 + c, -1)
+        return halo
+
+    def gather(src, vox, width):
+        out = np.zeros((len(vox), width))
+        out[vox >= 0, :src.shape[1]] = src[vox[vox >= 0]]
+        return out
+
+    def conv(tiles, wt, offs):  # acc (128, 16) = sum over taps and tiles of halo rows . wt[tap]^T
+        acc = np.zeros((len(r), 16))
+        for warp in range(len(r) // 16):
+            a0 = base[16 * warp + arow] * bs_ + acol
+            frag = np.zeros((2, 32, 4))
+            for tap, off in enumerate(offs):
+                for tile in tiles:
+                    fa = ldmatrix(tile, a0 + off * bs_, 4, False)
+                    for n in range(2):
+                        frag[n] = mma(frag[n], fa, wt[tap][n * 8 + b_map(16)[1], b_map(16)[0]], 16)
+            for n in range(2):
+                acc[16 * warp:16 * warp + 16, 8 * n:8 * n + 8] = _c_tile(frag[n])
+        return acc
+
+    def flat(t):  # shared rows of bs_ bf16
+        return np.pad(t, ((0, 0), (0, bs_ - t.shape[1]))).ravel()
+
+    res = []
+    for j in reversed(range(nb)):
+        b1a, b1b, b2a, b2b, b3a, b3b, b4, scale = w.sc[j].double().numpy()
+        x = saves[j].reshape(nvox, cu).double().numpy()
+        kp = None if keep is None else keep[j].double().numpy()
+        be = pk["be"][j]
+        a1 = np.pad(_elu(x + b1a) + b1b, ((0, 0), (0, cup - cu)))
+        a2 = np.zeros((nvox, 16))  # tc_pre
+        a2[:, :cb] = (_elu(a1 @ pk["w1e"][j].T + np.pad(be, (0, 16 - cb)) + b2a) + b2b)[:, :cb]
+        gmh, gml = np.zeros((nvox, 16)), np.zeros((nvox, 16))
+        part = np.zeros((cm, lm))
+        for cta in range(cm):  # tc_mid
+            tot_u, tot3 = np.zeros((18, 16, 16)), np.zeros((cup, 16))
+            totc, dbc, ssum = np.zeros((16, max(cc, 1))), np.zeros(16), np.zeros(4)
+            for bi in range(cta, nbricks, cm):
+                bb, rows, hv = brick(bi)(-1)
+                ok = rows >= 0
+                halo = flat(gather(a2, hv, 16))
+                c = conv([halo], pk["wuf"][j], fwd_off)
+                if kp is not None:
+                    c[:, :cb] = np.where(kp[bb] > 0, c[:, :cb] / (1 - p), 0.0)
+                cs = None
+                if cf is not None:
+                    cs = gather(cf, rows, cc)
+                    c[:, :cb] = c[:, :cb] + np.pad(cs, ((0, 0), (0, pk["wct"].shape[-1] - cc))) \
+                        @ pk["wct"][j].T[:, :cb] + pk["bc"][j]
+                t3 = c + b3a
+                gs = gather(g, rows, cup)
+                gus = gs * scale
+                ga3 = gus @ pk["w3"][j].T
+                okc = ok[:, None] & (np.arange(16) < cb)
+                gt3 = np.where(okc, ga3 * np.where(t3 > 0, 1.0, np.exp(np.minimum(t3, 0))), 0.0)
+                a3 = np.where(okc, _elu(t3) + b3b, 0.0)
+                gm = gt3 if kp is None else np.where(kp[bb] > 0, gt3 / (1 - p), 0.0) \
+                    if cb == 16 else np.where(np.pad(kp[bb], (0, 16 - cb)) > 0, gt3 / (1 - p), 0.0)
+                hi = bf16(gm)
+                lo = np.where(okc, gm - hi, 0.0)
+                gmh[rows[ok]], gml[rows[ok]] = hi[ok], lo[ok]
+                ssum += [gt3.sum(), np.where(okc, ga3, 0).sum(), gs[:, :cu].sum(),
+                         (gs * (a3 @ pk["w3t"][j].T))[:, :cu].sum()]
+                dbc += gt3.sum(0)
+                if cf is not None:
+                    gcond[rows[ok]] += (gt3 @ pk["wcn"][j].T)[ok, :cc]
+                    totc += gt3.T @ cs
+                hflat, lflat = flat(hi), flat(lo)
+                for tap in range(18):  # dWU, lane by lane: gm^T (hi, lo) x a2 of the tap's rows
+                    acc = np.zeros((2, 32, 4))
+                    for line in range(len(r) // 16):
+                        va = (16 * line + (LANE & 7) + 8 * (LANE >> 4)) * bs_ + 8 * (LANE >> 3 & 1)
+                        fb = ldmatrix(halo, (base[16 * line + arow] + fwd_off[tap]) * bs_ + acol,
+                                      4, True)
+                        for src in (hflat, lflat):
+                            fa = ldmatrix(src, va, 4, True)
+                            acc[0] = mma(acc[0], fa, fb[:, :4], 16)
+                            acc[1] = mma(acc[1], fa, fb[:, 4:], 16)
+                    tot_u[tap] += np.concatenate([_c_tile(acc[0]), _c_tile(acc[1])], 1)
+                tot3 += gus.T @ a3
+            o = [tot_u[:, :cb, :cb].ravel(), tot3[:cu, :cb].ravel()]
+            if cf is not None:
+                o += [totc[:cb, :cc].ravel(), dbc[:cb]]
+            part[cta] = np.concatenate(o + [ssum])
+        mid = np.cumsum(part, 0)[-1]  # CTA order
+        dsc = np.zeros(8)
+        dwu, o = mid[:18 * cb * cb].reshape(18, cb, cb), 18 * cb * cb
+        dw3, o = mid[o:o + cu * cb].reshape(cu, cb), o + cu * cb
+        dwc = dbcs = None
+        if cf is not None:
+            dwc, o = mid[o:o + cb * cc].reshape(cb, cc), o + cb * cc
+            dbcs, o = mid[o:o + cb], o + cb
+        dsc[4:] = mid[o:o + 4]
+        part = np.zeros((cd, ld))
+        dx = np.zeros((nvox, cu))
+        for cta in range(cd):  # tc_dgrad
+            tot1, dbe, ssum = np.zeros((16, cup)), np.zeros(16), np.zeros(4)
+            for bi in range(cta, nbricks, cd):
+                bb, rows, hv = brick(bi)(0)
+                ok = rows >= 0
+                okc = ok[:, None] & (np.arange(16) < cb)
+                a1s = np.where(ok[:, None], gather(a1, rows, cup), 0.0)
+                t2 = a1s @ pk["w1e"][j].T + np.pad(be, (0, 16 - cb)) + b2a
+                ga2 = conv([flat(gather(gmh, hv, 16)), flat(gather(gml, hv, 16))],
+                           pk["wut"][j], bwd_off)
+                gt2 = np.where(okc, ga2 * np.where(t2 > 0, 1.0, np.exp(np.minimum(t2, 0))), 0.0)
+                ga1 = (gt2 @ pk["w1n"][j].T)[:, :cu]
+                xr = gather(x, rows, cu)
+                gt1 = ga1 * np.where(xr + b1a > 0, 1.0, np.exp(np.minimum(xr + b1a, 0)))
+                dx[rows[ok]] = g[rows[ok]] + gt1[ok]
+                ssum += [gt1[ok].sum(), ga1[ok].sum(), gt2.sum(), np.where(okc, ga2, 0).sum()]
+                dbe += gt2.sum(0)
+                tot1 += gt2.T @ a1s
+            part[cta] = np.concatenate([tot1[:cb, :cu].ravel(), dbe[:cb], ssum])
+        dgr = np.cumsum(part, 0)[-1]
+        dw1 = dgr[:cb * cu].reshape(cb, cu)
+        dbe_ = dgr[cb * cu:cb * cu + cb]
+        dsc[:4] = dgr[cb * cu + cb:]
+        res.append((dw1, dbe_, dwu, dw3, dwc, dbcs, dsc))
+        g = dx
+    st = [None if t[0] is None else torch.from_numpy(np.stack(t[::-1])) for t in zip(*res)]
+    grads = ck.kernel_grads_to_union(st[0], st[1], st[2], st[3],
+                                     st[4] if cf is not None else torch.zeros(nb, cb, 1),
+                                     st[5] if cf is not None else torch.zeros(nb, cb), st[6],
+                                     cf is not None)
+    return (torch.from_numpy(g.reshape(gy.shape)),
+            None if gcond is None else torch.from_numpy(gcond.reshape(cond.shape)), *grads)
+
+
+def _k4_case(c, cb8, cc, b, grid, p, nb, seed):
+    """bf16-exact inputs and union weights (Cu = 3c, Cb = 3 cb8) in float64."""
+    rng = np.random.default_rng(seed)
+    cu, cb = 3 * c, 3 * cb8
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(bf16(rng.standard_normal(shape) * scale))
+
+    sc = t(nb, 8, scale=0.1)
+    sc[:, 7] += 0.25
+    w = causal_kernel.UnionWeights(
+        t(nb, cu, cb, scale=cu ** -0.5), t(nb, cb, scale=0.1),
+        t(nb, 2, 3, 3, cb, cb, scale=(18 * cb) ** -0.5), t(nb, cb, cu, scale=cb ** -0.5),
+        t(nb, cc, cb, scale=cc ** -0.5) if cc else None, t(nb, cb, scale=0.1) if cc else None,
+        torch.from_numpy(bf16(sc.numpy())))
+    saves = t(nb, b, *grid, cu)
+    gy = t(b, *grid, cu)
+    cond = t(b, *grid, cc) if cc else None
+    keep = torch.from_numpy((rng.random((nb, b, cb)) < 0.5).astype(np.float64)) if p else None
+    return saves, gy, cond, keep, p, w
+
+
+@pytest.mark.parametrize("case,ctas", [
+    ((16, 4, 16, 1, (3, 5, 6), 0.5, 2), None),   # the top prior's widths, a condition, a keep mask
+    ((8, 4, 8, 2, (4, 3, 5), 0.0, 1), 3),         # B = 2, a persistent loop over several bricks
+    ((6, 1, 0, 1, (2, 9, 17), 0.5, 1), None),     # unconditioned, Cb = 3, ragged bricks
+])
+def test_k4_tensor_core_backward_matches_plain(case, ctas):
+    """K4's tensor-core backward, transcribed (``emulate_k4_bwd_tc``), against
+    ``causal_stack_bwd_plain`` (fp32 math on bf16-exact float64 inputs):
+    dx, the condition's gradient and every union-weight gradient per tensor
+    within 1e-5 of max|ref|. gm's bf16 hi half and its remainder carry gm
+    exactly, so only the order of the sums differs."""
+    saves, gy, cond, keep, p, w = _k4_case(*case, seed=sum(case[:4]))
+    got = emulate_k4_bwd_tc(saves, gy, cond, keep, p, w, ctas)
+    want = causal_kernel.causal_stack_bwd_plain(saves, gy, cond, keep, p, w)
+    for i, (a, r) in enumerate(zip(got, want)):
+        assert (a is None) == (r is None), i
+        if r is None:
+            continue
+        err, ref = float((a - r.double()).abs().max()), float(r.abs().max())
+        assert err <= 1e-5 * ref, f"output {i}: max|d|={err:.3g} > 1e-5 x {ref:.3g}"
+
+
+def test_k4_gm_halves_and_plan():
+    """gm as bf16 hi + lo halves is gm to 2^-16 of |gm| (the kernel rounds
+    lo to bf16 too); the plan's bricks hold 128 voxels (the CUDA source's
+    tc::kVox) and its CTAs are a function of the shapes; the route takes bf16
+    at the widths the kernels compile."""
+    gm = np.random.default_rng(3).standard_normal(4096) * 10.0 ** np.arange(-3, 5).repeat(512)
+    hi = bf16(gm)
+    assert np.all(np.abs(gm - hi - bf16(gm - hi)) <= 2.0 ** -16 * np.abs(gm))
+    src = (Path(conv3d.__file__).parent.parent / "csrc" / "causal_stack_bwd.cu").read_text()
+    assert f"kVox = {causal_kernel.BWD_TC_VOXELS};" in src
+    assert causal_kernel.bwd_plan(1, 128, 128, 32) == ((2, 4, 16), causal_kernel.BWD_TC_CTAS)
+    assert causal_kernel.bwd_plan(1, 3, 5, 6) == ((4, 4, 8), (2, 2))
+    route = conv3d.causal_bwd_tensor_core_route
+    assert route(torch.bfloat16, 48, 12, 16) and route(torch.bfloat16, 64, 16, 32)
+    assert not route(torch.float32, 48, 12, 16) and not route(torch.bfloat16, 48, 24, 16)
+    assert not route(torch.bfloat16, 96, 12, 16) and not route(torch.bfloat16, 48, 12, 48)

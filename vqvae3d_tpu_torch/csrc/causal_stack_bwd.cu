@@ -36,11 +36,12 @@
 //
 // What bounds it on the H100: a block reads the saved x, g and the condition,
 // reads and writes gcond and writes dx: 384 B a voxel in bf16 (201 MB a block
-// at the top prior, 60 us at 3.35 TB/s), for ~3x the forward's products. This
-// first version writes every intermediate to device memory and reduces on
-// the CUDA cores in fp32, well above that bound.
+// at the top prior, 60 us at 3.35 TB/s), for ~3x the forward's products. The
+// CUDA-core route below (fp32, and bf16 at widths the tensor-core route at
+// the end of this file does not take) writes every intermediate to device
+// memory and reduces on the CUDA cores in fp32, well above that bound.
 //
-// Design (simple first; speed is later work). Per block, six elementwise
+// The CUDA-core route (the first design). Per block, six elementwise
 // kernels, each thread one voxel and a group of COB output channels (as the
 // forward), write the per-voxel intermediates to scratch:
 //   pre:   x -> a1, t2, a2                            (Cb-wide groups)
@@ -62,6 +63,7 @@
 // its CTA idle; it took 5.6 ms of a top-prior block's 11.2). The transposed
 // packs (w1t, wut, w3t, wct) come from the wrapper in the forward's
 // [group][...][COB] layout.
+#include "brick_conv.cuh"
 #include "causal_union.cuh"
 
 namespace {
@@ -571,4 +573,819 @@ extern "C" int vq_causal_block_bwd(
       static_cast<const F*>(wct), static_cast<F*>(work), gmf, svf, pf, part_len,
       static_cast<F*>(dx), static_cast<F*>(gcond), d1, dbe_, du, d3, dc, dbc_, ds, batch, s0, s1,
       s2, cu, cb, cc, cob_b, cob_u, cob_c, s);
+}
+
+// ---- bf16: the tensor-core route (ops/conv3d.py causal_bwd_tensor_core_route)
+//
+// Three kernels a block and two reduce passes, every product on mma.sync
+// m16n8k16 (bf16 in, fp32 accumulate), no activation-sized intermediate but
+// a2 and the conv's cotangent gm in device memory:
+//   tc_pre:   x -> a2 (bf16, Cb padded to 16)                    flat tiles
+//   tc_mid:   a2 (halo), g, cond -> the conv recomputed, a3, gu3, gt3 and
+//             gm (as bf16 hi + lo halves: gm = hi + lo to 2^-16, so the
+//             products that read it keep fp32's precision), gcond += wc gt3;
+//             per CTA, dWU, dW3, dwc, dbc and the b3a, b3b, b4, scale sums
+//   tc_dgrad: gm (halo one s0-row ahead), x, g -> the transposed conv, t2
+//             recomputed, gt2, ga1, dx; per CTA, dW1e, dbe and the b1a, b1b,
+//             b2a, b2b sums
+//   reduce:   the CTAs' partials summed in CTA order (fixed: a function of
+//             the shapes), then scattered into the outputs.
+// A CTA (8 warps, persistent over bricks blockIdx.x, + gridDim.x, ...) owns
+// a brick of 128 voxels (bs0 x bs1 x bs2, ops/causal_kernel.py bwd_plan), its
+// one-voxel halo staged into shared memory with the causal zero pads: the
+// forward conv reads s0 rows i0 - 1 and i0 (halo origin (i0 - 1, i1 - 1,
+// i2 - 1)), the transposed conv rows i0 and i0 + 1 (origin (i0, i1 - 1,
+// i2 - 1)), both s1 and s2 - 1 .. + 1. Warp w owns brick rows 16 w .. 16 w +
+// 15 (M of the voxel products); the weight gradients are products with K
+// over the brick's voxels (A and B by ldmatrix.trans of the voxel tiles),
+// flushed per brick into fp32 registers (as contract_tc), then per CTA into
+// its partial: no atomics, so two calls are bit-identical. Rounding is the
+// CUDA-core route's (the plain autograd's): every rounding point above is
+// kept; only the order of the fp32 sums differs.
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = 8, kThr = 256, kVox = 128;
+constexpr int CBP = 16, BS = CBP + 8;  // Cb padded to the mma's k; a 16-channel row's stride
+
+struct UBrick {
+  int64_t b;
+  int i0, i1, i2, n0, n1, n2;
+  __device__ int h1() const { return n1 + 2; }
+  __device__ int h2() const { return n2 + 2; }
+  __device__ int rows() const { return (n0 + 1) * (n1 + 2) * (n2 + 2); }
+};
+
+__device__ __forceinline__ UBrick ubrick(int64_t idx, int s0, int s1, int s2, int n0, int n1,
+                                         int n2) {
+  const vqb::Brick k = vqb::brick_of(idx, s0, s1, s2, n0, n1, n2);
+  return UBrick{k.b, k.h0, k.w0, k.d0, n0, n1, n2};
+}
+
+// The voxel of brick row r, or -1 outside the grid.
+__device__ __forceinline__ int64_t row_voxel(const UBrick& k, int r, int s0, int s1, int s2) {
+  const int a = k.i0 + r / (k.n1 * k.n2), b = k.i1 + r / k.n2 % k.n1, c = k.i2 + r % k.n2;
+  if (a >= s0 || b >= s1 || c >= s2) return -1;
+  return ((k.b * s0 + a) * s1 + b) * static_cast<int64_t>(s2) + c;
+}
+
+// The voxel of halo row r (origin s0 offset o0: -1 forward, 0 transposed), or -1.
+__device__ __forceinline__ int64_t halo_voxel(const UBrick& k, int r, int o0, int s0, int s1,
+                                              int s2) {
+  const int a = k.i0 + o0 + r / (k.h1() * k.h2()), b = k.i1 - 1 + r / k.h2() % k.h1(),
+            c = k.i2 - 1 + r % k.h2();
+  if (a < 0 || a >= s0 || b < 0 || b >= s1 || c < 0 || c >= s2) return -1;
+  return ((k.b * s0 + a) * s1 + b) * static_cast<int64_t>(s2) + c;
+}
+
+__device__ __forceinline__ int halo_base(const UBrick& k, int r) {
+  return ((r / (k.n1 * k.n2)) * k.h1() + r / k.n2 % k.n1) * k.h2() + r % k.n2;
+}
+
+// the halo offset of tap (j0, j1, j2) = (tap / 9, tap / 3 % 3, tap % 3): the
+// forward conv reads row r + (j0, j1, j2) - 1, the transposed r - (j0, j1, j2) + 1
+__device__ __forceinline__ int fwd_off(const UBrick& k, int tap) {
+  return ((tap / 9) * k.h1() + tap / 3 % 3) * k.h2() + tap % 3;
+}
+__device__ __forceinline__ int bwd_off(const UBrick& k, int tap) {
+  return ((1 - tap / 9) * k.h1() + 2 - tap / 3 % 3) * k.h2() + 2 - tap % 3;
+}
+
+// Rows [0, nrows) of a channels-last (nvox, width) bf16 tensor into shared
+// rows of `stride` bf16: row r takes voxel vox(r) (zero for -1), channels
+// zero past `width` up to `padded`; then also(r, c0, v, row) for each 8
+// channels c0 .. c0 + 7 staged (a transform written beside them in the same
+// pass). All threads.
+struct NoAlso {
+  __device__ void operator()(int, int, int64_t, uint4) const {}
+};
+
+template <typename F, typename A = NoAlso>
+__device__ __forceinline__ void stage(bf16* dst, int stride, const bf16* src, int width,
+                                      int padded, int nrows, F vox, A also = A()) {
+  const bool vec = width % 8 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  const int groups = padded / 8;
+  for (int e = threadIdx.x; e < nrows * groups; e += kThr) {
+    const int r = e / groups, c0 = 8 * (e % groups);
+    const int64_t v = vox(r);
+    const uint4 row = vqb::load8(src, v, width, c0, vec);
+    *reinterpret_cast<uint4*>(dst + r * stride + c0) = row;
+    also(r, c0, v, row);
+  }
+}
+
+// 8 staged bf16 through f (channels past `width` and rows outside the grid give 0)
+template <typename F>
+__device__ __forceinline__ uint4 map8(uint4 row, int c0, int width, bool inside, F f) {
+  const bf16* in = reinterpret_cast<const bf16*>(&row);
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float lo = inside && c0 + 2 * j < width ? f(vq::to_f<bf16>(in[2 * j])) : 0.f;
+    const float hi = inside && c0 + 2 * j + 1 < width ? f(vq::to_f<bf16>(in[2 * j + 1])) : 0.f;
+    o[j] = vq::pack_bf16(lo, hi);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+__device__ __forceinline__ float elu_grad(float t) { return t > 0.f ? 1.f : expf(t); }
+
+struct Sc {
+  float b1a, b1b, b2a, b2b, b3a, b3b, scale;
+  __device__ explicit Sc(const float* sc)
+      : b1a(vq::rnd<bf16>(sc[0])), b1b(vq::rnd<bf16>(sc[1])), b2a(vq::rnd<bf16>(sc[2])),
+        b2b(vq::rnd<bf16>(sc[3])), b3a(vq::rnd<bf16>(sc[4])), b3b(vq::rnd<bf16>(sc[5])),
+        scale(vq::rnd<bf16>(sc[7])) {}
+  __device__ __forceinline__ float a1(float x) const {
+    return vq::rnd<bf16>(vq::rnd<bf16>(vq::elu(vq::rnd<bf16>(x + b1a))) + b1b);
+  }
+};
+
+// the A fragment of rows m0 .. m0 + 15 (row-major voxels x channels) at k0
+__device__ __forceinline__ void lda(uint32_t (&a)[4], const bf16* s, int stride, int m0, int k0,
+                                    int lane) {
+  vq::ldsm_x4(a, vq::smem_u32(s + (m0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * stride + k0 +
+                              8 * (lane >> 4)));
+}
+
+// the A fragment of channels c0 .. c0 + 15 over voxels v0 .. v0 + 15 of a
+// (voxels x channels) tile: the transposed tile, for a product with K over voxels
+__device__ __forceinline__ void lda_t(uint32_t (&a)[4], const bf16* s, int stride, int v0,
+                                      int c0, int lane) {
+  vq::ldsm_x4_t(a, vq::smem_u32(s + (v0 + (lane & 7) + 8 * (lane >> 4)) * stride + c0 +
+                                8 * ((lane >> 3) & 1)));
+}
+
+// the B fragments of two n-blocks (channels c0 .. c0 + 15) over the 16
+// voxels whose shared rows the lanes name: row(i) for voxel i of the line
+__device__ __forceinline__ void ldb_t(uint32_t (&b)[4], const bf16* s, int stride, int row,
+                                      int c0, int lane) {
+  vq::ldsm_x4_t(b, vq::smem_u32(s + row * stride + c0 + 8 * (lane >> 4)));
+}
+
+// m[r0 + row][c0 + col] += the C fragment a (16 x 8 at (r0, c0)) of this lane:
+// each element has one owner, so the per-CTA sums in shared memory need no atomics
+__device__ __forceinline__ void frag_add(float* m, int stride, int r0, int c0,
+                                         const float (&a)[4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) m[(r0 + g + 8 * (e >> 1)) * stride + c0 + 2 * t + (e & 1)] += a[e];
+}
+
+// the sum of v over the 8 lanes of a warp that share lane % 4, in a fixed order
+__device__ __forceinline__ float colsum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+template <int CUP>
+__global__ void __launch_bounds__(kThr)
+    tc_pre(const bf16* __restrict__ x, const bf16* __restrict__ w1e, const bf16* __restrict__ be,
+           const float* __restrict__ sc, bf16* __restrict__ a2, int64_t nvox, int cu, int cb) {
+  constexpr int XS = CUP + 8;
+  __shared__ __align__(16) bf16 a1s[kVox * XS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const Sc s(sc);
+  const int64_t v0 = static_cast<int64_t>(blockIdx.x) * kVox;
+  const auto a1 = [&](float v) { return s.a1(v); };
+  stage(a1s, XS, x, cu, CUP, kVox, [&](int r) { return v0 + r < nvox ? v0 + r : int64_t{-1}; },
+        [&](int r, int c0, int64_t v, uint4 row) {  // a1 over x, in place; zero past Cu
+          *reinterpret_cast<uint4*>(a1s + r * XS + c0) = map8(row, c0, cu, v >= 0, a1);
+        });
+  __syncthreads();
+  float acc[2][4] = {};
+#pragma unroll
+  for (int k0 = 0; k0 < CUP; k0 += 16) {
+    uint32_t a[4];
+    lda(a, a1s, XS, 16 * warp, k0, lane);
+    vqb::mma_row<2>(acc, a, w1e, CUP, k0, lane);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int64_t v = v0 + 16 * warp + g + 8 * half;
+    if (v >= nvox) continue;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float o[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = nt * 8 + 2 * t + e;
+        const float u = n < cb ? vq::rnd<bf16>(vq::rnd<bf16>(vq::rnd<bf16>(acc[nt][2 * half + e]) +
+                                                             vq::to_f<bf16>(be[n])) + s.b2a)
+                               : 0.f;
+        o[e] = n < cb ? vq::rnd<bf16>(vq::rnd<bf16>(vq::elu(u)) + s.b2b) : 0.f;
+      }
+      *reinterpret_cast<uint32_t*>(a2 + v * CBP + nt * 8 + 2 * t) = vq::pack_bf16(o[0], o[1]);
+    }
+  }
+}
+
+// Partial layout of tc_mid: dWU [18][Cb][Cb] (tap, out, in), dW3^T [Cu][Cb],
+// dwc^T [Cb][Cc], dbc [Cb], then b3a, b3b, b4, scale.
+__host__ __device__ inline int mid_len(int cu, int cb, int cc) {
+  return vqc::kTaps * cb * cb + cu * cb + cb * cc + (cc > 0 ? cb : 0) + 4;
+}
+
+template <int CUP, int CCP>
+__global__ void __launch_bounds__(kThr, 2)
+    tc_mid(const bf16* __restrict__ a2, const bf16* __restrict__ gy, const bf16* __restrict__ cond,
+           const float* __restrict__ keep, float denom, const bf16* __restrict__ wuf,
+           const bf16* __restrict__ wct, const bf16* __restrict__ bc,
+           const bf16* __restrict__ w3, const bf16* __restrict__ w3t,
+           const bf16* __restrict__ wcn, const float* __restrict__ sc, bf16* __restrict__ gmh,
+           bf16* __restrict__ gml, bf16* __restrict__ gcond, float* __restrict__ part,
+           int64_t nbricks, int s0, int s1, int s2, int cu, int cb, int cc, int n0, int n1,
+           int n2) {
+  constexpr int GS = CUP + 8, CS = CCP + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nh = (n0 + 1) * (n1 + 2) * (n2 + 2);
+  bf16* halo = reinterpret_cast<bf16*>(smem);  // [nh][BS] a2
+  bf16* gs = halo + nh * BS;                    // [kVox][GS] g
+  bf16* gus = gs + kVox * GS;                   // [kVox][GS] gu3 = g * scale
+  bf16* cs = gus + kVox * GS;                   // [kVox][CS] cond
+  bf16* a3s = cs + kVox * CS;                   // [kVox][BS] a3, gt3, gm's halves
+  bf16* gt3s = a3s + kVox * BS;
+  bf16* ghs = gt3s + kVox * BS;
+  bf16* gls = ghs + kVox * BS;
+  float* red = reinterpret_cast<float*>(gls + kVox * BS);  // [kWarps][CBP + 4]
+  float* su = red + kWarps * (CBP + 4);  // the CTA's sums: dWU [18][16][16] (tap, out, in),
+  float* s3 = su + vqc::kTaps * CBP * CBP;  //   dW3^T [CUP][16],
+  float* scw = s3 + CUP * CBP;              //   dwc^T [16][CCP]
+  for (int e = threadIdx.x; e < vqc::kTaps * CBP * CBP + CUP * CBP + CBP * CCP; e += kThr)
+    su[e] = 0.f;
+  const Sc s(sc);
+  const bool has_cond = cond != nullptr;
+  const float b3a = s.b3a, b3b = s.b3b;
+  const auto gu3 = [&](float v) { return v * s.scale; };
+  // per-thread sums over the CTA's bricks: b3a, b3b, b4, scale; dbc's 4 channels
+  float ssum[4] = {}, dbc_s[4] = {};
+  const int m0 = 16 * warp;
+  for (int64_t bi = blockIdx.x; bi < nbricks; bi += gridDim.x) {
+    const UBrick k = ubrick(bi, s0, s1, s2, n0, n1, n2);
+    stage(halo, BS, a2, CBP, CBP, nh, [&](int r) { return halo_voxel(k, r, -1, s0, s1, s2); });
+    stage(gs, GS, gy, cu, CUP, kVox, [&](int r) { return row_voxel(k, r, s0, s1, s2); },
+          [&](int r, int c0, int64_t v, uint4 row) {  // gu3 = g * scale beside g
+            *reinterpret_cast<uint4*>(gus + r * GS + c0) = map8(row, c0, cu, v >= 0, gu3);
+          });
+    if (has_cond)
+      stage(cs, CS, cond, cc, CCP, kVox, [&](int r) { return row_voxel(k, r, s0, s1, s2); });
+    __syncthreads();
+
+    // the conv recomputed, the dropout, the condition: c, t3, a3
+    const int64_t vr[2] = {row_voxel(k, m0 + g, s0, s1, s2), row_voxel(k, m0 + g + 8, s0, s1, s2)};
+    float acc[2][4] = {}, cacc[2][4] = {};
+    {
+      const int r = m0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+      const uint32_t a0 = vq::smem_u32(halo + halo_base(k, r) * BS + 8 * (lane >> 4));
+#pragma unroll
+      for (int tap = 0; tap < vqc::kTaps; ++tap) {
+        uint32_t a[4];
+        vq::ldsm_x4(a, a0 + 2 * fwd_off(k, tap) * BS);
+        vqb::mma_row<2>(acc, a, wuf + tap * CBP * CBP, CBP, 0, lane);
+      }
+    }
+    if (has_cond) {
+#pragma unroll
+      for (int k0 = 0; k0 < CCP; k0 += 16) {
+        uint32_t a[4];
+        lda(a, cs, CS, m0, k0, lane);
+        vqb::mma_row<2>(cacc, a, wct, CCP, k0, lane);
+      }
+    }
+    float t3[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = nt * 8 + 2 * t + (e & 1);
+        float cv = acc[nt][e];
+        if (keep != nullptr && n < cb) cv = keep[k.b * cb + n] > 0.f ? cv / denom : 0.f;
+        if (has_cond && n < cb) cv = (cv + cacc[nt][e]) + vq::to_f<bf16>(bc[n]);
+        t3[nt][e] = vq::rnd<bf16>(vq::rnd<bf16>(cv) + b3a);
+      }
+    // ga3 = W3 gu3, gt3, gm
+    float ga[2][4] = {};
+#pragma unroll
+    for (int k0 = 0; k0 < CUP; k0 += 16) {
+      uint32_t a[4];
+      lda(a, gus, GS, m0, k0, lane);
+      vqb::mma_row<2>(ga, a, w3, CUP, k0, lane);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + g + 8 * half;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float a3v[2], gtv[2], hv[2], lv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = nt * 8 + 2 * t + e;
+          const bool ok = vr[half] >= 0 && n < cb;
+          const float tt = t3[nt][2 * half + e];
+          const float gak = vq::rnd<bf16>(ga[nt][2 * half + e]);
+          const float gtk = ok ? vq::rnd<bf16>(gak * elu_grad(tt)) : 0.f;
+          a3v[e] = ok ? vq::rnd<bf16>(vq::rnd<bf16>(vq::elu(tt)) + b3b) : 0.f;
+          gtv[e] = gtk;
+          const float gmv = keep == nullptr ? gtk : (keep[k.b * cb + n] > 0.f ? gtk / denom : 0.f);
+          hv[e] = ok ? vq::rnd<bf16>(gmv) : 0.f;
+          lv[e] = ok ? gmv - hv[e] : 0.f;
+          if (ok) {
+            ssum[0] += gtk;
+            ssum[1] += gak;
+            dbc_s[nt * 2 + e] += gtk;
+          }
+        }
+        const int n = nt * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(a3s + r * BS + n) = vq::pack_bf16(a3v[0], a3v[1]);
+        *reinterpret_cast<uint32_t*>(gt3s + r * BS + n) = vq::pack_bf16(gtv[0], gtv[1]);
+        const uint32_t ph = vq::pack_bf16(hv[0], hv[1]), pl = vq::pack_bf16(lv[0], lv[1]);
+        *reinterpret_cast<uint32_t*>(ghs + r * BS + n) = ph;
+        *reinterpret_cast<uint32_t*>(gls + r * BS + n) = pl;
+        if (vr[half] >= 0) {
+          *reinterpret_cast<uint32_t*>(gmh + vr[half] * CBP + n) = ph;
+          *reinterpret_cast<uint32_t*>(gml + vr[half] * CBP + n) = pl;
+        }
+      }
+    }
+    __syncwarp();
+    // d_scale = sum g (a3 W3), d_b4 = sum g
+    {
+      constexpr int NU = CUP / 8;
+      float p[NU][4] = {};
+      uint32_t a[4];
+      lda(a, a3s, BS, m0, 0, lane);
+      vqb::mma_row<NU>(p, a, w3t, CBP, 0, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (vr[half] < 0) continue;
+        const int r = m0 + g + 8 * half;
+#pragma unroll
+        for (int nt = 0; nt < NU; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int co = nt * 8 + 2 * t + e;
+            if (co >= cu) continue;
+            const float gv = vq::to_f<bf16>(gs[r * GS + co]);
+            ssum[2] += gv;
+            ssum[3] += gv * vq::rnd<bf16>(p[nt][2 * half + e]);
+          }
+      }
+    }
+    // gcond += wc gt3
+    if (has_cond) {
+      constexpr int NC = CCP / 8;
+      float p[NC][4] = {};
+      uint32_t a[4];
+      lda(a, gt3s, BS, m0, 0, lane);
+      vqb::mma_row<NC>(p, a, wcn, CBP, 0, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (vr[half] < 0) continue;
+#pragma unroll
+        for (int nt = 0; nt < NC; ++nt) {
+          const int ci = nt * 8 + 2 * t;
+          bf16* dst = gcond + vr[half] * cc + ci;
+          if (cc % 2 == 0 && ci < cc) {  // the pair (ci, ci + 1) as one 32-bit access
+            __nv_bfloat162 old2 = *reinterpret_cast<__nv_bfloat162*>(dst);
+            *reinterpret_cast<uint32_t*>(dst) = vq::pack_bf16(
+                __low2float(old2) + vq::rnd<bf16>(p[nt][2 * half]),
+                __high2float(old2) + vq::rnd<bf16>(p[nt][2 * half + 1]));
+            continue;
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (ci + e >= cc) continue;
+            dst[e] = vq::from_f<bf16>(vq::to_f<bf16>(dst[e]) + vq::rnd<bf16>(p[nt][2 * half + e]));
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // the weight gradients over the brick's voxels
+    {  // dWU[tap][o][i] = sum gm[v][o] a2[v + tap][i]: taps warp, warp + 8, warp + 16
+      float au[3][2][4] = {};
+      for (int line = 0; line < kVox / 16; ++line) {
+        uint32_t ah[4], al[4];
+        lda_t(ah, ghs, BS, 16 * line, 0, lane);
+        lda_t(al, gls, BS, 16 * line, 0, lane);
+        const int base = halo_base(k, 16 * line + (lane & 7) + 8 * ((lane >> 3) & 1));
+#pragma unroll
+        for (int ti = 0; ti < 3; ++ti) {
+          const int tap = warp + 8 * ti;
+          if (tap >= vqc::kTaps) break;
+          uint32_t b[4];
+          ldb_t(b, halo, BS, base + fwd_off(k, tap), 0, lane);
+          vq::mma_16816(au[ti][0], ah, b[0], b[1]);
+          vq::mma_16816(au[ti][0], al, b[0], b[1]);
+          vq::mma_16816(au[ti][1], ah, b[2], b[3]);
+          vq::mma_16816(au[ti][1], al, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int ti = 0; ti < 3; ++ti) {  // the per-brick flush into the CTA's sums
+        const int tap = warp + 8 * ti;
+        if (tap >= vqc::kTaps) break;
+        frag_add(su + tap * CBP * CBP, CBP, 0, 0, au[ti][0], lane);
+        frag_add(su + tap * CBP * CBP, CBP, 0, 8, au[ti][1], lane);
+      }
+    }
+    if (warp < CUP / 16) {  // dW3^T[co][k] = sum gu3[v][co] a3[v][k]: co in 16 warp ..
+      float a3c[2][4] = {};
+      for (int line = 0; line < kVox / 16; ++line) {
+        uint32_t a[4], b[4];
+        lda_t(a, gus, GS, 16 * line, 16 * warp, lane);
+        ldb_t(b, a3s, BS, 16 * line + (lane & 7) + 8 * ((lane >> 3) & 1), 0, lane);
+        vq::mma_16816(a3c[0], a, b[0], b[1]);
+        vq::mma_16816(a3c[1], a, b[2], b[3]);
+      }
+      frag_add(s3, CBP, 16 * warp, 0, a3c[0], lane);
+      frag_add(s3, CBP, 16 * warp, 8, a3c[1], lane);
+    } else if (has_cond && warp >= 4 && warp - 4 < CCP / 16) {  // dwc^T[k][ci] = sum gt3[v][k] cond[v][ci]
+      float acc_c[2][4] = {};
+      for (int line = 0; line < kVox / 16; ++line) {
+        uint32_t a[4], b[4];
+        lda_t(a, gt3s, BS, 16 * line, 0, lane);
+        ldb_t(b, cs, CS, 16 * line + (lane & 7) + 8 * ((lane >> 3) & 1), 16 * (warp - 4), lane);
+        vq::mma_16816(acc_c[0], a, b[0], b[1]);
+        vq::mma_16816(acc_c[1], a, b[2], b[3]);
+      }
+      frag_add(scw, CCP, 0, 16 * (warp - 4), acc_c[0], lane);
+      frag_add(scw, CCP, 0, 16 * (warp - 4) + 8, acc_c[1], lane);
+    }
+    __syncthreads();  // the tiles are refilled for the next brick
+  }
+
+  // this CTA's partial
+  float* out = part + static_cast<int64_t>(blockIdx.x) * mid_len(cu, cb, cc);
+  float* o3 = out + vqc::kTaps * cb * cb;
+  float* oc = o3 + cu * cb;
+  float* obc = oc + cb * cc;
+  for (int e = threadIdx.x; e < vqc::kTaps * cb * cb; e += kThr) {
+    const int tap = e / (cb * cb), o = e / cb % cb, i = e % cb;
+    out[e] = su[(tap * CBP + o) * CBP + i];
+  }
+  for (int e = threadIdx.x; e < cu * cb; e += kThr) o3[e] = s3[(e / cb) * CBP + e % cb];
+  for (int e = threadIdx.x; e < cb * cc; e += kThr) oc[e] = scw[(e / cc) * CCP + e % cc];
+  // dbc and the scalar sums: lanes -> warp (fixed xor order) -> CTA (warp order)
+#pragma unroll
+  for (int j = 0; j < 4; ++j) dbc_s[j] = colsum(dbc_s[j]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) ssum[j] += __shfl_xor_sync(0xffffffffu, ssum[j], off);
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[warp * (CBP + 4) + (j >> 1) * 8 + 2 * lane + (j & 1)] = dbc_s[j];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[warp * (CBP + 4) + CBP + j] = ssum[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < CBP + 4) {
+    const int j = threadIdx.x;
+    float v = 0.f;
+    for (int w = 0; w < kWarps; ++w) v += red[w * (CBP + 4) + j];
+    if (j < CBP) {
+      if (has_cond && j < cb) obc[j] = v;
+    } else {
+      obc[(has_cond ? cb : 0) + j - CBP] = v;
+    }
+  }
+}
+
+// Partial layout of tc_dgrad: dW1e^T [Cb][Cu], dbe [Cb], then b1a, b1b, b2a, b2b.
+__host__ __device__ inline int dgrad_len(int cu, int cb) { return cb * cu + cb + 4; }
+
+template <int CUP>
+__global__ void __launch_bounds__(kThr, 3)
+    tc_dgrad(const bf16* __restrict__ x, const bf16* __restrict__ gy,
+             const bf16* __restrict__ gmh, const bf16* __restrict__ gml,
+             const bf16* __restrict__ w1e, const bf16* __restrict__ be,
+             const bf16* __restrict__ wut, const bf16* __restrict__ w1n,
+             const float* __restrict__ sc, bf16* __restrict__ dx, float* __restrict__ part,
+             int64_t nbricks, int s0, int s1, int s2, int cu, int cb, int n0, int n1, int n2) {
+  constexpr int XS = CUP + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nh = (n0 + 1) * (n1 + 2) * (n2 + 2);
+  bf16* hh = reinterpret_cast<bf16*>(smem);  // [nh][BS] gm's hi half, one s0-row ahead
+  bf16* hl = hh + nh * BS;                    // [nh][BS] its lo half
+  bf16* xs = hl + nh * BS;                    // [kVox][XS] x
+  bf16* a1s = xs + kVox * XS;                 // [kVox][XS] a1
+  bf16* gt2s = a1s + kVox * XS;               // [kVox][BS] gt2
+  float* red = reinterpret_cast<float*>(gt2s + kVox * BS);  // [kWarps][CBP + 4]
+  const Sc s(sc);
+  const auto a1 = [&](float v) { return s.a1(v); };
+  float ssum[4] = {}, dbe_s[4] = {};  // b1a, b1b, b2a, b2b; dbe's 4 channels
+  float tot_1[2][4] = {};
+  const int m0 = 16 * warp;
+  for (int64_t bi = blockIdx.x; bi < nbricks; bi += gridDim.x) {
+    const UBrick k = ubrick(bi, s0, s1, s2, n0, n1, n2);
+    stage(hh, BS, gmh, CBP, CBP, nh, [&](int r) { return halo_voxel(k, r, 0, s0, s1, s2); });
+    stage(hl, BS, gml, CBP, CBP, nh, [&](int r) { return halo_voxel(k, r, 0, s0, s1, s2); });
+    stage(xs, XS, x, cu, CUP, kVox, [&](int r) { return row_voxel(k, r, s0, s1, s2); },
+          [&](int r, int c0, int64_t v, uint4 row) {  // a1 beside x
+            *reinterpret_cast<uint4*>(a1s + r * XS + c0) = map8(row, c0, cu, v >= 0, a1);
+          });
+    __syncthreads();
+
+    const int64_t vr[2] = {row_voxel(k, m0 + g, s0, s1, s2), row_voxel(k, m0 + g + 8, s0, s1, s2)};
+    // t2 recomputed (as tc_pre), ga2 = the transposed conv of gm (hi + lo)
+    float e1[2][4] = {}, ga[2][4] = {};
+#pragma unroll
+    for (int k0 = 0; k0 < CUP; k0 += 16) {
+      uint32_t a[4];
+      lda(a, a1s, XS, m0, k0, lane);
+      vqb::mma_row<2>(e1, a, w1e, CUP, k0, lane);
+    }
+    {
+      const int r = m0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+      const int base = halo_base(k, r) * BS + 8 * (lane >> 4);
+      const uint32_t ah0 = vq::smem_u32(hh + base), al0 = vq::smem_u32(hl + base);
+#pragma unroll
+      for (int tap = 0; tap < vqc::kTaps; ++tap) {
+        uint32_t ah[4], al[4];
+        vq::ldsm_x4(ah, ah0 + 2 * bwd_off(k, tap) * BS);
+        vq::ldsm_x4(al, al0 + 2 * bwd_off(k, tap) * BS);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {  // one B fragment for both halves
+          const bf16* wp = wut + (tap * CBP + nt * 8 + g) * CBP + 2 * t;
+          const uint32_t b0 = vqb::ldg32(wp), b1 = vqb::ldg32(wp + 8);
+          vq::mma_16816(ga[nt], ah, b0, b1);
+          vq::mma_16816(ga[nt], al, b0, b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + g + 8 * half;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = nt * 8 + 2 * t + e;
+          const bool ok = vr[half] >= 0 && n < cb;
+          float gti = 0.f;
+          if (ok) {
+            const float t2 = vq::rnd<bf16>(vq::rnd<bf16>(vq::rnd<bf16>(e1[nt][2 * half + e]) +
+                                                         vq::to_f<bf16>(be[n])) + s.b2a);
+            const float gai = vq::rnd<bf16>(ga[nt][2 * half + e]);
+            gti = vq::rnd<bf16>(gai * elu_grad(t2));
+            ssum[3] += gai;
+            ssum[2] += gti;
+            dbe_s[nt * 2 + e] += gti;
+          }
+          o[e] = gti;
+        }
+        *reinterpret_cast<uint32_t*>(gt2s + r * BS + nt * 8 + 2 * t) = vq::pack_bf16(o[0], o[1]);
+      }
+    }
+    __syncwarp();
+    // ga1 = W1e gt2, gt1, dx = g + gt1
+    {
+      constexpr int NU = CUP / 8;
+      float p[NU][4] = {};
+      uint32_t a[4];
+      lda(a, gt2s, BS, m0, 0, lane);
+      vqb::mma_row<NU>(p, a, w1n, CBP, 0, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (vr[half] < 0) continue;
+        const int r = m0 + g + 8 * half;
+#pragma unroll
+        for (int nt = 0; nt < NU; ++nt) {
+          const int c0 = nt * 8 + 2 * t;
+          if (c0 >= cu) continue;
+          const int64_t o = vr[half] * cu + c0;
+          const bool pair = cu % 2 == 0;  // (c0, c0 + 1) as one 32-bit access
+          const __nv_bfloat162 g2 = pair ? *reinterpret_cast<const __nv_bfloat162*>(gy + o)
+                                         : __halves2bfloat162(gy[o], gy[o]);
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (c0 + e >= cu) continue;
+            const float gai = vq::rnd<bf16>(p[nt][2 * half + e]);
+            const float t1 = vq::rnd<bf16>(vq::to_f<bf16>(xs[r * XS + c0 + e]) + s.b1a);
+            const float gti = vq::rnd<bf16>(gai * elu_grad(t1));
+            d[e] = (e == 0 ? __low2float(g2) : pair ? __high2float(g2)
+                                                    : vq::to_f<bf16>(gy[o + 1])) + gti;
+            ssum[1] += gai;
+            ssum[0] += gti;
+          }
+          if (pair) {
+            *reinterpret_cast<uint32_t*>(dx + o) = vq::pack_bf16(d[0], d[1]);
+          } else {
+            dx[o] = vq::from_f<bf16>(d[0]);
+            if (c0 + 1 < cu) dx[o + 1] = vq::from_f<bf16>(d[1]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (warp < CUP / 16) {  // dW1e^T[k][ci] = sum gt2[v][k] a1[v][ci]: ci in 16 warp ..
+      float acc[2][4] = {};
+      for (int line = 0; line < kVox / 16; ++line) {
+        uint32_t a[4], b[4];
+        lda_t(a, gt2s, BS, 16 * line, 0, lane);
+        ldb_t(b, a1s, XS, 16 * line + (lane & 7) + 8 * ((lane >> 3) & 1), 16 * warp, lane);
+        vq::mma_16816(acc[0], a, b[0], b[1]);
+        vq::mma_16816(acc[1], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot_1[u][e] += acc[u][e];
+    }
+    __syncthreads();
+  }
+
+  float* out = part + static_cast<int64_t>(blockIdx.x) * dgrad_len(cu, cb);
+  if (warp < CUP / 16) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = g + 8 * (e >> 1), ci = 16 * warp + 8 * u + 2 * t + (e & 1);
+        if (kk < cb && ci < cu) out[kk * cu + ci] = tot_1[u][e];
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) dbe_s[j] = colsum(dbe_s[j]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) ssum[j] += __shfl_xor_sync(0xffffffffu, ssum[j], off);
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[warp * (CBP + 4) + (j >> 1) * 8 + 2 * lane + (j & 1)] = dbe_s[j];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[warp * (CBP + 4) + CBP + j] = ssum[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < CBP + 4) {
+    const int j = threadIdx.x;
+    float v = 0.f;
+    for (int w = 0; w < kWarps; ++w) v += red[w * (CBP + 4) + j];
+    if (j < CBP) {
+      if (j < cb) out[cb * cu + j] = v;
+    } else {
+      out[cb * cu + cb + j - CBP] = v;
+    }
+  }
+}
+
+// out segments: the reduce pass writes element e of the summed partial to
+// the segment that holds it
+struct Segs {
+  float* p[6];
+  int n[6];
+};
+
+__global__ void reduce_segs(const float* __restrict__ part, int nchunks, int E, Segs sg) {
+  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  float v = 0.f;
+  for (int ch = 0; ch < nchunks; ++ch) v += part[static_cast<int64_t>(ch) * E + e];
+  for (int i = 0; i < 6; ++i) {
+    if (e < sg.n[i]) {
+      sg.p[i][e] = v;
+      return;
+    }
+    e -= sg.n[i];
+  }
+}
+
+template <typename K>
+cudaError_t opt_in(K kernel, int smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+             : cudaSuccess;
+}
+
+template <int CUP, int CCP>
+cudaError_t block_bwd_tc(const bf16* x, const bf16* gy, const bf16* cond, const float* keep,
+                         float denom, const bf16* w1e, const bf16* be, const bf16* wuf,
+                         const bf16* wut, const bf16* w3, const bf16* w3t, const bf16* wct,
+                         const bf16* bc, const bf16* wcn, const bf16* w1n, const float* sc,
+                         bf16* work, float* part, int64_t part_len, int ctas_m, int ctas_d,
+                         bf16* dx,
+                         bf16* gcond, float* dw1, float* dbe, float* dwu, float* dw3, float* dwc,
+                         float* dbc, float* dsc, int64_t batch, int s0, int s1, int s2, int cu,
+                         int cb, int cc, int n0, int n1, int n2, cudaStream_t s) {
+  const int64_t nvox = batch * s0 * s1 * static_cast<int64_t>(s2);
+  const int64_t nbricks = batch * ((s0 + n0 - 1) / n0) * static_cast<int64_t>((s1 + n1 - 1) / n1) *
+                          ((s2 + n2 - 1) / n2);
+  const int lm = mid_len(cu, cb, cc), ld = dgrad_len(cu, cb);
+  if (ctas_m < 1 || ctas_m > nbricks || ctas_d < 1 || ctas_d > nbricks ||
+      static_cast<int64_t>(ctas_m) * lm > part_len || static_cast<int64_t>(ctas_d) * ld > part_len)
+    return cudaErrorInvalidValue;
+  bf16* a2 = work;
+  bf16* gmh = a2 + nvox * CBP;
+  bf16* gml = gmh + nvox * CBP;
+  const int nh = (n0 + 1) * (n1 + 2) * (n2 + 2);
+  tc_pre<CUP><<<static_cast<unsigned>((nvox + kVox - 1) / kVox), kThr, 0, s>>>(x, w1e, be, sc, a2,
+                                                                              nvox, cu, cb);
+  const int smem_m = 2 * (nh * BS + 2 * kVox * (CUP + 8) + kVox * (CCP + 8) + 4 * kVox * BS) +
+                     4 * (kWarps * (CBP + 4) + vqc::kTaps * CBP * CBP + CUP * CBP + CBP * CCP);
+  cudaError_t err = opt_in(tc_mid<CUP, CCP>, smem_m);
+  if (err != cudaSuccess) return err;
+  tc_mid<CUP, CCP><<<ctas_m, kThr, smem_m, s>>>(a2, gy, cond, keep, denom, wuf, wct, bc, w3, w3t,
+                                               wcn, sc, gmh, gml, gcond, part, nbricks, s0, s1,
+                                               s2, cu, cb, cc, n0, n1, n2);
+  const int tm = vqc::kTaps * cb * cb;
+  Segs sm{{dwu, dw3, cond != nullptr ? dwc : dsc + 4, dbc, dsc + 4, nullptr},
+          {tm, cu * cb, cond != nullptr ? cb * cc : 4, cond != nullptr ? cb : 0,
+           cond != nullptr ? 4 : 0, 0}};
+  reduce_segs<<<(lm + 255) / 256, 256, 0, s>>>(part, ctas_m, lm, sm);
+  const int smem_d = 2 * (2 * nh * BS + 2 * kVox * (CUP + 8) + kVox * BS) + 4 * kWarps * (CBP + 4);
+  err = opt_in(tc_dgrad<CUP>, smem_d);
+  if (err != cudaSuccess) return err;
+  float* part_d = part;  // reused: the mid's reduce pass has read it (stream order)
+  tc_dgrad<CUP><<<ctas_d, kThr, smem_d, s>>>(x, gy, gmh, gml, w1e, be, wut, w1n, sc, dx, part_d,
+                                           nbricks, s0, s1, s2, cu, cb, n0, n1, n2);
+  Segs sd{{dw1, dbe, dsc, nullptr, nullptr, nullptr}, {cb * cu, cb, 4, 0, 0, 0}};
+  reduce_segs<<<(ld + 255) / 256, 256, 0, s>>>(part_d, ctas_d, ld, sd);
+  return cudaGetLastError();
+}
+
+template <int CUP>
+cudaError_t block_bwd_tc_c(int ccp, const bf16* x, const bf16* gy, const bf16* cond,
+                           const float* keep, float denom, const bf16* w1e, const bf16* be,
+                           const bf16* wuf, const bf16* wut, const bf16* w3, const bf16* w3t,
+                           const bf16* wct, const bf16* bc, const bf16* wcn, const bf16* w1n,
+                           const float* sc, bf16* work, float* part, int64_t part_len, int ctas_m,
+                           int ctas_d,
+                           bf16* dx, bf16* gcond, float* dw1, float* dbe, float* dwu, float* dw3,
+                           float* dwc, float* dbc, float* dsc, int64_t batch, int s0, int s1,
+                           int s2, int cu, int cb, int cc, int n0, int n1, int n2,
+                           cudaStream_t s) {
+#define VQ_TC_ARGS                                                                           \
+  x, gy, cond, keep, denom, w1e, be, wuf, wut, w3, w3t, wct, bc, wcn, w1n, sc, work, part,  \
+      part_len, ctas_m, ctas_d, dx, gcond, dw1, dbe, dwu, dw3, dwc, dbc, dsc, batch, s0, s1, s2, \
+      cu, cb, cc, n0, n1, n2, s
+  if (ccp == 16) return block_bwd_tc<CUP, 16>(VQ_TC_ARGS);
+  if (ccp == 32) return block_bwd_tc<CUP, 32>(VQ_TC_ARGS);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+// One block's backward on the tensor-core route (bf16; Cb <= 16, Cu <= 64,
+// Cc <= 32; ops/conv3d.py causal_bwd_tensor_core_route). x, gy, dx
+// (B, s0, s1, s2, Cu), cond, gcond (B, s0, s1, s2, Cc) or null, bf16
+// contiguous; keep (B, Cb) fp32 or null, denom = 1 - p; bf16 weight packs,
+// each [N][K] (k contiguous) zero-padded to CUP = Cu, CCP = Cc rounded up to
+// 16 and Cb to 16 (ops/causal_kernel.py pack_bwd_tc_weights): w1e [16][CUP]
+// (W1e^T), wuf [18][16][16] (the conv: tap, out, in), wut [18][16][16] (its
+// transpose: tap, in, out), w3 [16][CUP] (W3), w3t [CUP][16] (W3^T), wct
+// [16][CCP] (wc^T), wcn [CCP][16] (wc), w1n [CUP][16] (W1e); be, bc (Cb)
+// bf16; sc the 8 fp32 scalars. work: 3 nvox x 16 bf16 (a2, gm's halves);
+// part: at least ctas_m x tc::mid_len and ctas_d x tc::dgrad_len floats;
+// ctas_m, ctas_d the persistent CTAs of tc_mid and tc_dgrad (<= the bricks);
+// (n0, n1, n2) the brick, 128 voxels.
+// Outputs as vq_causal_block_bwd's (gcond accumulates).
+extern "C" int vq_causal_block_bwd_tc(
+    const void* x, const void* gy, const void* cond, const void* keep, float denom,
+    const void* w1e, const void* be, const void* wuf, const void* wut, const void* w3,
+    const void* w3t, const void* wct, const void* bc, const void* wcn, const void* w1n,
+    const void* sc, void* work, void* part, int64_t part_len, int ctas_m, int ctas_d, void* dx,
+    void* gcond,
+    void* dw1, void* dbe, void* dwu, void* dw3, void* dwc, void* dbc, void* dsc, int64_t batch,
+    int s0, int s1, int s2, int cu, int cb, int cc, int n0, int n1, int n2, void* stream) {
+  using tc::bf16;
+  const int cup = (cu + 15) / 16 * 16, ccp = cc > 0 ? (cc + 15) / 16 * 16 : 16;
+  if (batch <= 0 || s0 <= 0 || s1 <= 0 || s2 <= 0 || cu <= 0 || cb <= 0 || cb > tc::CBP ||
+      cup > 64 || ccp > 32 || n0 * n1 * n2 != tc::kVox || (cond == nullptr) != (cc == 0) ||
+      (cond != nullptr && (gcond == nullptr || wct == nullptr || wcn == nullptr || bc == nullptr)))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VQ_TC_CALL(CUP)                                                                        \
+  tc::block_bwd_tc_c<CUP>(                                                                     \
+      ccp, static_cast<const bf16*>(x), static_cast<const bf16*>(gy),                          \
+      static_cast<const bf16*>(cond), static_cast<const float*>(keep), denom,                  \
+      static_cast<const bf16*>(w1e), static_cast<const bf16*>(be),                             \
+      static_cast<const bf16*>(wuf), static_cast<const bf16*>(wut),                            \
+      static_cast<const bf16*>(w3), static_cast<const bf16*>(w3t),                             \
+      static_cast<const bf16*>(wct), static_cast<const bf16*>(bc),                             \
+      static_cast<const bf16*>(wcn), static_cast<const bf16*>(w1n),                            \
+      static_cast<const float*>(sc), static_cast<bf16*>(work), static_cast<float*>(part),      \
+      part_len, ctas_m, ctas_d, static_cast<bf16*>(dx), static_cast<bf16*>(gcond),             \
+      static_cast<float*>(dw1), static_cast<float*>(dbe), static_cast<float*>(dwu),            \
+      static_cast<float*>(dw3), static_cast<float*>(dwc), static_cast<float*>(dbc),            \
+      static_cast<float*>(dsc), batch, s0, s1, s2, cu, cb, cc, n0, n1, n2, s)
+  switch (cup) {
+    case 16: return VQ_TC_CALL(16);
+    case 32: return VQ_TC_CALL(32);
+    case 48: return VQ_TC_CALL(48);
+    case 64: return VQ_TC_CALL(64);
+    default: return cudaErrorInvalidValue;
+  }
 }

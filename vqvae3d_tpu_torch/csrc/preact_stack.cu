@@ -25,10 +25,11 @@
 // should be bound by device memory; the wide stacks (C = 18 at 128x128x32,
 // C = 72 at 32x32x8) by the CUDA cores' fp32 FMA rate and L1 traffic for the
 // neighbours' a2 values; the coarse grids (down to 128 voxels) by latency,
-// as they give too few threads to fill 132 SMs. This first version sits far
-// from all three bounds (PERF.md, "Port on H100").
+// as they give too few threads to fill 132 SMs. Both routes sit far from
+// these bounds (PERF.md §6): bf16 runs one fused kernel a block (fused_tc,
+// fused_cc below), fp32 and bf16 wider than Cb 128 the three kernels.
 //
-// Design (simple first; speed is later work): three kernels per block, each
+// The three kernels (the first design), per block, each
 // thread owning one voxel and a group of COB output channels, fp32
 // accumulators in registers:
 //   pre:  x -> a2    (pointwise; a1 is recomputed per channel group)
@@ -40,7 +41,7 @@
 // scratch buffers hold Cb channels each; y ping-pongs between two buffers
 // across the blocks of a stack, owned by the wrapper. All voxel offsets are
 // 64-bit (the full-resolution stack has 134 M elements).
-#include "common.cuh"
+#include "brick_conv.cuh"
 
 namespace {
 
@@ -194,6 +195,309 @@ cudaError_t block_fwd(const T* x, const T* w1, const T* w2, const T* w3,
   return cudaGetLastError();
 }
 
+// ---- bf16: one fused kernel a block (fused_tc, fused_cc)
+//
+// A CTA owns a brick of output voxels (ops/stack_kernel.py fused_brick): it
+// computes a2 = pre(x) for the brick and its one-voxel halo into shared
+// memory (zero where 'zeros' pads), the 3x3x3 conv of the brick from there,
+// its ELU epilogue a3, then y = (a3 W3) * scale + b4 + x; a2 and a3 never
+// leave the SM. fused_tc (5 <= Cb <= 128, ops/conv3d.py stack_fwd_route): 8
+// warps, a brick of 128 voxels (256, two m-tiles a warp, at Cb <= 32 on
+// volumes of at least 2^15 voxels: less halo to recompute; ops/stack_kernel.py
+// fused_voxels), every product on the tensor cores (mma.sync
+// m16n8k16, bf16 in, fp32 accumulate, brick_conv.cuh): the pre with M over
+// halo rows (x staged 16 rows x 16 channels a warp, a1 made in registers),
+// the conv as an implicit GEMM (M brick voxels, N Cb out, K 27 taps x Cb in,
+// Cb padded to CBP, a multiple of 16), W3 with M brick voxels and N over C.
+// fused_cc (Cb <= 4, where padding to 16 would waste the tensor cores): a
+// brick of 256 voxels, one a thread (1,024, four a thread, on volumes of at
+// least 2^15 voxels: 1.8 halo rows a voxel instead of 2.5), the products on
+// the CUDA cores in the order of pre_kernel / conv_kernel / post_kernel
+// (bit-identical to them), the conv's 27 taps unrolled over a shared copy
+// of w2; its gain is the two memory passes saved. Weights come from the wrapper as
+// [N][K] (k contiguous, zero-padded): w1 [CBP][K1], w2 [27][CBP][CBP],
+// w3 [N3][CBP] with K1 = C rounded up to 16 and N3 to 8 (fused_tc) or C
+// (fused_cc).
+constexpr int kFusedThreads = 256;
+constexpr int kTcVox = 128;  // a fused_tc brick: 8 warps x 16 voxels (or twice that)
+constexpr int kCcVox = 256;  // a fused_cc brick: one voxel a thread (or four)
+constexpr int kStage = 24;   // row stride (bf16) of a warp's 16 x 16 staging tile
+
+using bf16 = __nv_bfloat16;
+
+struct Scalars {
+  float b1a, b1b, b2a, b2b, b3a, b3b, b4, scale;
+  __device__ explicit Scalars(const float* sc)
+      : b1a(vq::rnd<bf16>(sc[0])), b1b(vq::rnd<bf16>(sc[1])), b2a(vq::rnd<bf16>(sc[2])),
+        b2b(vq::rnd<bf16>(sc[3])), b3a(vq::rnd<bf16>(sc[4])), b3b(vq::rnd<bf16>(sc[5])),
+        b4(vq::rnd<bf16>(sc[6])), scale(vq::rnd<bf16>(sc[7])) {}
+  // a1 of an x value, a2 of the 1x1x1 conv's fp32 sum, a3 of the 3x3x3 conv's
+  __device__ __forceinline__ float a1(float xv) const {
+    return vq::rnd<bf16>(vq::rnd<bf16>(vq::elu(vq::rnd<bf16>(xv + b1a))) + b1b);
+  }
+  __device__ __forceinline__ float a2(float acc) const {
+    return vq::rnd<bf16>(vq::rnd<bf16>(vq::elu(vq::rnd<bf16>(vq::rnd<bf16>(acc) + b2a))) + b2b);
+  }
+  __device__ __forceinline__ float a3(float acc) const {
+    return vq::rnd<bf16>(vq::rnd<bf16>(vq::elu(vq::rnd<bf16>(vq::rnd<bf16>(acc) + b3a))) + b3b);
+  }
+  // y of the W3 product's fp32 sum and x
+  __device__ __forceinline__ bf16 y(float acc, bf16 xv) const {
+    return vq::from_f<bf16>(vq::rnd<bf16>(vq::rnd<bf16>(vq::rnd<bf16>(acc) * scale) + b4) +
+                            vq::to_f<bf16>(xv));
+  }
+};
+
+template <int CBP>
+__global__ void __launch_bounds__(kFusedThreads, CBP <= 32 ? 4 : 1)
+    fused_tc(const bf16* __restrict__ x, const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+             const bf16* __restrict__ w3, const float* __restrict__ sc, bf16* __restrict__ y,
+             int h, int w, int d, int c, int cb, int k1, int wrap, int bh, int bw, int bd) {
+  constexpr int NT = CBP / 8, AS = CBP + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const vqb::Brick k = vqb::brick_of(blockIdx.x, h, w, d, bh, bw, bd);
+  const int nh = k.rows();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  bf16* halo = reinterpret_cast<bf16*>(smem);  // [nh][AS]: a2 of the halo
+  bf16* a3s = halo + nh * AS;                   // [brick voxels][AS]: a3 of the brick
+  bf16* stg = a3s + bh * bw * bd * AS + warp * 16 * kStage;
+  const Scalars s(sc);
+  const bool vec = c % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // the ldmatrix.x4 address of an A fragment: row (lane & 7) + 8 ((lane >> 3) & 1),
+  // column 8 (lane >> 4)
+  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
+
+  // 1. a2 of the halo rows, 16 a warp at a time
+  for (int mt = warp; mt * 16 < nh; mt += kFusedThreads / 32) {
+    float acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    const int sr = mt * 16 + (lane >> 1);  // the lane's staging row and channel half
+    const int64_t sv = sr < nh ? vqb::halo_voxel(k, sr, h, w, d, wrap) : -1;
+    for (int k0 = 0; k0 < k1; k0 += 16) {
+      const int c0 = k0 + 8 * (lane & 1);
+      const uint4 raw = vqb::load8(x, sv, c, c0, vec);
+      const bf16* xv = reinterpret_cast<const bf16*>(&raw);
+      uint32_t pk[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float lo = sv >= 0 && c0 + 2 * j < c ? s.a1(vq::to_f<bf16>(xv[2 * j])) : 0.f;
+        const float hi = sv >= 0 && c0 + 2 * j + 1 < c ? s.a1(vq::to_f<bf16>(xv[2 * j + 1])) : 0.f;
+        pk[j] = vq::pack_bf16(lo, hi);
+      }
+      *reinterpret_cast<uint4*>(stg + (lane >> 1) * kStage + 8 * (lane & 1)) =
+          make_uint4(pk[0], pk[1], pk[2], pk[3]);
+      __syncwarp();
+      uint32_t a[4];
+      vq::ldsm_x4(a, vq::smem_u32(stg + arow * kStage + acol));
+      vqb::mma_row<NT>(acc, a, w1, k1, k0, lane);
+      __syncwarp();
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = mt * 16 + g + 8 * half;
+      if (r >= nh) continue;
+      const bool inside = vqb::halo_voxel(k, r, h, w, d, wrap) >= 0;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = nt * 8 + 2 * t;
+        const float lo = inside && n < cb ? s.a2(acc[nt][2 * half]) : 0.f;
+        const float hi = inside && n + 1 < cb ? s.a2(acc[nt][2 * half + 1]) : 0.f;
+        *reinterpret_cast<uint32_t*>(halo + r * AS + n) = vq::pack_bf16(lo, hi);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2.-3. per m-tile of the warp's (brick rows 16 mt .. 16 mt + 15): the
+  // conv and its epilogue a3 into shared memory, then y = (a3 W3) * scale +
+  // b4 + x, 64 channels at a time
+  const int ntc = (c + 7) / 8;
+  const bool pair = c % 2 == 0;  // y and x by bf16 pairs (c even: 4-byte aligned)
+  for (int mt = warp; mt * 16 < k.bh * k.bw * k.bd; mt += kFusedThreads / 32) {
+    const int m0 = mt * 16;
+    float acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    vqb::conv_tile<NT, CBP>(acc, halo, AS, k, m0, w2, lane);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + g + 8 * half;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = nt * 8 + 2 * t;
+        const float lo = n < cb ? s.a3(acc[nt][2 * half]) : 0.f;
+        const float hi = n + 1 < cb ? s.a3(acc[nt][2 * half + 1]) : 0.f;
+        *reinterpret_cast<uint32_t*>(a3s + r * AS + n) = vq::pack_bf16(lo, hi);
+      }
+    }
+    __syncwarp();
+    const int64_t v[2] = {vqb::brick_voxel(k, m0 + g, h, w, d),
+                          vqb::brick_voxel(k, m0 + g + 8, h, w, d)};
+    for (int n0 = 0; n0 < ntc; n0 += 8) {
+      float acc2[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc2[j][0] = acc2[j][1] = acc2[j][2] = acc2[j][3] = 0.f;
+#pragma unroll
+      for (int k0 = 0; k0 < CBP; k0 += 16) {
+        uint32_t a[4];
+        vq::ldsm_x4(a, vq::smem_u32(a3s + (m0 + arow) * AS + k0 + acol));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (n0 + j >= ntc) break;
+          const bf16* p = w3 + static_cast<int64_t>((n0 + j) * 8 + g) * CBP + k0 + 2 * t;
+          vq::mma_16816(acc2[j], a, vqb::ldg32(p), vqb::ldg32(p + 8));
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (v[half] < 0) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (n0 + j >= ntc) break;
+          const int cc = (n0 + j) * 8 + 2 * t;
+          if (cc >= c) continue;
+          const int64_t o = v[half] * c + cc;
+          if (pair) {
+            const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(x + o);
+            __nv_bfloat162 y2;
+            y2.x = s.y(acc2[j][2 * half], x2.x);
+            y2.y = s.y(acc2[j][2 * half + 1], x2.y);
+            *reinterpret_cast<__nv_bfloat162*>(y + o) = y2;
+          } else {
+            y[o] = s.y(acc2[j][2 * half], x[o]);
+            if (cc + 1 < c) y[o + 1] = s.y(acc2[j][2 * half + 1], x[o + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int CB>
+__global__ void __launch_bounds__(kFusedThreads)
+    fused_cc(const bf16* __restrict__ x, const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+             const bf16* __restrict__ w3, const float* __restrict__ sc, bf16* __restrict__ y,
+             int h, int w, int d, int c, int cb, int wrap, int bh, int bw, int bd) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ws = reinterpret_cast<float*>(smem);  // w2 [27][CB][CB] as fp32
+  float* halo = ws + 27 * CB * CB;              // [nh][CB]: a2 of the halo
+  const vqb::Brick k = vqb::brick_of(blockIdx.x, h, w, d, bh, bw, bd);
+  const int nh = k.rows(), nv = bh * bw * bd;
+  const Scalars s(sc);
+  for (int e = threadIdx.x; e < 27 * CB * CB; e += kFusedThreads) ws[e] = vq::to_f<bf16>(w2[e]);
+  for (int r = threadIdx.x; r < nh; r += kFusedThreads) {
+    const int64_t hv = vqb::halo_voxel(k, r, h, w, d, wrap);
+    float acc[CB];
+#pragma unroll
+    for (int j = 0; j < CB; ++j) acc[j] = 0.f;
+    if (hv >= 0)
+      for (int ci = 0; ci < c; ++ci) {
+        const float a = s.a1(vq::to_f<bf16>(x[hv * c + ci]));
+#pragma unroll
+        for (int j = 0; j < CB; ++j) acc[j] = fmaf(a, vq::to_f<bf16>(w1[j * c + ci]), acc[j]);
+      }
+#pragma unroll
+    for (int j = 0; j < CB; ++j) halo[r * CB + j] = hv >= 0 && j < cb ? s.a2(acc[j]) : 0.f;
+  }
+  __syncthreads();
+  const int hd = k.hd(), hwd = k.hw() * hd;
+  for (int r = threadIdx.x; r < nv; r += kFusedThreads) {  // the brick's voxels, a few a thread
+    const int64_t v = vqb::brick_voxel(k, r, h, w, d);
+    if (v < 0) continue;
+    const float* src0 = halo + vqb::halo_base(k, r) * CB;
+    float acc[CB];
+#pragma unroll
+    for (int j = 0; j < CB; ++j) acc[j] = 0.f;
+    // the taps in conv_kernel's order (kh, kw, kd, then the input channels; the
+    // channels past Cb are zero, so their terms add nothing)
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+        for (int kd = 0; kd < 3; ++kd) {
+          const float* src = src0 + (kh * hwd + kw * hd + kd) * CB;
+          const float* wt = ws + ((kh * 3 + kw) * 3 + kd) * CB * CB;
+          float a[CB];
+          if constexpr (CB == 4) {
+            const float4 q = *reinterpret_cast<const float4*>(src);
+            a[0] = q.x, a[1] = q.y, a[2] = q.z, a[3] = q.w;
+          } else if constexpr (CB == 2) {
+            const float2 q = *reinterpret_cast<const float2*>(src);
+            a[0] = q.x, a[1] = q.y;
+          } else {
+            a[0] = src[0];
+          }
+#pragma unroll
+          for (int ci = 0; ci < CB; ++ci)
+#pragma unroll
+            for (int j = 0; j < CB; ++j) acc[j] = fmaf(a[ci], wt[j * CB + ci], acc[j]);
+        }
+    float a3[CB];
+#pragma unroll
+    for (int j = 0; j < CB; ++j) a3[j] = s.a3(acc[j]);
+    for (int co = 0; co < c; ++co) {
+      float o = 0.f;
+      for (int kk = 0; kk < cb; ++kk) o = fmaf(a3[kk], vq::to_f<bf16>(w3[co * CB + kk]), o);
+      y[v * c + co] = s.y(o, x[v * c + co]);
+    }
+  }
+}
+
+inline int cdiv(int64_t a, int64_t b) { return static_cast<int>((a + b - 1) / b); }
+
+template <typename K>
+cudaError_t launch_fused(K kernel, int64_t bricks, int smem, cudaStream_t s, void** args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const cudaError_t e = cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
+                                         dim3(static_cast<unsigned>(bricks)), dim3(kFusedThreads),
+                                         args, static_cast<size_t>(smem), s);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+cudaError_t block_fwd_fused(const bf16* x, const bf16* w1, const bf16* w2, const bf16* w3,
+                            const float* sc, bf16* y, int64_t batch, int h, int w, int d, int c,
+                            int cb, int cbp, int tensor_cores, int wrap, int bh, int bw, int bd,
+                            cudaStream_t s) {
+  if (batch <= 0 || h <= 0 || w <= 0 || d <= 0 || c <= 0 || cb <= 0 || cbp < cb || bh <= 0 ||
+      bw <= 0 || bd <= 0 ||
+      (tensor_cores ? bh * bw * bd != kTcVox && bh * bw * bd != 2 * kTcVox
+                    : bh * bw * bd != kCcVox && bh * bw * bd != 4 * kCcVox))
+    return cudaErrorInvalidValue;
+  const int64_t bricks = batch * cdiv(h, bh) * cdiv(w, bw) * static_cast<int64_t>(cdiv(d, bd));
+  if (bricks > 0x7fffffff) return cudaErrorInvalidValue;
+  const int nh = (bh + 2) * (bw + 2) * (bd + 2);
+  int k1 = (c + 15) / 16 * 16;
+  void* args[] = {&x, &w1, &w2, &w3, &sc, &y, &h, &w, &d, &c, &cb, &k1, &wrap, &bh, &bw, &bd};
+  void* cc_args[] = {&x, &w1, &w2, &w3, &sc, &y, &h, &w, &d, &c, &cb, &wrap, &bh, &bw, &bd};
+  if (tensor_cores) {
+    const int smem = ((nh + bh * bw * bd) * (cbp + 8) + kFusedThreads / 32 * 16 * kStage) * 2;
+    switch (cbp) {
+      case 16: return launch_fused(fused_tc<16>, bricks, smem, s, args);
+      case 32: return launch_fused(fused_tc<32>, bricks, smem, s, args);
+      case 48: return launch_fused(fused_tc<48>, bricks, smem, s, args);
+      case 64: return launch_fused(fused_tc<64>, bricks, smem, s, args);
+      case 80: return launch_fused(fused_tc<80>, bricks, smem, s, args);
+      case 96: return launch_fused(fused_tc<96>, bricks, smem, s, args);
+      case 112: return launch_fused(fused_tc<112>, bricks, smem, s, args);
+      case 128: return launch_fused(fused_tc<128>, bricks, smem, s, args);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  const int smem = (27 * cbp * cbp + nh * cbp) * 4;
+  switch (cbp) {
+    case 1: return launch_fused(fused_cc<1>, bricks, smem, s, cc_args);
+    case 2: return launch_fused(fused_cc<2>, bricks, smem, s, cc_args);
+    case 4: return launch_fused(fused_cc<4>, bricks, smem, s, cc_args);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // One block of a stack. Activations x, y (B, H, W, D, C) and scratch a2, a3
@@ -221,4 +525,22 @@ extern "C" int vq_preact_block_fwd(int is_bf16, const void* x, const void* w1,
                           scf, static_cast<float*>(a2), static_cast<float*>(a3),
                           static_cast<float*>(y), batch, h, w, d, c, cb, cob_b, cob_c,
                           wrap, s);
+}
+
+// One block of a stack on the bf16 route that fuses it into one kernel
+// (fused_tc with tensor_cores, else fused_cc). x, y (B, H, W, D, C) bf16
+// contiguous; the weights bf16 in the fused layouts (the comment above
+// fused_tc) with Cb padded to cbp (fused_tc: 16 .. 128 in steps of 16;
+// fused_cc: 1, 2 or 4); sc the block's 8 fp32 scalars; (bh, bw, bd) the brick,
+// 128 voxels for fused_tc and 256 for fused_cc. y must not alias x.
+extern "C" int vq_preact_block_fwd_fused(const void* x, const void* w1, const void* w2,
+                                         const void* w3, const void* sc, void* y, int64_t batch,
+                                         int h, int w, int d, int c, int cb, int cbp,
+                                         int tensor_cores, int wrap, int bh, int bw, int bd,
+                                         void* stream) {
+  return block_fwd_fused(static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+                         static_cast<const bf16*>(w2), static_cast<const bf16*>(w3),
+                         static_cast<const float*>(sc), static_cast<bf16*>(y), batch, h, w, d, c,
+                         cb, cbp, tensor_cores, wrap, bh, bw, bd,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -45,6 +45,9 @@ SIGNATURES = {
         _i, _p, _p, _p, _p, _p, _p, _p, _p, _i64, _i, _i, _i, _i, _i,
         _i, _i, _i, _p,
     ],
+    # K3 forward, bf16 fused: x, w1, w2, w3, sc, y, batch, h, w, d, c, cb, cbp,
+    #     tensor_cores, wrap, bh, bw, bd, stream
+    "vq_preact_block_fwd_fused": [_p] * 6 + [_i64] + [_i] * 11 + [_p],
     # K3 backward: is_bf16, tensor_cores, x, gy, w1, w2, w3, w1t, w2t, w3t, sc,
     #     work, sv, part, part_len, chunks_w1, chunks_w2, chunks_w3, dx, dw1,
     #     dw2, dw3, dsc, batch, h, w, d, c, cb, cob_b, cob_c, wrap, stream
@@ -63,6 +66,12 @@ SIGNATURES = {
     #     dwu, dw3, dwc, dbc, dsc, batch, s0, s1, s2, cu, cb, cc, cob_b, cob_u,
     #     cob_c, stream
     "vq_causal_block_bwd": [_i, _p, _p, _p, _p, _f] + [_p] * 15 + [_i64] + [_p] * 9
+    + [_i64] + [_i] * 9 + [_p],
+    # K4 backward, bf16 tensor cores: x, gy, cond, keep, denom, w1e, be, wuf, wut,
+    #     w3, w3t, wct, bc, wcn, w1n, sc, work, part, part_len, ctas_mid,
+    #     ctas_dgrad, dx, gcond, dw1, dbe, dwu, dw3, dwc, dbc, dsc, batch, s0, s1,
+    #     s2, cu, cb, cc, n0, n1, n2, stream
+    "vq_causal_block_bwd_tc": [_p] * 4 + [_f] + [_p] * 13 + [_i64, _i, _i] + [_p] * 9
     + [_i64] + [_i] * 9 + [_p],
     # K6: w1, wk, w3, b3, sc, hw1, herf, herfb, hwk, hw3, hb3, skw, hskw,
     #     w_in, b_in, w_out, b_out, d2h, d2w, cnd, dfin, sprev, vhc, gumbel,

@@ -45,13 +45,15 @@ Dropout3d: one keep decision per (sample, channel)) enters as data, a
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from vqvae3d_tpu_torch.ops import _build
-from vqvae3d_tpu_torch.ops.stack_kernel import _cob, _group_pack
+from vqvae3d_tpu_torch.ops.conv3d import causal_bwd_tensor_core_route
+from vqvae3d_tpu_torch.ops.stack_kernel import _cob, _group_pack, fused_brick
 
 UTAPS = (2, 3, 3)  # union conv taps on (s0, s1, s2), kernel_size 3
 NTAPS = 18
@@ -363,18 +365,75 @@ def causal_stack_bwd_plain(saves, gy, cond, keep, p, weights: UnionWeights):
     return (g, gcond, *stacked)
 
 
+BWD_TC_VOXELS = 128  # a brick of the tensor-core backward (csrc/causal_stack_bwd.cu tc::kVox)
+# the persistent CTAs of tc_mid and tc_dgrad at most: one wave on an H100's
+# 132 SMs at the CTAs an SM holds (their launch bounds: 2 and 3)
+BWD_TC_CTAS = (264, 396)
+
+
+def bwd_plan(b: int, s0: int, s1: int, s2: int):
+    """The tensor-core backward's brick (bs0, bs1, bs2) of ``BWD_TC_VOXELS``
+    voxels and the CTA counts of tc_mid and tc_dgrad, one a brick up to
+    ``BWD_TC_CTAS``: a function of the shapes only, so the order of the
+    per-CTA partials' sum is fixed."""
+    brick = fused_brick(s0, s1, s2, BWD_TC_VOXELS)
+    nbricks = b * math.prod(-(-n // t) for n, t in zip((s0, s1, s2), brick))
+    return brick, tuple(min(nbricks, n) for n in BWD_TC_CTAS)
+
+
+def bwd_partial_lens(cu: int, cb: int, cc: int):
+    """Floats of a CTA's partial: tc_mid's (dWU, dW3^T, dwc^T, dbc, 4 scalar
+    sums) and tc_dgrad's (dW1e^T, dbe, 4 scalar sums)."""
+    return NTAPS * cb * cb + cu * cb + cb * cc + (cb if cc else 0) + 4, cb * cu + cb + 4
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def pack_bwd_tc_weights(w: UnionWeights):
+    """The tensor-core backward's bf16 packs, each [N][K] (k contiguous),
+    zero-padded to CUP = Cu, CCP = Cc and Cb rounded up to 16, leading dim
+    NB: w1e [16][CUP] (W1e^T), wuf [18][16][16] (the conv: tap, out, in), wut
+    [18][16][16] (its transpose: tap, in, out), w3 [16][CUP], w3t [CUP][16],
+    wct [16][CCP] (wc^T), wcn [CCP][16] (wc), w1n [CUP][16] (W1e); be, bc."""
+    nb, cu, cb = w.w1e.shape
+    cup, bp = _pad16(cu), 16
+    dt = torch.bfloat16
+
+    def pad(t, *sizes):  # zero-pad the trailing dims to sizes
+        pads = []
+        for n, want in zip(reversed(t.shape), reversed(sizes)):
+            pads += [0, want - n]
+        return F.pad(t.to(dt), pads).contiguous()
+
+    wu = w.wu.reshape(nb, NTAPS, cb, cb)  # (tap, in, out)
+    out = dict(w1e=pad(w.w1e.transpose(1, 2), bp, cup), wuf=pad(wu.transpose(2, 3), bp, bp),
+               wut=pad(wu, bp, bp), w3=pad(w.w3, bp, cup), w3t=pad(w.w3.transpose(1, 2), cup, bp),
+               w1n=pad(w.w1e, cup, bp), be=w.be.to(dt).contiguous())
+    if w.wc is not None:
+        ccp = _pad16(w.wc.shape[1])
+        out.update(wct=pad(w.wc.transpose(1, 2), bp, ccp), wcn=pad(w.wc, ccp, bp),
+                   bc=w.bc.to(dt).contiguous())
+    return out
+
+
 def causal_stack_bwd(saves, gy, cond, keep, p, weights: UnionWeights):
     """The segment's backward on the card: one K4-backward launch per block,
     last block first (each adds one to ``causal_stack_bwd.launches``). saves
     (NB, B, s0, s1, s2, Cu) are the blocks' inputs, gy the cotangent of the
     segment's output. Returns what ``causal_stack_bwd_plain`` returns, the
-    weight gradients as fp32 sums in the ``UnionWeights`` layouts."""
+    weight gradients as fp32 sums in the ``UnionWeights`` layouts. The route
+    is ``conv3d.causal_bwd_tensor_core_route``'s: bf16 at the widths it takes
+    runs ``_bwd_tensor_cores``, the rest the CUDA-core kernels below."""
     _check(gy, cond, keep, weights)
     nb, cu, cb = weights.w1e.shape
     b, s0, s1, s2, _ = gy.shape
     dt = saves.dtype
     nvox = b * s0 * s1 * s2
     cc = 0 if cond is None else cond.shape[-1]
+    if causal_bwd_tensor_core_route(dt, cu, cb, cc):
+        return _bwd_tensor_cores(saves, gy, cond, keep, p, weights)
     ob, ou = _cob(cb), _cob(cu)
     pk = pack_kernel_weights(weights, dt)
     w1t, wut, w3t, wct = pack_kernel_weights_t(weights, dt)
@@ -414,6 +473,55 @@ def causal_stack_bwd(saves, gy, cond, keep, p, weights: UnionWeights):
                 dwu[j].data_ptr(), dw3[j].data_ptr(), dwc[j].data_ptr(), dbc[j].data_ptr(),
                 dsc[j].data_ptr(), b, s0, s1, s2, cu, cb, cc, ob, ou,
                 _cob(max(cc, 1)), stream,
+            ),
+            "causal_stack_bwd",
+        )
+        causal_stack_bwd.launches += 1
+        g = dx
+    return (g, gcond, *kernel_grads_to_union(dw1, dbe, dwu, dw3, dwc, dbc, dsc,
+                                             cond is not None))
+
+
+def _bwd_tensor_cores(saves, gy, cond, keep, p, weights: UnionWeights):
+    """``causal_stack_bwd`` on the tensor-core route (bf16): one
+    ``vq_causal_block_bwd_tc`` a block, last block first."""
+    nb, cu, cb = weights.w1e.shape
+    b, s0, s1, s2, _ = gy.shape
+    nvox = b * s0 * s1 * s2
+    cc = 0 if cond is None else cond.shape[-1]
+    dev = gy.device
+    pk = pack_bwd_tc_weights(weights)
+    sc = weights.sc.float().contiguous()
+    brick, ctas = bwd_plan(b, s0, s1, s2)
+    part_len = max(n * length for n, length in zip(ctas, bwd_partial_lens(cu, cb, cc)))
+    f32 = dict(dtype=torch.float32, device=dev)
+    work = torch.empty(3 * nvox * 16, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(part_len, **f32)
+    dw1, dbe = torch.empty(nb, cb, cu, **f32), torch.empty(nb, cb, **f32)
+    dwu, dw3 = torch.empty(nb, NTAPS, cb, cb, **f32), torch.empty(nb, cu, cb, **f32)
+    dwc, dbc = torch.empty(nb, cb, max(cc, 1), **f32), torch.empty(nb, cb, **f32)
+    dsc = torch.empty(nb, 8, **f32)
+    gcond = None if cond is None else torch.zeros_like(cond)
+    condc = None if cond is None else cond.contiguous()
+    keep = None if keep is None else keep.float().contiguous()
+    g = gy.to(torch.bfloat16).contiguous()
+    bufs = [torch.empty_like(g), torch.empty_like(g)]
+    lib = _build.library()
+    stream = _build.stream_ptr(dev)
+    cj = (lambda t, j: None) if cond is None else (lambda t, j: t[j].data_ptr())
+    for i, j in enumerate(reversed(range(nb))):
+        dx = bufs[i % 2]
+        _build.check(
+            lib.vq_causal_block_bwd_tc(
+                saves[j].data_ptr(), g.data_ptr(), _ptr(condc),
+                None if keep is None else keep[j].data_ptr(), 1.0 - p,
+                *(pk[k][j].data_ptr() for k in ("w1e", "be", "wuf", "wut", "w3", "w3t")),
+                cj(pk.get("wct"), j), cj(pk.get("bc"), j), cj(pk.get("wcn"), j),
+                pk["w1n"][j].data_ptr(), sc[j].data_ptr(),
+                work.data_ptr(), part.data_ptr(), part_len, *ctas, dx.data_ptr(), _ptr(gcond),
+                dw1[j].data_ptr(), dbe[j].data_ptr(), dwu[j].data_ptr(), dw3[j].data_ptr(),
+                dwc[j].data_ptr(), dbc[j].data_ptr(), dsc[j].data_ptr(),
+                b, s0, s1, s2, cu, cb, cc, *brick, stream,
             ),
             "causal_stack_bwd",
         )

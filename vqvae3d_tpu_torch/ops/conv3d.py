@@ -105,6 +105,35 @@ def stack_bwd_tensor_core_route(dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16
 
 
+def causal_bwd_tensor_core_route(dtype: torch.dtype, cu: int, cb: int, cc: int) -> bool:
+    """K4 backward's route, the one place it is chosen: the tensor-core
+    kernels for bf16 at the widths they compile (Cb <= 16, the union's Cu <=
+    64, the condition's Cc <= 32: the top prior's 48 / 12 / 16), else the
+    CUDA-core kernels (fp32: tensor cores would round fp32 to TF32)."""
+    return dtype == torch.bfloat16 and cb <= 16 and cu <= 64 and cc <= 32
+
+
+STACK_FWD_TC_MIN_CB = 5  # K3 forward's bf16 products take the tensor cores from this Cb on
+STACK_FWD_TC_MAX_CB = 128  # ... up to this one (the widest stack of the published config)
+
+
+def stack_fwd_route(dtype: torch.dtype, cb: int) -> str:
+    """K3 forward's route, the one place it is chosen, from the dtype and the
+    bottleneck width Cb: bf16 runs one fused kernel a block, its products on
+    the tensor cores for ``STACK_FWD_TC_MIN_CB`` <= Cb <= ``STACK_FWD_TC_MAX_CB``
+    ('fused_tc') and on the CUDA cores below ('fused_cc': Cb <= 4 padded to
+    the mma's 16 would waste three quarters of each product or more; there
+    the fused brick's gain is the two memory passes of a2 and a3 it saves,
+    and it computes in the three kernels' order); fp32 and wider Cb keep the
+    three-kernel design ('three_kernels'; in fp32 the tensor cores would
+    round to TF32)."""
+    if dtype == torch.bfloat16 and STACK_FWD_TC_MIN_CB <= cb <= STACK_FWD_TC_MAX_CB:
+        return "fused_tc"
+    if dtype == torch.bfloat16 and cb < STACK_FWD_TC_MIN_CB:
+        return "fused_cc"
+    return "three_kernels"
+
+
 def dw_chunks(batch: int, out_spatial, ksize, dtype: torch.dtype) -> int:
     """K7's chunk count, a function of the shapes only (so repeats are
     bit-identical): the tensor-core route's CTAs, one per brick up to

@@ -28,8 +28,10 @@ narrow ``csrc/row_decode.cu`` (C <= 32, br <= 8: the top prior), counted on
 ``row_decode.launches``, or the wide ``csrc/row_decode_wide.cu`` (the 256-
 and 512-wide mid and bottom priors: one cluster of ``WIDE_CLUSTER``
 CTAs per row call, the height-row step split by batch rows and the voxel
-chain by output columns for all batch rows), counted on
-``row_decode.wide_launches``;
+chain by output columns for all batch rows; ``wide_row_decode`` pads C and
+br to multiples of 4 and runs a batch whose state does not fit a CTA's
+shared memory as consecutive sub-batches), counted on
+``row_decode.wide_launches`` (one per sub-batch);
 on CPU tensors it runs ``row_decode_plain``, which computes the same contract
 op by op; any other device raises. Both update the height v-row caches ``vhc`` IN
 PLACE and also return them.
@@ -48,6 +50,7 @@ next voxel then reads code 0's embedding); the sampler reports it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -221,14 +224,110 @@ WIDE_CLUSTER = 16  # CTAs a cluster of the wide kernel (csrc/row_decode_wide.cu 
 WIDE_THREADS = 256  # threads a CTA of the wide kernel (csrc/row_decode_wide.cu NT)
 
 
-def check_wide_row(B: int, C: int, br: int):
-    """Raise before any launch on a row the wide kernel does not take: C or
-    br no multiple of 4 (its rows are read as float4), or more batch rows
-    than a CTA has threads. Its C entry point also refuses a row whose state
-    does not fit a CTA's shared memory."""
-    if C % 4 or br % 4 or B > WIDE_THREADS:
-        raise ValueError(f"row_decode: the wide kernel takes C and br multiples of 4 and B <= "
-                         f"{WIDE_THREADS}; got C={C} br={br} B={B}")
+WIDE_MBARS = 5  # phase 2's mbarriers (csrc/row_decode_wide.cu kMbars)
+# the shared memory a CTA may opt in to on the sm_90a cards (H100, H200:
+# 232,448 bytes); the C entry point reads the card's own limit and refuses a
+# row above it
+WIDE_SMEM_OPTIN = 232448
+
+
+def _align4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def wide_layout_bytes(L: int, B: int, s2: int, C: int, br: int, K: int,
+                      n: int = WIDE_CLUSTER) -> int:
+    """The shared memory a CTA of the wide kernel needs for a row call, in
+    bytes: a transcription of ``layout()`` in csrc/row_decode_wide.cu (its
+    persistent state, then the larger of phase 1's and phase 2's buffers)."""
+    jb, jc, jk = -(-br // n), -(-C // n), -(-K // n)
+    jb4, jc4, jk4 = _align4(jb), _align4(jc), _align4(jk)
+    r, rl = B * s2, -(-B // n) * s2
+    base = (L * r * jb4 + r * jc4 + B * jc4 + _align4(8 * L)
+            + max(2 * B * jb4, B * jk4, B * jc4) + _align4(2 * WIDE_MBARS))
+    phase1 = 2 * rl * C + 4 * rl * br + rl * max(C, br) + rl * 6 * br
+    phase2 = (L * B * jb4 + _align4(B * C) + 2 * _align4(B * br) + C * jb4 + 2 * br * jb4
+              + br * jc4 + jc4 + 4 * B * jb4 + B * max(jc4, jb4) + jc4 + n * B * 4
+              + _align4(2 * B) + 2 * B * jk4)
+    return 4 * (base + max(phase1, phase2))
+
+
+@functools.lru_cache(maxsize=256)
+def wide_row_batches(L: int, B: int, s2: int, C: int, br: int, K: int,
+                     limit: int = WIDE_SMEM_OPTIN):
+    """The sub-batches [(b0, b1), ...] a wide row call of B batch rows runs
+    as, consecutive and in order: each as large as fits ``limit`` bytes of
+    shared memory (``wide_layout_bytes``) and a CTA's ``WIDE_THREADS``
+    threads, the last one what is left. A row that does not fit even at
+    B = 1 stays one call, which the kernel's entry point refuses."""
+    if wide_layout_bytes(L, 1, s2, C, br, K) > limit:
+        return ((0, B),)
+    step = min(B, WIDE_THREADS)
+    while wide_layout_bytes(L, step, s2, C, br, K) > limit:
+        step -= 1
+    return tuple((b0, min(b0 + step, B)) for b0 in range(0, B, step))
+
+
+# each row operand's axes: C and b (br) are padded to multiples of 4 for the
+# wide kernel, whose rows are read as float4; the others stay
+_WIDE_AXES = {"w1": "LCb", "wk": "Lwbb", "w3": "LbC", "b3": "LC", "sc": "L8", "hw1": "LCb",
+              "herf": "Lbb", "herfb": "Lb", "hwk": "L23bb", "hw3": "LbC", "hb3": "LC",
+              "w_in": "KC", "b_in": "C", "w_out": "CK", "b_out": "K", "skw": "CC",
+              "hskw": "CC", "d2h_row": "LBsb", "d2w_row": "LBsb", "cnd_row": "LBsb",
+              "vhc": "LBsb", "dfin_row": "BsC", "sprev_row": "BsC"}
+
+
+def _pad_axes(t: torch.Tensor, axes: str, cp: int, brp: int) -> torch.Tensor:
+    pads = []
+    for a, n in zip(reversed(axes), reversed(t.shape)):
+        pads += [0, {"C": cp, "b": brp}.get(a, n) - n]
+    return F.pad(t, pads) if any(pads) else t
+
+
+def wide_row_decode(step, st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
+                    i1: int, tau: float, forced_idx: Optional[torch.Tensor] = None,
+                    limit: int = WIDE_SMEM_OPTIN):
+    """A wide row call (the module docstring's contract) run as calls of
+    ``step`` (same signature; the kernel's launch on the card) that the wide
+    kernel takes:
+
+      * C and br are zero-padded to multiples of 4. Every weight row that
+        reads a padded channel is zero, so the padded channels (which carry
+        the ELU of the biases) feed nothing real; vhc's real channels are
+        written back.
+      * a batch is split into the sub-batches of ``wide_row_batches``; each
+        takes its slice of every per-batch operand and of the Gumbel table,
+        so the row equals one unsplit call.
+    """
+    L, B, s2, br = d2w_row.shape
+    C, K = dfin_row.shape[-1], gumbel.shape[-1]
+    cp, brp = _align4(C), _align4(br)
+    ops = dict(d2h_row=d2h_row, d2w_row=d2w_row, cnd_row=cnd_row, dfin_row=dfin_row,
+               sprev_row=sprev_row, vhc=vhc)
+    if (cp, brp) != (C, br):
+        st = {k: _pad_axes(v, _WIDE_AXES[k], cp, brp) for k, v in st.items()}
+        ops = {k: None if v is None else _pad_axes(v, _WIDE_AXES[k], cp, brp).contiguous()
+               for k, v in ops.items()}
+    plan = wide_row_batches(L, B, s2, cp, brp, K, limit)
+    outs = []
+    for b0, b1 in plan:
+        if len(plan) == 1:
+            sub, gum, frc = ops, gumbel, forced_idx
+        else:
+            sub = {k: None if v is None else v[b0:b1].contiguous() if k in ("dfin_row", "sprev_row")
+                   else v[:, b0:b1].contiguous() for k, v in ops.items()}
+            gum = gumbel[:, b0:b1].contiguous()
+            frc = None if forced_idx is None else forced_idx[b0:b1]
+        outs.append(step(st, sub["d2h_row"], sub["d2w_row"], sub["cnd_row"], sub["dfin_row"],
+                         sub["sprev_row"], sub["vhc"], gum, i1, tau, forced_idx=frc))
+        if sub["vhc"] is not ops["vhc"]:
+            ops["vhc"][:, b0:b1] = sub["vhc"]
+    if ops["vhc"] is not vhc:
+        vhc.copy_(ops["vhc"][..., :br])
+    idx = outs[0][0] if len(outs) == 1 else torch.cat([o[0] for o in outs])
+    if forced_idx is None:
+        return idx, vhc
+    return idx, vhc, outs[0][2] if len(outs) == 1 else torch.cat([o[2] for o in outs])
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -275,23 +374,39 @@ def row_decode(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
                              f"(contiguous: {t.is_contiguous()}), expected {want} fp32 "
                              f"contiguous on {dev}")
     wide = uses_wide_kernel(C, br, K, s2)
-    if wide:
-        check_wide_row(B, C, br)
     if ws != 2 or br > 512:
         raise ValueError(f"row_decode: the kernels take ws = 2 and br <= 512 (the wide one "
                          f"also checks that the row's state fits shared memory); got L={L} "
                          f"C={C} br={br} ws={ws} K={K} s2={s2}")
-    forced = None
-    logits = None
-    if forced_idx is not None:
-        if tuple(forced_idx.shape) != (B, s2):
-            raise ValueError(f"row_decode: forced_idx {tuple(forced_idx.shape)}, expected {(B, s2)}")
-        forced = forced_idx.to(device=dev, dtype=torch.int32).contiguous()
-        logits = torch.empty(B, s2, K, dtype=f32, device=dev)
+    if forced_idx is not None and tuple(forced_idx.shape) != (B, s2):
+        raise ValueError(f"row_decode: forced_idx {tuple(forced_idx.shape)}, expected {(B, s2)}")
     if cycles is not None and (wide or tuple(cycles.shape) != (B, 4)
                                or cycles.dtype != torch.int64 or cycles.device != dev):
         raise ValueError(f"row_decode: cycles takes a (B, 4) int64 tensor on {dev} and the "
                          f"narrow kernel; got {tuple(cycles.shape)} {cycles.dtype}, wide={wide}")
+    if wide:
+        return wide_row_decode(_launch_wide, st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row,
+                               vhc, gumbel, i1, tau, forced_idx)
+    return _launch(False, st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel, i1,
+                   tau, forced_idx, cycles)
+
+
+def _launch_wide(st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel, i1, tau,
+                 forced_idx=None):
+    return _launch(True, st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel, i1,
+                   tau, forced_idx, None)
+
+
+def _launch(wide: bool, st, d2h_row, d2w_row, cnd_row, dfin_row, sprev_row, vhc, gumbel,
+            i1: int, tau: float, forced_idx, cycles):
+    """One launch of the narrow or the wide kernel on checked operands."""
+    dev = d2w_row.device
+    L, B, s2, br = d2w_row.shape
+    C, K, ws = dfin_row.shape[-1], gumbel.shape[-1], st["wk"].shape[1]
+    forced = logits = None
+    if forced_idx is not None:
+        forced = forced_idx.to(device=dev, dtype=torch.int32).contiguous()
+        logits = torch.empty(B, s2, K, dtype=f32, device=dev)
     out = torch.empty(B, s2, dtype=torch.int32, device=dev)
     lib = _build.library()
     args = [*(_ptr(st.get(k)) for k in ("w1", "wk", "w3", "b3", "sc", "hw1", "herf", "herfb",

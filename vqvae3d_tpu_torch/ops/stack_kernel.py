@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from vqvae3d_tpu_torch.ops import _build
-from vqvae3d_tpu_torch.ops.conv3d import conv3d, stack_bwd_tensor_core_route
+from vqvae3d_tpu_torch.ops.conv3d import conv3d, stack_bwd_tensor_core_route, stack_fwd_route
 
 
 def preact_fixup_same(x, w1, w2, w3, sc8, *, pad_mode: str):
@@ -103,6 +103,60 @@ def pack_stack_weights_t(w1s, w2s, w3s, dtype):
     return w1t, w2t, w3t
 
 
+FUSED_BRICK_VOXELS = {"fused_tc": 128, "fused_cc": 256}  # csrc/preact_stack.cu kTcVox, kCcVox
+
+
+def fused_voxels(route: str, cbp: int, nvox: int) -> int:
+    """The fused kernel's brick size for blocks of ``nvox`` voxels:
+    ``FUSED_BRICK_VOXELS``, on blocks of at least 2^15 voxels doubled on the
+    tensor cores at CBP <= 32 (two m-tiles a warp: 2.5 halo rows a voxel at
+    4x4x16 instead of 3.4 at 2x4x16) and quadrupled on the CUDA cores (four
+    voxels a thread: 1.8 halo rows a voxel at 8x8x16)."""
+    base = FUSED_BRICK_VOXELS[route]
+    if nvox < 1 << 15:
+        return base
+    return 4 * base if route == "fused_cc" else 2 * base if cbp <= 32 else base
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def fused_brick(h: int, w: int, d: int, voxels: int):
+    """The brick (bh, bw, bd) of the fused forward, ``voxels`` output voxels
+    (a power of 2): d up to 16 (the grid's d rounded up to a power of 2),
+    then w about the square root of the rest (at most w rounded up), h the
+    rest, so that the one-voxel halo stays small."""
+    bd = min(16, _pow2_at_least(d), voxels)
+    rest = voxels // bd
+    bw = min(_pow2_at_least(math.isqrt(rest - 1) + 1), _pow2_at_least(w), rest)
+    return rest // bw, bw, bd
+
+
+def fused_cbp(route: str, cb: int) -> int:
+    """Cb as the fused kernel pads it: to a multiple of 16 (the mma's k) on
+    the tensor cores, to 1, 2 or 4 on the CUDA cores."""
+    return -(-cb // 16) * 16 if route == "fused_tc" else _cob(cb)
+
+
+def pack_fused_weights(w1s, w2s, w3s, route: str):
+    """Reference-layout stack weights -> the fused kernel's bf16 layouts, each
+    [N][K] with k contiguous and zero-padded: w1 (NB, CBP, K1) (conv1, K1 =
+    C rounded up to 16 on the tensor cores, else C), w2 (NB, 27, CBP, CBP)
+    (tap = (kh * 3 + kw) * 3 + kd, out, in), w3 (NB, N3, CBP) (N3 = C rounded
+    up to 8 on the tensor cores, else C)."""
+    nb, cb, c = w1s.shape[:3]
+    cbp = fused_cbp(route, cb)
+    k1 = -(-c // 16) * 16 if route == "fused_tc" else c
+    n3 = -(-c // 8) * 8 if route == "fused_tc" else c
+    dt = torch.bfloat16
+    w1 = F.pad(w1s.reshape(nb, cb, c).to(dt), (0, k1 - c, 0, cbp - cb))
+    w2 = F.pad(w2s.reshape(nb, cb, cb, 27).permute(0, 3, 1, 2).to(dt),
+               (0, cbp - cb, 0, cbp - cb))
+    w3 = F.pad(w3s.reshape(nb, c, cb).to(dt), (0, cbp - cb, 0, n3 - c))
+    return w1.contiguous(), w2.contiguous(), w3.contiguous()
+
+
 def _check(x, w1s, w2s, w3s, sc8, pad_mode):
     if x.device.type != "cuda":
         raise NotImplementedError(f"preact_stack: no kernel for device {x.device}")
@@ -120,17 +174,24 @@ def _check(x, w1s, w2s, w3s, sc8, pad_mode):
 
 
 def _forward_cuda(x, w1s, w2s, w3s, sc8, pad_mode, saves=None):
-    """K3 forward over the stack. Without ``saves`` the activations ping-pong
-    between two buffers; with ``saves`` (NB, B, H, W, D, C) block j reads
-    saves[j] and writes saves[j + 1] (the last block a fresh buffer)."""
+    """K3 forward over the stack, on ``conv3d.stack_fwd_route``'s route.
+    Without ``saves`` the activations ping-pong between two buffers; with
+    ``saves`` (NB, B, H, W, D, C) block j reads saves[j] and writes saves[j +
+    1] (the last block a fresh buffer)."""
     _check(x, w1s, w2s, w3s, sc8, pad_mode)
     nb = w1s.shape[0]
     b, c, h, w, d = x.shape
     cb = w1s.shape[1]
-    w1p, w2p, w3p = pack_stack_weights(w1s, w2s, w3s, x.dtype)
+    route = stack_fwd_route(x.dtype, cb)
+    fused = route != "three_kernels"
+    if fused:
+        w1p, w2p, w3p = pack_fused_weights(w1s, w2s, w3s, route)
+        brick = fused_brick(h, w, d, fused_voxels(route, fused_cbp(route, cb), b * h * w * d))
+    else:
+        w1p, w2p, w3p = pack_stack_weights(w1s, w2s, w3s, x.dtype)
+        a2 = torch.empty((b, h, w, d, cb), dtype=x.dtype, device=x.device)
+        a3 = torch.empty_like(a2)
     sc = sc8.float().contiguous()
-    a2 = torch.empty((b, h, w, d, cb), dtype=x.dtype, device=x.device)
-    a3 = torch.empty_like(a2)
     if saves is None:
         # channels-last: a view when x already is channels_last_3d, else one copy
         cur = x.permute(0, 2, 3, 4, 1).contiguous()
@@ -144,15 +205,18 @@ def _forward_cuda(x, w1s, w2s, w3s, sc8, pad_mode, saves=None):
     stream = _build.stream_ptr(x.device)
     is_bf16 = int(x.dtype == torch.bfloat16)
     for j in range(nb):
-        _build.check(
-            lib.vq_preact_block_fwd(
+        if fused:
+            err = lib.vq_preact_block_fwd_fused(
+                cur.data_ptr(), w1p[j].data_ptr(), w2p[j].data_ptr(), w3p[j].data_ptr(),
+                sc[j].data_ptr(), outs[j].data_ptr(), b, h, w, d, c, cb, fused_cbp(route, cb),
+                int(route == "fused_tc"), int(pad_mode == "wrap"), *brick, stream)
+        else:
+            err = lib.vq_preact_block_fwd(
                 is_bf16, cur.data_ptr(), w1p[j].data_ptr(), w2p[j].data_ptr(),
                 w3p[j].data_ptr(), sc[j].data_ptr(), a2.data_ptr(), a3.data_ptr(),
                 outs[j].data_ptr(), b, h, w, d, c, cb, _cob(cb), _cob(c),
-                int(pad_mode == "wrap"), stream,
-            ),
-            "preact_stack_fused",
-        )
+                int(pad_mode == "wrap"), stream)
+        _build.check(err, "preact_stack_fused")
         preact_stack_fused.launches += 1
         cur = outs[j]
     return cur.permute(0, 4, 1, 2, 3)
