@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (vqvae3d_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases 4,9]
+
+(``--phases``: a probe of the listed phases alone; it prints no kernels
+line and no result line.)
 
 Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
 
@@ -36,17 +39,22 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      version (K7 also beside cuDNN's wgrad, the two in turns, and the seven
      convs summed); K3's backward per shape and per step at both routes,
      with its device split by torch.profiler (the dW2 contraction, the
-     other contractions, their reduce, the elementwise kernels) and the dW2
-     contraction beside its bytes bound and cuDNN's wgrad of the same conv
-     (in turns).
+     other contractions, their reduce, the elementwise kernels by name) and
+     the dW2 contraction beside its bytes bound and cuDNN's wgrad of the same
+     conv (in turns); the bf16 backward on its route (the two brick kernels
+     at 5 <= Cb <= 128) and on the parent's five elementwise kernels in
+     turns, beside cuDNN's data gradient of the block's 3x3x3 conv (a
+     yardstick of the transposed conv).
   5. the stem-2 full-config train step at 512x512x128: one fp32 step on the
      kernel path against the plain path (loss, every gradient, the new EMA
      state); bf16 ms/step of both paths with peak memory; the launches per
      step against what the config implies; two identical steps from one
      state give bit-identical parameters and EMA state; bf16 ms/step also
-     with K3's forward on the parent's three kernels; a profiler breakdown
+     with K3's backward on the parent's five elementwise kernels and with
+     K3's forward on the parent's three kernels; a profiler breakdown
      (device busy; K3 forward; K3 backward's dW2 contraction, other
-     contractions, reduce and elementwise kernels; the rest of the step).
+     contractions, reduce and elementwise kernels by name; the rest of the
+     step).
   6. the train main path through the entry points: three synthetic scans,
      ``train_vqvae`` for 3 steps (validating at step 3), then ``--resume``
      for one more, then ``extract_embeddings`` on the checkpoint it wrote.
@@ -70,16 +78,19 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      one block with a p = 0.5 keep mask, fp32 and bf16: outputs, dx, the
      condition's gradient and every union-weight gradient; the causality of
      the kernel (impulses forward, gradients backward) against
-     ``causal_reach``; times beside the plain versions and the bounds; the
-     bf16 backward on its tensor-core route and on the parent's CUDA-core
-     kernels, in turns, with each one's device time by kernel.
+     ``causal_reach``, in fp32 and in bf16 (the tensor-core forward and
+     backward); times beside the plain versions and the bounds; the bf16
+     forward and backward each on its tensor-core route and on the
+     parent's CUDA-core kernels, in turns, with each one's device time by
+     kernel; cuDNN's bf16 conv with the (2, 3, 3) union kernel (a yardstick
+     of the forward's conv part).
  10. the top prior's train step at full width (PixelCNN 50x16, 128 codes,
      conditioned on 256, 128x128x32, batch 1): one fp32 step on the kernel
      path against the plain path (loss, every gradient); bf16 ms/step of both
-     paths and of the kernel path with K4's backward on the parent's
-     CUDA-core kernels, with peak memory; the launches per step against what
-     50 blocks imply; two identical steps from one state give bit-identical
-     parameters; a profiler breakdown.
+     paths and of the kernel path with K4's forward or its backward on the
+     parent's CUDA-core kernels, with peak memory; the launches per step
+     against what 50 blocks imply; two identical steps from one state give
+     bit-identical parameters; a profiler breakdown (K4's forward by kernel).
  11. the prior train main path through the entry points: a synthetic code
      store (level 0 128x128x32 over 128 codes, level 1 32x32x8 over 256),
      ``train_prior ... --model-dim 16 --num-resblocks 50
@@ -391,22 +402,32 @@ def device_ms_by_name(fn, calls: int = 1) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
+# K3 backward's elementwise kernels: the five of the CUDA-core design and the
+# two brick kernels of the bf16 tensor-core route (brick names first: "bwd_mid"
+# is in "brick_bwd_mid")
+K3_BWD_ELEMENTWISE = ("brick_bwd_mid", "brick_bwd_dgrad", "bwd_pre", "bwd_mid", "bwd_post",
+                      "bwd_dgrad", "bwd_dx")
+
+
 def k3_bwd_split(by_name: dict) -> dict:
     """K3 backward's device time by part: the dW2 contraction (its first
     pass: the 27-tap contract_tc or contract_partial), the other
     contractions (dW1, dW3, the scalar sums), their second pass
-    (contract_reduce), the five elementwise kernels (bwd_*), and the rest."""
+    (contract_reduce) and the brick route's scalar reduce (brick_scalars),
+    the elementwise kernels (``K3_BWD_ELEMENTWISE``, in total and each by
+    name), and the rest."""
     split = dict.fromkeys(("dW2", "other contractions", "reduce", "elementwise", "rest"), 0.0)
     for name, ms in by_name.items():
-        if "contract_reduce" in name:
+        kernel = next((k for k in K3_BWD_ELEMENTWISE if k in name), None)
+        if "contract_reduce" in name or "brick_scalars" in name:
             split["reduce"] += ms
         elif "contract_" in name and ", 27>" in name:
             split["dW2"] += ms
         elif "contract_" in name or "scalars_kernel" in name:
             split["other contractions"] += ms
-        elif "bwd_pre" in name or "bwd_mid" in name or "bwd_post" in name or \
-                "bwd_dgrad" in name or "bwd_dx" in name:
+        elif kernel is not None:
             split["elementwise"] += ms
+            split[kernel] = split.get(kernel, 0.0) + ms
         else:
             split["rest"] += ms
     return split
@@ -418,22 +439,45 @@ K4_BWD_KERNELS = ("bwd_", "dwu_partial", "contract_", "scalars_kernel", "tc_pre"
 
 
 @contextlib.contextmanager
-def parent_routes(k3_fwd: bool = False, k4_bwd: bool = False):
-    """Run K3's forward on its three-kernel design and/or K4's backward on its
-    CUDA-core kernels, the parent's bf16 routes, to time them beside the
-    redesigned ones in one run (both are kernels of the port; the route
-    functions choose the redesigned ones)."""
+def parent_routes(k3_fwd: bool = False, k4_bwd: bool = False, k3_bwd: bool = False,
+                  k4_fwd: bool = False):
+    """Run the parent's bf16 routes to time them beside the redesigned ones in
+    one run (each is a kernel of the port; the route functions choose the
+    redesigned ones): K3's forward on its three kernels, K4's backward on its
+    CUDA-core kernels, K3's backward on its five elementwise kernels (the
+    contractions still on the tensor cores), K4's forward on its three
+    CUDA-core kernels."""
     from vqvae3d_tpu_torch.ops import causal_kernel, stack_kernel
 
-    saved = stack_kernel.stack_fwd_route, causal_kernel.causal_bwd_tensor_core_route
+    saved = (stack_kernel.stack_fwd_route, causal_kernel.causal_bwd_tensor_core_route,
+             stack_kernel.stack_bwd_brick_route, causal_kernel.causal_fwd_tensor_core_route)
     if k3_fwd:
         stack_kernel.stack_fwd_route = lambda dtype, cb: "three_kernels"
     if k4_bwd:
         causal_kernel.causal_bwd_tensor_core_route = lambda dtype, cu, cb, cc: False
+    if k3_bwd:
+        stack_kernel.stack_bwd_brick_route = lambda dtype, cb: False
+    if k4_fwd:
+        causal_kernel.causal_fwd_tensor_core_route = lambda dtype, cu, cb, cc: False
     try:
         yield
     finally:
-        stack_kernel.stack_fwd_route, causal_kernel.causal_bwd_tensor_core_route = saved
+        (stack_kernel.stack_fwd_route, causal_kernel.causal_bwd_tensor_core_route,
+         stack_kernel.stack_bwd_brick_route, causal_kernel.causal_fwd_tensor_core_route) = saved
+
+
+K4_FWD_KERNELS = ("fwd_pre", "fwd_conv", "fwd_post", "tc_fwd_pre", "tc_fwd_brick")
+
+
+def k4_fwd_split(by_name: dict) -> dict:
+    """K4 forward's device time by kernel: the three CUDA-core kernels
+    (fwd_pre, fwd_conv, fwd_post) or the tensor-core route's tc_fwd_pre and
+    tc_fwd_brick."""
+    split = {}
+    for name, ms in by_name.items():
+        key = next((k for k in reversed(K4_FWD_KERNELS) if k in name), "rest")
+        split[key] = split.get(key, 0.0) + ms
+    return split
 
 
 def k4_bwd_split(by_name: dict) -> dict:
@@ -984,19 +1028,33 @@ def phase_train_kernels(ident, results, seed):
                 nb = min(deepest, 10)
                 ws = [t[:nb] for t in w]
                 routes = {}
-                for dtype in (torch.float32, torch.bfloat16):  # CUDA cores, tensor cores
+                # fp32 (CUDA cores), bf16 on its route and on the parent's five
+                # elementwise kernels, the two bf16 routes in turns
+                for route in ("fp32", "bf16", "bf16 parent", "bf16 parent", "bf16"):
+                    dtype = torch.float32 if route == "fp32" else torch.bfloat16
                     xd, gd = x32.to(dtype), g32.to(dtype)
                     saves = torch.empty((nb, 1, *spatial, c), dtype=dtype, device=dev)
                     stack_kernel._forward_cuda(xd, *ws, "wrap", saves=saves)
                     bwd_fn = functools.partial(stack_kernel.preact_stack_bwd, saves, gd, *ws,
                                                "wrap")
-                    routes[dtype] = (cuda_ms(bwd_fn, 3) / nb,
-                                     k3_bwd_split(device_ms_by_name(bwd_fn, 2)))
+                    with parent_routes(k3_bwd=route == "bf16 parent"):
+                        routes.setdefault(route, []).append(
+                            (cuda_ms(bwd_fn, 3) / nb, k3_bwd_split(device_ms_by_name(bwd_fn, 2))))
                 with plain_path():  # bf16, the last saves
                     pms = cuda_ms(lambda: stack_kernel.preact_stack_bwd_plain(
                         saves, gd, *ws, "wrap"), 1) / nb
-                (ms, split), (ms32, split32) = routes[torch.bfloat16], routes[torch.float32]
                 cb = max(c // 2, 1)
+                brick = conv3d.stack_bwd_brick_route(torch.bfloat16, cb)
+                ms = min(t for t, _ in routes["bf16"])
+                ms_parent = min(t for t, _ in routes["bf16 parent"])
+                split, split_parent = routes["bf16"][-1][1], routes["bf16 parent"][-1][1]
+                ms32, split32 = routes["fp32"][0]
+                # cuDNN's data gradient of the block's 3x3x3 Cb -> Cb conv (the
+                # pre-padded input's), a yardstick of the transposed conv part
+                wd = torch.randn(cb, cb, 3, 3, 3, generator=gen).to(dev, torch.bfloat16)
+                gd3 = torch.randn(1, cb, *spatial, generator=gen).to(dev, torch.bfloat16)
+                dgrad_ms = cuda_ms(lambda: torch.nn.grad.conv3d_input(
+                    (1, cb, *(n + 2 for n in spatial)), wd, gd3), 5, warmup=2)
                 nvox = int(np.prod(spatial))
                 # x and g read, dx written (bf16), fp32 dW and scalars written; 3x the
                 # forward's flops (recompute, data gradient, weight gradient)
@@ -1018,11 +1076,19 @@ def phase_train_kernels(ident, results, seed):
                               a2p, (cb, cb, 3, 3, 3), gt3), 5).values())) for _ in range(2)]
                 d2 = sum(t[0] for t in turns) / len(turns)
                 lms = sum(t[1] for t in turns) / len(turns)
-                print(f"K3 bwd C={c} {spatial} per block: bf16 (tensor-core contractions) "
-                      f"{ms:.4f} ms, fp32 (CUDA-core contractions) {ms32:.4f} ms, plain bf16 "
-                      f"{pms:.4f} ms, bound {bms:.4f} ms; x{per_step} blocks/step [{ident}]")
+                print(f"K3 bwd C={c} {spatial} per block: bf16 "
+                      f"({'brick kernels' if brick else 'five elementwise kernels'}, tensor-core "
+                      f"contractions) {ms:.4f} ms (turns "
+                      + ", ".join(f"{t:.4f}" for t, _ in routes["bf16"])
+                      + f"), the parent's bf16 route (five elementwise kernels) {ms_parent:.4f} "
+                      f"ms (turns " + ", ".join(f"{t:.4f}" for t, _ in routes["bf16 parent"])
+                      + f"), fp32 (CUDA-core contractions) {ms32:.4f} ms, plain bf16 "
+                      f"{pms:.4f} ms, bound {bms:.4f} ms; cuDNN's dgrad of the 3x3x3 conv "
+                      f"{dgrad_ms:.4f} ms; x{per_step} blocks/step [{ident}]")
                 print(f"  device split per block, bf16: "
                       + ", ".join(f"{k} {v / nb:.4f}" for k, v in split.items())
+                      + "; the parent's bf16: "
+                      + ", ".join(f"{k} {v / nb:.4f}" for k, v in split_parent.items())
                       + "; fp32: " + ", ".join(f"{k} {v / nb:.4f}" for k, v in split32.items())
                       + f" ms; dW2 contraction bf16 {d2:.4f} ms (bound {d2bms:.4f} ms, bytes), "
                       f"cuDNN wgrad of the same conv {lms:.4f} ms ({d2 / lms:.2f}x; both device "
@@ -1032,19 +1098,24 @@ def phase_train_kernels(ident, results, seed):
                 bwd["ms"] += ms * per_step
                 bwd["plain_ms"] += pms * per_step
                 bwd["bound_ms"] += bms * per_step
-                for key, val in (("fp32_ms", ms32), ("dw2_ms", d2), ("dw2_fp32_ms",
-                                 split32["dW2"] / nb), ("dw2_bound_ms", d2bms), ("wgrad_ms", lms)):
+                for key, val in (("fp32_ms", ms32), ("parent_ms", ms_parent), ("dw2_ms", d2),
+                                 ("dw2_fp32_ms", split32["dW2"] / nb), ("dw2_bound_ms", d2bms),
+                                 ("wgrad_ms", lms), ("dgrad_ms", dgrad_ms)):
                     bwd[key] = bwd.get(key, 0.0) + val * per_step
-                bwd.setdefault("split", dict.fromkeys(split, 0.0))
-                for k, v in split.items():
-                    bwd["split"][k] += v / nb * per_step
+                for name, sp in (("split", split), ("parent_split", split_parent)):
+                    bwd.setdefault(name, {})
+                    for k, v in sp.items():
+                        bwd[name][k] = bwd[name].get(k, 0.0) + v / nb * per_step
             torch.cuda.empty_cache()
     print("K3 bwd worst max|d|/max|ref| by (dtype, depth): "
           + ", ".join(f"{k[0]} {k[1]}: {v:.3g}" for k, v in sorted(worst.items())))
-    print(f"K3 bwd per stem-2 step: bf16 {bwd['ms']:.2f} ms (tensor-core contractions), fp32 "
+    print(f"K3 bwd per stem-2 step: bf16 {bwd['ms']:.2f} ms (brick kernels at 5 <= Cb <= 128, "
+          f"tensor-core contractions), the parent's bf16 route {bwd['parent_ms']:.2f} ms, fp32 "
           f"{bwd['fp32_ms']:.2f} ms (CUDA-core contractions), plain bf16 {bwd['plain_ms']:.2f} ms, "
-          f"bound {bwd['bound_ms']:.3f} ms; bf16 device split "
+          f"bound {bwd['bound_ms']:.3f} ms, cuDNN's dgrad of the 3x3x3 convs (a yardstick of the "
+          f"transposed conv) {bwd['dgrad_ms']:.2f} ms; bf16 device split "
           + ", ".join(f"{k} {v:.2f}" for k, v in bwd["split"].items())
+          + "; the parent's " + ", ".join(f"{k} {v:.2f}" for k, v in bwd["parent_split"].items())
           + f" ms; dW2 contraction bf16 {bwd['dw2_ms']:.2f} ms (fp32 route "
           f"{bwd['dw2_fp32_ms']:.2f}), bound {bwd['dw2_bound_ms']:.3f} ms, cuDNN wgrad of the "
           f"same convs {bwd['wgrad_ms']:.2f} ms (both device time by torch.profiler) [{ident}]")
@@ -1249,9 +1320,11 @@ def phase_train_step(ident, seed, results):
     if got != want or not np.isfinite(float(log["loss"])):
         raise AssertionError(f"train step launches {got} != {want} or non-finite loss")
     timing = {}
-    for path in ("kernel", "parent K3", "plain", "kernel", "parent K3", "plain"):
+    paths = ("kernel", "parent K3 bwd", "parent K3 fwd", "plain")
+    for path in paths + paths:
         ctx = (plain_path() if path == "plain" else parent_routes(k3_fwd=True)
-               if path == "parent K3" else contextlib.nullcontext())
+               if path == "parent K3 fwd" else parent_routes(k3_bwd=True)
+               if path == "parent K3 bwd" else contextlib.nullcontext())
         with ctx:
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: step(batch), iters=3, warmup=1)
@@ -1293,12 +1366,13 @@ def phase_train_step(ident, seed, results):
                if e.device_type == torch.autograd.DeviceType.CUDA}
     split = k3_bwd_split(by_name)
     k3_fwd = sum(v for k, v in by_name.items() if any(n in k for n in K3_FWD_KERNELS))
+    parts = ", ".join(f"{k} {split[k]:.1f}" for k in K3_BWD_ELEMENTWISE if k in split)
     print(f"profile of one bf16 kernel-path train step: device busy {busy:.1f} ms of "
           f"{wall:.1f} ms wall under the profiler; K3 forward {k3_fwd:.1f} ms; K3 backward: dW2 "
           f"contraction {split['dW2']:.1f} ms, other contractions "
           f"{split['other contractions']:.1f}, reduce {split['reduce']:.1f}, elementwise "
-          f"{split['elementwise']:.1f}; the rest of the step {split['rest'] - k3_fwd:.1f} ms "
-          f"[{ident}]\n{table}")
+          f"{split['elementwise']:.1f} ({parts}); the rest of the step "
+          f"{split['rest'] - k3_fwd:.1f} ms [{ident}]\n{table}")
     del model, opt
     torch.cuda.empty_cache()
 
@@ -1699,40 +1773,45 @@ def phase_prior_kernels(ident, results, seed):
     print("K4 worst max|d|/max|ref| by (pass, dtype, depth): "
           + ", ".join(f"{k}: {v:.3g}" for k, v in sorted(worst.items())))
 
-    # causality of the kernel at the top segment (fp32): impulses through the
-    # no-save forward, gradients through the backward
-    x = torch.randn(1, *TOP_GRID, cu, generator=gen).to(dev)
-    with torch.inference_mode():
-        base = ck.causal_stack_fused(x, None, None, 0.0, w_nc)
+    # causality of the kernel at the top segment, fp32 (the CUDA-core kernels)
+    # and bf16 (the tensor-core route): impulses through the no-save forward,
+    # gradients through the backward
     checked, c = 0, cu // 3
     s0, s1, s2 = TOP_GRID
-    for v in [(0, 0, 0), (s0 // 2, 3 * s1 // 4, s2 // 2), (s0 - 1, s1 - 1, s2 - 1), (5, s1 - 1, 0)]:
-        allowed = ck.causal_influence(TOP_GRID, v).to(dev)
-        for si in range(3):
-            x2 = x.clone()
-            x2[0, v[0], v[1], v[2], si * c:(si + 1) * c] += 1.0
-            with torch.inference_mode():
-                diff = (ck.causal_stack_fused(x2, None, None, 0.0, w_nc) - base).abs()
-            moved = diff[0].reshape(*TOP_GRID, 3, c).sum(-1).permute(3, 0, 1, 2) > 0
-            if (moved & ~allowed[si]).any() or not moved[si][v]:
-                raise AssertionError(f"K4 forward: input stream {si} at {v} moved outputs "
-                                     f"outside its raster future")
-            checked += 1
-    xg = x.clone().requires_grad_()
-    y = ck.causal_stack_fused(xg, None, None, 0.0, w_nc)
-    for pos in [(0, 0, 0), (s0 // 2, 3 * s1 // 4, s2 // 2), (s0 - 1, s1 - 1, s2 - 1)]:
-        reach = ck.causal_reach(TOP_GRID, pos).to(dev)
-        for so in range(3):
-            (gx,) = torch.autograd.grad(y[0, pos[0], pos[1], pos[2], so * c:(so + 1) * c].sum(),
-                                        xg, retain_graph=True)
-            dep = gx[0].abs().reshape(*TOP_GRID, 3, c).sum(-1).permute(3, 0, 1, 2) > 0
-            if (dep & ~reach[:, so]).any():
-                raise AssertionError(f"K4 backward: output {pos} stream {so} depends on "
-                                     f"inputs outside its raster past")
-            checked += 1
-    print(f"K4 causality at the top segment ({nb} blocks, {TOP_GRID}): {checked} impulse and "
-          f"gradient checks, no dependence outside causal_reach")
-    del x, xg, y, base
+    x32 = torch.randn(1, *TOP_GRID, cu, generator=gen).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        with torch.inference_mode():
+            base = ck.causal_stack_fused(x, None, None, 0.0, w_nc)
+        for v in [(0, 0, 0), (s0 // 2, 3 * s1 // 4, s2 // 2), (s0 - 1, s1 - 1, s2 - 1),
+                  (5, s1 - 1, 0)]:
+            allowed = ck.causal_influence(TOP_GRID, v).to(dev)
+            for si in range(3):
+                x2 = x.clone()
+                x2[0, v[0], v[1], v[2], si * c:(si + 1) * c] += 1.0
+                with torch.inference_mode():
+                    diff = (ck.causal_stack_fused(x2, None, None, 0.0, w_nc) - base).abs()
+                moved = diff[0].reshape(*TOP_GRID, 3, c).sum(-1).permute(3, 0, 1, 2) > 0
+                if (moved & ~allowed[si]).any() or not moved[si][v]:
+                    raise AssertionError(f"K4 forward {dtype}: input stream {si} at {v} moved "
+                                         f"outputs outside its raster future")
+                checked += 1
+        xg = x.clone().requires_grad_()
+        y = ck.causal_stack_fused(xg, None, None, 0.0, w_nc)
+        for pos in [(0, 0, 0), (s0 // 2, 3 * s1 // 4, s2 // 2), (s0 - 1, s1 - 1, s2 - 1)]:
+            reach = ck.causal_reach(TOP_GRID, pos).to(dev)
+            for so in range(3):
+                (gx,) = torch.autograd.grad(y[0, pos[0], pos[1], pos[2], so * c:(so + 1) * c].sum(),
+                                            xg, retain_graph=True)
+                dep = gx[0].float().abs().reshape(*TOP_GRID, 3, c).sum(-1).permute(3, 0, 1, 2) > 0
+                if (dep & ~reach[:, so]).any():
+                    raise AssertionError(f"K4 backward {dtype}: output {pos} stream {so} depends "
+                                         f"on inputs outside its raster past")
+                checked += 1
+        del x, xg, y, base
+    print(f"K4 causality at the top segment ({nb} blocks, {TOP_GRID}), fp32 and bf16 (the "
+          f"tensor-core forward and backward): {checked} impulse and gradient checks, no "
+          f"dependence outside causal_reach")
 
     # times at the train path's shapes, bf16: one step's 50 blocks
     x = torch.randn(1, *TOP_GRID, cu, generator=gen).to(dev, torch.bfloat16)
@@ -1740,9 +1819,23 @@ def phase_prior_kernels(ident, results, seed):
     cond = torch.randn(1, *TOP_GRID, cc, generator=gen).to(dev, torch.bfloat16)
     saves = torch.empty((nb, *x.shape), dtype=x.dtype, device=dev)
     with torch.no_grad():  # the plain backward enables autograd for itself
+        # the forward on its route (bf16: the tensor cores) and on the parent's
+        # CUDA-core kernels, in turns, and each one's device time by kernel
+        fturns, fsplits = {True: [], False: []}, {}
+        for tc in (True, False, False, True):
+            with parent_routes(k4_fwd=not tc):
+                fturns[tc].append(cuda_ms(lambda: ck._forward_cuda(
+                    x, cond, None, 0.0, w_top, saves=saves), 3))
+                fsplits[tc] = k4_fwd_split(device_ms_by_name(
+                    lambda: ck._forward_cuda(x, cond, None, 0.0, w_top, saves=saves)))
+        ms_f = min(fturns[True])
         ms_ns = cuda_ms(lambda: ck.causal_stack_fused(x, cond, None, 0.0, w_top), 3)
-        ms_f = cuda_ms(lambda: ck._forward_cuda(x, cond, None, 0.0, w_top, saves=saves), 3)
         pms_f = cuda_ms(lambda: ck.causal_stack_plain(x, cond, None, 0.0, w_top), 1)
+        # cuDNN's bf16 conv with the union's (2, 3, 3) kernel over the grid (a2
+        # pre-padded (1, 0), (1, 1), (1, 1)), 50 blocks: a yardstick of the conv part
+        a2p = torch.randn(1, cb, s0 + 1, s1 + 2, s2 + 2, generator=gen).to(dev, torch.bfloat16)
+        wcv = torch.randn(cb, cb, 2, 3, 3, generator=gen).to(dev, torch.bfloat16)
+        conv_ms = nb * cuda_ms(lambda: torch.nn.functional.conv3d(a2p, wcv), 5, warmup=2)
         # the backward on its route (bf16: the tensor cores) and on the parent's
         # CUDA-core kernels, in turns, and each one's device time by kernel
         turns, splits = {True: [], False: []}, {}
@@ -1764,13 +1857,22 @@ def phase_prior_kernels(ident, results, seed):
     (fb, ff), (bb, bf) = k4_cost(nvox, cu, cb, cc, 2)
     bms_f, by_f = bound_ms(nb * fb, nb * ff, BF16_FLOPS)
     bms_b, by_b = bound_ms(nb * bb, nb * bf, BF16_FLOPS)
+    for tc, name in ((True, "tensor-core route"), (False, "the parent's CUDA-core kernels")):
+        print(f"K4 forward bf16 (saving), {nb} blocks (one train step), {name}: "
+              + ", ".join(f"{v:.3f}" for v in fturns[tc]) + " ms; device split "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(fsplits[tc].items(),
+                                                            key=lambda kv: -kv[1]))
+              + f" ms [{ident}]")
     print(f"K4 forward, {nb} blocks bf16 (one train step): saving {ms_f:.3f} ms, no-save "
-          f"{ms_ns:.3f} ms, plain {pms_f:.3f} ms, bound {bms_f:.4f} ms ({by_f}: {fb} B and {ff} "
-          f"flop a block) [{ident}]")
+          f"{ms_ns:.3f} ms, the parent's kernels (saving) {min(fturns[False]):.3f} ms, plain "
+          f"{pms_f:.3f} ms, bound {bms_f:.4f} ms ({by_f}: {fb} B and {ff} flop a block); cuDNN's "
+          f"bf16 conv with the (2, 3, 3) union kernel, {nb} blocks, {conv_ms:.3f} ms (a "
+          f"yardstick of the conv part) [{ident}]")
     print(f"K4 backward, {nb} blocks bf16 (one train step): kernel {ms_b:.3f} ms, plain "
           f"{pms_b:.3f} ms, bound {bms_b:.4f} ms ({by_b}: {bb} B and {bf} flop a block) [{ident}]")
     results["causal_stack_fwd"] = dict(max_abs_err=errs["fwd"], ms=ms_f, plain_ms=pms_f,
-                                       bound_ms=bms_f, bound_by=by_f, library_ms=None)
+                                       bound_ms=bms_f, bound_by=by_f, library_ms=None,
+                                       parent_ms=min(fturns[False]), conv_yardstick_ms=conv_ms)
     results["causal_stack_bwd"] = dict(max_abs_err=errs["bwd"], ms=ms_b, plain_ms=pms_b,
                                        bound_ms=bms_b, bound_by=by_b, library_ms=None)
     del saves
@@ -1851,9 +1953,11 @@ def phase_prior_step(ident, seed, results):
     if got != want or not np.isfinite(float(log["loss_mean"])):
         raise AssertionError(f"prior train step launches {got} != {want} or non-finite loss")
     timing = {}
-    for path in ("kernel", "parent K4", "plain", "kernel", "parent K4", "plain"):
-        ctx = (plain_path() if path == "plain" else parent_routes(k4_bwd=True)
-               if path == "parent K4" else contextlib.nullcontext())
+    paths = ("kernel", "parent K4 fwd", "parent K4 bwd", "plain")
+    for path in paths + paths:
+        ctx = (plain_path() if path == "plain" else parent_routes(k4_fwd=True)
+               if path == "parent K4 fwd" else parent_routes(k4_bwd=True)
+               if path == "parent K4 bwd" else contextlib.nullcontext())
         with ctx:
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: step(batch), iters=3, warmup=1)
@@ -1892,13 +1996,15 @@ def phase_prior_step(ident, seed, results):
     busy = sum(e.self_device_time_total for e in cuda_rows) / 1e3
     k4 = {what: sum(e.self_device_time_total for e in cuda_rows if any(
         k in e.key for k in keys)) / 1e3 for what, keys in (
-        ("K4 forward", ("fwd_pre", "fwd_conv", "fwd_post")),
+        ("K4 forward", K4_FWD_KERNELS),
         ("K4 backward", K4_BWD_KERNELS))}
     table = events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=70)
     print(f"profile of one bf16 kernel-path top-prior step: device busy {busy:.1f} ms of "
           f"{wall:.1f} ms wall under the profiler; "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in k4.items())
-          + f", the rest {busy - sum(k4.values()):.1f} ms [{ident}]\n{table}")
+          + " (" + ", ".join(f"{k} {v:.1f}" for k, v in k4_fwd_split(
+              {e.key: e.self_device_time_total / 1e3 for e in cuda_rows}).items() if k != "rest")
+          + f"), the rest {busy - sum(k4.values()):.1f} ms [{ident}]\n{table}")
     del model, opt
 
 
@@ -2829,7 +2935,11 @@ def phase_dropout_snail_cli(ident, counts, seed, work: Path):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phases", default="",
+                        help="comma-separated phase numbers to run (a probe: no kernels line "
+                             "and no result line); default all")
     args = parser.parse_args()
+    only = {int(n) for n in args.phases.split(",") if n}
 
     import torch
 
@@ -2888,7 +2998,9 @@ def main():
             ("PixelSNAIL train CLI with attention dropout", lambda: phase_dropout_snail_cli(
                 ident, counts, args.seed, Path(tmp))),
         ]
-        for name, fn in phases:
+        for number, (name, fn) in enumerate(phases, 1):
+            if only and number not in only:
+                continue
             t0 = time.perf_counter()
             print(f"=== phase: {name}", flush=True)
             try:
@@ -2902,6 +3014,9 @@ def main():
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
+    if only:
+        print(f"chip_smoke: phases {sorted(only)} ok (a probe: no result)")
+        return 0
     meta = {
         "l2_argmin": ("vqvae3d_tpu_torch/csrc/l2_argmin.cu", "vqvae3d_tpu/ops/quantizer_ops.py:106"),
         "l2_argmin_stats": ("vqvae3d_tpu_torch/csrc/l2_argmin_stats.cu",

@@ -73,7 +73,16 @@ On a card (marker ``gpu``; skipped here with the reason):
     and 6e-2 (bf16: the reference rounds its gradients to bf16, the kernel
     sums in fp32), bit-identical on a second call; and the causality check
     of ``causal_reach`` on the kernel's forward (impulses) and backward
-    (gradients);
+    (gradients), fp32 and bf16 (the tensor-core forward and backward);
+  * K4's bf16 tensor-core forward at the top prior's widths, conditioned or
+    not, p = 0 and 0.5, no-save and saving, against ``causal_stack_plain``
+    within 2^-6 (one block) and 2^-4 (three) of max|ref|, bit-identical on a
+    second call, the parent's kernels within the same tolerance;
+  * K3's bf16 backward on the brick route at every (C, spatial) of the
+    stem-2 step that takes it, both pad modes, one block, against the
+    autograd of the plain block within 2^-6 of max|ref| per tensor,
+    bit-identical on a second call, the parent's five elementwise kernels
+    within the same tolerance;
   * K8 at S ∈ {1, 63, 64, 65, 77, 128, 300, 4096}, D ∈ {8, 16, 32}: fp32
     (the CUDA-core routes) against the autograd of
     ``flash_causal_attention_plain`` within 1e-5 of max|ref|, bf16 (the
@@ -1162,6 +1171,57 @@ def _plain_grads(x, ws, gy, pad_mode, monkeypatch):
     return grads
 
 
+# the (C, spatial) of the stem-2 step's stacks whose Cb takes the brick route
+# (VQVAEConfig.same_stacks of the published full config, bench.py:117-128)
+K3_BRICK_SHAPES = [(16, (128, 128, 32)), (18, (128, 128, 32)), (32, (64, 64, 16)),
+                   (64, (32, 32, 8)), (72, (32, 32, 8)), (16, (16, 16, 4)), (128, (16, 16, 4)),
+                   (32, (8, 8, 2)), (256, (8, 8, 2))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad_mode", ["wrap", "zeros"])
+@pytest.mark.parametrize("c,spatial", K3_BRICK_SHAPES)
+def test_k3_bwd_brick_route_at_the_stem2_shapes_on_card(cuda_device, c, spatial, pad_mode,
+                                                        monkeypatch):
+    """K3's bf16 backward on the brick route (``stack_bwd_brick_route``) for
+    one block at every (C, spatial) of the stem-2 step that takes it, against
+    the autograd of the plain block per tensor within chip_smoke.py's
+    K3_BWD_TOL for one bf16 block, 2^-6 of max|ref| (the plain reference
+    rounds each gradient and the dW of its conv to bf16 where the kernels sum
+    in fp32); a second call bit-identical; the parent's five elementwise
+    kernels agree within the same tolerance."""
+    cb = c // 2
+    assert conv3d.stack_bwd_brick_route(torch.bfloat16, cb)
+    rng = np.random.default_rng(700 + c + spatial[-1])
+    ws = [t.to(cuda_device) for t in _stack(rng, 1, c, std=0.1)]
+    x = torch.from_numpy(rng.standard_normal((1, c, *spatial)).astype(np.float32))
+    x = x.to(cuda_device, torch.bfloat16)
+    gy = torch.from_numpy(rng.standard_normal((1, c, *spatial)).astype(np.float32))
+    gy = gy.to(cuda_device, torch.bfloat16)
+
+    def grads():
+        xg = x.clone().requires_grad_()
+        wg = [t.clone().requires_grad_() for t in ws]
+        return torch.autograd.grad(stack_kernel.preact_stack_fused(xg, *wg, pad_mode),
+                                   [xg, *wg], gy)
+
+    before = stack_kernel.preact_stack_bwd.launches
+    runs = [grads(), grads()]
+    with monkeypatch.context() as m:  # the parent's five elementwise kernels
+        m.setattr(stack_kernel, "stack_bwd_brick_route", lambda dtype, cb: False)
+        parent = grads()
+    want = _plain_grads(x, ws, gy, pad_mode, monkeypatch)
+    torch.cuda.synchronize()
+    assert stack_kernel.preact_stack_bwd.launches == before + 3
+    for name, a, a2, p, b in zip(("dx", "dw1", "dw2", "dw3", "dsc"), *runs, parent, want):
+        assert torch.equal(a, a2), f"{name}: two identical backward passes differ"
+        scale = float(b.float().abs().max())
+        for route, g in (("brick", a), ("parent", p)):
+            err = float((g.float() - b.float()).abs().max())
+            assert err <= 2**-6 * scale, \
+                f"{route} {name}: max|d|={err:.3g} > 2^-6 x {scale:.3g}"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pad_mode", ["wrap", "zeros"])
@@ -1524,14 +1584,18 @@ def _causal_blocks(c, bd, nb, seed):
 
 
 @pytest.mark.gpu
-def test_k4_is_causal_on_card(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_is_causal_on_card(cuda_device, dtype):
     """The union tap embedding leaks no future: forward impulses through the
-    no-save kernel, gradients through the backward kernel."""
+    no-save kernel, gradients through the backward kernel; fp32 on the
+    CUDA-core kernels, bf16 on the tensor-core forward and backward."""
     c, dims = 16, (4, 5, 6)
     w = causal_kernel.UnionWeights(*(None if t is None else t.detach().to(cuda_device)
                                      for t in causal_kernel.pack_causal_union(
                                          _causal_blocks(c, 4, 3, 5))))
-    x = torch.randn(1, *dims, 3 * c, device=cuda_device)
+    assert conv3d.causal_fwd_tensor_core_route(dtype, 3 * c, 3 * c // 4, 0) == \
+        (dtype == torch.bfloat16)
+    x = torch.randn(1, *dims, 3 * c, device=cuda_device).to(dtype)
     with torch.inference_mode():
         base = causal_kernel.causal_stack_fused(x, None, None, 0.0, w)
     for v in [(0, 0, 0), (1, 2, 3), (3, 4, 5), (2, 0, 5)]:
@@ -1551,8 +1615,54 @@ def test_k4_is_causal_on_card(cuda_device):
         for so in range(3):
             (gx,) = torch.autograd.grad(y[0, pos[0], pos[1], pos[2], so * c:(so + 1) * c].sum(),
                                         xg, retain_graph=True)
-            dep = gx[0].abs().reshape(*dims, 3, c).sum(-1).permute(3, 0, 1, 2).cpu() > 0
+            dep = gx[0].float().abs().reshape(*dims, 3, c).sum(-1).permute(3, 0, 1, 2).cpu() > 0
             assert not (dep & ~reach[:, so]).any(), f"gradient of {pos} stream {so} leaks"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("p", [0.0, 0.5])
+@pytest.mark.parametrize("cc", [16, 0])
+def test_k4_tensor_core_forward_on_card(cuda_device, cc, p, nb, monkeypatch):
+    """K4's bf16 forward on the tensor-core route (tc_fwd_pre, tc_fwd_brick)
+    at the top prior's widths (Cu 48, Cb 12, Cc 16 or unconditioned) over a
+    9 x 10 x 33 grid (bricks overhanging every axis), p = 0 and 0.5: the
+    no-save and the saving forward against ``causal_stack_plain`` within
+    chip_smoke.py's K4_TOL (2^-6 of max|ref| for one block, 2^-4 for a
+    stack: a flipped bf16 rounding carries through the blocks), equal to
+    each other and bit-identical on a second call; the parent's CUDA-core
+    kernels agree within the same tolerance."""
+    rng = np.random.default_rng(1000 + cc + nb + int(10 * p))
+    w = causal_kernel.UnionWeights(*(None if t is None else t.to(cuda_device)
+                                     for t in _union_weights(rng, nb, 16, 4, cc)))
+    b, grid = 2, (9, 10, 33)
+    assert conv3d.causal_fwd_tensor_core_route(torch.bfloat16, 48, 12, cc)
+    x = torch.from_numpy(rng.standard_normal((b, *grid, 48)).astype(np.float32))
+    x = x.to(cuda_device, torch.bfloat16)
+    cond = (torch.from_numpy(rng.standard_normal((b, *grid, cc)).astype(np.float32))
+            .to(cuda_device, torch.bfloat16) if cc else None)
+    keep = (torch.from_numpy((rng.random((nb, b, 12)) < 0.5).astype(np.float32)).to(cuda_device)
+            if p else None)
+    saves = torch.empty((nb, *x.shape), dtype=x.dtype, device=cuda_device)
+    launches = causal_kernel.causal_stack_fused.launches
+    with torch.inference_mode():
+        got = causal_kernel.causal_stack_fused(x, cond, keep, p, w)
+        again = causal_kernel.causal_stack_fused(x, cond, keep, p, w)
+        saving = causal_kernel._forward_cuda(x, cond, keep, p, w, saves=saves)
+        with monkeypatch.context() as m:  # the parent's CUDA-core kernels
+            m.setattr(causal_kernel, "causal_fwd_tensor_core_route", lambda *shape: False)
+            parent = causal_kernel.causal_stack_fused(x, cond, keep, p, w)
+        want = causal_kernel.causal_stack_plain(x, cond, keep, p, w)
+    torch.cuda.synchronize()
+    assert causal_kernel.causal_stack_fused.launches == launches + 4 * nb
+    assert torch.equal(got, again), "two identical calls differ"
+    assert torch.equal(got, saving), "the saving forward differs from the no-save one"
+    assert torch.equal(saves[0], x)
+    tol = 2**-6 if nb == 1 else 2**-4
+    scale = float(want.float().abs().max())
+    for name, a in (("tensor-core route", got), ("parent kernels", parent)):
+        err = float((a.float() - want.float()).abs().max())
+        assert err <= tol * scale, f"{name}: max|d|={err:.3g} > {tol} x {scale:.3g}"
 
 
 def _qkv(n, s, d, seed, device, dtype):

@@ -1199,12 +1199,12 @@ def test_k4_tensor_core_backward_matches_plain(case, ctas):
 def test_k4_gm_halves_and_plan():
     """gm as bf16 hi + lo halves is gm to 2^-16 of |gm| (the kernel rounds
     lo to bf16 too); the plan's bricks hold 128 voxels (the CUDA source's
-    tc::kVox) and its CTAs are a function of the shapes; the route takes bf16
-    at the widths the kernels compile."""
+    tc::kVox, csrc/causal_tc.cuh) and its CTAs are a function of the
+    shapes; the route takes bf16 at the widths the kernels compile."""
     gm = np.random.default_rng(3).standard_normal(4096) * 10.0 ** np.arange(-3, 5).repeat(512)
     hi = bf16(gm)
     assert np.all(np.abs(gm - hi - bf16(gm - hi)) <= 2.0 ** -16 * np.abs(gm))
-    src = (Path(conv3d.__file__).parent.parent / "csrc" / "causal_stack_bwd.cu").read_text()
+    src = (Path(conv3d.__file__).parent.parent / "csrc" / "causal_tc.cuh").read_text()
     assert f"kVox = {causal_kernel.BWD_TC_VOXELS};" in src
     assert causal_kernel.bwd_plan(1, 128, 128, 32) == ((2, 4, 16), causal_kernel.BWD_TC_CTAS)
     assert causal_kernel.bwd_plan(1, 3, 5, 6) == ((4, 4, 8), (2, 2))
@@ -1212,3 +1212,329 @@ def test_k4_gm_halves_and_plan():
     assert route(torch.bfloat16, 48, 12, 16) and route(torch.bfloat16, 64, 16, 32)
     assert not route(torch.float32, 48, 12, 16) and not route(torch.bfloat16, 48, 24, 16)
     assert not route(torch.bfloat16, 96, 12, 16) and not route(torch.bfloat16, 48, 12, 48)
+
+
+# ---- K3 backward's brick route (csrc/preact_stack_bwd.cu brick_bwd_mid,
+# brick_bwd_dgrad, brick_scalars) and K4's tensor-core forward
+# (csrc/causal_stack.cu tc_fwd_pre, tc_fwd_brick)
+
+
+def _own_voxels(k0, kdims, shape):
+    """brick_conv.cuh own_voxel for every row of a brick's halo: the brick's
+    own voxels inside the volume, -1 elsewhere (wrapped neighbours too)."""
+    b_, h, w, d = shape
+    (bb, h0, w0, d0), (bh, bw, bd) = k0, kdims
+    r = np.arange((bh + 2) * (bw + 2) * (bd + 2))
+    hh, ww, dd = r // ((bd + 2) * (bw + 2)) - 1, r // (bd + 2) % (bw + 2) - 1, r % (bd + 2) - 1
+    ok = ((hh >= 0) & (hh < bh) & (ww >= 0) & (ww < bw) & (dd >= 0) & (dd < bd)
+          & (h0 + hh < h) & (w0 + ww < w) & (d0 + dd < d))
+    return np.where(ok, ((bb * h + h0 + hh) * w + w0 + ww) * d + d0 + dd, -1)
+
+
+def _taps_offsets(kdims):
+    """The halo offset of each tap (kh, kw, kd), brick_conv.cuh conv_tile."""
+    hw_, hd_ = kdims[1] + 2, kdims[2] + 2
+    return [(kh * hw_ + kw) * hd_ + kd for kh in range(3) for kw in range(3) for kd in range(3)]
+
+
+def _brick_conv_lanes(halo_rows, base, offs, wt, cbp):
+    """conv_tile lane by lane: halo_rows (nh, CBP) in shared rows of CBP + 8,
+    each lane's ldmatrix address its own voxel's halo row, B fragments of wt
+    [27][CBP][CBP] ([N][K]); returns the brick's (nv, CBP) sums."""
+    as_, nt = cbp + 8, cbp // 8
+    halo = np.pad(halo_rows, ((0, 0), (0, 8))).ravel()
+    arow, acol = (LANE & 7) + 8 * (LANE >> 3 & 1), 8 * (LANE >> 4)
+    out = np.zeros((len(base), cbp))
+    for m0 in range(0, len(base), 16):
+        a0 = base[m0 + arow] * as_ + acol
+        acc = np.zeros((nt, 32, 4))
+        for tap, off in enumerate(offs):
+            for kk0 in range(0, cbp, 16):
+                fa = ldmatrix(halo, a0 + off * as_ + kk0, 4, False)
+                for n in range(nt):
+                    acc[n] = mma(acc[n], fa, wt[tap][n * 8 + b_map(16)[1], kk0 + b_map(16)[0]], 16)
+        for n in range(nt):
+            out[m0:m0 + 16, 8 * n:8 * n + 8] = _c_tile(acc[n])
+    return out
+
+
+@pytest.mark.parametrize("c,shape,pad_mode", [
+    (18, (1, 5, 6, 17), "wrap"),   # Cb 9 padded to 16, bricks overhanging H, W and D
+    (18, (2, 3, 2, 3), "zeros"),   # a volume smaller than a brick, B = 2
+    (72, (1, 3, 5, 6), "zeros"),   # Cb 36 padded to 48: three k-steps, six n-blocks
+    (72, (1, 2, 3, 3), "wrap"),    # extents below 3: a wrapped neighbour is the voxel itself
+])
+def test_k3_bwd_transposed_conv_tile_matches_autograd(c, shape, pad_mode):
+    """K3 backward's transposed conv (brick_bwd_dgrad): conv_tile over a
+    brick of gt3 with its one-voxel halo (wrapped for 'wrap', zero for
+    'zeros'), the taps mirrored and w2's channels swapped
+    (``pack_brick_bwd_weights``' w2m), transcribed lane by lane, against the
+    autograd of the plain block's conv (its input gradient ga2), float64,
+    within 1e-10 of max|ref| (only the order of the sums differs)."""
+    rng = np.random.default_rng(c + shape[-1])
+    b_, h, w, d = shape
+    cb = c // 2
+    gt3 = torch.from_numpy(bf16(rng.standard_normal((b_, cb, h, w, d))))
+    w2 = torch.from_numpy(bf16(rng.standard_normal((cb, cb, 3, 3, 3)) * (27 * cb) ** -0.5))
+    w1 = torch.zeros(cb, c, 1, 1, 1, dtype=torch.float64)
+    w3 = torch.zeros(c, cb, 1, 1, 1, dtype=torch.float64)
+    a2 = torch.zeros(b_, cb, h, w, d, dtype=torch.float64, requires_grad=True)
+    (want,) = torch.autograd.grad(conv3d.conv3d(a2, w2, padding=1, pad_mode=pad_mode), a2, gt3)
+    cbp = stack_kernel.fused_cbp("fused_tc", cb)
+    w2m = stack_kernel.pack_brick_bwd_weights(w1[None], w2[None], w3[None])["w2m"][0].double()
+    kdims = stack_kernel.fused_brick(h, w, d, stack_kernel.fused_voxels("fused_tc", cbp, b_ * h * w * d))
+    gl = gt3.permute(0, 2, 3, 4, 1).reshape(-1, cb).numpy()
+    got = np.full_like(gl, np.nan)
+    for k0 in _bricks(shape, kdims):
+        hv = _halo_voxels(k0, kdims, shape, pad_mode == "wrap")
+        vox, base = _brick_rows(k0, kdims, shape)
+        rows = np.where(hv[:, None] >= 0, np.pad(gl[np.maximum(hv, 0)], ((0, 0), (0, cbp - cb))), 0)
+        ga2 = _brick_conv_lanes(rows, base, _taps_offsets(kdims), w2m.numpy(), cbp)
+        got[vox[vox >= 0]] = ga2[vox >= 0, :cb]
+    want = want.permute(0, 2, 3, 4, 1).reshape(-1, cb).numpy()
+    assert not np.isnan(got).any(), "a voxel no brick wrote"
+    err, ref = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= 1e-10 * ref, f"max|d|={err:.3g} > 1e-10 x {ref:.3g}"
+
+
+def _shift(a, shape, tap, wrap):
+    """a (nvox, ch) at each voxel's forward-conv neighbour of tap, zero
+    outside the volume for 'zeros' (preact_stack_bwd.cu shifted, s = +1)."""
+    b_, h, w, d = shape
+    v = a.reshape(b_, h, w, d, -1)
+    out = np.zeros_like(v)
+    dh, dw, dd = tap // 9 - 1, tap // 3 % 3 - 1, tap % 3 - 1
+    for i in range(h):
+        for j in range(w):
+            for k in range(d):
+                ii, jj, kk = i + dh, j + dw, k + dd
+                if wrap:
+                    ii, jj, kk = ii % h, jj % w, kk % d
+                elif not (0 <= ii < h and 0 <= jj < w and 0 <= kk < d):
+                    continue
+                out[:, i, j, k] = v[:, ii, jj, kk]
+    return out.reshape(a.shape)
+
+
+def emulate_k3_bwd_bricks(x, gy, w1s, w2s, w3s, sc8, pad_mode, voxels=None):
+    """csrc/preact_stack_bwd.cu's brick route for one block, float64 and
+    unrounded: brick_bwd_mid over the forward's bricks (the halo's a2 with
+    a1, t2 and a2 written for own_voxel's rows, the conv, a3, gu3, ga3 =
+    W3^T gu3 on ``pack_brick_bwd_weights``' w3t, gt3, the W3 product for
+    d_scale), then brick_bwd_dgrad (gt3's halo, the mirrored taps' conv on
+    w2m, gt2, ga1 on w1n, dx), each brick's partial of the 8 scalar sums
+    summed in brick order (brick_scalars); the weight contractions as sums
+    over the scratch tensors the kernels wrote (contract_tc's operands).
+    Returns (dx, dw1, dw2, dw3, dsc) as ``preact_stack_bwd_plain`` does."""
+    b_, c, h, w, d = x.shape
+    shape, nvox = (b_, h, w, d), b_ * h * w * d
+    cb = w1s.shape[0]
+    cbp = stack_kernel.fused_cbp("fused_tc", cb)
+    pk = {k: v[0].double().numpy() for k, v in
+          stack_kernel.pack_brick_bwd_weights(w1s[None], w2s[None], w3s[None]).items()}
+    k1, n3 = pk["w1"].shape[1], pk["w3"].shape[0]
+    b1a, b1b, b2a, b2b, b3a, b3b, b4, scale = sc8.numpy()
+    xl = x.permute(0, 2, 3, 4, 1).reshape(nvox, c).numpy()
+    gl = gy.permute(0, 2, 3, 4, 1).reshape(nvox, c).numpy()
+    wrap = pad_mode == "wrap"
+    kdims = stack_kernel.fused_brick(
+        h, w, d, voxels or stack_kernel.fused_voxels("fused_tc", cbp, nvox))
+    offs = _taps_offsets(kdims)
+    grad = lambda t: np.where(t > 0, 1.0, np.exp(np.minimum(t, 0)))  # noqa: E731
+    sx = {k: np.full((nvox, n), np.nan) for k, n in
+          (("a1", c), ("a2", cb), ("t2", cb), ("a3", cb), ("gt3", cb), ("gu3", c), ("gt2", cb))}
+    dx = np.full((nvox, c), np.nan)
+    bricks = list(_bricks(shape, kdims))
+    sp = np.zeros((len(bricks), 8))
+    colb = np.arange(cbp) < cb
+    for i, k0 in enumerate(bricks):  # brick_bwd_mid
+        hv, own = _halo_voxels(k0, kdims, shape, wrap), _own_voxels(k0, kdims, shape)
+        vox, base = _brick_rows(k0, kdims, shape)
+        ok = vox >= 0
+        a1h = np.where(hv[:, None] >= 0, _elu(xl[np.maximum(hv, 0)] + b1a) + b1b, 0.0)
+        acc1 = np.pad(a1h, ((0, 0), (0, k1 - c))) @ pk["w1"].T
+        a2h = np.where((hv[:, None] >= 0) & colb, _elu(acc1 + b2a) + b2b, 0.0)
+        m = own >= 0
+        sx["a1"][own[m]], sx["a2"][own[m]], sx["t2"][own[m]] = \
+            a1h[m], a2h[m, :cb], (acc1 + b2a)[m, :cb]
+        t3 = sum(a2h[base + off] @ pk["w2"][tap].T for tap, off in enumerate(offs)) + b3a
+        a3 = np.where(colb, _elu(t3) + b3b, 0.0)
+        gs = np.where(ok[:, None], gl[np.maximum(vox, 0)], 0.0)
+        gu = gs * scale
+        ga = np.pad(gu, ((0, 0), (0, k1 - c))) @ pk["w3t"].T
+        okc = ok[:, None] & colb
+        gt3 = np.where(okc, ga * grad(t3), 0.0)
+        p3 = (a3 @ pk["w3"].T)[:, :c]
+        sx["a3"][vox[ok]], sx["gt3"][vox[ok]], sx["gu3"][vox[ok]] = a3[ok, :cb], gt3[ok, :cb], gu[ok]
+        sp[i, 4:] = [gt3.sum(), np.where(okc, ga, 0).sum(), gs.sum(), (gs * p3).sum()]
+    assert not any(np.isnan(v).any() for v in sx.values() if v is not sx["gt2"]), \
+        "a scratch voxel no brick wrote"
+    for i, k0 in enumerate(bricks):  # brick_bwd_dgrad
+        hv = _halo_voxels(k0, kdims, shape, wrap)
+        vox, base = _brick_rows(k0, kdims, shape)
+        ok = vox >= 0
+        okc = ok[:, None] & colb
+        halo = np.where(hv[:, None] >= 0, np.pad(sx["gt3"][np.maximum(hv, 0)],
+                                                  ((0, 0), (0, cbp - cb))), 0.0)
+        ga2 = sum(halo[base + off] @ pk["w2m"][tap].T for tap, off in enumerate(offs))
+        t2 = np.pad(sx["t2"][np.maximum(vox, 0)], ((0, 0), (0, cbp - cb)))
+        gt2 = np.where(okc, ga2 * grad(t2), 0.0)
+        ga1 = (gt2 @ pk["w1n"].T)[:, :c]
+        xr = xl[np.maximum(vox, 0)]
+        gt1 = ga1 * grad(xr + b1a)
+        sx["gt2"][vox[ok]] = gt2[ok, :cb]
+        dx[vox[ok]] = gl[vox[ok]] + gt1[ok]
+        sp[i, :4] = [gt1[ok].sum(), ga1[ok].sum(), gt2.sum(), np.where(okc, ga2, 0).sum()]
+    assert not np.isnan(dx).any() and not np.isnan(sx["gt2"]).any()
+    dsc = np.cumsum(sp, 0)[-1]  # brick order
+    dw1 = sx["gt2"].T @ sx["a1"]
+    dw2 = np.stack([sx["gt3"].T @ _shift(sx["a2"], shape, tap, wrap) for tap in range(27)])
+    dw3 = sx["gu3"].T @ sx["a3"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return (t(dx.reshape(b_, h, w, d, c)).permute(0, 4, 1, 2, 3), t(dw1).reshape(w1s.shape),
+            t(dw2.transpose(1, 2, 0)).reshape(w2s.shape), t(dw3).reshape(w3s.shape), t(dsc))
+
+
+@pytest.mark.parametrize("c,shape,pad_mode,voxels", [
+    (18, (1, 5, 6, 17), "zeros", None),   # Cb 9: bricks overhanging the volume on every axis
+    (18, (2, 3, 4, 5), "wrap", 256),      # B = 2, the 256-voxel brick (two m-tiles a warp)
+    (72, (1, 3, 5, 6), "wrap", None),     # Cb 36 padded to 48
+    (10, (1, 4, 4, 8), "zeros", None),    # Cb 5, the smallest width of the route
+])
+def test_k3_bwd_brick_chain_matches_plain(c, shape, pad_mode, voxels):
+    """K3 backward's two brick kernels and the contractions on what they
+    write, transcribed (``emulate_k3_bwd_bricks``), against the autograd of
+    the plain block (``preact_stack_bwd_plain``) on bf16-exact inputs: dx,
+    dW1, dW2, dW3 and the 8 scalar grads per tensor within 1e-5 of max|ref|
+    (float64 but for the plain side's dW of the 3x3x3 conv, which
+    ``dw_conv3d_plain`` sums in fp32); every scratch voxel written once."""
+    x, w1, w2, w3, sc8 = _fused_inputs(c, shape, 7 * c + shape[-1])
+    gy = torch.from_numpy(bf16(np.random.default_rng(c).standard_normal(tuple(x.shape))))
+    saves = x.permute(0, 2, 3, 4, 1)[None].contiguous()
+    want = stack_kernel.preact_stack_bwd_plain(saves, gy, w1[None], w2[None], w3[None],
+                                               sc8[None], pad_mode)
+    got = emulate_k3_bwd_bricks(x, gy, w1, w2, w3, sc8, pad_mode, voxels)
+    for name, a, r in zip(("dx", "dw1", "dw2", "dw3", "dsc"), got, want):
+        r = r[0] if name != "dx" else r
+        err, ref = float((a - r.double()).abs().max()), float(r.abs().max())
+        assert err <= 1e-5 * ref, f"{name}: max|d|={err:.3g} > 1e-5 x {ref:.3g}"
+
+
+def emulate_k4_fwd_tc(x, cond, keep, p, w):
+    """csrc/causal_stack.cu's tensor-core forward of one block, float64 and
+    unrounded: a2 by tc_fwd_pre (W1e^T, be, Cb padded to 16), then
+    tc_fwd_brick over ``bwd_plan``'s bricks: the a2 halo one s0-row behind
+    (zero outside the grid), the union conv lane by lane (each lane's
+    ldmatrix row its voxel's halo row at the tap's fwd_off, B fragments of
+    wuf), the keep mask / (1 - p), the condition's product on wct and bc,
+    t3, a3 and y = (a3 W3) * scale + b4 + x on w3t. Returns y."""
+    ck = causal_kernel
+    cu, cb = w.w1e.shape
+    b_, s0, s1, s2, _ = x.shape
+    nvox = b_ * s0 * s1 * s2
+    cc = 0 if cond is None else cond.shape[-1]
+    pk = {k: v[0].double().numpy() for k, v in
+          ck.pack_bwd_tc_weights(ck.UnionWeights(*(None if t is None else t[None]
+                                                  for t in w))).items()}
+    b1a, b1b, b2a, b2b, b3a, b3b, b4, scale = w.sc.double().numpy()
+    (n0, n1, n2), _ = ck.bwd_plan(b_, s0, s1, s2)
+    cup = pk["w3"].shape[-1]
+    xl = x.reshape(nvox, cu).double().numpy()
+    a1 = np.pad(_elu(xl + b1a) + b1b, ((0, 0), (0, cup - cu)))
+    a2 = np.zeros((nvox, 16))
+    a2[:, :cb] = (_elu(a1 @ pk["w1e"].T + np.pad(pk["be"], (0, 16 - cb)) + b2a) + b2b)[:, :cb]
+    h1, h2 = n1 + 2, n2 + 2
+    r = np.arange(n0 * n1 * n2)
+    hr = np.arange((n0 + 1) * h1 * h2)
+    base = ((r // (n1 * n2)) * h1 + r // n2 % n1) * h2 + r % n2
+    fwd_off = [((t // 9) * h1 + t // 3 % 3) * h2 + t % 3 for t in range(18)]
+    arow, acol = (LANE & 7) + 8 * (LANE >> 3 & 1), 8 * (LANE >> 4)
+    nbr = (-(-s0 // n0), -(-s1 // n1), -(-s2 // n2))
+    y = np.full((nvox, cu), np.nan)
+    for bi in range(b_ * int(np.prod(nbr))):
+        i = bi
+        i2, i = i % nbr[2] * n2, i // nbr[2]
+        i1, i = i % nbr[1] * n1, i // nbr[1]
+        bb, i0 = i // nbr[0], i % nbr[0] * n0
+        a, bq, cq = i0 + r // (n1 * n2), i1 + r // n2 % n1, i2 + r % n2
+        rows = np.where((a < s0) & (bq < s1) & (cq < s2), ((bb * s0 + a) * s1 + bq) * s2 + cq, -1)
+        a, bq, cq = i0 - 1 + hr // (h1 * h2), i1 - 1 + hr // h2 % h1, i2 - 1 + hr % h2
+        ok = (a >= 0) & (a < s0) & (bq >= 0) & (bq < s1) & (cq >= 0) & (cq < s2)
+        hv = np.where(ok, ((bb * s0 + a) * s1 + bq) * s2 + cq, -1)
+        halo = np.pad(np.where(hv[:, None] >= 0, a2[np.maximum(hv, 0)], 0.0),
+                      ((0, 0), (0, 8))).ravel()
+        cv = np.zeros((len(r), 16))
+        for m0 in range(0, len(r), 16):
+            a0 = base[m0 + arow] * 24 + acol
+            frag = np.zeros((2, 32, 4))
+            for tap, off in enumerate(fwd_off):
+                fa = ldmatrix(halo, a0 + off * 24, 4, False)
+                for n in range(2):
+                    frag[n] = mma(frag[n], fa, pk["wuf"][tap][n * 8 + b_map(16)[1], b_map(16)[0]],
+                                  16)
+            for n in range(2):
+                cv[m0:m0 + 16, 8 * n:8 * n + 8] = _c_tile(frag[n])
+        if keep is not None:
+            cv[:, :cb] = np.where(keep.double().numpy()[bb] > 0, cv[:, :cb] / (1 - p), 0.0)
+        if cond is not None:
+            cs = np.where(rows[:, None] >= 0,
+                          cond.reshape(nvox, cc).double().numpy()[np.maximum(rows, 0)], 0.0)
+            cv[:, :cb] += (np.pad(cs, ((0, 0), (0, pk["wct"].shape[-1] - cc))) @ pk["wct"].T)[:, :cb] \
+                + pk["bc"]
+        good = rows >= 0
+        a3 = np.where(good[:, None] & (np.arange(16) < cb), _elu(cv + b3a) + b3b, 0.0)
+        yv = (a3 @ pk["w3t"].T)[:, :cu] * scale + b4
+        y[rows[good]] = yv[good] + xl[rows[good]]
+    assert not np.isnan(y).any(), "a voxel no brick wrote"
+    return torch.from_numpy(y.reshape(x.shape))
+
+
+@pytest.mark.parametrize("case", [
+    (16, 4, 16, 1, (3, 5, 6), 0.5),   # the top prior's widths, a condition, a keep mask
+    (16, 4, 0, 2, (4, 3, 5), 0.5),    # unconditioned, B = 2, a keep mask
+    (6, 1, 6, 1, (2, 9, 17), 0.0),    # Cb = 3, Cu = 18, ragged bricks on every axis
+])
+def test_k4_tensor_core_forward_matches_plain(case):
+    """K4's tensor-core forward brick, transcribed (``emulate_k4_fwd_tc``),
+    against ``causal_block_plain`` on bf16-exact float64 inputs within 1e-5
+    of max|ref| (the plain block widens to fp32 for its dots and the conv;
+    the transcription sums in float64, in another order)."""
+    saves, _, cond, keep, p, w = _k4_case(*case[:5], case[5], 1, seed=sum(case[:4]) + 7)
+    w1 = causal_kernel.union_block(w, 0)
+    x = saves[0]
+    kp = None if keep is None else keep[0]
+    want = causal_kernel.causal_block_plain(x, cond, kp, p, w1)
+    got = emulate_k4_fwd_tc(x, cond, kp, p, w1)
+    err, ref = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= 1e-5 * ref, f"max|d|={err:.3g} > 1e-5 x {ref:.3g}"
+
+
+def test_k3_bwd_and_k4_fwd_routes_at_the_published_widths():
+    """The brick route of K3's backward is taken where the forward takes
+    'fused_tc' (bf16, 5 <= Cb <= 128): at every stack of the published full
+    config at both stems (bench.py:117-128) but the Cb <= 4 ones; fp32 never.
+    K4's tensor-core forward takes the top prior (Cu 48, Cb 12, Cc 16) in
+    bf16, not the 256- and 512-wide priors (they run the stock blocks), not
+    fp32; the two K4 routes agree everywhere."""
+    from vqvae3d_tpu_torch.models.vqvae import VQVAEConfig
+
+    full = dict(num_embeddings=(128, 256, 512), n_pre_quantization_blocks=50,
+                n_post_quantization_blocks=50, n_post_downscale_blocks=2,
+                n_post_upscale_blocks=3, pad_mode="wrap")
+    widths = set()
+    for stem in (dict(), dict(base_network_channels=8, stem_space_to_depth=2)):
+        widths |= {c for _, c, _, _ in VQVAEConfig(**full, **stem).same_stacks((512, 512, 128))}
+    assert widths == {2, 4, 8, 16, 18, 32, 64, 72, 128, 256}
+    for c in sorted(widths):
+        cb = max(c // 2, 1)
+        assert conv3d.stack_bwd_brick_route(torch.bfloat16, cb) == (cb >= 5), c
+        assert not conv3d.stack_bwd_brick_route(torch.float32, cb)
+        assert conv3d.stack_bwd_brick_route(torch.bfloat16, cb) == \
+            (conv3d.stack_fwd_route(torch.bfloat16, cb) == "fused_tc")
+    assert not conv3d.stack_bwd_brick_route(torch.bfloat16, 129)
+    fwd, bwd = conv3d.causal_fwd_tensor_core_route, conv3d.causal_bwd_tensor_core_route
+    for cu, cb, cc in ((48, 12, 16), (48, 12, 0), (768, 192, 768), (1536, 384, 0), (18, 3, 6)):
+        for dt in (torch.bfloat16, torch.float32):
+            assert fwd(dt, cu, cb, cc) == bwd(dt, cu, cb, cc)
+    assert fwd(torch.bfloat16, 48, 12, 16) and not fwd(torch.float32, 48, 12, 16)
+    assert not fwd(torch.bfloat16, 768, 192, 768)

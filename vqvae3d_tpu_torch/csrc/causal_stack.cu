@@ -26,7 +26,12 @@
 // the CUDA cores in fp32 and sends a2 and a3 through device memory (12.6 MB
 // each in bf16, resident in the 50 MB L2), so it sits well above that bound.
 //
-// Design (simple first; speed is later work): three kernels per block, each
+// Two routes, chosen by the wrapper from the dtype and the widths before any
+// launch (ops/conv3d.py causal_fwd_tensor_core_route): bf16 at Cb <= 16,
+// Cu <= 64, Cc <= 32 (the top prior's 12 / 48 / 16) takes the tensor-core
+// route at the end of this file; fp32 and other widths the first design.
+//
+// The first design: three kernels per block, each
 // thread owning one voxel and a group of COB output channels, fp32
 // accumulators in registers (the K3 pattern, csrc/preact_stack.cu):
 //   pre:  x -> a2          (a1 recomputed per channel group)
@@ -36,7 +41,7 @@
 // Weights are packed by the wrapper as [group][...][COB] so that a warp reads
 // each weight once, as a broadcast. The TPU kernel's depth-chunk windows,
 // DMA semaphores and VMEM residency have no counterpart here.
-#include "causal_union.cuh"
+#include "causal_tc.cuh"
 
 namespace {
 
@@ -188,4 +193,171 @@ extern "C" int vq_causal_block_fwd(int is_bf16, const void* x, const void* cond,
                       static_cast<const F*>(wc), static_cast<const F*>(bc), scf,
                       static_cast<F*>(a2), static_cast<F*>(a3), static_cast<F*>(y), batch, s0, s1,
                       s2, cu, cb, cc, cob_b, cob_u, s);
+}
+
+// ---- bf16: the tensor-core route (ops/conv3d.py causal_fwd_tensor_core_route)
+//
+// Two kernels a block, on the device code of the backward's tensor-core
+// route (causal_tc.cuh), so that the backward's recompute is this forward's
+// arithmetic:
+//   tc_fwd_pre:   x -> a2 (bf16, Cb padded to 16) by pre_tile, the body of the
+//                 backward's tc_pre
+//   tc_fwd_brick: a CTA a brick of 128 voxels (the backward's bricks): a2
+//                 with its causal halo (one s0-row behind, +-1 on s1 and s2)
+//                 and the condition staged in shared memory; the union conv,
+//                 dropout, condition and bc by union_t3 (the backward's conv
+//                 tile, fp32 until `+ b3a`), t3, a3 into shared memory, then
+//                 y = (a3 W3) * scale + b4 + x with W3 on the tensor cores; a3
+//                 never leaves the SM.
+namespace tc {
+
+template <int CUP>
+__global__ void __launch_bounds__(kThr)
+    tc_fwd_pre(const bf16* __restrict__ x, const bf16* __restrict__ w1e,
+               const bf16* __restrict__ be, const float* __restrict__ sc, bf16* __restrict__ a2,
+               int64_t nvox, int cu, int cb) {
+  __shared__ __align__(16) bf16 a1s[kVox * (CUP + 8)];
+  pre_tile<CUP>(a1s, x, w1e, be, sc, a2, nvox, cu, cb);
+}
+
+template <int CUP, int CCP>
+__global__ void __launch_bounds__(kThr)
+    tc_fwd_brick(const bf16* __restrict__ x, const bf16* __restrict__ a2,
+                 const bf16* __restrict__ cond, const float* __restrict__ keep, float denom,
+                 const bf16* __restrict__ wuf, const bf16* __restrict__ wct,
+                 const bf16* __restrict__ bc, const bf16* __restrict__ w3t,
+                 const float* __restrict__ sc, bf16* __restrict__ y, int s0, int s1, int s2,
+                 int cu, int cb, int cc, int n0, int n1, int n2) {
+  constexpr int CS = CCP + 8, NU = CUP / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nh = (n0 + 1) * (n1 + 2) * (n2 + 2);
+  bf16* halo = reinterpret_cast<bf16*>(smem);  // [nh][BS] a2
+  bf16* cs = halo + nh * BS;                    // [kVox][CS] cond
+  bf16* a3s = cs + kVox * CS;                   // [kVox][BS] a3
+  const Sc s(sc);
+  const bool has_cond = cond != nullptr;
+  const UBrick k = ubrick(blockIdx.x, s0, s1, s2, n0, n1, n2);
+  stage(halo, BS, a2, CBP, CBP, nh, [&](int r) { return halo_voxel(k, r, -1, s0, s1, s2); });
+  if (has_cond)
+    stage(cs, CS, cond, cc, CCP, kVox, [&](int r) { return row_voxel(k, r, s0, s1, s2); });
+  __syncthreads();
+
+  const int m0 = 16 * warp;
+  const int64_t vr[2] = {row_voxel(k, m0 + g, s0, s1, s2), row_voxel(k, m0 + g + 8, s0, s1, s2)};
+  float t3[2][4];
+  union_t3<CCP>(t3, halo, cs, k, m0, wuf, wct, bc, keep, denom, has_cond, cb, s.b3a, lane);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = m0 + g + 8 * half;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float a3v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = nt * 8 + 2 * t + e;
+        a3v[e] = vr[half] >= 0 && n < cb
+                     ? vq::rnd<bf16>(vq::rnd<bf16>(vq::elu(t3[nt][2 * half + e])) + s.b3b)
+                     : 0.f;
+      }
+      *reinterpret_cast<uint32_t*>(a3s + r * BS + nt * 8 + 2 * t) = vq::pack_bf16(a3v[0], a3v[1]);
+    }
+  }
+  __syncwarp();
+  // y = (a3 W3) * scale + b4 + x
+  float p[NU][4] = {};
+  uint32_t a[4];
+  lda(a, a3s, BS, m0, 0, lane);
+  vqb::mma_row<NU>(p, a, w3t, CBP, 0, lane);
+  const bool pair = cu % 2 == 0;  // x and y by bf16 pairs
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (vr[half] < 0) continue;
+#pragma unroll
+    for (int nt = 0; nt < NU; ++nt) {
+      const int c0 = nt * 8 + 2 * t;
+      if (c0 >= cu) continue;
+      const int64_t o = vr[half] * cu + c0;
+      float out[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (c0 + e >= cu) continue;
+        out[e] = vq::rnd<bf16>(vq::rnd<bf16>(vq::rnd<bf16>(p[nt][2 * half + e]) * s.scale) +
+                               s.b4) +
+                 vq::to_f<bf16>(x[o + e]);
+      }
+      if (pair) {
+        *reinterpret_cast<uint32_t*>(y + o) = vq::pack_bf16(out[0], out[1]);
+      } else {
+        y[o] = vq::from_f<bf16>(out[0]);
+        if (c0 + 1 < cu) y[o + 1] = vq::from_f<bf16>(out[1]);
+      }
+    }
+  }
+}
+
+template <int CUP, int CCP>
+cudaError_t block_fwd_tc(const bf16* x, const bf16* cond, const float* keep, float denom,
+                         const bf16* w1e, const bf16* be, const bf16* wuf, const bf16* w3t,
+                         const bf16* wct, const bf16* bc, const float* sc, bf16* a2, bf16* y,
+                         int64_t batch, int s0, int s1, int s2, int cu, int cb, int cc, int n0,
+                         int n1, int n2, cudaStream_t s) {
+  const int64_t nvox = batch * s0 * s1 * static_cast<int64_t>(s2);
+  const int64_t nbricks = batch * ((s0 + n0 - 1) / n0) * static_cast<int64_t>((s1 + n1 - 1) / n1) *
+                          ((s2 + n2 - 1) / n2);
+  if (nbricks > 0x7fffffff) return cudaErrorInvalidValue;
+  tc_fwd_pre<CUP><<<static_cast<unsigned>((nvox + kVox - 1) / kVox), kThr, 0, s>>>(
+      x, w1e, be, sc, a2, nvox, cu, cb);
+  const int nh = (n0 + 1) * (n1 + 2) * (n2 + 2);
+  const int smem = 2 * (nh * BS + kVox * (CCP + 8) + kVox * BS);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(tc_fwd_brick<CUP, CCP>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  tc_fwd_brick<CUP, CCP><<<static_cast<unsigned>(nbricks), kThr, smem, s>>>(
+      x, a2, cond, keep, denom, wuf, wct, bc, w3t, sc, y, s0, s1, s2, cu, cb, cc, n0, n1, n2);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// One block on the tensor-core route (bf16; Cb <= 16, Cu <= 64, Cc <= 32;
+// ops/conv3d.py causal_fwd_tensor_core_route). x, y (B, s0, s1, s2, Cu),
+// cond (B, s0, s1, s2, Cc) or null, bf16 contiguous; keep (B, Cb) fp32 or
+// null, denom = 1 - p; the backward's bf16 packs (ops/causal_kernel.py
+// pack_bwd_tc_weights), zero-padded to CUP = Cu, CCP = Cc and Cb rounded up
+// to 16: w1e [16][CUP], wuf [18][16][16], w3t [CUP][16], wct [16][CCP]; be,
+// bc (Cb); sc the 8 fp32 scalars; a2 scratch of nvox x 16 bf16; (n0, n1, n2)
+// the brick, 128 voxels. y must not alias x.
+extern "C" int vq_causal_block_fwd_tc(const void* x, const void* cond, const void* keep,
+                                      float denom, const void* w1e, const void* be,
+                                      const void* wuf, const void* w3t, const void* wct,
+                                      const void* bc, const void* sc, void* a2, void* y,
+                                      int64_t batch, int s0, int s1, int s2, int cu, int cb,
+                                      int cc, int n0, int n1, int n2, void* stream) {
+  using tc::bf16;
+  const int cup = (cu + 15) / 16 * 16, ccp = cc > 0 ? (cc + 15) / 16 * 16 : 16;
+  if (batch <= 0 || s0 <= 0 || s1 <= 0 || s2 <= 0 || cu <= 0 || cb <= 0 || cb > tc::CBP ||
+      cup > 64 || ccp > 32 || n0 * n1 * n2 != tc::kVox || (cond == nullptr) != (cc == 0) ||
+      (cond != nullptr && (wct == nullptr || bc == nullptr)))
+    return cudaErrorInvalidValue;
+#define VQ_FWD_TC(CUP, CCP)                                                                      \
+  tc::block_fwd_tc<CUP, CCP>(                                                                    \
+      static_cast<const bf16*>(x), static_cast<const bf16*>(cond),                               \
+      static_cast<const float*>(keep), denom, static_cast<const bf16*>(w1e),                     \
+      static_cast<const bf16*>(be), static_cast<const bf16*>(wuf), static_cast<const bf16*>(w3t), \
+      static_cast<const bf16*>(wct), static_cast<const bf16*>(bc), static_cast<const float*>(sc), \
+      static_cast<bf16*>(a2), static_cast<bf16*>(y), batch, s0, s1, s2, cu, cb, cc, n0, n1, n2,  \
+      static_cast<cudaStream_t>(stream))
+#define VQ_FWD_TC_C(CUP) (ccp == 16 ? VQ_FWD_TC(CUP, 16) : VQ_FWD_TC(CUP, 32))
+  switch (cup) {
+    case 16: return VQ_FWD_TC_C(16);
+    case 32: return VQ_FWD_TC_C(32);
+    case 48: return VQ_FWD_TC_C(48);
+    case 64: return VQ_FWD_TC_C(64);
+    default: return cudaErrorInvalidValue;
+  }
+#undef VQ_FWD_TC_C
+#undef VQ_FWD_TC
 }

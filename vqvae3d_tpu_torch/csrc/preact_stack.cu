@@ -221,32 +221,10 @@ cudaError_t block_fwd(const T* x, const T* w1, const T* w2, const T* w3,
 constexpr int kFusedThreads = 256;
 constexpr int kTcVox = 128;  // a fused_tc brick: 8 warps x 16 voxels (or twice that)
 constexpr int kCcVox = 256;  // a fused_cc brick: one voxel a thread (or four)
-constexpr int kStage = 24;   // row stride (bf16) of a warp's 16 x 16 staging tile
 
 using bf16 = __nv_bfloat16;
-
-struct Scalars {
-  float b1a, b1b, b2a, b2b, b3a, b3b, b4, scale;
-  __device__ explicit Scalars(const float* sc)
-      : b1a(vq::rnd<bf16>(sc[0])), b1b(vq::rnd<bf16>(sc[1])), b2a(vq::rnd<bf16>(sc[2])),
-        b2b(vq::rnd<bf16>(sc[3])), b3a(vq::rnd<bf16>(sc[4])), b3b(vq::rnd<bf16>(sc[5])),
-        b4(vq::rnd<bf16>(sc[6])), scale(vq::rnd<bf16>(sc[7])) {}
-  // a1 of an x value, a2 of the 1x1x1 conv's fp32 sum, a3 of the 3x3x3 conv's
-  __device__ __forceinline__ float a1(float xv) const {
-    return vq::rnd<bf16>(vq::rnd<bf16>(vq::elu(vq::rnd<bf16>(xv + b1a))) + b1b);
-  }
-  __device__ __forceinline__ float a2(float acc) const {
-    return vq::rnd<bf16>(vq::rnd<bf16>(vq::elu(vq::rnd<bf16>(vq::rnd<bf16>(acc) + b2a))) + b2b);
-  }
-  __device__ __forceinline__ float a3(float acc) const {
-    return vq::rnd<bf16>(vq::rnd<bf16>(vq::elu(vq::rnd<bf16>(vq::rnd<bf16>(acc) + b3a))) + b3b);
-  }
-  // y of the W3 product's fp32 sum and x
-  __device__ __forceinline__ bf16 y(float acc, bf16 xv) const {
-    return vq::from_f<bf16>(vq::rnd<bf16>(vq::rnd<bf16>(vq::rnd<bf16>(acc) * scale) + b4) +
-                            vq::to_f<bf16>(xv));
-  }
-};
+using vqb::kStage;
+using vqb::Scalars;
 
 template <int CBP>
 __global__ void __launch_bounds__(kFusedThreads, CBP <= 32 ? 4 : 1)
@@ -262,51 +240,13 @@ __global__ void __launch_bounds__(kFusedThreads, CBP <= 32 ? 4 : 1)
   bf16* a3s = halo + nh * AS;                   // [brick voxels][AS]: a3 of the brick
   bf16* stg = a3s + bh * bw * bd * AS + warp * 16 * kStage;
   const Scalars s(sc);
-  const bool vec = c % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   // the ldmatrix.x4 address of an A fragment: row (lane & 7) + 8 ((lane >> 3) & 1),
   // column 8 (lane >> 4)
   const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
 
   // 1. a2 of the halo rows, 16 a warp at a time
-  for (int mt = warp; mt * 16 < nh; mt += kFusedThreads / 32) {
-    float acc[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    const int sr = mt * 16 + (lane >> 1);  // the lane's staging row and channel half
-    const int64_t sv = sr < nh ? vqb::halo_voxel(k, sr, h, w, d, wrap) : -1;
-    for (int k0 = 0; k0 < k1; k0 += 16) {
-      const int c0 = k0 + 8 * (lane & 1);
-      const uint4 raw = vqb::load8(x, sv, c, c0, vec);
-      const bf16* xv = reinterpret_cast<const bf16*>(&raw);
-      uint32_t pk[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float lo = sv >= 0 && c0 + 2 * j < c ? s.a1(vq::to_f<bf16>(xv[2 * j])) : 0.f;
-        const float hi = sv >= 0 && c0 + 2 * j + 1 < c ? s.a1(vq::to_f<bf16>(xv[2 * j + 1])) : 0.f;
-        pk[j] = vq::pack_bf16(lo, hi);
-      }
-      *reinterpret_cast<uint4*>(stg + (lane >> 1) * kStage + 8 * (lane & 1)) =
-          make_uint4(pk[0], pk[1], pk[2], pk[3]);
-      __syncwarp();
-      uint32_t a[4];
-      vq::ldsm_x4(a, vq::smem_u32(stg + arow * kStage + acol));
-      vqb::mma_row<NT>(acc, a, w1, k1, k0, lane);
-      __syncwarp();
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = mt * 16 + g + 8 * half;
-      if (r >= nh) continue;
-      const bool inside = vqb::halo_voxel(k, r, h, w, d, wrap) >= 0;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = nt * 8 + 2 * t;
-        const float lo = inside && n < cb ? s.a2(acc[nt][2 * half]) : 0.f;
-        const float hi = inside && n + 1 < cb ? s.a2(acc[nt][2 * half + 1]) : 0.f;
-        *reinterpret_cast<uint32_t*>(halo + r * AS + n) = vq::pack_bf16(lo, hi);
-      }
-    }
-  }
+  vqb::halo_pre<NT>(halo, AS, stg, k, x, w1, s, h, w, d, c, cb, k1, wrap, warp,
+                    kFusedThreads / 32, lane);
   __syncthreads();
 
   // 2.-3. per m-tile of the warp's (brick rows 16 mt .. 16 mt + 15): the

@@ -35,9 +35,14 @@
 // ones by the CUDA cores' fp32 FMA rate, the coarse grids (down to 128
 // voxels) by latency.
 //
-// Design (simple first; speed is later work). Per block, five elementwise
-// kernels, each thread one voxel and a group of COB output channels (as the
-// forward), write the per-voxel intermediates to scratch:
+// Two routes for the elementwise half, chosen by the wrapper from the dtype
+// and Cb before any launch (ops/conv3d.py::stack_bwd_brick_route): bf16 at
+// 5 <= Cb <= 128, the widths of the forward's fused_tc, takes the two brick
+// kernels on the tensor cores near the end of this file (brick_bwd_mid,
+// brick_bwd_dgrad); fp32 and the other bf16 widths the first design. Per
+// block, five elementwise kernels, each thread one voxel and a group of COB
+// output channels (as the forward), write the per-voxel intermediates to
+// scratch:
 //   pre:   x -> a1, a2, t2                    (Cb-wide groups)
 //   mid:   a2, g -> a3, gt3 (conv recompute)  (Cb-wide groups)
 //   post:  a3, g -> gu3                       (C-wide groups)
@@ -78,8 +83,7 @@
 //    sums in another order.
 #include <type_traits>
 
-#include "common.cuh"
-#include "mma.cuh"
+#include "brick_conv.cuh"
 
 namespace {
 
@@ -438,34 +442,8 @@ struct CtShape {
   static constexpr int SMEM = (BROWS * BS + GROWS * AS) * 2;
 };
 
-// Channels c .. c + 7 of voxel v of a channels-last (nvox, cc) bf16 tensor as
-// one 16-byte shared row; channels past cc and v < 0 read as 0. vec: cc is a
-// multiple of 8 and the tensor 16-byte aligned, so the row is one load.
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* src, int64_t v, int cc, int c,
-                                       bool vec) {
-  if (v < 0 || c >= cc) return make_uint4(0u, 0u, 0u, 0u);
-  const __nv_bfloat16* p = src + v * cc + c;
-  if (vec) return *reinterpret_cast<const uint4*>(p);
-  uint32_t r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t lo = c + 2 * i < cc ? __bfloat16_as_ushort(p[2 * i]) : 0u;
-    const uint32_t hi = c + 2 * i + 1 < cc ? __bfloat16_as_ushort(p[2 * i + 1]) : 0u;
-    r[i] = lo | (hi << 16);
-  }
-  return make_uint4(r[0], r[1], r[2], r[3]);
-}
-
-// Coordinate c of an axis of extent n as a brick's halo sees it: c inside,
-// c - n or c + n one step outside for 'wrap' (shifted's arithmetic), else -1
-// (zero). Only voxels outside the volume, whose gt3 rows are zero, read
-// further out.
-__device__ __forceinline__ int halo_axis(int c, int n, int wrap) {
-  if (c >= 0 && c < n) return c;
-  if (wrap && c == -1) return n - 1;
-  if (wrap && c == n) return 0;
-  return -1;
-}
+using vqb::halo_axis;
+using vqb::load8;
 
 // Pass 1 of out[t][p][q] = sum_v A[v][p] * B[v_t][q] on the tensor cores:
 // CTA (chunk, tile) sums bricks chunk, chunk + gridDim.x, ... for the
@@ -739,6 +717,425 @@ cudaError_t block_bwd(const T* x, const T* gy, const T* w1, const T* w2, const T
   return cudaGetLastError();
 }
 
+// ---- bf16 at 5 <= Cb <= 128: two brick kernels a block on the tensor cores
+//
+// The five elementwise kernels become two, each a CTA of 8 warps on a brick
+// of output voxels with its one-voxel halo (the forward's bricks,
+// ops/stack_kernel.py fused_brick / fused_voxels), every product on mma.sync
+// m16n8k16 (bf16 in, fp32 accumulate) with brick_conv.cuh's device code:
+//   brick_bwd_mid:   x (halo) -> a1, t2, a2 by the forward's halo_pre, t3 and
+//                    a3 by its conv_tile and epilogue (the forward's values,
+//                    bit for bit); gu3 = g * scale staged 16 rows a warp,
+//                    ga3 = W3^T gu3, gt3 = ga3 * elu'(t3); the forward's W3
+//                    product of a3 for d_scale
+//   brick_bwd_dgrad: gt3 (halo) -> ga2 by conv_tile with the taps mirrored
+//                    and w2's in/out channels swapped (halo row v + (1 - tap)
+//                    is the neighbour v - (tap - 1) that the transposed conv
+//                    reads; 'wrap' wraps it, 'zeros' reads it as zero),
+//                    gt2 = ga2 * elu'(t2), ga1 = W1^T gt2, dx = g + ga1 *
+//                    elu'(t1)
+// They write only what later passes read: the contractions' operands (a1, a2,
+// a3, gt3, gu3, gt2; contract_tc reads them as on the five kernels' route),
+// t2 (for the second kernel) and dx. Each CTA sums its voxels' shares of the
+// 8 scalar grads (lanes, then the warp by xor shuffles, then the warps in
+// order) into its brick's partial sp[brick][8]; brick_scalars sums the
+// partials in brick order. No per-voxel scalar buffer, no atomics: the same
+// inputs give bit-identical gradients. Rounding is the five kernels' (the
+// plain autograd's); only the order of the fp32 sums differs.
+constexpr int kBrickThreads = 256, kBrickWarps = kBrickThreads / 32;
+
+using vqb::bf16;
+
+// the sum of v over a warp's 32 lanes, in a fixed order
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// sp[brick][o .. o + 3] = the CTA's four sums: lanes -> warp -> warps in order
+__device__ __forceinline__ void brick_partial(float (&ssum)[4], float* red, float* sp, int o) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ssum[j] = warp_sum(ssum[j]);
+  if (lane == 0)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[warp * 4 + j] = ssum[j];
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    float v = 0.f;
+    for (int wi = 0; wi < kBrickWarps; ++wi) v += red[wi * 4 + threadIdx.x];
+    sp[static_cast<int64_t>(blockIdx.x) * 8 + o + threadIdx.x] = v;
+  }
+}
+
+// Weights [N][K] (k contiguous, zero-padded; ops/stack_kernel.py
+// pack_brick_bwd_weights): w1 [CBP][K1], w2 [27][CBP][CBP] and w3 [N3][CBP]
+// as the fused forward's, w3t [CBP][K1] (W3^T). Writes a1, t2, a2, a3, gt3,
+// gu3 of the brick's voxels and sp[brick][4 .. 7] = (b3a, b3b, b4, scale).
+template <int CBP>
+__global__ void __launch_bounds__(kBrickThreads, CBP <= 32 ? 2 : 1)
+    brick_bwd_mid(const bf16* __restrict__ x, const bf16* __restrict__ gy,
+                  const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+                  const bf16* __restrict__ w3, const bf16* __restrict__ w3t,
+                  const float* __restrict__ sc, bf16* __restrict__ a1g, bf16* __restrict__ t2g,
+                  bf16* __restrict__ a2g, bf16* __restrict__ a3g, bf16* __restrict__ gt3g,
+                  bf16* __restrict__ gu3g, float* __restrict__ sp, int h, int w, int d, int c,
+                  int cb, int k1, int wrap, int bh, int bw, int bd) {
+  constexpr int NT = CBP / 8, AS = CBP + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const vqb::Brick k = vqb::brick_of(blockIdx.x, h, w, d, bh, bw, bd);
+  const int nh = k.rows(), nv = bh * bw * bd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16* halo = reinterpret_cast<bf16*>(smem);  // [nh][AS]: a2 of the halo
+  bf16* a3s = halo + nh * AS;                   // [nv][AS]: a3 of the brick
+  bf16* stg = a3s + nv * AS + warp * 16 * vqb::kStage;
+  float* red = reinterpret_cast<float*>(a3s + nv * AS + kBrickWarps * 16 * vqb::kStage);
+  const vqb::Scalars s(sc);
+  const bool cvec = c % 8 == 0 && (reinterpret_cast<uintptr_t>(a1g) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(gu3g) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(gy) & 15) == 0;
+  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
+
+  // a1, t2 and a2 of the brick's own voxels beside the forward's halo pass
+  vqb::halo_pre<NT>(
+      halo, AS, stg, k, x, w1, s, h, w, d, c, cb, k1, wrap, warp, kBrickWarps, lane,
+      [&](int r, int c0, const uint32_t(&pk)[4]) {
+        const int64_t v = vqb::own_voxel(k, r, h, w, d);
+        if (v >= 0) vqb::store8(a1g, v, c, c0, pk, cvec);
+      },
+      [&](int r, int n, float lo, float hi, uint32_t a2pair) {
+        const int64_t v = vqb::own_voxel(k, r, h, w, d);
+        if (v < 0) return;
+        vqb::store2(a2g, v, cb, n, a2pair);
+        vqb::store2(t2g, v, cb, n, vq::pack_bf16(s.t2(lo), s.t2(hi)));
+      });
+  __syncthreads();
+
+  float ssum[4] = {0.f, 0.f, 0.f, 0.f};  // b3a, b3b, b4, scale
+  const int ntc = (c + 7) / 8;
+  for (int mt = warp; mt * 16 < nv; mt += kBrickWarps) {
+    const int m0 = mt * 16;
+    const int64_t v[2] = {vqb::brick_voxel(k, m0 + g, h, w, d),
+                          vqb::brick_voxel(k, m0 + g + 8, h, w, d)};
+    // the forward's conv and a3; t3 (a bf16 value) kept packed
+    uint32_t t3p[NT][2];
+    {
+      float acc[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      vqb::conv_tile<NT, CBP>(acc, halo, AS, k, m0, w2, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + g + 8 * half;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int n = nt * 8 + 2 * t;
+          const float tlo = s.t3(acc[nt][2 * half]), thi = s.t3(acc[nt][2 * half + 1]);
+          const uint32_t a3 = vq::pack_bf16(n < cb ? s.a3_of_t3(tlo) : 0.f,
+                                            n + 1 < cb ? s.a3_of_t3(thi) : 0.f);
+          *reinterpret_cast<uint32_t*>(a3s + r * AS + n) = a3;
+          if (v[half] >= 0) vqb::store2(a3g, v[half], cb, n, a3);
+          t3p[nt][half] = vq::pack_bf16(tlo, thi);
+        }
+      }
+    }
+    __syncwarp();
+    // gu3 = g * scale, staged 16 rows a warp, and ga3 = W3^T gu3
+    float ga[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) ga[nt][0] = ga[nt][1] = ga[nt][2] = ga[nt][3] = 0.f;
+    {
+      const int64_t sv = vqb::brick_voxel(k, m0 + (lane >> 1), h, w, d);
+      for (int k0 = 0; k0 < k1; k0 += 16) {
+        const int c0 = k0 + 8 * (lane & 1);
+        const uint4 raw = load8(gy, sv, c, c0, cvec);
+        const bf16* gv = reinterpret_cast<const bf16*>(&raw);
+        uint32_t pk[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float e2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool ok = sv >= 0 && c0 + 2 * j + e < c;
+            const float gval = vq::to_f<bf16>(gv[2 * j + e]);
+            if (ok) ssum[2] += gval;
+            e2[e] = ok ? gval * s.scale : 0.f;
+          }
+          pk[j] = vq::pack_bf16(e2[0], e2[1]);
+        }
+        if (sv >= 0) vqb::store8(gu3g, sv, c, c0, pk, cvec);
+        *reinterpret_cast<uint4*>(stg + (lane >> 1) * vqb::kStage + 8 * (lane & 1)) =
+            make_uint4(pk[0], pk[1], pk[2], pk[3]);
+        __syncwarp();
+        uint32_t a[4];
+        vq::ldsm_x4(a, vq::smem_u32(stg + arow * vqb::kStage + acol));
+        vqb::mma_row<NT>(ga, a, w3t, k1, k0, lane);
+        __syncwarp();
+      }
+    }
+    // gt3 = ga3 * elu'(t3)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = nt * 8 + 2 * t;
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = v[half] >= 0 && n + e < cb;
+          const float gak = vq::rnd<bf16>(ga[nt][2 * half + e]);
+          o[e] = ok ? vq::rnd<bf16>(gak * elu_grad(vqb::unpack(t3p[nt][half], e))) : 0.f;
+          if (ok) {
+            ssum[0] += o[e];
+            ssum[1] += gak;
+          }
+        }
+        if (v[half] >= 0) vqb::store2(gt3g, v[half], cb, n, vq::pack_bf16(o[0], o[1]));
+      }
+    }
+    // d_scale = sum g (a3 W3): the forward's W3 product, 64 channels at a time
+    for (int n0 = 0; n0 < ntc; n0 += 8) {
+      float acc2[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc2[j][0] = acc2[j][1] = acc2[j][2] = acc2[j][3] = 0.f;
+#pragma unroll
+      for (int k0 = 0; k0 < CBP; k0 += 16) {
+        uint32_t a[4];
+        vq::ldsm_x4(a, vq::smem_u32(a3s + (m0 + arow) * AS + k0 + acol));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (n0 + j >= ntc) break;
+          const bf16* p = w3 + static_cast<int64_t>((n0 + j) * 8 + g) * CBP + k0 + 2 * t;
+          vq::mma_16816(acc2[j], a, vqb::ldg32(p), vqb::ldg32(p + 8));
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (v[half] < 0) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (n0 + j >= ntc) break;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cc = (n0 + j) * 8 + 2 * t + e;
+            if (cc < c)
+              ssum[3] += vq::to_f<bf16>(gy[v[half] * c + cc]) * vq::rnd<bf16>(acc2[j][2 * half + e]);
+          }
+        }
+      }
+    }
+  }
+  brick_partial(ssum, red, sp, 4);
+}
+
+// Weights [N][K]: w2m [27][CBP][CBP] (tap', in, out) = w2[26 - tap'] with its
+// channels swapped, w1n [N3][CBP] (W1^T). Writes gt2 and dx of the brick's
+// voxels and sp[brick][0 .. 3] = (b1a, b1b, b2a, b2b).
+template <int CBP>
+__global__ void __launch_bounds__(kBrickThreads, CBP <= 32 ? 2 : 1)
+    brick_bwd_dgrad(const bf16* __restrict__ x, const bf16* __restrict__ gy,
+                    const bf16* __restrict__ gt3g, const bf16* __restrict__ t2g,
+                    const bf16* __restrict__ w2m, const bf16* __restrict__ w1n,
+                    const float* __restrict__ sc, bf16* __restrict__ gt2g, bf16* __restrict__ dx,
+                    float* __restrict__ sp, int h, int w, int d, int c, int cb, int wrap, int bh,
+                    int bw, int bd) {
+  constexpr int NT = CBP / 8, AS = CBP + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const vqb::Brick k = vqb::brick_of(blockIdx.x, h, w, d, bh, bw, bd);
+  const int nh = k.rows(), nv = bh * bw * bd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16* halo = reinterpret_cast<bf16*>(smem);  // [nh][AS]: gt3 of the halo
+  bf16* gt2s = halo + nh * AS;                  // [nv][AS]: gt2 of the brick
+  float* red = reinterpret_cast<float*>(gt2s + nv * AS);
+  const vqb::Scalars s(sc);
+  const bool vec = cb % 8 == 0 && (reinterpret_cast<uintptr_t>(gt3g) & 15) == 0;
+  for (int e = threadIdx.x; e < nh * (CBP / 8); e += kBrickThreads) {
+    const int r = e / (CBP / 8), c0 = 8 * (e % (CBP / 8));
+    *reinterpret_cast<uint4*>(halo + r * AS + c0) =
+        load8(gt3g, vqb::halo_voxel(k, r, h, w, d, wrap), cb, c0, vec);
+  }
+  __syncthreads();
+
+  float ssum[4] = {0.f, 0.f, 0.f, 0.f};  // b1a, b1b, b2a, b2b
+  const int ntc = (c + 7) / 8;
+  const bool pair = c % 2 == 0;  // x, g and dx by bf16 pairs
+  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
+  for (int mt = warp; mt * 16 < nv; mt += kBrickWarps) {
+    const int m0 = mt * 16;
+    const int64_t v[2] = {vqb::brick_voxel(k, m0 + g, h, w, d),
+                          vqb::brick_voxel(k, m0 + g + 8, h, w, d)};
+    {  // ga2 = the transposed conv of gt3, gt2 = ga2 * elu'(t2)
+      float acc[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      vqb::conv_tile<NT, CBP>(acc, halo, AS, k, m0, w2m, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + g + 8 * half;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int n = nt * 8 + 2 * t;
+          float o[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool ok = v[half] >= 0 && n + e < cb;
+            const float gai = vq::rnd<bf16>(acc[nt][2 * half + e]);
+            o[e] = ok ? vq::rnd<bf16>(gai * elu_grad(vq::to_f<bf16>(t2g[v[half] * cb + n + e])))
+                      : 0.f;
+            if (ok) {
+              ssum[3] += gai;
+              ssum[2] += o[e];
+            }
+          }
+          const uint32_t gt2 = vq::pack_bf16(o[0], o[1]);
+          *reinterpret_cast<uint32_t*>(gt2s + r * AS + n) = gt2;
+          if (v[half] >= 0) vqb::store2(gt2g, v[half], cb, n, gt2);
+        }
+      }
+    }
+    __syncwarp();
+    // ga1 = W1^T gt2, gt1 = ga1 * elu'(t1), dx = g + gt1, 64 channels at a time
+    for (int n0 = 0; n0 < ntc; n0 += 8) {
+      float acc2[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc2[j][0] = acc2[j][1] = acc2[j][2] = acc2[j][3] = 0.f;
+#pragma unroll
+      for (int k0 = 0; k0 < CBP; k0 += 16) {
+        uint32_t a[4];
+        vq::ldsm_x4(a, vq::smem_u32(gt2s + (m0 + arow) * AS + k0 + acol));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (n0 + j >= ntc) break;
+          const bf16* p = w1n + static_cast<int64_t>((n0 + j) * 8 + g) * CBP + k0 + 2 * t;
+          vq::mma_16816(acc2[j], a, vqb::ldg32(p), vqb::ldg32(p + 8));
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (v[half] < 0) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (n0 + j >= ntc) break;
+          const int cc = (n0 + j) * 8 + 2 * t;
+          if (cc >= c) continue;
+          const int64_t o = v[half] * c + cc;
+          float out[2] = {0.f, 0.f};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (cc + e >= c) continue;
+            const float gai = vq::rnd<bf16>(acc2[j][2 * half + e]);
+            const float t1 = vq::rnd<bf16>(vq::to_f<bf16>(x[o + e]) + s.b1a);
+            const float gti = vq::rnd<bf16>(gai * elu_grad(t1));
+            out[e] = vq::to_f<bf16>(gy[o + e]) + gti;
+            ssum[1] += gai;
+            ssum[0] += gti;
+          }
+          if (pair) {
+            *reinterpret_cast<uint32_t*>(dx + o) = vq::pack_bf16(out[0], out[1]);
+          } else {
+            dx[o] = vq::from_f<bf16>(out[0]);
+            if (cc + 1 < c) dx[o + 1] = vq::from_f<bf16>(out[1]);
+          }
+        }
+      }
+    }
+  }
+  brick_partial(ssum, red, sp, 0);
+}
+
+// dsc[j] = sum over bricks, in brick order per lane and then by a fixed xor
+// tree over the lanes, of sp[brick][j]: one warp a scalar.
+__global__ void brick_scalars(const float* __restrict__ sp, int64_t nbricks,
+                              float* __restrict__ dsc) {
+  const int j = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float v = 0.f;
+  for (int64_t b = lane; b < nbricks; b += 32) v += sp[b * 8 + j];
+  v = warp_sum(v);
+  if (lane == 0) dsc[j] = v;
+}
+
+template <typename K>
+cudaError_t launch_brick(K kernel, int64_t bricks, int smem, cudaStream_t s, void** args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const cudaError_t e = cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
+                                         dim3(static_cast<unsigned>(bricks)), dim3(kBrickThreads),
+                                         args, static_cast<size_t>(smem), s);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int CBP>
+cudaError_t brick_kernels(const bf16* x, const bf16* gy, const bf16* w1, const bf16* w2,
+                          const bf16* w3, const bf16* w3t, const bf16* w2m, const bf16* w1n,
+                          const float* sc, bf16* const (&sx)[7], float* sp, bf16* dx,
+                          int64_t bricks, int h, int w, int d, int c, int cb, int wrap, int bh,
+                          int bw, int bd, cudaStream_t s) {
+  constexpr int AS = CBP + 8;
+  const int nh = (bh + 2) * (bw + 2) * (bd + 2), nv = bh * bw * bd;
+  int k1 = (c + 15) / 16 * 16;
+  bf16 *a1 = sx[0], *a2 = sx[1], *t2 = sx[2], *a3 = sx[3], *gt3 = sx[4], *gu3 = sx[5],
+       *gt2 = sx[6];
+  void* mid_args[] = {&x,   &gy,  &w1,  &w2, &w3, &w3t,  &sc, &a1, &t2, &a2, &a3, &gt3, &gu3,
+                      &sp,  &h,   &w,   &d,  &c,  &cb,   &k1, &wrap, &bh, &bw, &bd};
+  const int smem_m = ((nh + nv) * AS + kBrickWarps * 16 * vqb::kStage) * 2 + kBrickWarps * 4 * 4;
+  cudaError_t e = launch_brick(brick_bwd_mid<CBP>, bricks, smem_m, s, mid_args);
+  if (e != cudaSuccess) return e;
+  void* dgrad_args[] = {&x, &gy, &gt3, &t2, &w2m, &w1n, &sc, &gt2, &dx, &sp,
+                        &h, &w,  &d,   &c,  &cb,  &wrap, &bh, &bw, &bd};
+  const int smem_d = (nh + nv) * AS * 2 + kBrickWarps * 4 * 4;
+  return launch_brick(brick_bwd_dgrad<CBP>, bricks, smem_d, s, dgrad_args);
+}
+
+cudaError_t block_bwd_brick(const bf16* x, const bf16* gy, const bf16* w1, const bf16* w2,
+                            const bf16* w3, const bf16* w3t, const bf16* w2m, const bf16* w1n,
+                            const float* sc, bf16* work, float* sp, float* part, int64_t part_len,
+                            const int (&chunks)[3], bf16* dx, float* dw1, float* dw2, float* dw3,
+                            float* dsc, int64_t batch, int h, int w, int d, int c, int cb,
+                            int cbp, int wrap, int bh, int bw, int bd, cudaStream_t s) {
+  if (batch <= 0 || h <= 0 || w <= 0 || d <= 0 || c <= 0 || cb <= 0 || cbp < cb || bh <= 0 ||
+      bw <= 0 || bd <= 0 || (bh * bw * bd != 128 && bh * bw * bd != 256))
+    return cudaErrorInvalidValue;
+  const int64_t nvox = batch * h * w * static_cast<int64_t>(d);
+  const int64_t bricks = batch * ((h + bh - 1) / bh) * static_cast<int64_t>((w + bw - 1) / bw) *
+                         ((d + bd - 1) / bd);
+  if (bricks > 0x7fffffff) return cudaErrorInvalidValue;
+  bf16* const sx[7] = {work, work + nvox * c, work + nvox * (c + cb), work + nvox * (c + 2 * cb),
+                       work + nvox * (c + 3 * cb), work + nvox * (c + 4 * cb),
+                       work + nvox * (2 * c + 4 * cb)};  // a1, a2, t2, a3, gt3, gu3, gt2
+  cudaError_t err;
+#define VQ_BRICK(CBP)                                                                            \
+  brick_kernels<CBP>(x, gy, w1, w2, w3, w3t, w2m, w1n, sc, sx, sp, dx, bricks, h, w, d, c, cb, \
+                     wrap, bh, bw, bd, s)
+  switch (cbp) {
+    case 16: err = VQ_BRICK(16); break;
+    case 32: err = VQ_BRICK(32); break;
+    case 48: err = VQ_BRICK(48); break;
+    case 64: err = VQ_BRICK(64); break;
+    case 80: err = VQ_BRICK(80); break;
+    case 96: err = VQ_BRICK(96); break;
+    case 112: err = VQ_BRICK(112); break;
+    case 128: err = VQ_BRICK(128); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef VQ_BRICK
+  if (err != cudaSuccess) return err;
+  err = contract_tc_pq<1>(sx[6], cb, sx[0], c, dw1, part, part_len, chunks[0], batch, h, w, d,
+                          wrap, s);
+  if (err != cudaSuccess) return err;
+  err = contract_tc_pq<27>(sx[4], cb, sx[1], cb, dw2, part, part_len, chunks[1], batch, h, w, d,
+                           wrap, s);
+  if (err != cudaSuccess) return err;
+  err = contract_tc_pq<1>(sx[5], c, sx[3], cb, dw3, part, part_len, chunks[2], batch, h, w, d,
+                          wrap, s);
+  if (err != cudaSuccess) return err;
+  brick_scalars<<<1, 256, 0, s>>>(sp, bricks, dsc);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // One block's backward. x (the block's saved input), gy (the cotangent of its
@@ -789,4 +1186,35 @@ extern "C" int vq_preact_block_bwd(int is_bf16, int tensor_cores, const void* x,
                       static_cast<const F*>(w2t), static_cast<const F*>(w3t), scf,
                       static_cast<F*>(work), svf, pf, part_len, nullptr, static_cast<F*>(dx), d1,
                       d2, d3, ds, batch, h, w, d, c, cb, cob_b, cob_c, wrap, s);
+}
+
+// One block's backward on the bf16 brick route (5 <= Cb <= 128; ops/conv3d.py
+// stack_bwd_brick_route). x, gy, dx (B, H, W, D, C) bf16 contiguous; the
+// weights bf16 [N][K] with Cb padded to cbp (16 .. 128 in steps of 16) and C
+// to K1 (16) or N3 (8) (ops/stack_kernel.py pack_brick_bwd_weights): w1
+// [cbp][K1], w2 [27][cbp][cbp], w3 [N3][cbp], w3t [cbp][K1], w2m
+// [27][cbp][cbp], w1n [N3][cbp]; sc the block's 8 fp32 scalars; work
+// nvox * (2C + 5Cb) bf16 (a1, a2, t2, a3, gt3, gu3, gt2, as on the other
+// route); sp 8 floats a brick; part part_len floats for the contractions
+// (chunks_w1, chunks_w2, chunks_w3: ops/stack_kernel.py contract_plan);
+// (bh, bw, bd) the brick, 128 or 256 voxels. Outputs as vq_preact_block_bwd's.
+extern "C" int vq_preact_block_bwd_brick(const void* x, const void* gy, const void* w1,
+                                         const void* w2, const void* w3, const void* w3t,
+                                         const void* w2m, const void* w1n, const void* sc,
+                                         void* work, void* sp, void* part, int64_t part_len,
+                                         int chunks_w1, int chunks_w2, int chunks_w3, void* dx,
+                                         void* dw1, void* dw2, void* dw3, void* dsc,
+                                         int64_t batch, int h, int w, int d, int c, int cb,
+                                         int cbp, int wrap, int bh, int bw, int bd,
+                                         void* stream) {
+  using vqb::bf16;
+  const int chunks[3] = {chunks_w1, chunks_w2, chunks_w3};
+  return block_bwd_brick(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(gy), static_cast<const bf16*>(w1),
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(w3), static_cast<const bf16*>(w3t),
+      static_cast<const bf16*>(w2m), static_cast<const bf16*>(w1n), static_cast<const float*>(sc),
+      static_cast<bf16*>(work), static_cast<float*>(sp), static_cast<float*>(part), part_len,
+      chunks, static_cast<bf16*>(dx), static_cast<float*>(dw1), static_cast<float*>(dw2),
+      static_cast<float*>(dw3), static_cast<float*>(dsc), batch, h, w, d, c, cb, cbp, wrap, bh, bw,
+      bd, static_cast<cudaStream_t>(stream));
 }

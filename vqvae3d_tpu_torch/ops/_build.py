@@ -55,12 +55,20 @@ SIGNATURES = {
         _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i64, _i, _i, _i, _p, _p, _p,
         _p, _p, _i64, _i, _i, _i, _i, _i, _i, _i, _i, _p,
     ],
+    # K3 backward, bf16 brick route: x, gy, w1, w2, w3, w3t, w2m, w1n, sc, work, sp,
+    #     part, part_len, chunks_w1, chunks_w2, chunks_w3, dx, dw1, dw2, dw3, dsc,
+    #     batch, h, w, d, c, cb, cbp, wrap, bh, bw, bd, stream
+    "vq_preact_block_bwd_brick": [_p] * 12 + [_i64, _i, _i, _i] + [_p] * 5 + [_i64]
+    + [_i] * 10 + [_p],
     # K7: is_bf16, tensor_cores, x, g, dw, part, nchunks, batch, cin, cout, hp,
     #     wp, dp, kh, kw, kd, brick_h, brick_w, brick_d, stream
     "vq_dw_conv3d": [_i, _i, _p, _p, _p, _p, _i, _i64] + [_i] * 11 + [_p],
     # K4: is_bf16, x, cond, keep, denom, w1, be, wu, w3, wc, bc, sc, a2, a3, y,
     #     batch, s0, s1, s2, cu, cb, cc, cob_b, cob_u, stream
     "vq_causal_block_fwd": [_i, _p, _p, _p, _f] + [_p] * 10 + [_i64] + [_i] * 8 + [_p],
+    # K4, bf16 tensor cores: x, cond, keep, denom, w1e, be, wuf, w3t, wct, bc, sc,
+    #     a2, y, batch, s0, s1, s2, cu, cb, cc, n0, n1, n2, stream
+    "vq_causal_block_fwd_tc": [_p] * 3 + [_f] + [_p] * 9 + [_i64] + [_i] * 9 + [_p],
     # K4 backward: is_bf16, x, gy, cond, keep, denom, w1, be, wu, w3, wc, bc, sc,
     #     w1t, wut, w3t, wct, work, gm, sv, part, part_len, dx, gcond, dw1, dbe,
     #     dwu, dw3, dwc, dbc, dsc, batch, s0, s1, s2, cu, cb, cc, cob_b, cob_u,

@@ -27,8 +27,10 @@ in plain PyTorch.
 ``causal_stack_fused`` has two paths:
 
   * no input needs a gradient: a forward that saves nothing — on a CUDA
-    tensor one K4 launch per block (``csrc/causal_stack.cu``), on a CPU
-    tensor ``causal_stack_plain``;
+    tensor one K4 launch per block (``csrc/causal_stack.cu``: in bf16 at the
+    widths of ``conv3d.causal_fwd_tensor_core_route`` the tensor-core route,
+    whose a2 and union-conv tile are the backward's), on a CPU tensor
+    ``causal_stack_plain``;
   * otherwise ``_CausalStack``, the JAX custom VJP: its forward keeps every
     block's input; its backward sweeps the blocks in reverse, recomputing
     each block from its saved input — on a CUDA tensor one K4-backward launch
@@ -52,7 +54,8 @@ import torch
 import torch.nn.functional as F
 
 from vqvae3d_tpu_torch.ops import _build
-from vqvae3d_tpu_torch.ops.conv3d import causal_bwd_tensor_core_route
+from vqvae3d_tpu_torch.ops.conv3d import (causal_bwd_tensor_core_route,
+                                          causal_fwd_tensor_core_route)
 from vqvae3d_tpu_torch.ops.stack_kernel import _cob, _group_pack, fused_brick
 
 UTAPS = (2, 3, 3)  # union conv taps on (s0, s1, s2), kernel_size 3
@@ -300,17 +303,26 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _forward_cuda(x, cond, keep, p, weights: UnionWeights, saves=None):
-    """K4 forward over the segment on x (B, s0, s1, s2, Cu). Without
-    ``saves`` the activations ping-pong between two buffers; with ``saves``
-    (NB, B, s0, s1, s2, Cu) block j reads saves[j] and writes saves[j + 1]
-    (the last block a fresh buffer)."""
+    """K4 forward over the segment on x (B, s0, s1, s2, Cu), on
+    ``conv3d.causal_fwd_tensor_core_route``'s route (bf16 at the widths it
+    takes: ``vq_causal_block_fwd_tc``; else the three CUDA-core kernels).
+    Without ``saves`` the activations ping-pong between two buffers; with
+    ``saves`` (NB, B, s0, s1, s2, Cu) block j reads saves[j] and writes
+    saves[j + 1] (the last block a fresh buffer)."""
     _check(x, cond, keep, weights)
     nb, cu, cb = weights.w1e.shape
     b, s0, s1, s2, _ = x.shape
     cc = 0 if cond is None else cond.shape[-1]
-    pk = pack_kernel_weights(weights, x.dtype)
-    a2 = torch.empty((b, s0, s1, s2, cb), dtype=x.dtype, device=x.device)
-    a3 = torch.empty_like(a2)
+    tensor_cores = causal_fwd_tensor_core_route(x.dtype, cu, cb, cc)
+    if tensor_cores:
+        pk = pack_bwd_tc_weights(weights)
+        sc = weights.sc.float().contiguous()
+        brick = bwd_plan(b, s0, s1, s2)[0]
+        a2 = torch.empty((b * s0 * s1 * s2, 16), dtype=x.dtype, device=x.device)
+    else:
+        pk = pack_kernel_weights(weights, x.dtype)
+        a2 = torch.empty((b, s0, s1, s2, cb), dtype=x.dtype, device=x.device)
+        a3 = torch.empty_like(a2)
     cond = None if cond is None else cond.contiguous()
     keep = None if keep is None else keep.float().contiguous()
     if saves is None:
@@ -323,19 +335,24 @@ def _forward_cuda(x, cond, keep, p, weights: UnionWeights, saves=None):
         outs = [saves[j + 1] for j in range(nb - 1)] + [torch.empty_like(cur)]
     lib = _build.library()
     stream = _build.stream_ptr(x.device)
+    cj = (lambda k, j: None) if cond is None else (lambda k, j: pk[k][j].data_ptr())
     for j in range(nb):
-        _build.check(
-            lib.vq_causal_block_fwd(
-                int(x.dtype == torch.bfloat16), cur.data_ptr(), _ptr(cond),
-                None if keep is None else keep[j].data_ptr(), 1.0 - p,
+        kp = None if keep is None else keep[j].data_ptr()
+        if tensor_cores:
+            err = lib.vq_causal_block_fwd_tc(
+                cur.data_ptr(), _ptr(cond), kp, 1.0 - p,
+                *(pk[k][j].data_ptr() for k in ("w1e", "be", "wuf", "w3t")),
+                cj("wct", j), cj("bc", j), sc[j].data_ptr(), a2.data_ptr(), outs[j].data_ptr(),
+                b, s0, s1, s2, cu, cb, cc, *brick, stream)
+        else:
+            err = lib.vq_causal_block_fwd(
+                int(x.dtype == torch.bfloat16), cur.data_ptr(), _ptr(cond), kp, 1.0 - p,
                 pk.w1[j].data_ptr(), pk.be[j].data_ptr(), pk.wu[j].data_ptr(),
                 pk.w3[j].data_ptr(), None if cond is None else pk.wc[j].data_ptr(),
                 None if cond is None else pk.bc[j].data_ptr(), pk.sc[j].data_ptr(),
                 a2.data_ptr(), a3.data_ptr(), outs[j].data_ptr(),
-                b, s0, s1, s2, cu, cb, cc, _cob(cb), _cob(cu), stream,
-            ),
-            "causal_stack_fused",
-        )
+                b, s0, s1, s2, cu, cb, cc, _cob(cb), _cob(cu), stream)
+        _build.check(err, "causal_stack_fused")
         causal_stack_fused.launches += 1
         cur = outs[j]
     return cur
@@ -365,7 +382,7 @@ def causal_stack_bwd_plain(saves, gy, cond, keep, p, weights: UnionWeights):
     return (g, gcond, *stacked)
 
 
-BWD_TC_VOXELS = 128  # a brick of the tensor-core backward (csrc/causal_stack_bwd.cu tc::kVox)
+BWD_TC_VOXELS = 128  # a brick of the tensor-core forward and backward (csrc/causal_tc.cuh tc::kVox)
 # the persistent CTAs of tc_mid and tc_dgrad at most: one wave on an H100's
 # 132 SMs at the CTAs an SM holds (their launch bounds: 2 and 3)
 BWD_TC_CTAS = (264, 396)

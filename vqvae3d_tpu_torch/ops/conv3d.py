@@ -105,6 +105,15 @@ def stack_bwd_tensor_core_route(dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16
 
 
+def causal_fwd_tensor_core_route(dtype: torch.dtype, cu: int, cb: int, cc: int) -> bool:
+    """K4 forward's route, the one place it is chosen: ``tc_fwd_pre`` and
+    one brick kernel on the tensor cores (``csrc/causal_stack.cu``) at the
+    widths of the backward's tensor-core route, whose device code they
+    share; else the three CUDA-core kernels (fp32: tensor cores would round
+    fp32 to TF32)."""
+    return causal_bwd_tensor_core_route(dtype, cu, cb, cc)
+
+
 def causal_bwd_tensor_core_route(dtype: torch.dtype, cu: int, cb: int, cc: int) -> bool:
     """K4 backward's route, the one place it is chosen: the tensor-core
     kernels for bf16 at the widths they compile (Cb <= 16, the union's Cu <=
@@ -132,6 +141,16 @@ def stack_fwd_route(dtype: torch.dtype, cb: int) -> str:
     if dtype == torch.bfloat16 and cb < STACK_FWD_TC_MIN_CB:
         return "fused_cc"
     return "three_kernels"
+
+
+def stack_bwd_brick_route(dtype: torch.dtype, cb: int) -> bool:
+    """K3 backward's route for its elementwise half, the one place it is
+    chosen: two brick kernels a block on the tensor cores
+    (``csrc/preact_stack_bwd.cu`` brick_bwd_mid, brick_bwd_dgrad) where the
+    forward takes 'fused_tc', whose halo pass and conv tile they share (bf16,
+    ``STACK_FWD_TC_MIN_CB`` <= Cb <= ``STACK_FWD_TC_MAX_CB``); else the five
+    elementwise kernels (fp32, Cb <= 4 and wider Cb)."""
+    return stack_fwd_route(dtype, cb) == "fused_tc"
 
 
 def dw_chunks(batch: int, out_spatial, ksize, dtype: torch.dtype) -> int:

@@ -19,10 +19,12 @@ the weights stacked per block in the reference layout:
     (NB channels-last volumes); its backward (``preact_stack_bwd``) sweeps
     the blocks in reverse, recomputing each block from its saved input — on
     a CUDA tensor one K3-backward launch per block
-    (``csrc/preact_stack_bwd.cu``), on a CPU tensor the autograd of the
-    plain block (``preact_stack_bwd_plain``) — and returns the gradients of
-    the stacked weights, through which autograd reaches each block's
-    parameters.
+    (``csrc/preact_stack_bwd.cu``: in bf16 at the forward's tensor-core
+    widths two brick kernels that share the forward's halo pass and conv
+    tile, ``_bwd_bricks``; else five elementwise kernels), on a CPU tensor
+    the autograd of the plain block (``preact_stack_bwd_plain``) — and
+    returns the gradients of the stacked weights, through which autograd
+    reaches each block's parameters.
 
 Launches are counted on ``preact_stack_fused.launches`` (forward blocks) and
 ``preact_stack_bwd.launches`` (backward blocks). The kernels work on
@@ -40,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from vqvae3d_tpu_torch.ops import _build
-from vqvae3d_tpu_torch.ops.conv3d import conv3d, stack_bwd_tensor_core_route, stack_fwd_route
+from vqvae3d_tpu_torch.ops.conv3d import (conv3d, stack_bwd_brick_route,
+                                          stack_bwd_tensor_core_route, stack_fwd_route)
 
 
 def preact_fixup_same(x, w1, w2, w3, sc8, *, pad_mode: str):
@@ -157,6 +160,28 @@ def pack_fused_weights(w1s, w2s, w3s, route: str):
     return w1.contiguous(), w2.contiguous(), w3.contiguous()
 
 
+def pack_brick_bwd_weights(w1s, w2s, w3s):
+    """The backward brick kernels' bf16 packs, each [N][K] (k contiguous,
+    zero-padded; Cb to CBP as ``fused_cbp``, C to K1 = 16 or N3 = 8 as
+    ``pack_fused_weights``): the forward's w1 (NB, CBP, K1), w2 (NB, 27, CBP,
+    CBP), w3 (NB, N3, CBP); w3t (NB, CBP, K1) (W3^T: ga3 = W3^T gu3); w2m
+    (NB, 27, CBP, CBP), the transposed conv's taps, tap' = 26 - tap (the
+    mirrored offset) with in and out swapped; w1n (NB, N3, CBP) (W1^T:
+    ga1 = W1^T gt2)."""
+    nb, cb, c = w1s.shape[:3]
+    cbp = fused_cbp("fused_tc", cb)
+    k1, n3 = -(-c // 16) * 16, -(-c // 8) * 8
+    dt = torch.bfloat16
+    w1, w2, w3 = pack_fused_weights(w1s, w2s, w3s, "fused_tc")
+    w3t = F.pad(w3s.reshape(nb, c, cb).transpose(1, 2).to(dt), (0, k1 - c, 0, cbp - cb))
+    # (NB, out, in, 27) -> taps mirrored -> (NB, tap', in, out)
+    w2m = F.pad(w2s.reshape(nb, cb, cb, 27).flip(-1).permute(0, 3, 2, 1).to(dt),
+                (0, cbp - cb, 0, cbp - cb))
+    w1n = F.pad(w1s.reshape(nb, cb, c).transpose(1, 2).to(dt), (0, cbp - cb, 0, n3 - c))
+    return dict(w1=w1, w2=w2, w3=w3, w3t=w3t.contiguous(), w2m=w2m.contiguous(),
+                w1n=w1n.contiguous())
+
+
 def _check(x, w1s, w2s, w3s, sc8, pad_mode):
     if x.device.type != "cuda":
         raise NotImplementedError(f"preact_stack: no kernel for device {x.device}")
@@ -269,13 +294,17 @@ def preact_stack_bwd(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
     last block first (each adds one to ``preact_stack_bwd.launches``).
     saves (NB, B, H, W, D, C) are the blocks' inputs, gy the cotangent of the
     stack output. Returns (dx, dw1s, dw2s, dw3s, dsc8), the weight gradients
-    as fp32 sums in the reference layouts. The weight contractions take the
-    tensor cores in bf16 and the CUDA cores in fp32
+    as fp32 sums in the reference layouts. The elementwise half takes the
+    brick kernels (``_bwd_bricks``) where ``conv3d.stack_bwd_brick_route``
+    says so, else the five elementwise kernels; the weight contractions take
+    the tensor cores in bf16 and the CUDA cores in fp32
     (``conv3d.stack_bwd_tensor_core_route``)."""
     _check(gy, w1s, w2s, w3s, sc8, pad_mode)
     nb, cb, c = w1s.shape[:3]
     b, _, h, w, d = gy.shape
     dt = saves.dtype
+    if stack_bwd_brick_route(dt, cb):
+        return _bwd_bricks(saves, gy, w1s, w2s, w3s, sc8, pad_mode)
     nvox = b * h * w * d
     w1p, w2p, w3p = pack_stack_weights(w1s, w2s, w3s, dt)
     w1t, w2t, w3t = pack_stack_weights_t(w1s, w2s, w3s, dt)
@@ -311,6 +340,50 @@ def preact_stack_bwd(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
         preact_stack_bwd.launches += 1
         g = dx
     # (NB, 27, Cb_out, Cb_in) with tap = (kh*3 + kw)*3 + kd -> (NB, Cb_out, Cb_in, 3, 3, 3)
+    dw2 = dw2.permute(0, 2, 3, 1).reshape(nb, cb, cb, 3, 3, 3)
+    return (g.permute(0, 4, 1, 2, 3), dw1.reshape(w1s.shape), dw2, dw3.reshape(w3s.shape), dsc)
+
+
+def _bwd_bricks(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
+    """``preact_stack_bwd`` on the brick route (bf16): one
+    ``vq_preact_block_bwd_brick`` a block, last block first, on the forward's
+    bricks (``fused_brick`` at ``fused_voxels``); the contractions on the
+    tensor cores as on the other bf16 route."""
+    nb, cb, c = w1s.shape[:3]
+    b, _, h, w, d = gy.shape
+    nvox = b * h * w * d
+    cbp = fused_cbp("fused_tc", cb)
+    brick = fused_brick(h, w, d, fused_voxels("fused_tc", cbp, nvox))
+    bricks = b * math.prod(-(-n // t) for n, t in zip((h, w, d), brick))
+    pk = pack_brick_bwd_weights(w1s, w2s, w3s)
+    sc = sc8.float().contiguous()
+    dev = gy.device
+    work = torch.empty(nvox * (2 * c + 5 * cb), dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    sp = torch.empty(bricks * 8, **f32)
+    chunks, need = contract_plan(b, h, w, d, c, cb)
+    part = torch.empty(need, **f32)
+    dw1, dw2 = torch.empty(nb, cb, c, **f32), torch.empty(nb, 27, cb, cb, **f32)
+    dw3, dsc = torch.empty(nb, c, cb, **f32), torch.empty(nb, 8, **f32)
+    g = gy.to(torch.bfloat16).permute(0, 2, 3, 4, 1).contiguous()
+    bufs = [torch.empty_like(g), torch.empty_like(g)]
+    lib = _build.library()
+    stream = _build.stream_ptr(dev)
+    for i, j in enumerate(reversed(range(nb))):
+        dx = bufs[i % 2]
+        _build.check(
+            lib.vq_preact_block_bwd_brick(
+                saves[j].data_ptr(), g.data_ptr(),
+                *(pk[k][j].data_ptr() for k in ("w1", "w2", "w3", "w3t", "w2m", "w1n")),
+                sc[j].data_ptr(), work.data_ptr(), sp.data_ptr(), part.data_ptr(), need, *chunks,
+                dx.data_ptr(), dw1[j].data_ptr(), dw2[j].data_ptr(), dw3[j].data_ptr(),
+                dsc[j].data_ptr(), b, h, w, d, c, cb, cbp, int(pad_mode == "wrap"), *brick,
+                stream,
+            ),
+            "preact_stack_bwd",
+        )
+        preact_stack_bwd.launches += 1
+        g = dx
     dw2 = dw2.permute(0, 2, 3, 1).reshape(nb, cb, cb, 3, 3, 3)
     return (g.permute(0, 4, 1, 2, 3), dw1.reshape(w1s.shape), dw2, dw3.reshape(w3s.shape), dsc)
 
