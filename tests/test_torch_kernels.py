@@ -1894,18 +1894,29 @@ def test_k5_kernel_matches_plain_on_card(cuda_device, s, d, dtype):
         keep = fd.keep_mask(seed, 6, torch.arange(s, device=cuda_device), s, 0.5)
         tril = torch.ones(s, s, dtype=torch.bool, device=cuda_device).tril()
         assert torch.equal(mask.bool()[:, tril], keep[:, tril]) and mask[:, ~tril].eq(1).all()
+        if dtype == torch.bfloat16:  # the tensor-core backward's packed tiles
+            with torch.no_grad():
+                o, lse = fd.flash_dropout_attention_fwd(q, k, v, seed, scale, 0.5)
+                bits = fd.flash_dropout_attention_bwd(q, k, v, o, lse, g, seed, scale, 0.5,
+                                                      keep_bits=True)[3]
+            assert bits.shape == (6, fd.packed_tiles(s), fd.TILE_WORDS)
+            assert torch.equal(fd.unpack_tile_bits(bits, s)[:, tril], keep[:, tril])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("p", [0.5, 0.9])
 def test_k5_collected_mask_is_the_plain_mask_on_card(cuda_device, p):
+    """Each route's collected mask (fp32: CUDA cores, bf16: tensor cores)
+    equals the plain Philox mask at every logit, at three seeds."""
     fd = flash_dropout_attention
-    q, k, v = _qkv(5, 333, 8, 1, cuda_device, torch.float32)
-    for seed in (_k5_seed(cuda_device), _k5_seed(cuda_device, 0, 0), _k5_seed(cuda_device, 7, 1)):
-        _, mask = fd.flash_causal_dropout_attention(q, k, v, 0.3, p, seed, collect_mask=True)
-        keep = fd.keep_mask(seed, 5, torch.arange(333, device=cuda_device), 333, p)
-        want = keep | torch.ones(333, 333, dtype=torch.bool, device=cuda_device).triu(1)
-        assert torch.equal(mask.bool(), want)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(5, 333, 8, 1, cuda_device, dtype)
+        for seed in (_k5_seed(cuda_device), _k5_seed(cuda_device, 0, 0),
+                     _k5_seed(cuda_device, 7, 1)):
+            _, mask = fd.flash_causal_dropout_attention(q, k, v, 0.3, p, seed, collect_mask=True)
+            keep = fd.keep_mask(seed, 5, torch.arange(333, device=cuda_device), 333, p)
+            want = keep | torch.ones(333, 333, dtype=torch.bool, device=cuda_device).triu(1)
+            assert torch.equal(mask.bool(), want), dtype
 
 
 @pytest.mark.gpu
@@ -1935,39 +1946,48 @@ def test_k5_at_p0_equals_k8_on_card(cuda_device):
 def test_k5_is_causal_on_card(cuda_device):
     """The gradient of query row i is exactly zero on every key and value row
     after i, and a key or value after i never moves o[i] (the mask is a
-    function of the seed alone)."""
+    function of the seed alone); on both routes."""
     fd = flash_dropout_attention
-    q, k, v = _qkv(2, 150, 8, 3, cuda_device, torch.float32)
     seed = _k5_seed(cuda_device)
-    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
-    o = fd.flash_causal_dropout_attention(qq, kk, vv, 8 ** -0.5, 0.5, seed)
-    for i in (0, 63, 64, 149):
-        dq, dk, dv = torch.autograd.grad(o[:, i].sum(), (qq, kk, vv), retain_graph=True)
-        assert not dk[:, i + 1:].any() and not dv[:, i + 1:].any(), f"row {i} sees its future"
-        # its own key may be dropped (-1e3 beside kept logits: P = 0), so
-        # only its past as a whole is sure to be seen
-        assert dq[:, i + 1:].eq(0).all() and dv[:, :i + 1].abs().sum() > 0
-    k2, v2 = k.clone(), v.clone()
-    k2[:, 100:] += 1.0
-    v2[:, 100:] -= 1.0
-    with torch.no_grad():
-        base = fd.flash_causal_dropout_attention(q, k, v, 8 ** -0.5, 0.5, seed)
-        moved = fd.flash_causal_dropout_attention(q, k2, v2, 8 ** -0.5, 0.5, seed)
-    assert torch.equal(base[:, :100], moved[:, :100])
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(2, 150, 8, 3, cuda_device, dtype)
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fd.flash_causal_dropout_attention(qq, kk, vv, 8 ** -0.5, 0.5, seed)
+        for i in (0, 63, 64, 149):
+            dq, dk, dv = torch.autograd.grad(o[:, i].sum(), (qq, kk, vv), retain_graph=True)
+            assert not dk[:, i + 1:].any() and not dv[:, i + 1:].any(), f"row {i} sees its future"
+            # its own key may be dropped (-1e3 beside kept logits: P = 0), so
+            # only its past as a whole is sure to be seen
+            assert dq[:, i + 1:].eq(0).all() and dv[:, :i + 1].float().abs().sum() > 0
+        k2, v2 = k.clone(), v.clone()
+        k2[:, 100:] += 1.0
+        v2[:, 100:] -= 1.0
+        with torch.no_grad():
+            base = fd.flash_causal_dropout_attention(q, k, v, 8 ** -0.5, 0.5, seed)
+            moved = fd.flash_causal_dropout_attention(q, k2, v2, 8 ** -0.5, 0.5, seed)
+        assert torch.equal(base[:, :100], moved[:, :100]), dtype
 
 
 @pytest.mark.gpu
 def test_k5_all_dropped_rows_on_card(cuda_device):
     """p = 0.999: nearly every row has all its keys dropped and averages its
-    past values (the -1e3 logits tie); the kernel equals the plain version."""
+    past values (the -1e3 logits tie); the kernel equals the plain version.
+    fp32 within 1e-5; bf16 (the tensor cores: P = 1 exactly, o rounded
+    once) within 2^-8 of each mean (plus 1e-5) and 1e-2 of max|plain|."""
     fd = flash_dropout_attention
-    q, k, v = _qkv(4, 200, 8, 4, cuda_device, torch.float32)
     seed = _k5_seed(cuda_device)
-    o, mask = fd.flash_causal_dropout_attention(q, k, v, 0.3, 0.999, seed, collect_mask=True)
-    tril = torch.ones(200, 200, dtype=torch.bool, device=cuda_device).tril()
-    dropped = ~(mask.bool() & tril).any(-1)
-    assert dropped.float().mean() > 0.8
-    mean_past = torch.cumsum(v, 1) / torch.arange(1, 201, device=cuda_device)[None, :, None]
-    assert float((o[dropped] - mean_past[dropped]).abs().max()) <= 1e-5
-    want = fd.flash_causal_dropout_attention_plain(q, k, v, 0.3, 0.999, seed)
-    assert float((o - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    for dtype, tol_mean, tol_plain in ((torch.float32, 0.0, 1e-5),
+                                       (torch.bfloat16, 2**-8, 1e-2)):
+        q, k, v = _qkv(4, 200, 8, 4, cuda_device, dtype)
+        o, mask = fd.flash_causal_dropout_attention(q, k, v, 0.3, 0.999, seed,
+                                                    collect_mask=True)
+        tril = torch.ones(200, 200, dtype=torch.bool, device=cuda_device).tril()
+        dropped = ~(mask.bool() & tril).any(-1)
+        assert dropped.float().mean() > 0.8
+        mean_past = (torch.cumsum(v.float(), 1)
+                     / torch.arange(1, 201, device=cuda_device)[None, :, None])
+        err = (o.float()[dropped] - mean_past[dropped]).abs()
+        assert float((err - tol_mean * mean_past[dropped].abs()).max()) <= 1e-5, dtype
+        want = fd.flash_causal_dropout_attention_plain(q, k, v, 0.3, 0.999, seed)
+        assert float((o.float() - want.float()).abs().max()) <= \
+            tol_plain * float(want.float().abs().max()), dtype

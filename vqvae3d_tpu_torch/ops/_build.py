@@ -95,12 +95,12 @@ SIGNATURES = {
     # K8 backward: is_bf16, q, k, v, o, do, lse, delta, dq, dk, dv, N, S, D,
     #     scale, stream
     "vq_flash_attn_bwd": [_i] + [_p] * 10 + [_i] * 3 + [_f, _p],
-    # K5: is_bf16, q, k, v, o, lse, seed, mask, N, S, D, scale, thr, inv_keep,
-    #     stream
-    "vq_flash_dropout_fwd": [_i] + [_p] * 7 + [_i] * 3 + [_f, _u32, _f, _p],
-    # K5 backward: is_bf16, q, k, v, o, do, lse, delta, seed, dq, dk, dv, N, S,
-    #     D, scale, thr, inv_keep, stream
-    "vq_flash_dropout_bwd": [_i] + [_p] * 11 + [_i] * 3 + [_f, _u32, _f, _p],
+    # K5: is_bf16, tensor_cores, q, k, v, o, lse, seed, mask, N, S, D, scale,
+    #     thr, inv_keep, stream
+    "vq_flash_dropout_fwd": [_i, _i] + [_p] * 7 + [_i] * 3 + [_f, _u32, _f, _p],
+    # K5 backward: is_bf16, tensor_cores, q, k, v, o, do, lse, delta, seed, bits,
+    #     dq, dk, dv, N, S, D, scale, thr, inv_keep, stream
+    "vq_flash_dropout_bwd": [_i, _i] + [_p] * 12 + [_i] * 3 + [_f, _u32, _f, _p],
 }
 
 _lock = threading.Lock()

@@ -22,15 +22,26 @@ counter is per logit, so the mask does not depend on any tiling: the forward,
 both backward passes, the plain version and ``keep_mask`` give the same bits.
 
 Rounding: q, k, v are widened to fp32; the dots, the two scalings, the
-softmax and the P.V sums are fp32 (P is never rounded to the input type); the
-output (and in the backward each gradient) is rounded to the input type once.
+softmax, its row sums and the log-sum-exp are fp32. For bf16 inputs the
+unnormalised P is rounded to bf16 for the P.V product, and in the backward P
+for dv and ds (with its scale) for dk and dq, where the tensor-core kernels
+and the TPU kernel round them (its ``p.astype(v.dtype)``, :148-151 and
+:206-227), as K8's bf16 route does; fp32 inputs round nothing. The output (and
+in the backward each gradient) is rounded to the input type once.
+
+Two kernel routes, chosen by ``dropout_tensor_core_route`` before any launch
+(neither is a fallback of the other): bf16 runs on the tensor cores
+(``flash_dropout_fwd_tc``; the backward's query-major ``drop_dq_tc``, which
+also writes delta and the mask bit-packed once, then the key-major
+``drop_dkdv_tc``, which reads it), fp32 on the CUDA cores (the first design's
+``flash_dropout_fwd``; ``drop_delta``, ``drop_dkdv``, ``drop_dq``).
 
 ``flash_causal_dropout_attention_plain`` is that math in plain PyTorch over
-chunks of query rows, so its memory is O(chunk S), not O(S^2) (under autograd
-each chunk is checkpointed and recomputed in the backward); ``keep=`` takes
-the mask as data instead. ``flash_causal_dropout_attention`` is the
-dispatcher: a CPU tensor takes the plain version (autograd through it); a
-CUDA tensor runs ``_FlashDropout``, whose forward launches
+chunks of query rows, forward and backward (its own autograd Function, which
+recomputes each chunk's logits), so its memory is O(chunk S), not O(S^2);
+``keep=`` takes the mask as data instead. ``flash_causal_dropout_attention``
+is the dispatcher: a CPU tensor takes the plain version (autograd through
+it); a CUDA tensor runs ``_FlashDropout``, whose forward launches
 ``csrc/flash_dropout_attention.cu`` (adding one to
 ``flash_causal_dropout_attention.launches``) and whose backward launches
 ``csrc/flash_dropout_attention_bwd.cu`` (adding one to
@@ -42,13 +53,11 @@ causally masked j > i), for tests at small S.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from vqvae3d_tpu_torch.ops import _build
-from vqvae3d_tpu_torch.ops.flash_attention import _check
+from vqvae3d_tpu_torch.ops.flash_attention import HEAD_DIMS, _check
 
 NEG_BIG = -1e3  # the reference's masked_fill value for a dropped logit
 MASK32 = 0xFFFFFFFF
@@ -56,6 +65,8 @@ MASK32 = 0xFFFFFFFF
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 ROW_CHUNK = 512  # query rows of one chunk of the plain version
+TILE = 64  # the tensor-core kernels' query and key tiles
+TILE_WORDS = 128  # int32 words of a tile's packed keep bits (csrc/dropout_tc.cuh)
 
 
 def _mulhilo(m: int, a: torch.Tensor):
@@ -116,37 +127,155 @@ def _check_p(dropout_p: float) -> None:
         raise ValueError(f"attention dropout takes 0 <= p < 1, got {dropout_p}")
 
 
-def _rows(q, k, v, seed, keep, i0: int, i1: int, sm_scale: float, dropout_p: float):
-    """Rows i0 .. i1 - 1 of the plain version on fp32 operands."""
+def _logits(q, k, seed, keep, i0: int, i1: int, sm_scale: float, dropout_p: float):
+    """Rows i0 .. i1 - 1 of the post-dropout logits over keys 0 .. i1 - 1
+    on fp32 operands, -inf past the row, and their keep mask (None at p = 0)."""
     logits = (q[:, i0:i1] @ k[:, :i1].transpose(-1, -2)) * sm_scale
     rows = torch.arange(i0, i1, device=q.device)
+    kp = None
     if dropout_p > 0:
         kp = (keep[:, i0:i1, :i1] if keep is not None
               else keep_mask(seed, q.shape[0], rows, i1, dropout_p))
         logits = torch.where(kp, logits * (1.0 / (1.0 - dropout_p)), NEG_BIG)
-    causal = rows[:, None] >= torch.arange(i1, device=q.device)[None]
-    return torch.softmax(logits.masked_fill(~causal, float("-inf")), dim=-1) @ v[:, :i1]
+    future = torch.arange(i1, device=q.device)[None] > rows[:, None]
+    return logits.masked_fill_(future, float("-inf")), kp
+
+
+def _plain_fwd(q, k, v, sm_scale: float, dropout_p: float, seed, keep):
+    """The plain forward in fp32, ``ROW_CHUNK`` query rows at a time: (o
+    before its rounding, the natural log-sum-exp (N, S)). For bf16 inputs the
+    unnormalised P = exp(s' - m), m the row max, is rounded to bf16 for P.V
+    and divided by l = sum P of the fp32 P, as the tensor-core kernel rounds
+    it (there at each key tile's running max: the same rounding while a row's
+    keys fit one tile); fp32 inputs take softmax(s') V."""
+    bf16 = q.dtype == torch.bfloat16
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = q.shape[1]
+    o = torch.empty_like(qf)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    for i0 in range(0, s, ROW_CHUNK):
+        i1 = min(i0 + ROW_CHUNK, s)
+        logits, _ = _logits(qf, kf, seed, keep, i0, i1, sm_scale, dropout_p)
+        lse[:, i0:i1] = torch.logsumexp(logits, -1)
+        if bf16:
+            e = logits.sub_(logits.amax(-1, keepdim=True)).exp_()  # the diagonal is finite
+            o[:, i0:i1] = (e.to(torch.bfloat16).float() @ vf[:, :i1]) / e.sum(-1, keepdim=True)
+        else:
+            o[:, i0:i1] = torch.softmax(logits, -1) @ vf[:, :i1]
+    return o, lse
+
+
+def _plain_bwd_fp32(q, k, v, o, lse, do, sm_scale: float, dropout_p: float, seed, keep):
+    """The plain backward's fp32 (dq, dk, dv) before their last rounding,
+    ``ROW_CHUNK`` query rows at a time, from o and the natural log-sum-exp
+    ``lse`` of a forward: P = exp(s' - lse), dv = P^T do (dropped logits
+    included), ds = keep ? P (do.v - delta) sm_scale / (1 - p) : 0, dk =
+    ds^T q, dq = ds k. For bf16 inputs delta = rowsum(do o) on the rounded o,
+    as the kernels read it, and P is rounded to bf16 for dv and ds for dk and
+    dq, where the tensor-core kernel rounds them; fp32 inputs take P =
+    softmax(s') and delta = rowsum(P dP), the autograd of the softmax (the
+    same values while o is unrounded; a row whose softmax is constant gets
+    ds = 0 exactly)."""
+    bf16 = q.dtype == torch.bfloat16
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (lambda t: t)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = (dof * o.float()).sum(-1) if bf16 else None
+    c_ds = sm_scale / (1.0 - dropout_p)
+    s = q.shape[1]
+    dq, dk, dv = torch.empty_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    for i0 in range(0, s, ROW_CHUNK):
+        i1 = min(i0 + ROW_CHUNK, s)
+        logits, kp = _logits(qf, kf, seed, keep, i0, i1, sm_scale, dropout_p)
+        p = logits.sub_(lse[:, i0:i1, None]).exp_() if bf16 else torch.softmax(logits, -1)
+        dv[:, :i1] += rnd(p).transpose(-1, -2) @ dof[:, i0:i1]
+        dp = dof[:, i0:i1] @ vf[:, :i1].transpose(-1, -2)
+        rows = delta[:, i0:i1, None] if bf16 else (p * dp).sum(-1, keepdim=True)
+        ds = p.mul_(dp.sub_(rows)).mul_(c_ds)
+        if kp is not None:
+            ds.masked_fill_(~kp, 0.0)
+        ds = rnd(ds)
+        dk[:, :i1] += ds.transpose(-1, -2) @ qf[:, i0:i1]
+        dq[:, i0:i1] = ds @ kf[:, :i1]
+    return dq, dk, dv
+
+
+class _PlainDropout(torch.autograd.Function):
+    """The plain forward, saving q, k, v, o and the log-sum-exp; the plain
+    backward (``_plain_bwd_fp32``), which recomputes the logits and the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, dropout_p, seed, keep):
+        o, lse = _plain_fwd(q, k, v, sm_scale, dropout_p, seed, keep)
+        o = o.to(q.dtype)
+        ctx.save_for_backward(q, k, v, o, lse, seed, keep)
+        ctx.args = (sm_scale, dropout_p)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, seed, keep = ctx.saved_tensors
+        grads = _plain_bwd_fp32(q, k, v, o, lse, do, *ctx.args, seed, keep)
+        return (*(g.to(q.dtype) for g in grads), None, None, None, None)
 
 
 def flash_causal_dropout_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          sm_scale: float, dropout_p: float,
                                          seed: torch.Tensor | None = None,
                                          keep: torch.Tensor | None = None) -> torch.Tensor:
-    """The K5 contract in plain PyTorch, ``ROW_CHUNK`` query rows at a time.
-    The mask is ``keep_mask(seed, ...)``, or ``keep`` ((N, S, S) bool) when
-    given."""
+    """The K5 contract in plain PyTorch, ``ROW_CHUNK`` query rows at a time
+    (forward and backward: O(chunk S) memory). The mask is
+    ``keep_mask(seed, ...)``, or ``keep`` ((N, S, S) bool) when given. bf16
+    inputs round P and ds where the tensor-core kernels round them
+    (``_plain_fwd``, ``_plain_bwd_fp32``); fp32 rounds nothing but o and the
+    gradients."""
     _check_p(dropout_p)
     if dropout_p > 0 and (seed is None) == (keep is None):
         raise ValueError("dropout takes a seed or a keep mask (one of the two)")
-    s = q.shape[1]
-    qf, kf, vf = q.float(), k.float(), v.float()
-    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    outs = []
-    for i0 in range(0, s, ROW_CHUNK):
-        fn = functools.partial(_rows, seed=seed, keep=keep, i0=i0, i1=min(i0 + ROW_CHUNK, s),
-                               sm_scale=sm_scale, dropout_p=dropout_p)
-        outs.append(checkpoint(fn, qf, kf, vf, use_reentrant=False) if grad else fn(qf, kf, vf))
-    return torch.cat(outs, 1).to(q.dtype)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _PlainDropout.apply(q, k, v, sm_scale, dropout_p, seed, keep)
+    return _plain_fwd(q, k, v, sm_scale, dropout_p, seed, keep)[0].to(q.dtype)
+
+
+def dropout_tensor_core_route(dtype: torch.dtype, d: int) -> bool:
+    """K5's route, chosen before any launch: bf16 takes the tensor-core
+    kernels (flash_dropout_fwd_tc; drop_dq_tc and drop_dkdv_tc), fp32 the
+    CUDA-core ones (tensor cores would round fp32 operands to TF32). Raises
+    for a head dim the kernels do not take."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"K5 takes D in {HEAD_DIMS}, got {d}")
+    return dtype == torch.bfloat16
+
+
+def packed_tiles(s: int) -> int:
+    """The 64 x 64 tiles on or below the diagonal of one stream: the tiles
+    of the backward's packed keep bits (``TILE_WORDS`` int32 each)."""
+    nqt = -(-s // TILE)
+    return nqt * (nqt + 1) // 2
+
+
+def unpack_tile_bits(bits: torch.Tensor, s: int) -> torch.Tensor:
+    """(N, S, S) bool keep mask from the packed bits (N, packed_tiles(S),
+    TILE_WORDS) int32 that the tensor-core backward's query-major pass
+    writes (csrc/dropout_tc.cuh): bit 4 nb + b of word 32 w + 4 g + t of tile
+    (qt, kt) is the keep bit of query 64 qt + 16 w + g + 8 (t % 2), key
+    64 kt + 8 nb + 4 (t // 2) + b. Entries above the diagonal of a tile hold
+    the generator's bits; tiles above the diagonal are False."""
+    n, nqt = bits.shape[0], -(-s // TILE)
+    word = torch.arange(TILE_WORDS, device=bits.device)
+    w, g, t = word // 32, word % 32 // 4, word % 4
+    bit = torch.arange(32, device=bits.device)
+    row = (16 * w + g + 8 * (t % 2))[:, None].expand(-1, 32)
+    col = (8 * (bit // 4)[None] + 4 * (t // 2)[:, None] + (bit % 4)[None])
+    flat = ((bits.to(torch.int64)[..., None] >> bit) & 1).bool()  # (N, T, words, 32)
+    out = torch.zeros(n, nqt * TILE, nqt * TILE, dtype=torch.bool, device=bits.device)
+    idx = 0
+    for qt in range(nqt):
+        for kt in range(qt + 1):
+            tile = torch.zeros(n, TILE, TILE, dtype=torch.bool, device=bits.device)
+            tile[:, row, col] = flat[:, idx]
+            out[:, qt * TILE:(qt + 1) * TILE, kt * TILE:(kt + 1) * TILE] = tile
+            idx += 1
+    return out[:, :s, :s]
 
 
 def _check_seed(seed: torch.Tensor, like: torch.Tensor) -> None:
@@ -155,42 +284,64 @@ def _check_seed(seed: torch.Tensor, like: torch.Tensor) -> None:
                          f"{tuple(seed.shape)} {seed.dtype} {seed.device}")
 
 
+def _aligned(*ts):
+    """The tensor-core route copies 16-byte rows: a view that starts off that
+    grid is copied."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
 def flash_dropout_attention_fwd(q, k, v, seed, sm_scale: float, dropout_p: float,
                                 collect_mask: bool = False):
     """Launch the K5 forward on contiguous CUDA tensors: (o, lse), and the
-    (N, S, S) uint8 keep mask with ``collect_mask``."""
+    (N, S, S) uint8 keep mask with ``collect_mask``. The route is
+    ``dropout_tensor_core_route``'s."""
     _check("flash_dropout_attention_fwd", q, k, v)
     _check_seed(seed, q)
     n, s, d = q.shape
+    tc = dropout_tensor_core_route(q.dtype, d)
+    if tc:
+        q, k, v = _aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(n, s, dtype=torch.float32, device=q.device)
     mask = torch.ones(n, s, s, dtype=torch.uint8, device=q.device) if collect_mask else None
     _build.check(_build.library().vq_flash_dropout_fwd(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), seed.data_ptr(), None if mask is None else mask.data_ptr(), n, s, d,
-        ctypes.c_float(sm_scale), keep_threshold(dropout_p),
+        int(q.dtype == torch.bfloat16), int(tc), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), seed.data_ptr(), None if mask is None else mask.data_ptr(),
+        n, s, d, ctypes.c_float(sm_scale), keep_threshold(dropout_p),
         ctypes.c_float(1.0 / (1.0 - dropout_p)), _build.stream_ptr(q.device)),
         "flash_dropout_attention_fwd")
     flash_causal_dropout_attention.launches += 1
     return (o, lse, mask) if collect_mask else (o, lse)
 
 
-def flash_dropout_attention_bwd(q, k, v, o, lse, do, seed, sm_scale: float, dropout_p: float):
-    """Launch the K5 backward (delta, dk/dv, dq) on contiguous CUDA tensors:
-    (dq, dk, dv)."""
+def flash_dropout_attention_bwd(q, k, v, o, lse, do, seed, sm_scale: float, dropout_p: float,
+                                keep_bits: bool = False):
+    """Launch the K5 backward on contiguous CUDA tensors: (dq, dk, dv). The
+    tensor-core route (``dropout_tensor_core_route``) runs drop_dq_tc, which
+    also writes delta and the packed keep bits (at p > 0: scratch of
+    (N, packed_tiles(S), TILE_WORDS) int32, live for this call only), then
+    drop_dkdv_tc; the CUDA-core route drop_delta, drop_dkdv and drop_dq.
+    ``keep_bits`` also returns the packed bits (None off that route or at
+    p = 0), for tests (``unpack_tile_bits``)."""
     _check("flash_dropout_attention_bwd", q, k, v, o, do)
     _check_seed(seed, q)
     n, s, d = q.shape
+    tc = dropout_tensor_core_route(q.dtype, d)
+    if tc:
+        q, k, v, do = _aligned(q, k, v, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(n, s, dtype=torch.float32, device=q.device)
+    bits = (torch.empty(n, packed_tiles(s), TILE_WORDS, dtype=torch.int32, device=q.device)
+            if tc and dropout_p > 0 else None)
     _build.check(_build.library().vq_flash_dropout_bwd(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), seed.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), n, s, d, ctypes.c_float(sm_scale),
-        keep_threshold(dropout_p), ctypes.c_float(1.0 / (1.0 - dropout_p)),
-        _build.stream_ptr(q.device)), "flash_dropout_attention_bwd")
+        int(q.dtype == torch.bfloat16), int(tc), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), seed.data_ptr(),
+        None if bits is None else bits.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        n, s, d, ctypes.c_float(sm_scale), keep_threshold(dropout_p),
+        ctypes.c_float(1.0 / (1.0 - dropout_p)), _build.stream_ptr(q.device)),
+        "flash_dropout_attention_bwd")
     flash_dropout_attention_bwd.launches += 1
-    return dq, dk, dv
+    return (dq, dk, dv, bits) if keep_bits else (dq, dk, dv)
 
 
 flash_dropout_attention_bwd.launches = 0
