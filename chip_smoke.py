@@ -9,7 +9,11 @@ line and no result line.)
 Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
 
   1. kernels vs plain (serving): K1a (codebook lookup) at the three (N, K, D)
-     lookups of a 512x512x128 volume; K3 (the 'same'-block stack forward) at
+     lookups of a 512x512x128 volume, on random inputs and on inputs with
+     exact ties planted across the work split (to the lowest code, as the
+     plain version), its split (``lookup_plan``), one launch a lookup, no
+     512-code lookup on one CTA, its device time by kernel (torch.profiler)
+     beside the event time of 20 back-to-back calls; K3 (the 'same'-block stack forward) at
      every distinct (C, spatial) of the published full config, both pad
      modes, fp32 and bf16, one block and a 50-block stack. Times with CUDA
      events: bf16 per block on its route (``conv3d.stack_fwd_route``: the
@@ -30,7 +34,8 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      2, with peak device memory, and K3's forward device time a volume on
      both routes.
   4. train kernels vs plain: K1b (lookup + EMA statistics) at the three
-     lookups; the K3 backward at every (C, spatial) of the stem-2 stacks,
+     lookups, checked and timed as K1a (counts exact, sums within 1e-5, a
+     second call bit-identical, its two kernels once a call); the K3 backward at every (C, spatial) of the stem-2 stacks,
      both pad modes, fp32 and bf16, one block and the stack's full depth,
      against the autograd of the plain stack (bf16: its weight contractions
      on the tensor cores, fp32 on the CUDA cores), a second call
@@ -51,10 +56,13 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      step against what the config implies; two identical steps from one
      state give bit-identical parameters and EMA state; bf16 ms/step also
      with K3's backward on the parent's five elementwise kernels and with
-     K3's forward on the parent's three kernels; a profiler breakdown
+     K3's forward on the parent's three kernels; the quantizer layer's
+     device time alone (three levels' train forward and backward, after and
+     on the first pass) and K1b's in the step; a profiler breakdown
      (device busy; K3 forward; K3 backward's dW2 contraction, other
      contractions, reduce and elementwise kernels by name; the rest of the
-     step).
+     step), which fails on any index_put / indexing_backward (the codebook
+     takes no gradient).
   6. the train main path through the entry points: three synthetic scans,
      ``train_vqvae`` for 3 steps (validating at step 3), then ``--resume``
      for one more, then ``extract_embeddings`` on the checkpoint it wrote.
@@ -393,9 +401,9 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_by_name(fn, calls: int = 1) -> dict:
-    """Device milliseconds per call of fn by CUDA kernel name, from
-    torch.profiler (rows whose device type is CUDA)."""
+def cuda_events(fn, calls: int):
+    """torch.profiler's rows of CUDA kernels over ``calls`` calls of fn,
+    after one call outside the profile."""
     import torch
 
     fn()
@@ -404,8 +412,13 @@ def device_ms_by_name(fn, calls: int = 1) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms_by_name(fn, calls: int = 1) -> dict:
+    """Device milliseconds per call of fn by CUDA kernel name, from
+    torch.profiler (rows whose device type is CUDA)."""
+    return {e.key: e.self_device_time_total / 1e3 / calls for e in cuda_events(fn, calls)}
 
 
 def kernel_name(key: str) -> str:
@@ -413,6 +426,92 @@ def kernel_name(key: str) -> str:
     ``name``)."""
     m = re.search(r"(\w+)(<|\()", key)
     return m.group(1) if m else key
+
+
+K1_CALLS = 20  # back-to-back lookups a K1 timing
+
+
+def k1_lookups(stem: int):
+    """The (N, K, D) of the three codebook lookups of one 512x512x128 volume
+    (the same at both stems)."""
+    from vqvae3d_tpu_torch.models.vqvae import VQVAEConfig
+
+    cfg = VQVAEConfig(**FULL, base_network_channels=4 * stem, stem_space_to_depth=stem)
+    return [(int(np.prod(g)), k, d) for g, k, d in
+            zip(cfg.code_grid_shapes(VOLUME), cfg.num_embeddings, cfg.embedding_dims)]
+
+
+def k1_cost(n: int, k: int, d: int, stats: bool):
+    """(bytes, flops) of one lookup: x and the codebook read once, the indices
+    (and the counts and sums) written once; 2 N K D flops of FMAs plus one
+    compare a distance (and N D adds of the sums), at the fp32 rate."""
+    nbytes = 4 * (n * d + k * d) + 8 * n + (4 * k * (d + 1) if stats else 0)
+    return nbytes, 2 * n * k * d + n * k + (n * d if stats else 0)
+
+
+def kernels_of(fn, calls: int = K1_CALLS) -> dict:
+    """fn's CUDA kernels by bare name: (device µs a launch, launches a call),
+    from torch.profiler over ``calls`` calls (a launch whose record the
+    profiler drops, as it sometimes does, lowers the second number only)."""
+    total = {}
+    for e in cuda_events(fn, calls):
+        us, n = total.get(kernel_name(e.key), (0.0, 0))
+        total[kernel_name(e.key)] = (us + e.self_device_time_total, n + e.count)
+    return {name: (us / n, n / calls) for name, (us, n) in total.items()}
+
+
+def kernels_text(by: dict) -> str:
+    """Each kernel's µs a launch and launches a call, and their sum at one
+    launch each."""
+    return ", ".join(f"{name} {us:.2f} us x{n:g}" for name, (us, n) in by.items()) + (
+        f"; device {sum(us for us, _ in by.values()):.2f} us a call")
+
+
+def k1_planted(n: int, k: int, d: int, gen, device):
+    """Random rows and codes with exact ties planted across the split: codes
+    0 and 2 set to +6 and -6 in every column and copied to k - 1 and 3, and
+    every third of the first 64 rows next to one of them: (flat, embed, tie
+    rows, the lowest code of each)."""
+    import torch
+
+    flat = torch.randn(n, d, generator=gen)
+    embed = torch.randn(k, d, generator=gen)
+    pairs = [(a, b) for a, b in ((0, k - 1), (2, 3)) if a < b < k]
+    for (a, b), v in zip(pairs, (6.0, -6.0)):
+        embed[a] = v
+        embed[b] = v
+    rows = torch.arange(0, min(n, 64), 3)
+    codes = torch.tensor([pairs[i % len(pairs)][0] for i in range(len(rows))], dtype=torch.long)
+    flat[rows] = embed[codes] + 1e-3 * torch.randn(len(rows), d, generator=gen)
+    return flat.to(device), embed.to(device), rows.to(device), codes.to(device)
+
+
+def quantizer_layer(seed: int, device, first_pass: bool):
+    """A stem-2 step's quantizer layer alone, as a callable: the three
+    levels' train forward (the first-pass init, K1b, the EMA update, the
+    gathers) and the backward of their losses and outputs, on seeded bf16
+    inputs at the step's code-grid shapes, ``first_pass`` set before each."""
+    import torch
+    from vqvae3d_tpu_torch.models.quantizer import Quantizer
+    from vqvae3d_tpu_torch.models.vqvae import VQVAEConfig
+
+    cfg = VQVAEConfig(**FULL, **STEM2)
+    gen = torch.Generator().manual_seed(seed)
+    levels = []
+    for grid, k, d in zip(cfg.code_grid_shapes(VOLUME), cfg.num_embeddings, cfg.embedding_dims):
+        q = Quantizer(k, d)
+        q.reset_parameters(gen)
+        x = torch.randn(1, d, *grid, generator=gen).to(device, torch.bfloat16)
+        levels.append((q.to(device), x.requires_grad_()))
+
+    def run():
+        total = 0.0
+        for q, x in levels:
+            q.first_pass.fill_(first_pass)
+            loss, quantized, _ = q(x, train=True)
+            total = total + loss + 1e-6 * quantized.float().sum()
+        total.backward()
+    return run
 
 
 # K3 backward's elementwise kernels: the five of the CUDA-core design and the
@@ -638,11 +737,10 @@ def phase_kernels(ident, results, seed):
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(seed)
-    cfg = VQVAEConfig(**FULL)
-    # --- K1 at the three lookups of one volume
+    # --- K1a at the three lookups of one volume
     k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None)
-    for grid, k, d in zip(cfg.code_grid_shapes(VOLUME), cfg.num_embeddings, cfg.embedding_dims):
-        n = int(np.prod(grid))
+    device_us = 0.0
+    for n, k, d in k1_lookups(1):
         flat = torch.randn(n, d, generator=gen).to(dev)
         embed = torch.randn(k, d, generator=gen).to(dev)
         got = quantizer_ops.l2_argmin(flat, embed)
@@ -650,18 +748,37 @@ def phase_kernels(ident, results, seed):
         ties, real = quantizer_ops.genuine_ties(flat, embed, got, want)
         dist = lambda idx: ((flat.double() - embed.double()[idx]) ** 2).sum(-1)  # noqa: E731
         err = float((dist(got) - dist(want)).abs().max())
-        ms = cuda_ms(lambda: quantizer_ops.l2_argmin(flat, embed), 20)
+        tflat, tembed, rows, codes = k1_planted(n, k, d, gen, dev)
+        t_got = quantizer_ops.l2_argmin(tflat, tembed)
+        t_want = quantizer_ops.l2_argmin_plain(tflat, tembed)
+        planted_ok = torch.equal(t_got[rows], codes) and torch.equal(t_want[rows], codes)
+        _, t_real = quantizer_ops.genuine_ties(tflat, tembed, t_got, t_want)
+        plan = quantizer_ops.lookup_plan(n, k, d)
+        by = kernels_of(lambda: quantizer_ops.l2_argmin(flat, embed))
+        ms = [cuda_ms(lambda: quantizer_ops.l2_argmin(flat, embed), K1_CALLS) for _ in range(2)]
         pms = cuda_ms(lambda: quantizer_ops.l2_argmin_plain(flat, embed), 5)
-        print(f"K1 l2_argmin N={n} K={k} D={d}: mismatches={int((got != want).sum())} "
+        print(f"K1 l2_argmin N={n} K={k} D={d} ({plan.tiles} CTAs, {plan.rows} rows a thread, "
+              f"{plan.lanes} lanes a row group): mismatches={int((got != want).sum())} "
               f"genuine_ties={ties.numel()} beyond_tie={real.numel()} "
-              f"max|d_kernel-d_plain|={err:.3g} kernel {ms:.4f} ms plain {pms:.4f} ms [{ident}]")
-        if real.numel():
-            raise AssertionError(f"K1 disagrees beyond ties on {real.numel()} rows")
+              f"max|d_kernel-d_plain|={err:.3g}; planted ties to the lowest code: {planted_ok} "
+              f"(beyond tie {t_real.numel()}); device {kernels_text(by)}; event "
+              f"{ms[0]:.4f}, {ms[1]:.4f} ms a call ({K1_CALLS} back to back) plain {pms:.4f} ms "
+              f"[{ident}]")
+        if real.numel() or t_real.numel() or not planted_ok:
+            raise AssertionError("K1 disagrees beyond ties or on the planted ties")
+        # one launch a lookup, its norms computed inside; no 512-code lookup on one CTA
+        if set(by) != {"argmin_kernel"} or by["argmin_kernel"][1] > 1:
+            raise AssertionError(f"K1a launches {by}, not one argmin_kernel a lookup")
+        if k >= 512 and plan.tiles < 2:
+            raise AssertionError(f"K1a runs the K={k} lookup on one CTA")
         k1["max_abs_err"] = max(k1["max_abs_err"], err)
-        k1["ms"] += ms
-        bms, k1["bound_by"] = bound_ms(4 * (n * d + k * d + k) + 8 * n, 2 * n * k * d, FP32_FLOPS)
+        k1["ms"] += min(ms)
+        bms, k1["bound_by"] = bound_ms(*k1_cost(n, k, d, False), FP32_FLOPS)
         k1["bound_ms"] += bms
         k1["plain_ms"] += pms
+        device_us += by["argmin_kernel"][0]
+    print(f"K1a a volume: device {device_us:.2f} us, event {k1['ms']:.4f} ms, bound "
+          f"{k1['bound_ms'] * 1e3:.2f} us ({k1['bound_by']}) [{ident}]")
     results["l2_argmin"] = k1
 
     # --- K3 at every distinct (C, spatial) of the full config, both stems
@@ -961,8 +1078,8 @@ def phase_train_kernels(ident, results, seed):
     cfg = VQVAEConfig(**FULL, **STEM2)
     # --- K1b at the three lookups of one train step
     k1b = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None)
-    for grid, k, d in zip(cfg.code_grid_shapes(VOLUME), cfg.num_embeddings, cfg.embedding_dims):
-        n = int(np.prod(grid))
+    device_us = 0.0
+    for n, k, d in k1_lookups(2):
         flat = torch.randn(n, d, generator=gen).to(dev)
         embed = torch.randn(k, d, generator=gen).to(dev)
         idx, counts, dw = quantizer_ops.l2_argmin_stats(flat, embed)
@@ -974,23 +1091,43 @@ def phase_train_kernels(ident, results, seed):
         want_dw = torch.zeros(k, d, device=dev).index_add_(0, idx, flat)
         err = float((dw - want_dw).abs().max())
         scale = float(want_dw.abs().max())
-        ms = cuda_ms(lambda: quantizer_ops.l2_argmin_stats(flat, embed), 20)
+        tflat, tembed, rows, codes = k1_planted(n, k, d, gen, dev)
+        t_idx, t_counts, _ = quantizer_ops.l2_argmin_stats(tflat, tembed)
+        t_want = quantizer_ops.l2_argmin_plain(tflat, tembed)
+        planted_ok = (torch.equal(t_idx[rows], codes) and torch.equal(t_want[rows], codes)
+                      and torch.equal(t_counts, torch.bincount(t_idx, minlength=k).float()))
+        _, t_real = quantizer_ops.genuine_ties(tflat, tembed, t_idx, t_want)
+        plan = quantizer_ops.stats_plan(n, k, d)
+        by = kernels_of(lambda: quantizer_ops.l2_argmin_stats(flat, embed))
+        ms = [cuda_ms(lambda: quantizer_ops.l2_argmin_stats(flat, embed), K1_CALLS)
+              for _ in range(2)]
         pms = cuda_ms(lambda: quantizer_ops.l2_argmin_stats_plain(flat, embed), 5)
-        print(f"K1b l2_argmin_stats N={n} K={k} D={d}: index mismatches "
-              f"{int((idx != p_idx).sum())} (genuine ties {ties.numel()}, beyond tie "
+        print(f"K1b l2_argmin_stats N={n} K={k} D={d} ({plan.ctas} CTAs over "
+              f"{plan.lookup.tiles} tiles, {plan.lookup.rows} rows a thread, "
+              f"{plan.lookup.lanes} lanes a row group, {plan.slabs} slabs a CTA): index "
+              f"mismatches {int((idx != p_idx).sum())} (genuine ties {ties.numel()}, beyond tie "
               f"{real.numel()}); counts exact: {torch.equal(counts, want_counts)}; "
-              f"max|dw - ref|={err:.3g} max|ref|={scale:.3g}; kernel {ms:.4f} ms "
-              f"plain {pms:.4f} ms [{ident}]")
-        if real.numel() or not torch.equal(counts, want_counts) or err > 1e-5 * scale:
+              f"max|dw - ref|={err:.3g} max|ref|={scale:.3g}; planted ties to the lowest code: "
+              f"{planted_ok} (beyond tie {t_real.numel()}); device {kernels_text(by)}; event "
+              f"{ms[0]:.4f}, {ms[1]:.4f} ms a call ({K1_CALLS} back to back) plain {pms:.4f} ms "
+              f"[{ident}]")
+        if (real.numel() or t_real.numel() or not planted_ok
+                or not torch.equal(counts, want_counts) or err > 1e-5 * scale):
             raise AssertionError("K1b disagrees with its plain version")
         if not all(torch.equal(a, b) for a, b in zip((idx, counts, dw), again)):
             raise AssertionError("K1b: two identical calls differ")
+        if set(by) != {"stats_partial", "stats_reduce"} or any(c > 1 for _, c in by.values()):
+            raise AssertionError(f"K1b launches {by}, not stats_partial and stats_reduce once")
+        if k >= 512 and plan.ctas < 2:
+            raise AssertionError(f"K1b runs the K={k} lookup on one CTA")
         k1b["max_abs_err"] = max(k1b["max_abs_err"], err)
-        k1b["ms"] += ms
+        k1b["ms"] += min(ms)
         k1b["plain_ms"] += pms
-        bms, k1b["bound_by"] = bound_ms(4 * (n * d + k * d) + 8 * n + 4 * k * (d + 1),
-                                        2 * n * k * d + n * d, FP32_FLOPS)
+        bms, k1b["bound_by"] = bound_ms(*k1_cost(n, k, d, True), FP32_FLOPS)
         k1b["bound_ms"] += bms
+        device_us += sum(us for us, _ in by.values())
+    print(f"K1b a step: device {device_us:.2f} us, event {k1b['ms']:.4f} ms, bound "
+          f"{k1b['bound_ms'] * 1e3:.2f} us ({k1b['bound_by']}) [{ident}]")
     results["l2_argmin_stats"] = k1b
 
     # --- the K3 backward at every (C, spatial) of the stem-2 stacks
@@ -1385,6 +1522,20 @@ def phase_train_step(ident, seed, results):
     split = k3_bwd_split(by_name)
     k3_fwd = sum(v for k, v in by_name.items() if any(n in k for n in K3_FWD_KERNELS))
     parts = ", ".join(f"{k} {split[k]:.1f}" for k in K3_BWD_ELEMENTWISE if k in split)
+    k1b_ms = sum(v for k, v in by_name.items() if "stats_partial" in k or "stats_reduce" in k)
+    scatter = [e.key for e in events if "index_put" in e.key or "indexing_backward" in e.key]
+    layer = {}
+    for first in (False, True):
+        run = quantizer_layer(seed + 5, dev, first)
+        layer[first] = (sum(us * n for us, n in kernels_of(run, 5).values()) / 1e3,
+                        cuda_ms(run, 10, warmup=2))
+    print(f"the quantizer layer of a stem-2 step alone (3 levels, train forward + backward, "
+          f"random inputs): device {layer[False][0]:.4f} ms, event {layer[False][1]:.4f} ms "
+          f"after the first pass; on the initialising pass {layer[True][0]:.4f} / "
+          f"{layer[True][1]:.4f} ms; K1b in the step's profile {k1b_ms:.4f} ms; index_put or "
+          f"indexing_backward in the step's profile: {scatter or 'none'} [{ident}]")
+    if scatter:
+        raise AssertionError(f"the train step scatters into the codebook: {scatter}")
     print(f"profile of one bf16 kernel-path train step: device busy {busy:.1f} ms of "
           f"{wall:.1f} ms wall under the profiler; K3 forward {k3_fwd:.1f} ms; K3 backward: dW2 "
           f"contraction {split['dW2']:.1f} ms, other contractions "

@@ -18,8 +18,9 @@ On the CPU:
     the kernel reads is checked here, where no card runs it;
   * likewise the K3 backward (csrc/preact_stack_bwd.cu: the transposed packs
     of ``pack_stack_weights_t``, the transposed conv's source voxels, the
-    dW2 tap layout, the scalar shares), K1b's tile/CTA partition of the rows
-    (csrc/l2_argmin_stats.cu) and K7's position offsets and output layout
+    dW2 tap layout, the scalar shares), K1b's order of the statistics' sums
+    (csrc/l2_argmin_stats.cu: tiles, owner lanes grouped by code, slabs in
+    warp turns, partials in CTA order) and K7's position offsets and output layout
     (csrc/dw_conv3d.cu), each against its plain version;
   * K4 forward and backward (csrc/causal_stack.cu, csrc/causal_stack_bwd.cu):
     ``pack_kernel_weights`` / ``pack_kernel_weights_t`` read through the
@@ -46,14 +47,17 @@ On the CPU:
     to 1e-5, at S = 1, 77 and 130, p = 0.5 and 0.9.
 On a card (marker ``gpu``; skipped here with the reason):
   * K1 against ``l2_argmin_plain``: equal indices wherever the two best
-    codes are more than 1e-5 apart (relative), at the path's three shapes;
+    codes are more than 1e-5 apart (relative), exact ties planted across
+    the work split to the lowest code, one launch a call, at the path's
+    three shapes, ragged N, K = 1 and D up to 64;
   * K3 against ``preact_stack_plain``: fp32 within 1e-4 of max|ref| (TF32
     off), bf16 within 3e-2 of max|ref| (both round at the same points; the
     fp32 sums run in another order, which can flip a bf16 rounding, 2^-8
     relative, and a flip carries through the following blocks);
   * K1b against ``l2_argmin_stats_plain``: indices equal except at genuine
-    ties, counts exact where the indices agree, dw within 1e-5 of max|dw|,
-    and bit-identical on a second call;
+    ties (the planted ties to the lowest code), counts exact and dw within
+    1e-5 of max|dw| against the plain statistics of its own indices, and
+    bit-identical on a second call, at K1's shapes up to D = 32;
   * the K3 backward (bf16: its weight contractions on the tensor cores)
     against the autograd of ``preact_stack_plain``: dx, dW1-3
     and the scalar grads of a 3-block stack, per tensor within 1e-4 of
@@ -302,27 +306,77 @@ def test_k3_bwd_packed_layout_and_indexing(c, pad_mode):
                                    err_msg=name)
 
 
-def test_k1b_tile_partition():
-    """csrc/l2_argmin_stats.cu: tiles of 256 rows, CTA i takes tiles
-    i, i + nblk, ...; each CTA sums its rows per code in row order, the
-    partials are summed in CTA order; rows past N count nowhere."""
-    rng = np.random.default_rng(3)
-    n, k, d, nblk = 1000, 16, 3, 2  # 4 tiles (the last one ragged) on 2 CTAs
+def _k1b_stats_in_kernel_order(flat, idx, k, plan):
+    """csrc/l2_argmin_stats.cu's sums in its order: CTA b takes tiles b,
+    b + ctas, ...; in each tile, round by round (warp w in round w // slabs,
+    on slab w % slabs), row slot by row slot, the owner lanes (lane s = 0 of
+    each row group) grouped by code, each group's rows summed in lane order
+    from 0 and added to the slab; a CTA's partial is its slabs summed in
+    slab order; the reduce's warp w sums the partials of CTAs w, w + 8, ...
+    in order, then the 8 warps' sums in warp order. All fp32."""
+    lk, (n, d) = plan.lookup, flat.shape
+    x = flat.astype(np.float32)
+    threads = quantizer_ops.THREADS
+    warps = threads // 32
+    part = np.zeros((plan.ctas, k, 1 + d), np.float32)
+    seen = np.zeros(n, np.int64)
+    for b in range(plan.ctas):
+        slabs = np.zeros((plan.slabs, k, 1 + d), np.float32)
+        for t in range(b, lk.tiles, plan.ctas):
+            for rnd in range(warps // plan.slabs):
+                for warp in range(rnd * plan.slabs, (rnd + 1) * plan.slabs):
+                    slab = slabs[warp % plan.slabs]
+                    for r in range(lk.rows):
+                        owners = []  # (lane, row) of the owner lanes, in lane order
+                        for lane in range(0, 32, lk.lanes):
+                            row = (t * lk.tile_rows + r * (threads // lk.lanes)
+                                   + (warp * 32 + lane) // lk.lanes)
+                            if row < n:
+                                owners.append(row)
+                        for c in dict.fromkeys(int(idx[row]) for row in owners):
+                            group = [row for row in owners if idx[row] == c]
+                            acc = np.zeros(d, np.float32)
+                            for row in group:
+                                acc = acc + x[row]
+                                seen[row] += 1
+                            slab[c, 0] += np.float32(len(group))
+                            slab[c, 1:] += acc
+        part[b] = slabs[0]
+        for g in range(1, plan.slabs):
+            part[b] = part[b] + slabs[g]
+    sums = np.zeros((warps, k, 1 + d), np.float32)
+    for w in range(warps):
+        for b in range(w, plan.ctas, warps):
+            sums[w] = sums[w] + part[b]
+    total = sums[0]
+    for w in range(1, warps):
+        total = total + sums[w]
+    assert (seen == 1).all(), "a row counted twice or never"
+    return total[:, 0], total[:, 1:]
+
+
+@pytest.mark.parametrize("rows,lanes,ctas,slabs", [(4, 1, 2, 8), (1, 4, 3, 8), (1, 32, 5, 2),
+                                                   (1, 8, 2, 1), (4, 1, 7, 4)])
+def test_k1b_tile_partition(rows, lanes, ctas, slabs):
+    """csrc/l2_argmin_stats.cu's statistics order, transcribed (tiles of
+    the lookup's split, the owner lanes grouped by code, slabs shared by
+    warps in turn, partials reduced in CTA order), against the plain
+    statistics: counts exact, dw within 1e-6 of max|dw|; rows past N count
+    nowhere. The split of ``stats_plan`` at this shape is one of them."""
+    rng = np.random.default_rng(3 + rows + lanes)
+    n, k, d = 1000, 19, 3  # ragged tiles, k not a multiple of the lanes
     flat = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
     embed = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    tile_rows = quantizer_ops.THREADS // lanes * rows
+    lookup = quantizer_ops.LookupPlan(4, rows, lanes, -(-n // tile_rows))  # d = 3: DT 4
+    plan = quantizer_ops.StatsPlan(lookup, ctas, slabs)
     idx = quantizer_ops.l2_argmin_plain(flat, embed).numpy()
-    part = np.zeros((nblk, k, 1 + d))
-    tiles = -(-n // 256)
-    for cta in range(nblk):
-        for t in range(cta, tiles, nblk):
-            for row in range(t * 256, t * 256 + 256):
-                if row < n:
-                    part[cta, idx[row], 0] += 1
-                    part[cta, idx[row], 1:] += flat[row].numpy()
-    total = part.sum(0)
-    _, counts, dw = quantizer_ops.l2_argmin_stats_plain(flat, embed)
-    np.testing.assert_array_equal(total[:, 0], counts.numpy())
-    np.testing.assert_allclose(total[:, 1:], dw.numpy(), atol=1e-6 * np.abs(total).max(), rtol=0)
+    counts, dw = _k1b_stats_in_kernel_order(flat.numpy(), idx, k, plan)
+    _, p_counts, p_dw = quantizer_ops.l2_argmin_stats_plain(flat, embed)
+    np.testing.assert_array_equal(counts, p_counts.numpy())
+    np.testing.assert_allclose(dw, p_dw.numpy(), atol=1e-6 * float(p_dw.abs().max()), rtol=0)
+    auto = quantizer_ops.stats_plan(n, k, d)
+    assert (auto.lookup.rows, auto.lookup.lanes, auto.slabs) == (1, 4, 8)
 
 
 def test_k7_offsets_and_layout():
@@ -1105,16 +1159,44 @@ def test_k3_fused_forward_on_card(cuda_device, c, shape, pad_mode, monkeypatch):
         assert torch.equal(got, parent)
 
 
+# the three lookups of a 512x512x128 volume, then ragged N, K = 1 and D in {1, 3, 32}
+K1_CARD_SHAPES = [(524288, 128, 2), (8192, 256, 8), (128, 512, 32), (1, 1, 1), (255, 1, 3),
+                  (257, 1, 32), (100003, 1, 3), (1, 7, 32), (255, 37, 3), (257, 300, 1),
+                  (100003, 200, 3), (100003, 64, 32), (257, 512, 32)]
+
+
+def _k1_planted(n, k, d, seed, device):
+    """Random rows and codes with exact ties planted: codes 0 and 2 set to
+    +6 and -6 in every column (far from the random codes) and copied to
+    k - 1 and 3 (other lanes' codes at every split), and every third row of
+    the first 64 next to one of them: (flat, embed, tie rows, their code)."""
+    gen = torch.Generator().manual_seed(seed)
+    flat = torch.randn(n, d, generator=gen)
+    embed = torch.randn(k, d, generator=gen)
+    pairs = [(a, b) for a, b in ((0, k - 1), (2, 3)) if a < b < k]
+    for (a, b), v in zip(pairs, (6.0, -6.0)):
+        embed[a] = v
+        embed[b] = embed[a]
+    rows = torch.arange(0, min(n, 64), 3) if pairs else torch.arange(0)
+    codes = torch.tensor([pairs[i % len(pairs)][0] for i in range(len(rows))], dtype=torch.long)
+    flat[rows] = embed[codes] + 1e-3 * torch.randn(len(rows), d, generator=gen)
+    return flat.to(device), embed.to(device), rows.to(device), codes.to(device)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,k,d", [(524288, 128, 2), (8192, 256, 8), (128, 512, 32)])
+@pytest.mark.parametrize("n,k,d", K1_CARD_SHAPES + [(257, 100, 64), (100003, 512, 64)])
 def test_k1_kernel_matches_plain_on_card(cuda_device, n, k, d):
-    gen = torch.Generator(device=cuda_device).manual_seed(n)
-    flat = torch.randn(n, d, device=cuda_device, generator=gen)
-    embed = torch.randn(k, d, device=cuda_device, generator=gen)
+    """K1a: indices equal to the plain version's except at genuine ties, the
+    planted exact ties to the lowest code as the plain version, one launch a
+    call."""
+    flat, embed, rows, codes = _k1_planted(n, k, d, n + d, cuda_device)
+    launches = quantizer_ops.l2_argmin.launches
     got = quantizer_ops.l2_argmin(flat, embed)
     want = quantizer_ops.l2_argmin_plain(flat, embed)
     torch.cuda.synchronize()
+    assert quantizer_ops.l2_argmin.launches == launches + 1
     assert got.dtype == torch.int64 and tuple(got.shape) == (n,)
+    assert torch.equal(got[rows], codes) and torch.equal(want[rows], codes)
     _, real = quantizer_ops.genuine_ties(flat, embed, got, want)
     assert real.numel() == 0, f"{real.numel()} rows disagree beyond a tie"
 
@@ -1141,11 +1223,12 @@ def test_k3_kernel_matches_plain_on_card(cuda_device, c, pad_mode, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,k,d", [(524288, 128, 2), (8192, 256, 8), (128, 512, 32)])
+@pytest.mark.parametrize("n,k,d", K1_CARD_SHAPES)
 def test_k1b_kernel_matches_plain_on_card(cuda_device, n, k, d):
-    gen = torch.Generator(device=cuda_device).manual_seed(n + 1)
-    flat = torch.randn(n, d, device=cuda_device, generator=gen)
-    embed = torch.randn(k, d, device=cuda_device, generator=gen)
+    """K1b: indices as K1a's test; counts exact and dw within 1e-5 of
+    max|dw| against the plain statistics of the kernel's own indices (and
+    equal counts where the indices agree); bit-identical on a second call."""
+    flat, embed, rows, codes = _k1_planted(n, k, d, n + d + 1, cuda_device)
     launches = quantizer_ops.l2_argmin_stats.launches
     idx, counts, dw = quantizer_ops.l2_argmin_stats(flat, embed)
     again = quantizer_ops.l2_argmin_stats(flat, embed)
@@ -1154,11 +1237,16 @@ def test_k1b_kernel_matches_plain_on_card(cuda_device, n, k, d):
     assert quantizer_ops.l2_argmin_stats.launches == launches + 2
     for a, b in zip((idx, counts, dw), again):
         assert torch.equal(a, b), "two identical calls differ"
+    assert torch.equal(idx[rows], codes) and torch.equal(p_idx[rows], codes)
     _, real = quantizer_ops.genuine_ties(flat, embed, idx, p_idx)
     assert real.numel() == 0, f"{real.numel()} rows disagree beyond a tie"
     if torch.equal(idx, p_idx):
         assert torch.equal(counts, p_counts)
-    assert float((dw - p_dw).abs().max()) <= 1e-5 * float(p_dw.abs().max())
+    assert torch.equal(counts, torch.bincount(idx, minlength=k).float())
+    own_dw = torch.zeros(k, d, device=cuda_device).index_add_(0, idx, flat)
+    assert float((dw - own_dw).abs().max()) <= 1e-5 * float(own_dw.abs().max())
+    assert float((dw - p_dw).abs().max()) <= 1e-5 * float(p_dw.abs().max()) or not torch.equal(
+        idx, p_idx)
 
 
 def _plain_grads(x, ws, gy, pad_mode, monkeypatch):

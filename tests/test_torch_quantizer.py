@@ -125,3 +125,44 @@ def test_quantize_train_matches_jax(initialized):
         assert np.abs(jg).max() > 0
         np.testing.assert_allclose(grad.movedim(1, -1).numpy(), jg,
                                    atol=1e-5 * np.abs(jg).max(), rtol=0)
+
+
+def _graph_nodes(fn):
+    seen, todo = set(), [fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        todo.extend(next_fn for next_fn, _ in node.next_functions)
+    return {type(node).__name__ for node in seen}
+
+
+@pytest.mark.parametrize("first_pass", [True, False])
+def test_train_path_scatters_nothing_into_the_codebook(first_pass, monkeypatch):
+    """The train path's autograd graph (from the loss, and through the module
+    with its in-place buffer update) holds no gather or scatter backward
+    (IndexBackward / IndexPutBackward): the codebook takes no gradient. The
+    rows it quantizes to are the post-EMA codebook's rows at the indices, bit
+    for bit; the backward runs after the buffers changed."""
+    rng = np.random.default_rng(11)
+    k, d = 16, 4
+    embed = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    state = tq.QuantizerState(embed, embed.clone(), torch.full((k,), 0.0 if first_pass else 2.0),
+                              torch.tensor(first_pass))
+    x = torch.from_numpy(rng.standard_normal((2, d, 5, 3, 4)).astype(np.float32)).requires_grad_()
+    rows_seen = []
+    finish = tq._finish
+    monkeypatch.setattr(tq, "_finish", lambda *a: rows_seen.append(a[2]) or finish(*a))
+    loss, q, idx, new = tq.quantize_train(x, state)
+    nodes = _graph_nodes(loss.grad_fn) | _graph_nodes(q.grad_fn)
+    assert not any(n.startswith(("IndexBackward", "IndexPutBackward")) for n in nodes), nodes
+    assert torch.equal(rows_seen[0], new.embed[idx.reshape(-1)])
+    qz = Quantizer(k, d)
+    qz.reset_parameters(torch.Generator().manual_seed(1))
+    qz.first_pass.fill_(first_pass)
+    loss, q, _ = qz(x, train=True)
+    assert not any(n.startswith(("IndexBackward", "IndexPutBackward"))
+                   for n in _graph_nodes(loss.grad_fn))
+    (grad,) = torch.autograd.grad(loss, x)
+    assert bool(torch.any(grad)) == first_pass

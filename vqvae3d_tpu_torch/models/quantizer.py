@@ -36,8 +36,8 @@ def ema_first_pass_init(state: QuantizerState, flat: torch.Tensor) -> QuantizerS
     """Data-dependent codebook init where ``first_pass`` is set:
     embed <- embed * std + mean over the rows (population std), embed_avg <-
     embed, cluster_size += N / K (JAX quantizer.py:59-71). Selected with
-    ``torch.where``, so no host sync; the gradient reaches ``flat`` through
-    the mean and std only on the pass that initialises."""
+    ``torch.where``, so no host sync. ``quantize_train`` passes detached rows
+    and carries the init's gradient itself."""
     k = state.embed.shape[0]
     n = flat.shape[0]
     init = state.embed * torch.std(flat, dim=0, correction=0) + torch.mean(flat, dim=0)
@@ -56,17 +56,21 @@ def ema_update(state: QuantizerState, counts: torch.Tensor, dw: torch.Tensor,
     """EMA codebook update with Laplace smoothing from the cluster stats
     (counts (K,), dw (K, D) = per-code sums of the rows; JAX
     quantizer.py:74-101). fp32 throughout."""
-    k = state.embed.shape[0]
     cluster_size = state.cluster_size * decay + counts * (1.0 - decay)
     embed_avg = state.embed_avg * decay + dw * (1.0 - decay)
-    n = torch.sum(cluster_size)
-    smoothed = n * (cluster_size + laplace_alpha) / (n + k * laplace_alpha)
     return QuantizerState(
-        embed=embed_avg / smoothed[:, None],
+        embed=embed_avg / _smoothed(cluster_size, laplace_alpha)[:, None],
         embed_avg=embed_avg,
         cluster_size=cluster_size,
         first_pass=state.first_pass,
     )
+
+
+def _smoothed(cluster_size: torch.Tensor, laplace_alpha: float) -> torch.Tensor:
+    """Laplace-smoothed cluster sizes, the EMA codebook's row divisors."""
+    k = cluster_size.shape[0]
+    n = torch.sum(cluster_size)
+    return n * (cluster_size + laplace_alpha) / (n + k * laplace_alpha)
 
 
 def quantize(inputs: torch.Tensor, embed: torch.Tensor, *, commitment_cost: float = 0.1):
@@ -79,7 +83,7 @@ def quantize(inputs: torch.Tensor, embed: torch.Tensor, *, commitment_cost: floa
     x = inputs.float()
     x_last = x.movedim(1, -1)
     indices = l2_argmin(x_last.reshape(-1, embed.shape[1]), embed)
-    return _finish(x, x_last, embed, indices, commitment_cost)
+    return _finish(x, x_last, embed.float()[indices], indices, commitment_cost)
 
 
 def quantize_train(inputs: torch.Tensor, state: QuantizerState, *,
@@ -88,23 +92,32 @@ def quantize_train(inputs: torch.Tensor, state: QuantizerState, *,
     """Train-path quantization (JAX ``quantize(train=True)``,
     quantizer.py:184-229): returns (loss, quantized, indices, new_state).
 
-    The first-pass init sees x with its gradient (the JAX package does not
-    stop it there), so on the pass that initialises the codebook the
-    commitment loss has a gradient through the init's mean and std; on every
-    later pass it has none. The lookup and its statistics (kernel K1b) use
-    the post-init, pre-EMA codebook; ``quantized`` is read from the post-EMA
-    codebook."""
+    The lookup and its statistics (kernel K1b) use the post-init, pre-EMA
+    codebook; ``quantized`` is read from the post-EMA codebook. The first-pass
+    init sees x with its gradient (the JAX package does not stop it there),
+    so on the pass that initialises the codebook the commitment loss has a
+    gradient through the init's mean and std; on every later pass it has
+    none. The codebook itself takes no gradient: post-EMA row k is
+    (decay (E_k std + mean) + (1 - decay) dw_k) / smoothed_k on that pass,
+    where only std and mean depend on x, so the rows carry the term
+    ``t - t.detach()`` (value 0) of t = decay / smoothed_k (E_k std + mean),
+    selected by ``first_pass`` on the device: the backward reduces over rows
+    and scatters nothing into the codebook."""
     x = inputs.float()
     x_last = x.movedim(1, -1)
     flat = x_last.reshape(-1, x_last.shape[-1])
-    state = ema_first_pass_init(state, flat)
-    indices, counts, dw = l2_argmin_stats(flat.detach(), state.embed.detach())
-    state = ema_update(state, counts, dw, decay, laplace_alpha)
-    return (*_finish(x, x_last, state.embed, indices, commitment_cost), state)
+    init = ema_first_pass_init(state, flat.detach())
+    indices, counts, dw = l2_argmin_stats(flat.detach(), init.embed)
+    new = ema_update(init, counts, dw, decay, laplace_alpha)
+    scale = (decay / _smoothed(new.cluster_size, laplace_alpha))[indices, None]
+    t = scale * (state.embed[indices] * torch.std(flat, dim=0, correction=0)
+                 + torch.mean(flat, dim=0))
+    rows = new.embed[indices] + torch.where(state.first_pass, t - t.detach(), 0.0)
+    return (*_finish(x, x_last, rows, indices, commitment_cost), new)
 
 
-def _finish(x, x_last, embed, indices, commitment_cost):
-    quantized = embed.float()[indices].reshape(x_last.shape).movedim(-1, 1)
+def _finish(x, x_last, rows, indices, commitment_cost):
+    quantized = rows.reshape(x_last.shape).movedim(-1, 1)
     loss = commitment_cost * torch.mean(torch.square(quantized - x.detach()))
     quantized_st = x + (quantized - x).detach()
     return loss, quantized_st, indices.reshape(x_last.shape[:-1])
@@ -140,8 +153,9 @@ class Quantizer(nn.Module):
             loss, quantized, indices = quantize(inputs, self.embed,
                                                 commitment_cost=self.commitment_cost)
         else:
-            # clones: autograd saves the old codebook, and the buffers change below
-            old = QuantizerState(*(t.clone() for t in self.state()))
+            # first_pass cloned: the backward's where reads it, and the buffers
+            # change below
+            old = self.state()._replace(first_pass=self.first_pass.clone())
             loss, quantized, indices, new = quantize_train(
                 inputs, old, commitment_cost=self.commitment_cost,
                 decay=self.decay, laplace_alpha=self.laplace_alpha,

@@ -35,10 +35,10 @@ _p, _i, _i64, _f, _u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.
                           ctypes.c_uint32)
 # C entry points: name -> argtypes (every one returns an int error code)
 SIGNATURES = {
-    # K1a: x, embed, e2, out, n, k, d, stream
-    "vq_l2_argmin": [_p, _p, _p, _p, _i64, _i, _i, _p],
-    # K1b: x, embed, e2, idx, counts, dw, part, nblk, n, k, d, stream
-    "vq_l2_argmin_stats": [_p, _p, _p, _p, _p, _p, _p, _i, _i64, _i, _i, _p],
+    # K1a: x, embed, out, n, k, d, rows, lanes, stream
+    "vq_l2_argmin": [_p, _p, _p, _i64, _i, _i, _i, _i, _p],
+    # K1b: x, embed, idx, counts, dw, part, nblk, n, k, d, rows, lanes, slabs, stream
+    "vq_l2_argmin_stats": [_p, _p, _p, _p, _p, _p, _i, _i64, _i, _i, _i, _i, _i, _p],
     # K3: is_bf16, x, w1, w2, w3, sc, a2, a3, y, batch, h, w, d, c, cb,
     #     cob_b, cob_c, wrap, stream
     "vq_preact_block_fwd": [
