@@ -173,6 +173,25 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      serves the eval forward), ``--resume`` for one more, and an
      uninterrupted 4-step run whose parameters equal the resumed run's bit
      for bit (cuDNN deterministic).
+ 20. PixelSNAIL sampling vs the one-shot forward: the cached sampler
+     (``sample/cached_snail.py``, plain PyTorch) at the published mid
+     (8x5x256d, 256 codes, 32x32x8, batch 10) and bottom (3x5x512d, 512
+     codes, 8x8x2, batch 20), unconditioned, fp32 random weights: its
+     teacher-forced logits against the one-shot ``PixelSNAIL.forward`` (K8)
+     over the mid grid's first 8 slices and the whole bottom grid, within
+     1e-4 of max|ref|; the bottom grid against the naive sampler's under one
+     Gumbel table (equal but at genuine near ties, counted); a conditioned
+     8x8x2 grid on 2x2x1 of 512 codes at the conditioned mid widths, forced;
+     the forced time, and one bottom grid and a mid grid's first slice alone
+     and under torch.profiler (device busy and idle, kernels a voxel, the
+     costliest host operations by self time).
+ 21. the PixelSNAIL sampling main path: seeded checkpoints of both priors,
+     ``sample_embeddings --use-model pixelsnail --tau 0.1`` of a full mid
+     grid at batch 10 (level 1) then a full bottom grid at batch 20 (level 2)
+     into one DB with the cached sampler (no kernel launch), and a bottom
+     grid with ``--sampler naive`` (one K8 an attention block a voxel: 384),
+     each in a process of its own; the grids' count, shape, dtype and codes,
+     and the seconds a batch.
 
 TF32 is off for the whole run (fp32 comparisons need true fp32; bf16 runs
 do not use it). Every number is printed beside the card's name and power
@@ -3174,6 +3193,265 @@ def phase_dropout_snail_cli(ident, counts, seed, work: Path):
         counts[k] = counts.get(k, 0) + v
 
 
+# phases 20-21: the published PixelSNAIL priors' sampling (bench_sample.py:8-13,
+# :104-146; jobs/sample_mid.sh, jobs/sample_bottom.sh: tau 0.1), unconditioned
+# as the published PixelSNAIL jobs train them, fp32 random weights. Phase 20
+# teacher-forces the mid grid's first 8 of 32 slices (2,048 voxels: a whole
+# mid grid takes ~90-160 s of launch-bound host time on an H100, PERF.md), the
+# other grids whole; phase 21 samples every grid whole.
+SNAIL_SAMPLING = {
+    "mid": dict(fields=SNAIL["mid"]["fields"], level=1, grid=(32, 32, 8), batch=10,
+                forced_slices=8),
+    "bottom": dict(fields=SNAIL["bottom"]["fields"], level=2, grid=(8, 8, 2), batch=20,
+                   forced_slices=8),
+}
+# phase 20's conditioned check: the conditioned mid PixelSNAIL's widths (dropout
+# off) over an 8x8x2 grid conditioned on a 2x2x1 grid of 512 codes, batch 2
+SNAIL_SAMPLING_COND = dict(fields=dict(SNAIL_DROPOUT["fields"], causal_dropout_prob=0.0,
+                                       attention_dropout_prob=0.0),
+                           grid=(8, 8, 2), cond=(2, 2, 1), batch=2, forced_slices=8)
+
+
+def host_self_ms(events) -> dict:
+    """Self CPU ms and calls by name from torch.profiler's raw events: each
+    CPU event's duration less its children's on its thread (what
+    ``key_averages`` reports as self CPU time, without building its event
+    objects: at ~1M events a sampling profile would spend minutes there)."""
+    import torch
+
+    threads, totals = {}, {}
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            threads.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), -e.end_ns(), e.name()))
+    for evs in threads.values():
+        evs.sort()
+        stack = []  # [end, start, name, children's ns]
+
+        def close():
+            end, start, name, child = stack.pop()
+            t = totals.setdefault(name, [0.0, 0])
+            t[0] += (end - start - child) / 1e6
+            t[1] += 1
+            if stack:
+                stack[-1][3] += end - start
+
+        for start, neg_end, name in evs:
+            while stack and stack[-1][0] <= start:
+                close()
+            stack.append([-neg_end, start, name, 0])
+        while stack:
+            close()
+    return totals
+
+
+def snail_sampling_profile(fn, voxels: int):
+    """fn (one sampling run) timed alone, then under torch.profiler with CPU
+    and CUDA activity: (wall ms alone, wall ms under the profiler, device busy
+    ms, kernels launched a voxel, the eight costliest host operations by self
+    CPU time as text)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    alone = 1e3 * (time.perf_counter() - t0)
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.profiler.kineto_results.events()
+    cuda = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in cuda) / 1e6
+    launched = sum(not e.name().startswith(("Memcpy", "Memset")) for e in cuda)
+    host = sorted(host_self_ms(events).items(), key=lambda kv: -kv[1][0])[:8]
+    return alone, wall, busy, launched / voxels, ", ".join(
+        f"{name} {ms:.1f} ({n})" for name, (ms, n) in host)
+
+
+def phase_snail_sampling(ident, results, seed):
+    """The cached PixelSNAIL sampler against the one-shot forward (K8) and the
+    naive sampler, at the published mid and bottom and a conditioned mid
+    width; its time and a profiler split."""
+    import torch
+    from vqvae3d_tpu_torch.models.prior_utils import idx_to_one_hot
+    from vqvae3d_tpu_torch.ops.decode_row import sampling_disagreements
+    from vqvae3d_tpu_torch.sample.ar_sample import ancestral_sample, draw_gumbel
+    from vqvae3d_tpu_torch.sample.cached_snail import cached_snail_sample
+
+    dev = torch.device("cuda")
+    cases = [(name, cfg, None) for name, cfg in SNAIL_SAMPLING.items()]
+    cases.append(("conditioned mid widths", SNAIL_SAMPLING_COND, SNAIL_SAMPLING_COND["cond"]))
+    for i, (name, cfg, cond_grid) in enumerate(cases):
+        f, grid, b, n = cfg["fields"], cfg["grid"], cfg["batch"], cfg["forced_slices"]
+        model = make_snail(f, seed + 140 + i, dev)
+        gen = torch.Generator(dev).manual_seed(seed + 141 + i)
+        forced = torch.randint(0, f["input_dim"], (b, *grid), device=dev, generator=gen)
+        cond = (None if cond_grid is None else
+                torch.randint(0, f["condition_dim"], (b, *cond_grid), device=dev, generator=gen))
+        # (a, c) teacher-forced logits at every voxel of the first n slices against
+        # the one-shot forward
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, logits = cached_snail_sample(model, grid, b, cond, TOP_TAU, forced=forced[:, :n])
+        torch.cuda.synchronize()
+        t_forced = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref = model(idx_to_one_hot(forced, f["input_dim"]),
+                        None if cond is None else idx_to_one_hot(cond, f["condition_dim"]))
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+        ref = ref[:, :, :n]
+        err, scale = float((logits - ref).abs().max()), float(ref.abs().max())
+        on = "" if cond is None else f" on {cond_grid} of {f['condition_dim']} codes"
+        print(f"exactness {name} ({f['num_blocks']} x {f['num_layers_per_block']} x "
+              f"{f['model_dim']}d, {f['input_dim']} codes, {b} grids {grid}{on}): "
+              f"teacher-forced cached sampler over {n} of {grid[0]} slices {t_forced:.2f} s "
+              f"(host clock, synchronised) vs the one-shot PixelSNAIL.forward (K8; "
+              f"{t_ref:.2f} s): max|d| logits {err:.3g}, max|ref| {scale:.3g} (tolerance "
+              f"{FORWARD_TOL} x max|ref|) [{ident}]")
+        if not err <= FORWARD_TOL * scale or not torch.isfinite(logits).all():
+            raise AssertionError(f"{name}: cached logits disagree with the one-shot forward")
+        results[f"snail_forced_{name.split()[0]}_s"] = t_forced
+        results[f"snail_forced_{name.split()[0]}_rel_err"] = err / scale
+        del logits, ref
+        if name == "bottom":
+            # (b) the cached grid against the naive sampler's under one Gumbel table;
+            # a voxel where naive's code is not the cached logits' choice (forced along
+            # naive's grid) must be a genuine near tie
+            table = draw_gumbel((*grid, b, f["input_dim"]), gen, dev)
+            t0 = time.perf_counter()
+            naive = ancestral_sample(model, grid, b, None, TOP_TAU, gumbel=table)
+            torch.cuda.synchronize()
+            t_naive = time.perf_counter() - t0
+            cached = cached_snail_sample(model, grid, b, None, TOP_TAU, gumbel=table)
+            _, along = cached_snail_sample(model, grid, b, None, TOP_TAU, forced=naive)
+            nv = int(np.prod(grid))
+            ties, beyond = sampling_disagreements(
+                along.flatten(2).transpose(1, 2), table.reshape(nv, b, -1), TOP_TAU,
+                naive.flatten(1))
+            differ = int((cached != naive).sum())
+            print(f"cached vs naive sampler, bottom, one Gumbel table, tau {TOP_TAU}: "
+                  f"{differ} of {naive.numel()} codes differ; naive's codes not the cached "
+                  f"logits' choice: {ties} near ties, {beyond} beyond; the naive sampler "
+                  f"{t_naive:.2f} s ({nv} one-shot forwards) [{ident}]")
+            if beyond or (differ and not ties):
+                raise AssertionError("the cached PixelSNAIL sampler disagrees with the naive one")
+            # (d) one bottom grid alone and under the profiler
+            alone, wall, busy, per_voxel, host = snail_sampling_profile(
+                lambda: cached_snail_sample(model, grid, b, None, TOP_TAU, generator=gen), nv)
+            print(f"one bottom grid {grid} at batch {b}: {alone:.1f} ms (host clock, "
+                  f"synchronised); under the profiler {wall:.1f} ms, device busy {busy:.1f} ms "
+                  f"(idle {100 * (1 - busy / alone):.1f} % of the run alone, "
+                  f"{100 * (1 - busy / wall):.1f} % under the profiler), {per_voxel:.1f} "
+                  f"kernels a voxel; costliest host operations (self CPU ms, calls): {host} "
+                  f"[{ident}]")
+            results["snail_profile_bottom"] = dict(alone_ms=alone, wall_ms=wall, busy_ms=busy,
+                                                   kernels_a_voxel=per_voxel)
+        if name == "mid":
+            # (d) the first slice of a mid grid: a (1, 32, 8) grid is the same work
+            first = (1, *grid[1:])
+            alone, wall, busy, per_voxel, host = snail_sampling_profile(
+                lambda: cached_snail_sample(model, first, b, None, TOP_TAU, generator=gen),
+                int(np.prod(first)))
+            print(f"a mid grid's first slice {first} at batch {b}: {alone:.1f} ms (host clock, "
+                  f"synchronised); under the profiler {wall:.1f} ms, device busy {busy:.1f} ms "
+                  f"(idle {100 * (1 - busy / alone):.1f} % of the run alone, "
+                  f"{100 * (1 - busy / wall):.1f} % under the profiler), {per_voxel:.1f} "
+                  f"kernels a voxel; costliest host operations (self CPU ms, calls): {host} "
+                  f"[{ident}]")
+            results["snail_profile_mid_slice"] = dict(alone_ms=alone, wall_ms=wall, busy_ms=busy,
+                                                      kernels_a_voxel=per_voxel)
+        del model
+        torch.cuda.empty_cache()
+
+
+# one ``sample_embeddings`` run in a process of its own (python -c), as a user
+# runs it: a process that has run torch.profiler launches slower after it (a
+# launch-bound sampler ran ~1.7x slower). It prints the run's seconds (host
+# clock, synchronised), the new uuids and the wrappers' launch counts.
+FRESH_CLI = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke
+from vqvae3d_tpu_torch.cli import sample_embeddings
+chip_smoke.reset_counts()
+t0 = time.perf_counter()
+new = sample_embeddings.main(sample_embeddings.parse_arguments(sys.argv[2:]))
+torch.cuda.synchronize()
+print(json.dumps(dict(seconds=time.perf_counter() - t0, new=[str(u) for u in new],
+                      launches=chip_smoke.launch_counts())))
+"""
+
+
+def phase_snail_sample_main_path(ident, counts, results, seed, work: Path):
+    """``sample_embeddings --use-model pixelsnail`` of the published mid and
+    bottom grids into one DB (the cached sampler: no kernel launch), then the
+    bottom grid with ``--sampler naive`` (K8 once an attention block a voxel),
+    each in a process of its own (``FRESH_CLI``)."""
+    from vqvae3d_tpu_torch.checkpoint import save_prior
+    from vqvae3d_tpu_torch.data.sample_db import create_or_load_db
+
+    # mid (level 1) first: an unconditioned prior refuses a DB that holds the
+    # next-coarser level, so the bottom (level 2) comes after it
+    runs = [("mid", "cached", "snail_samples.db"), ("bottom", "cached", "snail_samples.db"),
+            ("bottom", "naive", "snail_naive.db")]
+    for i, (name, sampler, db_name) in enumerate(runs):
+        cfg = SNAIL_SAMPLING[name]
+        f, grid, b, level = cfg["fields"], cfg["grid"], cfg["batch"], cfg["level"]
+        ckpt = work / f"snail_prior_{name}"
+        if not ckpt.exists():
+            save_prior(ckpt, make_snail(f, seed + 150 + i, "cpu"))
+        db_path = work / db_name
+        argv = ["--model-checkpoint", str(ckpt), "--db-path", str(db_path), "--level",
+                str(level), "--size", *map(str, grid), "--num-samples", str(b), "--batch-size",
+                str(b), "--use-model", "pixelsnail", "--sampler", sampler, "--tau", str(TOP_TAU),
+                "--seed", str(seed), "--device", "cuda"]
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", FRESH_CLI, str(Path(__file__).parent), *argv],
+                             capture_output=True, text=True, timeout=900)
+        process_s = time.perf_counter() - t0
+        if run.returncode:
+            raise AssertionError(f"{name} {sampler}: exit {run.returncode}\n{run.stderr[-4000:]}")
+        lines = run.stdout.strip().splitlines()
+        print("\n".join(lines[:-1]))
+        out = json.loads(lines[-1])
+        got, new = out["launches"], out["new"]
+        # the cached sampler launches no kernel; the naive one K8 per attention
+        # block and voxel
+        want = dict.fromkeys(got, 0)
+        if sampler == "naive":
+            want["flash_attention_fwd"] = int(np.prod(grid)) * f["num_blocks"]
+        db = create_or_load_db(db_path, level)
+        new = [u for u in db[level] if str(u) in set(new)]
+        grids = np.stack([np.asarray(db[level][u]["data"]) for u in new])
+        print(f"sample_embeddings --use-model pixelsnail --sampler {sampler} {name} --level "
+              f"{level} --size {grid} --num-samples {b} --batch-size {b} --tau {TOP_TAU}: "
+              f"{out['seconds']:.2f} s a batch (host clock, synchronised; checkpoint load and "
+              f"DB included; {process_s:.1f} s the process); launches "
+              f"{({k: v for k, v in got.items() if v} or 'none')}, the grid implies "
+              f"{({k: v for k, v in want.items() if v} or 'none')}; grids {grids.shape} "
+              f"{grids.dtype}, codes {grids.min()}..{grids.max()}, "
+              f"{len(np.unique(grids))} distinct [{ident}]")
+        if got != want:
+            raise AssertionError(f"{name} {sampler}: launches {got} != {want}")
+        if (len(new) != b or grids.shape != (b, *grid) or grids.dtype != np.int32
+                or grids.min() < 0 or grids.max() >= f["input_dim"]
+                or any(db[level][u]["condition"] is not None for u in new)):
+            raise AssertionError(f"{name} {sampler}: the sampled grids are wrong")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        results[f"snail_sample_{name}_{sampler}_s"] = out["seconds"]
+    db = create_or_load_db(work / "snail_samples.db", 1)
+    if sorted(k for k, v in db.items() if v) != [1, 2]:
+        raise AssertionError(f"the DB holds levels {sorted(db)}, not 1 and 2")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3239,6 +3517,10 @@ def main():
                 ident, args.seed, results)),
             ("PixelSNAIL train CLI with attention dropout", lambda: phase_dropout_snail_cli(
                 ident, counts, args.seed, Path(tmp))),
+            ("PixelSNAIL sampling vs the one-shot forward", lambda: phase_snail_sampling(
+                ident, results, args.seed)),
+            ("PixelSNAIL sampling main path", lambda: phase_snail_sample_main_path(
+                ident, counts, results, args.seed, Path(tmp))),
         ]
         for number, (name, fn) in enumerate(phases, 1):
             if only and number not in only:

@@ -8,7 +8,10 @@
     the same DB within 2e-3 (tests/test_checkpoint.py's decoded tolerance).
   * ``sample_embeddings --device cpu`` samples level-0 grids from a tiny
     conditioned PixelCNN checkpoint, conditioned on the DB's level-1 grids;
-    the JAX package's ``sample_db`` reads what it wrote.
+    the JAX package's ``sample_db`` reads what it wrote. With ``--use-model
+    pixelsnail`` it samples from a tiny PixelSNAIL checkpoint, conditioned
+    and not, with both samplers; a ``--use-model`` that names another class
+    than the checkpoint's raises ``ValueError``.
   * ``train_prior --device cpu`` trains a tiny conditioned PixelCNN for two
     steps on a synthetic code store, then ``--resume``s for a third; the
     checkpoint keeps the step and the optimizer state, ``load_prior`` and
@@ -56,6 +59,7 @@ from vqvae3d_tpu_torch.cli import (
 from vqvae3d_tpu_torch.data.code_store import CodeStoreWriter
 from vqvae3d_tpu_torch.convert import jax_variables_to_state_dict
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
+from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL, PixelSNAILConfig
 from vqvae3d_tpu_torch.models.vqvae import VQVAEConfig
 
 REPO = Path(__file__).resolve().parent.parent
@@ -174,9 +178,42 @@ def test_sample_embeddings_cli_on_cpu(tmp_path, sampler):
         grid = np.asarray(db[0][u]["data"])
         assert grid.shape == (3, 4, 3) and grid.dtype == np.int32
         assert 0 <= grid.min() and grid.max() < 5 and db[0][u]["condition"] in level1
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="holds a PixelCNN"):  # the checkpoint's class
         sample_embeddings.main(sample_embeddings.parse_arguments(argv + ["--use-model",
                                                                         "pixelsnail"]))
+
+
+@pytest.mark.parametrize("sampler", ["cached", "naive"])
+@pytest.mark.parametrize("with_cond", [False, True])
+def test_sample_embeddings_cli_pixelsnail_on_cpu(tmp_path, sampler, with_cond):
+    prior = PixelSNAIL(PixelSNAILConfig(input_dim=5, condition_dim=4 if with_cond else 0,
+                                        model_dim=8, num_blocks=2, num_layers_per_block=1,
+                                        causal_dropout_prob=0.0, attention_dropout_prob=0.0,
+                                        bottleneck_divisor=2, num_heads=2,
+                                        dtype=torch.float32),
+                       generator=torch.Generator().manual_seed(6))
+    save_prior(tmp_path / "snail", prior)
+    db_path = tmp_path / "samples.db"
+    level1 = None
+    if with_cond:  # the JAX package writes the coarser level
+        db = create_or_load_db(db_path, 1)
+        coarse = np.random.default_rng(7).integers(0, 4, (2, 2, 1, 2)).astype(np.int32)
+        level1 = jadd_samples(db, 1, coarse, None)
+        jsave_db(db, db_path, 1)
+    argv = ["--model-checkpoint", str(tmp_path / "snail"), "--db-path", str(db_path),
+            "--level", "0", "--size", "3", "2", "3", "--num-samples", "4", "--batch-size", "2",
+            "--tau", "0.5", "--sampler", sampler, "--device", "cpu"]
+    with pytest.raises(ValueError, match="holds a PixelSNAIL"):  # --use-model pixelcnn
+        sample_embeddings.main(sample_embeddings.parse_arguments(argv))
+    new = sample_embeddings.main(sample_embeddings.parse_arguments(
+        argv + ["--use-model", "pixelsnail"]))
+    db = create_or_load_db(db_path, 0)
+    assert len(new) == 4 and set(db[0]) == set(new)
+    for u in new:
+        grid = np.asarray(db[0][u]["data"])
+        assert grid.shape == (3, 2, 3) and grid.dtype == np.int32
+        assert 0 <= grid.min() and grid.max() < 5
+        assert (db[0][u]["condition"] in level1) if with_cond else db[0][u]["condition"] is None
 
 
 def test_train_prior_cli_on_cpu(tmp_path):

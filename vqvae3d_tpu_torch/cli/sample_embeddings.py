@@ -1,16 +1,23 @@
 """Stage-2.5 CLI: ancestral sampling of code grids into the sample DB.
 
 Counterpart of ``vqvae3d_tpu/cli/sample_embeddings.py``, with its flags plus
-``--device`` (default ``cuda``; no fallback to the CPU): load a trained
-PixelCNN prior (a port checkpoint, ``checkpoint.save_prior``), sample
-``--num-samples`` grids of ``--size`` in batches of ``--batch-size``, each
-conditioned on a random grid of the next-coarser level in the DB (the pool
-repeats when it is small), and store {uuid: {'data', 'condition'}} under the
-level with merge-on-save. ``--sampler cached`` runs the exact cached sampler
-(kernel K6 per row on a card), ``naive`` the O(V²) full-forward loop.
+``--device`` (default ``cuda``; no fallback to the CPU): load a trained prior
+(a port checkpoint, ``checkpoint.save_prior``; PixelCNN or PixelSNAIL, which
+``--use-model`` must name), sample ``--num-samples`` grids of ``--size`` in
+batches of ``--batch-size``, each conditioned on a random grid of the
+next-coarser level in the DB (the pool repeats when it is small) when the
+prior is conditioned, and store {uuid: {'data', 'condition'}} under the
+level with merge-on-save. A conditioned prior needs that level in the DB, an
+unconditioned one refuses it. ``--sampler cached`` runs the exact cached
+sampler of the prior's class (PixelCNN: kernel K6 per row on a card;
+PixelSNAIL: ``sample/cached_snail.py``, appended K/V per stream), ``naive``
+the O(V²) full-forward loop (PixelSNAIL's forward takes kernel K8 on a card).
 
     python -m vqvae3d_tpu_torch.cli.sample_embeddings --model-checkpoint CKPT \\
         --db-path samples.db --level 0 --size 128 128 32 --tau 0.1
+    python -m vqvae3d_tpu_torch.cli.sample_embeddings --model-checkpoint SNAIL \\
+        --db-path samples.db --level 1 --size 32 32 8 --num-samples 10 \\
+        --batch-size 10 --use-model pixelsnail --tau 0.1
 """
 from __future__ import annotations
 
@@ -30,9 +37,10 @@ from vqvae3d_tpu_torch.data.sample_db import (
     get_conditions,
     save_db,
 )
-from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN
+from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL
 from vqvae3d_tpu_torch.sample.ar_sample import ancestral_sample
 from vqvae3d_tpu_torch.sample.cached_sample import make_cached_sampler
+from vqvae3d_tpu_torch.sample.cached_snail import make_cached_snail_sampler
 
 
 def parse_arguments(argv=None):
@@ -63,22 +71,21 @@ def parse_arguments(argv=None):
 
 def main(args):
     """Sample and store the grids; returns their new uuids."""
-    if args.use_model == "pixelsnail":
-        raise NotImplementedError("PixelSNAIL sampling is not ported yet (ROADMAP Queue 1, "
-                                  "slice 5b: sample/cached_snail.py)")
     device = resolve_device(args.device)
     dims = tuple(args.size)
     db = create_or_load_db(args.db_path, args.level)
     model, config = load_prior(args.model_checkpoint, device)
-    if not isinstance(model, PixelCNN):
-        raise NotImplementedError("the checkpoint holds a PixelSNAIL prior: PixelSNAIL "
-                                  "sampling is not ported yet (ROADMAP Queue 1, slice 5b)")
+    snail = isinstance(model, PixelSNAIL)
+    if snail != (args.use_model == "pixelsnail"):
+        raise ValueError(f"--use-model {args.use_model}, but the checkpoint holds a "
+                         f"{type(model).__name__} prior")
     has_cond_pool = bool(db.get(args.level + 1))
     if config.use_conditioning != has_cond_pool:
         raise ValueError("a conditioned prior needs coarser-level samples in the DB, and an "
                          "unconditioned one none")
     if args.sampler == "cached":
-        sampler = make_cached_sampler(model, dims, args.batch_size, args.tau)
+        make = make_cached_snail_sampler if snail else make_cached_sampler
+        sampler = make(model, dims, args.batch_size, args.tau)
     else:
         def sampler(cond, generator):
             return ancestral_sample(model, dims, args.batch_size, cond, args.tau,

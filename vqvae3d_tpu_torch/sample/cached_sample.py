@@ -63,9 +63,9 @@ class _LayerParams:
         self.erf_h = (f(blk.expand_rf.height_conv.weight), f(blk.expand_rf.height_conv.bias))
         self.cond = None if blk.condition is None else (f(blk.condition.weight),
                                                          f(blk.condition.bias))
-        self.skip = None if blk.skip_conv is None else {
-            n: (f(getattr(blk.skip_conv, n).weight), f(getattr(blk.skip_conv, n).bias))
-            for n in STREAMS}
+        self.skip, self.aux = ({n: (f(getattr(conv, n).weight), f(getattr(conv, n).bias))
+                                for n in STREAMS} if conv is not None else None
+                               for conv in (blk.skip_conv, blk.aux))
         self.is_first = is_first
 
 
@@ -74,8 +74,50 @@ def _extract_layers(model):
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """A 1x1x1 conv (O, I, 1, 1, 1) on a slice (B, I, s1, s2)."""
-    return F.conv2d(x, w[:, :, 0], b)
+    """A 1x1x1 conv (O, I, 1, 1, 1) on a slice (B, I, s1, s2) or a row (B, I, s2)."""
+    conv = F.conv2d if x.dim() == 4 else F.conv1d
+    return conv(x, w.reshape(*w.shape[:2], *(1,) * (x.dim() - 2)), b)
+
+
+def _stream_layer(lp, stream: str, x, shifted, at_start: bool, inj, cond, aux, vprev, half: int):
+    """One PreActFixupCausalResBlock on a slice of the depth stream (B, C, s1,
+    s2) or a row of the height stream (B, C, s2), its causal branch taps read
+    from ``vprev`` (B, k-2, br, ...), the post-activation branch values of the
+    k-2 earlier slices or rows.
+
+    shifted: parse_input of the previous slice or row, the first layer's
+    mask-'A' input (zeros when ``at_start``); inj: what the earlier stream adds
+    after branch_conv1 (the height stream's d2h), or None; cond: the layer's
+    projected condition, or None; aux: PixelSNAIL's attention output (out_proj
+    only), or None. Returns (x', this stream's ExpandRF output (depth: d2h|d2w,
+    height: h2w), vprev')."""
+    if lp.is_first:
+        u = F.elu(shifted + lp.s["1a"]) + lp.s["1b"]
+        if at_start:
+            u = torch.zeros_like(u)
+    else:
+        u = F.elu(x + lp.s["1a"]) + lp.s["1b"]
+    t = _mm(u, lp.c1[stream])
+    side = _mm(t, *(lp.erf_d if stream == "depth_conv" else lp.erf_h))
+    if inj is not None:
+        t = t + inj
+    if aux is not None:
+        t = t + _mm(F.elu(aux), *lp.aux[stream])
+    v = F.elu(t + lp.s["2a"]) + lp.s["2b"]
+    # the causal taps: depth (br, br, k-1, k, k), height (br, br, 1, k-1, k)
+    conv, wk = (F.conv2d, lp.c2[stream]) if x.dim() == 4 else (F.conv1d, lp.c2[stream][:, :, 0])
+    taps = torch.cat([vprev, v[:, None]], 1)  # (B, k-1, br, ...)
+    b2 = conv(taps[:, 0], wk[:, :, 0], padding=half)
+    for ti in range(1, wk.shape[2]):
+        b2 = b2 + conv(taps[:, ti], wk[:, :, ti], padding=half)
+    if cond is not None:
+        b2 = b2 + cond
+    w3 = F.elu(b2 + lp.s["3a"]) + lp.s["3b"]
+    out = _mm(w3, lp.c3[stream]) * lp.scale + lp.s["4"]
+    if lp.skip is None:
+        return out + x, side, taps[:, 1:]
+    sk_in = (torch.zeros_like(shifted) if at_start else shifted) if lp.is_first else x
+    return out + _mm(sk_in, *lp.skip[stream]), side, taps[:, 1:]
 
 
 def _depth_tower_slice(layers, b_in, sprev_emb, i0: int, cond_sl, dvc, half: int):
@@ -89,33 +131,32 @@ def _depth_tower_slice(layers, b_in, sprev_emb, i0: int, cond_sl, dvc, half: int
     d = b_in.view(1, -1, 1, 1).expand(b, -1, s1, s2)
     d2h_all, d2w_all, new_dvc = [], [], list(dvc)
     for li, lp in enumerate(layers):
-        if lp.is_first:
-            u = F.elu(sprev_emb + lp.s["1a"]) + lp.s["1b"]
-            if i0 == 0:
-                u = torch.zeros_like(u)
-        else:
-            u = F.elu(d + lp.s["1a"]) + lp.s["1b"]
-        t = _mm(u, lp.c1["depth_conv"])
-        d2h, d2w = _mm(t, *lp.erf_d).chunk(2, dim=1)
+        d, erf, new_dvc[li] = _stream_layer(lp, "depth_conv", d, sprev_emb, i0 == 0, None,
+                                            None if cond_sl is None else cond_sl[li], None,
+                                            dvc[li], half)
+        d2h, d2w = erf.chunk(2, dim=1)
         d2h_all.append(d2h)
         d2w_all.append(d2w)
-        v = F.elu(t + lp.s["2a"]) + lp.s["2b"]
-        wk = lp.c2["depth_conv"]  # (br, br, k-1, k, k)
-        taps = torch.cat([dvc[li], v[:, None]], 1)  # (B, k-1, br, s1, s2)
-        b2 = F.conv2d(taps[:, 0], wk[:, :, 0], padding=half)
-        for ti in range(1, wk.shape[2]):
-            b2 = b2 + F.conv2d(taps[:, ti], wk[:, :, ti], padding=half)
-        new_dvc[li] = taps[:, 1:]
-        if cond_sl is not None:
-            b2 = b2 + cond_sl[li]
-        w3 = F.elu(b2 + lp.s["3a"]) + lp.s["3b"]
-        out = _mm(w3, lp.c3["depth_conv"]) * lp.scale + lp.s["4"]
-        if lp.skip is not None:
-            sk_in = (torch.zeros_like(sprev_emb) if i0 == 0 else sprev_emb) if lp.is_first else d
-            d = out + _mm(sk_in, *lp.skip["depth_conv"])
-        else:
-            d = out + d
     return d2h_all, d2w_all, d, new_dvc
+
+
+def layer_conditions(model, layers, condition_idx, dims, dev):
+    """Each causal layer's projected condition over the grid, (L, B, br, s0,
+    s1, s2), computed once a grid: the coarse one-hot upsampled to ``dims``,
+    embedded, then projected per layer (the JAX sampler's order); None for an
+    unconditioned prior."""
+    cfg = model.config
+    if not cfg.use_conditioning:
+        if condition_idx is not None:
+            raise ValueError("an unconditioned prior takes no condition_idx")
+        return None
+    if condition_idx is None:
+        raise ValueError("a conditioned prior needs condition_idx")
+    one_hot = idx_to_one_hot(condition_idx.to(dev), cfg.condition_dim)
+    cond_emb = F.conv3d(trilinear_resize(one_hot, dims),
+                        model.embed_condition.weight.detach().float(),
+                        model.embed_condition.bias.detach().float())
+    return torch.stack([F.conv3d(cond_emb, *lp.cond) for lp in layers])
 
 
 def _rows(per_layer) -> torch.Tensor:
@@ -162,19 +203,7 @@ def cached_ancestral_sample(
         c = emb.shape[1]
         br = st["w1"].shape[-1]
 
-        cond_full = None
-        if cfg.use_conditioning:
-            if condition_idx is None:
-                raise ValueError("a conditioned prior needs condition_idx")
-            one_hot = idx_to_one_hot(condition_idx.to(dev), cfg.condition_dim)
-            cond_emb = F.conv3d(trilinear_resize(one_hot, dims),
-                                model.embed_condition.weight.detach().float(),
-                                model.embed_condition.bias.detach().float())
-            # per layer (B, br, s0, s1, s2), stacked: (L, B, br, s0, s1, s2)
-            cond_full = torch.stack([F.conv3d(cond_emb, *lp.cond) for lp in layers])
-            del one_hot, cond_emb
-        elif condition_idx is not None:
-            raise ValueError("an unconditioned prior takes no condition_idx")
+        cond_full = layer_conditions(model, layers, condition_idx, dims, dev)
 
         x = torch.zeros(b, s0, s1, s2, dtype=torch.int64, device=dev)
         logits_out = None
