@@ -192,6 +192,28 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      grid with ``--sampler naive`` (one K8 an attention block a voxel: 384),
      each in a process of its own; the grids' count, shape, dtype and codes,
      and the seconds a batch.
+ 22. stage-1 block types and published configs (bf16, batch 1, weights from
+     the seed perturbed off every zero init): (a) serving at the full config
+     with 'regular' and 'evonorm' blocks, stems 2 and 1: the codes against
+     the same forward with the plain lookups (equal but at genuine ties), ms
+     a volume and peak memory; (b) one counted warm-up train step, then ms a
+     step (the mean of 2) and peak memory, at the full config, stem 2, with
+     'regular' blocks, 'evonorm' blocks, the legacy encoder and the
+     mixture-NLL head: K7, K3 and K1b launches a step against what the
+     model implies (K7: a forward hook on every small-channel conv), the
+     host time of K7's wrapper in the step, finite losses, and after every
+     timing one profiled 'regular' and one 'evonorm' step (device busy
+     against the wall, K7's device time, kernels a step); (c) the same for
+     the published steps not run before: the literal stem (stem 1, base 4)
+     of jobs/train_vqvae_full.sh and jobs/train_vqvae_downscaled.sh (2
+     levels, 150 + 150 blocks, 256x256x128); (d) K7 against
+     ``dw_conv3d_plain`` at every distinct shape those steps launched, K3
+     forward and backward against the plain stack at the legacy encoder's
+     C 64 (32x32x8; one block and 50) and on the downscaled config's deepest
+     stack (150 blocks), fp32 and bf16; (e) ``train_vqvae --block-type
+     evonorm`` at the full config for 2 steps on the train CLI phase's
+     scans, then ``calc_ssim_from_checkpoint`` and ``plot_from_checkpoint``
+     on its checkpoint, each in a process of its own, with their launches.
 
 TF32 is off for the whole run (fp32 comparisons need true fp32; bf16 runs
 do not use it). Every number is printed beside the card's name and power
@@ -357,6 +379,26 @@ WIDE = {
     "bottom": dict(fields=dict(input_dim=512, condition_dim=0, model_dim=512, num_resblocks=50,
                                dropout_prob=0.0), level=2, grid=(8, 8, 2), cond=None, batch=20),
 }
+
+
+# phase 22: the options beside the default at the full config (the flags of
+# jobs/train_vqvae_full.sh with --block-type, --encoder-variant or --metric)
+VARIANTS = {"regular": dict(block_type="regular"), "evonorm": dict(block_type="evonorm"),
+            "legacy encoder": dict(encoder_variant="encoder"),
+            "mixture-nll": dict(metric="mixture-nll")}
+# the downscaled published config (jobs/train_vqvae_downscaled.sh,
+# slurm-jobs/train_vqvae_3d_downscaled.job:74-88): 2 levels, codebooks 128/256,
+# 150 + 150 'same' blocks a level, 5 + 5 post-resize blocks, the literal stem
+# (base 4), volumes rescaled to 256x256x128; lr 1e-4 per 4 cards
+DOWNSCALED = dict(n_bottleneck_blocks=2, num_embeddings=(128, 256), n_pre_quantization_blocks=150,
+                  n_post_quantization_blocks=150, n_post_downscale_blocks=5,
+                  n_post_upscale_blocks=5, pad_mode="wrap")
+DOWNSCALED_VOLUME = (256, 256, 128)
+STAGE1_LR = 1e-4 / 4  # both published jobs: 1e-4 per 4 cards, batch 1 a card
+# K3 over a 150-block stack: fp32 as K3_TOL; bf16 about twice the worst
+# reading on an H100 (5.07e-2 of max|ref|, dx; the 50-block check reads
+# 2.68e-2 against its 2^-4)
+K3_DEEP_TOL = {"float32": 1e-4, "bfloat16": 0.1}
 
 
 # phase 15's wide rows: the published batches (one call a row, their own
@@ -711,15 +753,18 @@ def reset_counts():
     decode_row.row_decode.wide_launches = 0
 
 
-def make_model(stem: int, seed: int, dtype, device):
-    """Full-config model with seeded weights; every Fixup branch perturbed
-    off its zero init (branch_conv3, biases, scale)."""
+def make_model(stem: int, seed: int, dtype, device, **fields):
+    """A model of the full config (``fields`` override it) with seeded
+    weights; every zero init perturbed so that each branch counts: the Fixup
+    branch's last conv, scalar biases and scale, and EvoNorm's v, gamma and
+    beta."""
     import torch
-    from vqvae3d_tpu_torch.models.blocks import SCALARS, PreActFixupResBlock
+    from vqvae3d_tpu_torch.models.blocks import (FIXUP_SCALARS, SCALARS, EvoNorm3DS0,
+                                                 FixupResBlock, PreActFixupResBlock)
     from vqvae3d_tpu_torch.models.vqvae import VQVAE, VQVAEConfig
 
-    cfg = VQVAEConfig(**FULL, base_network_channels=4 * stem, stem_space_to_depth=stem,
-                      dtype=dtype)
+    cfg = VQVAEConfig(**{**FULL, **fields}, base_network_channels=4 * stem,
+                      stem_space_to_depth=stem, dtype=dtype)
     gen = torch.Generator().manual_seed(seed)
     model = VQVAE(cfg, generator=gen)
     with torch.no_grad():
@@ -730,6 +775,15 @@ def make_model(stem: int, seed: int, dtype, device):
                 for n in SCALARS:
                     getattr(m, f"bias{n}").copy_(torch.randn(1, generator=gen) * 0.05)
                 m.scale.copy_(1.0 + torch.randn(1, generator=gen) * 0.05)
+            elif isinstance(m, FixupResBlock):
+                w2 = m.branch_conv2.weight
+                w2.copy_(torch.randn(w2.shape, generator=gen) * (27 * w2.shape[1]) ** -0.5)
+                for n in FIXUP_SCALARS:
+                    getattr(m, f"bias{n}").copy_(torch.randn(1, generator=gen) * 0.05)
+                m.scale.copy_(1.0 + torch.randn(1, generator=gen) * 0.05)
+            elif isinstance(m, EvoNorm3DS0):
+                for p, mean, std in ((m.v, 1.0, 0.1), (m.gamma, 1.0, 0.1), (m.beta, 0.0, 0.05)):
+                    p.copy_(mean + torch.randn(p.shape, generator=gen) * std)
     return model.to(device).eval(), cfg
 
 
@@ -1385,16 +1439,17 @@ def phase_train_kernels(ident, results, seed):
     results["dw_conv3d"] = k7
 
 
-def synthetic_batch(seed, device):
-    """One loader batch: a random CT volume in the loader's HU window,
-    (1, H, W, D, 1), all depth slices valid."""
+def synthetic_batch(seed, device, volume=None):
+    """One loader batch: a random CT volume (``VOLUME`` unless ``volume``) in
+    the loader's HU window, (1, H, W, D, 1), all depth slices valid."""
     import torch
     from vqvae3d_tpu_torch.data.transforms import hu_window_normalize
 
+    volume = volume or VOLUME
     rng = np.random.default_rng(seed)
-    vol = hu_window_normalize(rng.integers(-1000, 1500, size=VOLUME, dtype=np.int16))
+    vol = hu_window_normalize(rng.integers(-1000, 1500, size=volume, dtype=np.int16))
     return {"volume": torch.from_numpy(vol)[None, ..., None].to(device),
-            "num_valid_slices": torch.tensor([VOLUME[2]], device=device)}
+            "num_valid_slices": torch.tensor([volume[2]], device=device)}
 
 
 def phase_train_step(ident, seed, results):
@@ -3199,9 +3254,12 @@ def phase_dropout_snail_cli(ident, counts, seed, work: Path):
 # teacher-forces the mid grid's first 8 of 32 slices (2,048 voxels: a whole
 # mid grid takes ~90-160 s of launch-bound host time on an H100, PERF.md), the
 # other grids whole; phase 21 samples every grid whole.
+# the mid prior's depth cut from the published 8 blocks to 4 (its sampling
+# is host-bound: half the blocks, half the time) so the script stays inside
+# its time limit; widths, grid and batch are the published ones
 SNAIL_SAMPLING = {
-    "mid": dict(fields=SNAIL["mid"]["fields"], level=1, grid=(32, 32, 8), batch=10,
-                forced_slices=8),
+    "mid": dict(fields=dict(SNAIL["mid"]["fields"], num_blocks=4), level=1, grid=(32, 32, 8),
+                batch=10, forced_slices=8),
     "bottom": dict(fields=SNAIL["bottom"]["fields"], level=2, grid=(8, 8, 2), batch=20,
                    forced_slices=8),
 }
@@ -3374,19 +3432,36 @@ def phase_snail_sampling(ident, results, seed):
 # runs it: a process that has run torch.profiler launches slower after it (a
 # launch-bound sampler ran ~1.7x slower). It prints the run's seconds (host
 # clock, synchronised), the new uuids and the wrappers' launch counts.
+# a port CLI in a process of its own: argv is the repo, the CLI's module name
+# and its flags; the last line printed holds its seconds, result and launches
 FRESH_CLI = """
-import json, sys, time
+import importlib, json, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
 import chip_smoke
-from vqvae3d_tpu_torch.cli import sample_embeddings
+cli = importlib.import_module("vqvae3d_tpu_torch.cli." + sys.argv[2])
 chip_smoke.reset_counts()
 t0 = time.perf_counter()
-new = sample_embeddings.main(sample_embeddings.parse_arguments(sys.argv[2:]))
+result = cli.main(cli.parse_arguments(sys.argv[3:]))
 torch.cuda.synchronize()
-print(json.dumps(dict(seconds=time.perf_counter() - t0, new=[str(u) for u in new],
-                      launches=chip_smoke.launch_counts())))
+print(json.dumps(dict(seconds=time.perf_counter() - t0, result=result,
+                      launches=chip_smoke.launch_counts()), default=str))
 """
+
+
+def fresh_cli(module: str, argv, timeout: int = 900):
+    """Run ``vqvae3d_tpu_torch.cli.<module>`` with ``argv`` in a process of its
+    own (``FRESH_CLI``); print its output and return (its last line's
+    record, the process's seconds)."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", FRESH_CLI, str(Path(__file__).parent), module,
+                          *argv], capture_output=True, text=True, timeout=timeout)
+    process_s = time.perf_counter() - t0
+    if run.returncode:
+        raise AssertionError(f"{module}: exit {run.returncode}\n{run.stderr[-4000:]}")
+    lines = run.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    return json.loads(lines[-1]), process_s
 
 
 def phase_snail_sample_main_path(ident, counts, results, seed, work: Path):
@@ -3412,16 +3487,8 @@ def phase_snail_sample_main_path(ident, counts, results, seed, work: Path):
                 str(level), "--size", *map(str, grid), "--num-samples", str(b), "--batch-size",
                 str(b), "--use-model", "pixelsnail", "--sampler", sampler, "--tau", str(TOP_TAU),
                 "--seed", str(seed), "--device", "cuda"]
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-c", FRESH_CLI, str(Path(__file__).parent), *argv],
-                             capture_output=True, text=True, timeout=900)
-        process_s = time.perf_counter() - t0
-        if run.returncode:
-            raise AssertionError(f"{name} {sampler}: exit {run.returncode}\n{run.stderr[-4000:]}")
-        lines = run.stdout.strip().splitlines()
-        print("\n".join(lines[:-1]))
-        out = json.loads(lines[-1])
-        got, new = out["launches"], out["new"]
+        out, process_s = fresh_cli("sample_embeddings", argv)
+        got, new = out["launches"], out["result"]
         # the cached sampler launches no kernel; the naive one K8 per attention
         # block and voxel
         want = dict.fromkeys(got, 0)
@@ -3450,6 +3517,415 @@ def phase_snail_sample_main_path(ident, counts, results, seed, work: Path):
     db = create_or_load_db(work / "snail_samples.db", 1)
     if sorted(k for k, v in db.items() if v) != [1, 2]:
         raise AssertionError(f"the DB holds levels {sorted(db)}, not 1 and 2")
+
+
+def k7_expected(model, calls: list):
+    """Forward pre-hooks on every conv of ``model`` that takes the
+    small-channel backward (stride 1, a kernel larger than 1x1x1, at most
+    ``SMALLC_MAX`` channels each way): each forward with autograd on appends
+    the conv to ``calls``, for the one K7 launch its backward will make. A
+    count of the launches independent of K7's wrapper (``k7_record`` records
+    their shapes). Returns the hooks."""
+    import torch
+    from vqvae3d_tpu_torch.ops.conv3d import SMALLC_MAX, Conv3D
+
+    def hook(mod, args):
+        if torch.is_grad_enabled():
+            calls.append(mod)
+
+    return [m.register_forward_pre_hook(hook) for m in model.modules()
+            if isinstance(m, Conv3D) and m.stride == 1 and max(m.weight.shape[:2]) <= SMALLC_MAX
+            and tuple(m.weight.shape[2:]) != (1, 1, 1)]
+
+
+@contextlib.contextmanager
+def k7_record(shapes: list, host: list):
+    """Wrap K7's wrapper: each call appends the (Cin, Cout, kernel, padded
+    input spatial) it launches K7 at to ``shapes`` and adds its host seconds
+    (its checks, its two allocations and the launch) to ``host[0]``; the
+    wrapper's launch count carries over."""
+    from vqvae3d_tpu_torch.ops import conv3d
+
+    kernel = conv3d.dw_conv3d
+
+    def recorded(xp, g, ksize):
+        shapes.append((xp.shape[1], g.shape[1], tuple(ksize), tuple(xp.shape[2:])))
+        t0 = time.perf_counter()
+        try:
+            return kernel(xp, g, ksize)
+        finally:
+            host[0] += time.perf_counter() - t0
+
+    recorded.launches = kernel.launches  # the wrapper counts on the name it is called by
+    conv3d.dw_conv3d = recorded
+    try:
+        yield
+    finally:
+        kernel.launches = recorded.launches
+        conv3d.dw_conv3d = kernel
+
+
+def check_launches(got: dict, want: dict, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+
+
+def stage1_step(ident, name, model, cfg, batch, volume, shapes: list):
+    """One counted warm-up step, then ms a step (CUDA events, the mean of 2),
+    peak memory and the host time of K7's wrapper in those steps: the
+    launches against what the config implies, the distinct K7 shapes added
+    to ``shapes``."""
+    import torch
+    from vqvae3d_tpu_torch.train import vqvae_train
+    from vqvae3d_tpu_torch.train.state import AMSGrad
+
+    opt = AMSGrad(model.parameters(), lr=STAGE1_LR)
+    step = vqvae_train.make_train_step(model, opt)
+    calls, seen, host = [], [], [0.0]
+    hooks = k7_expected(model, calls)
+    reset_counts()
+    with k7_record(seen, [0.0]):
+        first = float(step(batch)["loss"])
+        torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    got = launch_counts()
+    k3 = (sum(n for *_, n in cfg.same_stacks(volume)) if cfg.block_type == "pre-activation"
+          else 0)
+    want = dict(dict.fromkeys(got, 0), l2_argmin_stats=cfg.n_enc, preact_stack_fwd=k3,
+                preact_stack_bwd=k3, dw_conv3d=len(calls))
+    check_launches(got, want, f"{name} train step")
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    with k7_record([], host):
+        ms = cuda_ms(lambda: logs.append(step(batch)), iters=2, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    last = float(logs[-1]["loss"])
+    k7_host = 1e3 * host[0] / 2
+    print(f"bf16 train step {name} (batch 1, {volume}): {ms:.2f} ms/step (mean of 2 after the "
+          f"warm-up) peak {peak:.2f} GiB; launches a step K7 {got['dw_conv3d']}, K3 forward "
+          f"{got['preact_stack_fwd']} backward {got['preact_stack_bwd']}, K1b "
+          f"{got['l2_argmin_stats']}; K7's wrapper {k7_host:.1f} ms of host a step (host "
+          f"clock); losses {first:.6g} -> {last:.6g} [{ident}]")
+    if not (np.isfinite(first) and np.isfinite(last)):
+        raise AssertionError(f"{name}: a non-finite loss")
+    shapes.extend(s for s in dict.fromkeys(seen) if s not in shapes)
+    return dict(ms=ms, peak_gib=peak, launches=got, k7_host_ms=k7_host)
+
+
+K7_KERNELS = ("dw_tc", "dw_partial", "dw_reduce")
+
+
+def stage1_profile(ident, name, model, batch):
+    """One train step under torch.profiler, after a warm-up: device busy
+    against the wall, K7's device time, kernels launched, the host's
+    cudaLaunchKernel time, the costliest kernels (from the raw events: at
+    ~65k events a step ``key_averages`` would take a minute)."""
+    import torch
+    from vqvae3d_tpu_torch.train import vqvae_train
+    from vqvae3d_tpu_torch.train.state import AMSGrad
+
+    step = vqvae_train.make_train_step(model, AMSGrad(model.parameters(), lr=STAGE1_LR))
+    step(batch)
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_kernel, launch, n = {}, 0.0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not e.name().startswith(("Memcpy", "Memset")):
+                key = kernel_name(e.name())
+                by_kernel[key] = by_kernel.get(key, 0.0) + e.duration_ns() / 1e6
+                n += 1
+        elif e.name() == "cudaLaunchKernel":
+            launch += e.duration_ns() / 1e6
+    busy = sum(by_kernel.values())
+    k7 = sum(by_kernel.get(k, 0.0) for k in K7_KERNELS)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"profile of one bf16 {name} stem-2 train step: device busy {busy:.1f} ms of "
+          f"{wall:.1f} ms wall under the profiler ({n} kernels; cudaLaunchKernel {launch:.1f} ms "
+          f"of host); K7 {k7:.1f} ms; costliest: "
+          + ", ".join(f"{k} {ms:.1f}" for k, ms in top) + f" [{ident}]")
+    return dict(busy_ms=busy, wall_ms=wall, k7_ms=k7)
+
+
+def stage1_serving(ident, seed, x):
+    """Encode -> quantize -> decode at the full config with the 'regular' and
+    'evonorm' blocks, at stem 2 (the phase keeps inside its time share): the
+    codes against the same forward with the plain lookups (equal but at
+    genuine fp32 ties), ms a volume."""
+    import torch
+    from vqvae3d_tpu_torch.ops import quantizer_ops
+
+    out = {}
+    for kind, stem in (("regular", 2), ("evonorm", 2)):
+        model, cfg = make_model(stem, seed + 60, torch.bfloat16, "cuda", block_type=kind)
+        inputs = {}
+        hooks = [q.register_forward_hook(lambda m, a, o, i=i: inputs.__setitem__(i, a[0]))
+                 for i, q in enumerate(model.encoder.quantize)]
+        reset_counts()
+        with torch.inference_mode():
+            res_k = model.encode(x)
+            dec = model.decode([q for _, q, _ in res_k])
+            got = launch_counts()
+            flats = dict(inputs)
+            with plain_path():  # the plain lookups; no other kernel serves these blocks
+                res_p = model.encode(x)
+        for h in hooks:
+            h.remove()
+        check_launches(got, dict(dict.fromkeys(got, 0), l2_argmin=cfg.n_enc),
+                       f"{kind} stem {stem} forward")
+        mism, tie_above = [], None
+        for lvl in reversed(range(cfg.n_enc)):  # coarse first: a tie changes finer inputs
+            a, b = res_k[lvl][2].flatten(), res_p[lvl][2].flatten()
+            embed = model.encoder.quantize[lvl].embed
+            flat = flats[lvl].float().movedim(1, -1).reshape(-1, embed.shape[1])
+            ties, real = quantizer_ops.genuine_ties(flat, embed, a, b)
+            mism.append(f"level {lvl} {int((a != b).sum())} (ties {ties.numel()})")
+            if real.numel() and tie_above is None:
+                raise AssertionError(f"{kind} stem {stem} level {lvl}: {real.numel()} codes "
+                                     "differ from the plain lookup's beyond ties")
+            if (a != b).any() and tie_above is None:
+                tie_above = lvl
+        if not torch.isfinite(dec).all() or tuple(dec.shape) != (1, 1, *VOLUME):
+            raise AssertionError(f"{kind} stem {stem}: decoded {tuple(dec.shape)} not finite")
+        del res_k, res_p, dec, flats, inputs
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ms = [cuda_ms(lambda: model(x), iters=2, warmup=1) for _ in range(2)]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"bf16 serving {kind} stem {stem} ({VOLUME}, batch 1): "
+              f"{', '.join(f'{t:.2f}' for t in ms)} ms/volume (encode + decode, mean of 2 "
+              f"after a warm-up, twice) peak {peak:.2f} GiB; codes vs the plain lookup: "
+              f"{', '.join(mism)} [{ident}]")
+        out[(kind, stem)] = min(ms)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def stage1_k3_checks(ident, seed, checks):
+    """K3 forward and backward against the autograd of the plain stack
+    (``preact_stack_plain``: ``preact_fixup_same`` block by block) at
+    ``checks``' (C, spatial, blocks, dtypes): the largest error of each
+    output and gradient against its tolerance."""
+    import torch
+    from vqvae3d_tpu_torch.ops import stack_kernel
+
+    gen = torch.Generator().manual_seed(seed + 70)
+    for c, spatial, nb, dtypes in checks:
+        x32 = torch.randn(1, c, *spatial, generator=gen).to("cuda")
+        g32 = torch.randn(1, c, *spatial, generator=gen).to("cuda")
+        w = k3_weights(c, nb, gen, "cuda")
+        for dtype in dtypes:
+            key = str(dtype).removeprefix("torch.")
+            tol = (K3_DEEP_TOL[key] if nb > 50 else
+                   K3_BWD_TOL[(key, "one" if nb == 1 else "full")])
+            x, gy = x32.to(dtype), g32.to(dtype)
+            xg = x.clone().requires_grad_()
+            wg = [t.clone().requires_grad_() for t in w]
+            y = stack_kernel.preact_stack_fused(xg, *wg, "wrap")
+            got = (y, *torch.autograd.grad(y, [xg, *wg], gy))
+            with plain_path():
+                xr = x.clone().requires_grad_()
+                wr = [t.clone().requires_grad_() for t in w]
+                yr = stack_kernel.preact_stack_plain(xr, *wr, pad_mode="wrap")
+                want = (yr, *torch.autograd.grad(yr, [xr, *wr], gy))
+            errs = {}
+            for name, a, b in zip(("y", "dx", "dw1", "dw2", "dw3", "dsc"), got, want):
+                a, b = a.detach().float(), b.detach().float()
+                errs[name] = float((a - b).abs().max()) / float(b.abs().max())
+            print(f"K3 forward and backward C={c} {spatial} {nb} blocks wrap {key}: "
+                  f"max|d|/max|ref| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                  + f" (tolerance {tol:.3g}) [{ident}]")
+            if max(errs.values()) > tol:
+                raise AssertionError(f"K3 C={c} {spatial} {nb} blocks {key} disagrees with "
+                                     f"the plain stack: {errs}")
+            del y, got, yr, want, xg, wg, xr, wr
+
+
+def stage1_k7_checks(ident, seed, shapes):
+    """K7 against ``dw_conv3d_plain`` at each distinct bf16 shape the steps
+    launched (random inputs): the largest error against ``K7_TOL``."""
+    import torch
+    from vqvae3d_tpu_torch.ops import conv3d
+
+    gen = torch.Generator().manual_seed(seed + 71)
+    worst = 0.0
+    for cin, cout, ks, padded in shapes:
+        out = tuple(p - k + 1 for p, k in zip(padded, ks))
+        xp = torch.randn(1, cin, *padded, generator=gen).to("cuda", torch.bfloat16)
+        g = torch.randn(1, cout, *out, generator=gen).to("cuda", torch.bfloat16)
+        got = conv3d.dw_conv3d(xp, g, ks)
+        want = conv3d.dw_conv3d_plain(xp, g, ks)
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        worst = max(worst, err)
+        if not err <= K7_TOL:
+            raise AssertionError(f"K7 Cin={cin} Cout={cout} {ks} over {out}: max|d|/max|ref| "
+                                 f"{err:.3g} > {K7_TOL}")
+    print(f"K7 at the {len(shapes)} distinct shapes of the phase's train steps (Cin, Cout, "
+          f"grid): " + ", ".join(f"{a}->{b} {tuple(p - k + 1 for p, k in zip(pp, ks))}"
+                                for a, b, ks, pp in shapes)
+          + f"; bf16 against dw_conv3d_plain, worst max|d|/max|ref| {worst:.2e} (tolerance "
+          f"{K7_TOL}) [{ident}]")
+
+
+def stage1_scans(work: Path, seed) -> Path:
+    """The train CLI phase's three synthetic scans, written here when that
+    phase did not run."""
+    ct = work / "ct_train"
+    if not ct.exists():
+        ct = work / "ct_stage1"
+        ct.mkdir(exist_ok=True)
+        rng = np.random.default_rng(seed + 3)
+        for i in range(3):
+            write_scan(ct / f"scan{i}.nrrd",
+                       rng.integers(-1000, 1500, size=VOLUME, dtype=np.int16))
+    return ct
+
+
+def stage1_clis(ident, counts, seed, work: Path, k7_per_step: int):
+    """``train_vqvae --block-type evonorm`` at the full config (stem 2) for 2
+    steps (validating at step 2), then ``calc_ssim_from_checkpoint`` and
+    ``plot_from_checkpoint`` on its checkpoint, each in a process of its own;
+    the launches against what the runs imply."""
+    import torch
+    from vqvae3d_tpu_torch.cli import train_vqvae
+    from vqvae3d_tpu_torch.data import nrrd_io
+
+    ct = stage1_scans(work, seed)
+    ckpt = work / "evonorm_ckpt"
+    size = ["--scan-size", *map(str, VOLUME[:2]), "--output-depth", str(VOLUME[2])]
+    reset_counts()
+    t0 = time.perf_counter()
+    _, _, step = train_vqvae.main(train_vqvae.parse_arguments([
+        str(ct), "--ckpt-dir", str(ckpt), "--block-type", "evonorm", "--batch-size", "1",
+        "--num-embeddings", *map(str, FULL["num_embeddings"]),
+        *(f for k in ("n_pre_quantization_blocks", "n_post_quantization_blocks",
+                      "n_post_downscale_blocks", "n_post_upscale_blocks", "pad_mode")
+          for f in ("--" + k.replace("_", "-"), str(FULL[k]))),
+        "--stem-space-to-depth", "2", "--base-network-channels", "8", "--base-lr", str(STAGE1_LR), "--max-steps", "2", "--val-every-steps", "2",
+        "--log-every-n-steps", "1", "--num-workers", "2", "--device", "cuda", *size]))
+    torch.cuda.synchronize()
+    got = launch_counts()
+    # two steps and one validation forward (the one val scan)
+    want = dict(dict.fromkeys(got, 0), l2_argmin_stats=3 * 2, l2_argmin=3,
+                dw_conv3d=2 * k7_per_step)
+    print(f"train_vqvae --block-type evonorm: 2 steps in {time.perf_counter() - t0:.1f} s "
+          f"(host clock, data, validation and checkpoints included); launches "
+          f"{({k: v for k, v in got.items() if v})} [{ident}]")
+    check_launches(got, want, "train_vqvae --block-type evonorm")
+    if step != 2:
+        raise AssertionError(f"train_vqvae stopped at step {step}")
+    total = dict(got)
+
+    out, process_s = fresh_cli("calc_ssim_from_checkpoint",
+                               [str(ckpt), str(ct), *size, "--device", "cuda"])
+    ssim, got = out["result"], out["launches"]
+    n = sum(v["n"] for v in ssim.values())
+    print(f"calc_ssim_from_checkpoint: {ssim} in {out['seconds']:.2f} s ({process_s:.1f} s the "
+          f"process); launches {({k: v for k, v in got.items() if v})} [{ident}]")
+    check_launches(got, dict(dict.fromkeys(got, 0), l2_argmin=3 * n), "calc_ssim_from_checkpoint")
+    if (sorted(ssim) != ["train", "val"] or n != 3
+            or not all(np.isfinite(v["ssim_mean"]) and -1 <= v["ssim_mean"] <= 1
+                       for v in ssim.values())):
+        raise AssertionError(f"calc_ssim_from_checkpoint: {ssim}")
+    for k in total:
+        total[k] += got[k]
+
+    prefix = work / "plot" / "evonorm"
+    prefix.parent.mkdir(exist_ok=True)
+    out, process_s = fresh_cli("plot_from_checkpoint", [str(ckpt), str(ct), str(prefix), *size,
+                                                         "--device", "cuda"])
+    got = out["launches"]
+    check_launches(got, dict(dict.fromkeys(got, 0), l2_argmin=3), "plot_from_checkpoint")
+    vols = [nrrd_io.read(f)[0] for f in out["result"]]
+    print(f"plot_from_checkpoint: {out['result']} in {out['seconds']:.2f} s ({process_s:.1f} s "
+          f"the process): {[(v.shape, str(v.dtype), int(v.min()), int(v.max())) for v in vols]} "
+          f"[{ident}]")
+    # the ELU's floor is -1: HU -2000
+    if len(vols) != 2 or any(v.shape != VOLUME or v.min() < -2000 for v in vols):
+        raise AssertionError("plot_from_checkpoint wrote the wrong volumes")
+    for k in total:
+        total[k] += got[k]
+        counts[k] = counts.get(k, 0) + total[k]
+
+
+def phase_stage1_variants(ident, counts, results, seed, work: Path):
+    """Phase 22: the stage-1 block types and options, and the published
+    configs that had not run on the card."""
+    import torch
+    from vqvae3d_tpu_torch.data.transforms import hu_window_normalize
+    from vqvae3d_tpu_torch.models.vqvae import VQVAEConfig
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 61)
+    x = torch.from_numpy(hu_window_normalize(
+        rng.integers(-1000, 1500, size=VOLUME, dtype=np.int16)))[None, None].to(dev)
+    t0 = time.perf_counter()
+    stage1_serving(ident, seed, x)
+    t_a = time.perf_counter() - t0
+    del x
+
+    batch = synthetic_batch(seed + 62, dev)
+    shapes, steps = [], {}
+    for name, fields in VARIANTS.items():
+        model, cfg = make_model(2, seed + 63, torch.bfloat16, dev, **fields)
+        steps[name] = stage1_step(ident, f"{name} stem 2", model, cfg, batch, VOLUME, shapes)
+        del model
+        torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t0 - t_a
+
+    model, cfg = make_model(1, seed + 64, torch.bfloat16, dev)
+    steps["stem 1"] = stage1_step(ident, "pre-activation stem 1", model, cfg, batch, VOLUME,
+                                  shapes)
+    del model
+    torch.cuda.empty_cache()
+    # the literal stem's EvoNorm step: its post-upscale blocks at C 4 over the
+    # full volume, fp32 inside, no per-block checkpoint
+    model, cfg = make_model(1, seed + 67, torch.bfloat16, dev, **VARIANTS["evonorm"])
+    steps["evonorm stem 1"] = stage1_step(ident, "evonorm stem 1", model, cfg, batch, VOLUME,
+                                          shapes)
+    del model
+    torch.cuda.empty_cache()
+    model, cfg = make_model(1, seed + 65, torch.bfloat16, dev, **DOWNSCALED)
+    steps["downscaled"] = stage1_step(ident, "downscaled", model, cfg,
+                                      synthetic_batch(seed + 66, dev, DOWNSCALED_VOLUME),
+                                      DOWNSCALED_VOLUME, shapes)
+    # its deepest stack, the largest of them
+    deep = max(cfg.same_stacks(DOWNSCALED_VOLUME), key=lambda s: (s[3], s[1] * np.prod(s[2])))
+    del model
+    torch.cuda.empty_cache()
+    # after every timing: a process that ran the profiler launches slower
+    for name in ("regular", "evonorm"):
+        model, _ = make_model(2, seed + 63, torch.bfloat16, dev, **VARIANTS[name])
+        steps[name].update(stage1_profile(ident, name, model, batch))
+        del model
+        torch.cuda.empty_cache()
+    del batch
+    t_c = time.perf_counter() - t0 - t_a - t_b
+
+    stage1_k7_checks(ident, seed, shapes)
+    legacy = VQVAEConfig(**FULL, **STEM2, encoder_variant="encoder")
+    # the legacy encoder's pre-quantization stack at C 64 (32x32x8)
+    c64 = next(s for s in legacy.same_stacks(VOLUME)
+               if s[:2] == ("encode", 64) and s[3] == legacy.n_pre_quantization_blocks)
+    stage1_k3_checks(ident, seed, [
+        (c64[1], c64[2], 1, (torch.float32, torch.bfloat16)),
+        (c64[1], c64[2], c64[3], (torch.float32, torch.bfloat16)),
+        (deep[1], deep[2], deep[3], (torch.float32, torch.bfloat16)),
+    ])
+    t_d = time.perf_counter() - t0 - t_a - t_b - t_c
+
+    stage1_clis(ident, counts, seed, work, steps["evonorm"]["launches"]["dw_conv3d"])
+    t_e = time.perf_counter() - t0 - t_a - t_b - t_c - t_d
+    print(f"phase 22 parts: serving {t_a:.1f} s, option steps {t_b:.1f} s, published steps "
+          f"and profiles {t_c:.1f} s, kernel checks {t_d:.1f} s, CLIs {t_e:.1f} s")
+    results["stage1_steps"] = steps
 
 
 def main():
@@ -3520,6 +3996,8 @@ def main():
             ("PixelSNAIL sampling vs the one-shot forward", lambda: phase_snail_sampling(
                 ident, results, args.seed)),
             ("PixelSNAIL sampling main path", lambda: phase_snail_sample_main_path(
+                ident, counts, results, args.seed, Path(tmp))),
+            ("stage-1 block types and published configs", lambda: phase_stage1_variants(
                 ident, counts, results, args.seed, Path(tmp))),
         ]
         for number, (name, fn) in enumerate(phases, 1):

@@ -20,6 +20,14 @@
   * A resumed ``train_prior`` run (2 + 1 + 1 steps) equals an uninterrupted
     one (4 steps) bit for bit, for the PixelCNN and the PixelSNAIL, with
     dropout and mixup on.
+  * ``train_vqvae --block-type evonorm --device cpu`` trains two steps, then
+    ``calc_ssim_from_checkpoint`` prints, per split, the SSIM that
+    ``ssim3d_slices`` gives the checkpoint's own reconstructions, under the
+    JAX CLI's JSON keys, and ``plot_from_checkpoint`` writes the volume and
+    the ELU of its reconstruction as HU NRRDs.
+  * A ``step_N_config.json`` written by the JAX package, with its TPU
+    layout fields (``packed_stacks``, ``scan_stacks``, ``argmin_method``,
+    ``remat*``), loads in the port.
   * In a subprocess where ``import jax`` fails, every module of the port
     imports and both CLIs run: the port never needs jax.
 """
@@ -47,17 +55,23 @@ from vqvae3d_tpu.data.sample_db import create_or_load_db
 from vqvae3d_tpu.data.sample_db import save_db as jsave_db
 from vqvae3d_tpu.models.pixelcnn import PixelCNNConfig as JPixelCNNConfig
 from vqvae3d_tpu.models.vqvae import VQVAE as JVQVAE, VQVAEConfig as JConfig
-from vqvae3d_tpu.train.checkpoint import _config_from_json
+from vqvae3d_tpu.train.checkpoint import _config_from_json, _config_to_json
 import vqvae3d_tpu_torch
 from vqvae3d_tpu_torch.checkpoint import load_model, load_prior, save_checkpoint, save_prior
 from vqvae3d_tpu_torch.cli import (
+    calc_ssim_from_checkpoint,
     decode_embeddings,
     extract_embeddings,
+    plot_from_checkpoint,
     sample_embeddings,
     train_prior,
+    train_vqvae,
 )
 from vqvae3d_tpu_torch.data.code_store import CodeStoreWriter
 from vqvae3d_tpu_torch.convert import jax_variables_to_state_dict
+from vqvae3d_tpu_torch.data.ct_dataset import CTDataModule
+from vqvae3d_tpu_torch.data.transforms import hu_unnormalize
+from vqvae3d_tpu_torch.metrics.evaluate import ssim3d_slices
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
 from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL, PixelSNAILConfig
 from vqvae3d_tpu_torch.models.vqvae import VQVAEConfig
@@ -298,6 +312,73 @@ def test_train_prior_resume_replays_the_run(tmp_path, use_model):
     other, _, _ = train_prior.main(train_prior.parse_arguments(
         flags + ["--max-steps", "4", "--ckpt-dir", str(tmp_path / "other"), "--seed", "7"]))
     assert any(not torch.equal(other.state_dict()[k], v) for k, v in whole.state_dict().items())
+
+
+def test_evonorm_train_then_ssim_and_plot_clis_on_cpu(setup, tmp_path, capsys):
+    s = setup
+    ckpt = tmp_path / "evonorm"
+    size = ["--scan-size", str(H), str(W), "--output-depth", str(DEPTH)]
+    train_vqvae.main(train_vqvae.parse_arguments(
+        [str(s.ct), "--ckpt-dir", str(ckpt), "--block-type", "evonorm", "--batch-size", "1",
+         "--n-bottleneck-blocks", "2", "--num-embeddings", "8", "16",
+         "--n-pre-quantization-blocks", "1", "--n-post-quantization-blocks", "1",
+         "--max-steps", "2", "--val-every-steps", "2", "--num-workers", "1",
+         "--precision", "fp32", "--device", "cpu", *size]))
+    model, cfg = load_model(ckpt, device="cpu")
+    assert cfg.block_type == "evonorm"
+
+    capsys.readouterr()
+    out = calc_ssim_from_checkpoint.main(calc_ssim_from_checkpoint.parse_arguments(
+        [str(ckpt), str(s.ct), "--device", "cpu", *size]))
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(printed[-1]) == out
+    dm = CTDataModule(str(s.ct), size=(H, W, None), output_depth=DEPTH)
+    with torch.inference_mode():
+        for split, loader in (("train", dm.train_dataloader()), ("val", dm.val_dataloader())):
+            vals = []
+            for b in loader:
+                x = torch.from_numpy(b["volume"]).movedim(-1, 1)
+                recon = torch.nn.functional.elu(model(x)[0])
+                vals.append(float(ssim3d_slices(recon, x, data_range=4.24)))
+            assert set(out[split]) == {"ssim_mean", "ssim_std", "n"}
+            assert out[split]["n"] == len(vals) > 0
+            np.testing.assert_allclose(out[split]["ssim_mean"], np.mean(vals), rtol=1e-6)
+            np.testing.assert_allclose(out[split]["ssim_std"], np.std(vals), rtol=1e-5,
+                                       atol=1e-7)
+            assert any(line.startswith(f"{split}: SSIM ") for line in printed)
+
+    prefix = tmp_path / "plot" / "vol"
+    prefix.parent.mkdir()
+    written = plot_from_checkpoint.main(plot_from_checkpoint.parse_arguments(
+        [str(ckpt), str(s.ct), str(prefix), "--sample-index", "1", "--device", "cpu", *size]))
+    assert written == [f"{prefix}_orig.nrrd", f"{prefix}_recon.nrrd"]
+    vol, _ = CTDataModule(str(s.ct), train_frac=1.0, size=(H, W, None),
+                          output_depth=DEPTH).dataset[1]
+    orig, header = nrrd_io.read(written[0])
+    recon, _ = nrrd_io.read(written[1])
+    np.testing.assert_array_equal(orig, hu_unnormalize(vol[..., 0]))
+    np.testing.assert_allclose(header["spacings"], (0.976, 0.976, 3))
+    with torch.inference_mode():
+        want = torch.nn.functional.elu(model(torch.from_numpy(vol)[None].movedim(-1, 1))[0])
+    np.testing.assert_array_equal(recon, hu_unnormalize(want[0, 0].numpy()))
+
+
+def test_jax_written_config_with_layout_fields_loads(setup, tmp_path):
+    """A JAX step_N_config.json carries the TPU layout fields the port's
+    config does not have; the port drops them on load."""
+    s = setup
+    jcfg = JConfig(**CFG, dtype=jnp.float32, remat=False, remat_blocks=True,
+                   remat_policy="nothing", argmin_method="ref", packed_stacks="off",
+                   scan_stacks=False)
+    ckpt = tmp_path / "jax_config"
+    save_checkpoint(ckpt, torch.load(s.ckpt / "step_0.pt", weights_only=True),
+                    VQVAEConfig(**CFG, dtype=torch.float32))
+    text = _config_to_json(jcfg)
+    assert all(k in json.loads(text) for k in ("packed_stacks", "scan_stacks", "argmin_method",
+                                               "remat", "remat_blocks", "remat_policy"))
+    (ckpt / "step_0_config.json").write_text(text)
+    model, cfg = load_model(ckpt, device="cpu")
+    assert cfg == VQVAEConfig(**CFG, dtype=torch.float32)
 
 
 def test_port_runs_with_jax_blocked(setup):

@@ -1,5 +1,6 @@
 """Whole-model parity of the port with the JAX VQ-VAE, the weight bridge,
-the checkpoint/config interchange and the options outside the port's slice.
+the checkpoint/config interchange and the options beside the default (block
+types, the legacy encoder, the mixture head).
 
 Every parameter of the JAX model is randomized from a numpy seed (the
 zero-init ``branch_conv3`` would otherwise make each 'same' block the
@@ -28,7 +29,8 @@ from vqvae3d_tpu_torch.checkpoint import (
     save_checkpoint,
 )
 from vqvae3d_tpu_torch.convert import jax_variables_to_state_dict
-from vqvae3d_tpu_torch.models.vqvae import VQVAE, VQVAEConfig
+from vqvae3d_tpu_torch.models.vqvae import JAX_LAYOUT_FIELDS, VQVAE, VQVAEConfig
+from vqvae3d_tpu_torch.ops.quantizer_ops import genuine_ties
 
 BLOCKS = dict(
     n_pre_quantization_blocks=1,
@@ -38,9 +40,10 @@ BLOCKS = dict(
 )
 
 
-def _configs(levels, stem, pad_mode):
+def _configs(levels, stem, pad_mode, **fields):
     kw = dict(
         BLOCKS,
+        **fields,
         n_bottleneck_blocks=levels,
         num_embeddings=(16, 32, 64)[:levels],
         base_network_channels=4 * stem,
@@ -132,11 +135,15 @@ def test_state_dict_round_trips_through_the_reference_converter():
 
 
 def test_config_json_interchange():
+    """Either package reads the other's config: the port drops the JAX
+    config's TPU layout fields, the JAX package fills them with defaults."""
     jcfg = JConfig(num_embeddings=(128, 256, 512), n_pre_quantization_blocks=50,
-                   stem_space_to_depth=2, base_network_channels=8, pad_mode="zeros")
+                   stem_space_to_depth=2, base_network_channels=8, pad_mode="zeros",
+                   block_type="evonorm", metric="mixture-nll")
     tcfg = config_from_json(_config_to_json(jcfg))
     assert tcfg.dtype == torch.bfloat16
-    assert dataclasses.asdict(tcfg) | {"dtype": None} == dataclasses.asdict(jcfg) | {"dtype": None}
+    jfields = {k: v for k, v in dataclasses.asdict(jcfg).items() if k not in JAX_LAYOUT_FIELDS}
+    assert dataclasses.asdict(tcfg) | {"dtype": None} == jfields | {"dtype": None}
     assert _config_from_json(JConfig, config_to_json(tcfg)) == jcfg
 
 
@@ -175,12 +182,43 @@ def test_same_stacks_match_the_model_run(stem, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "field,value",
-    [("block_type", "regular"), ("encoder_variant", "encoder"), ("metric", "mixture-nll")],
+    "field,value,stem",
+    [("block_type", "regular", 1), ("encoder_variant", "encoder", 1),
+     ("metric", "mixture-nll", 1), ("block_type", "evonorm", 2), ("metric", "mixture-nll", 2)],
 )
-def test_options_outside_the_slice_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        VQVAE(VQVAEConfig(n_bottleneck_blocks=2, num_embeddings=(8, 8), **{field: value}))
+def test_stage1_options_match_jax(field, value, stem, monkeypatch):
+    """Each option beside the default builds and serves as the JAX model
+    does (2 levels, 'zeros' padding, 32x32x16, every parameter random):
+    codes equal but at genuine fp32 ties, decoded within 1e-4 x max|ref|
+    (fp32 sums in another order; the JAX package's block-space rewrites off,
+    a TPU layout device). Their train steps:
+    tests/test_torch_stage1_variants.py."""
+    monkeypatch.setenv("VQVAE3D_BLOCK_REWRITE", "0")
+    jcfg, tcfg = _configs(2, stem, "zeros", **{field: value})
+    rng = np.random.default_rng(stem * 100 + len(value))
+    x = rng.standard_normal((1, 32, 32, 16, 1)).astype(np.float32)
+    jmodel = JVQVAE(jcfg)
+    variables = _random_variables(jmodel, x.shape, rng)
+    decoded, (_, _, indices) = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(
+        variables, x)
+    model = VQVAE(tcfg)
+    model.load_state_dict(jax_variables_to_state_dict(variables, tcfg))  # strict
+    inputs = {}
+    hooks = [q.register_forward_hook(lambda m, a, o, i=i: inputs.__setitem__(i, a[0]))
+             for i, q in enumerate(model.encoder.quantize)]
+    with torch.inference_mode():
+        t_dec, (_, _, t_idx) = model(torch.from_numpy(x).movedim(-1, 1))
+    for h in hooks:
+        h.remove()
+    for lvl, q in enumerate(model.encoder.quantize):
+        a, b = t_idx[lvl].flatten(), torch.from_numpy(np.array(indices[lvl])).flatten()
+        flat = inputs[lvl].movedim(1, -1).reshape(-1, q.embed.shape[1])
+        _, real = genuine_ties(flat, q.embed, a, b.to(a.dtype))
+        assert real.numel() == 0, f"level {lvl}: {real.numel()} codes differ beyond ties"
+    want = np.asarray(decoded)
+    assert t_dec.shape[1] == tcfg.head_channels
+    np.testing.assert_allclose(t_dec.movedim(1, -1).numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
 
 
 def test_train_mode_raises_and_checkpoint_round_trips(tmp_path):

@@ -12,8 +12,11 @@ checkpoint, so a training run's directory serves ``extract_embeddings``.
 
 The config JSON has the format of ``vqvae3d_tpu/train/checkpoint.py::
 _config_to_json`` (``dataclasses.asdict`` with the dtype by name), so either
-package reads the other's config. Orbax checkpoints of the JAX package are
-not read here: turning one into a state_dict needs jax
+package reads the other's config: the JAX config's TPU layout fields
+(``models.vqvae.JAX_LAYOUT_FIELDS``: ``remat*``, ``argmin_method``,
+``packed_stacks``, ``scan_stacks``) are dropped on load, and the JAX package
+fills them with its defaults when it reads the port's. Orbax checkpoints of
+the JAX package are not read here: turning one into a state_dict needs jax
 (``convert.jax_variables_to_state_dict`` on ``jax.device_get(variables)``).
 
 Prior checkpoints use the same directory format, for either prior:
@@ -41,7 +44,7 @@ import torch
 
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
 from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL, PixelSNAILConfig
-from vqvae3d_tpu_torch.models.vqvae import VQVAE, VQVAEConfig
+from vqvae3d_tpu_torch.models.vqvae import JAX_LAYOUT_FIELDS, VQVAE, VQVAEConfig
 
 PRIOR_LAYOUT_FIELDS = ("scan_stacks", "remat_scan")  # JAX-only, dropped on load
 
@@ -53,7 +56,7 @@ def config_to_json(config) -> str:
     return json.dumps(d)
 
 
-def config_from_json(text: str, cls=VQVAEConfig, drop=()):
+def config_from_json(text: str, cls=VQVAEConfig, drop=JAX_LAYOUT_FIELDS):
     d = json.loads(text)
     for k in drop:
         d.pop(k, None)

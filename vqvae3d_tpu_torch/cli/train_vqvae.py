@@ -9,7 +9,12 @@ checkpoint in ``--ckpt-dir`` and the best on ``val_recon_loss_mean`` under
 (params, EMA codebooks, optimizer state, step). ``--profile-dir`` writes a
 ``torch.profiler`` trace of steps 10-15. The mesh and multi-host flags
 (``--mesh-shape``, ``--multihost``, ``--coordinator``) raise
-``NotImplementedError``: multi-GPU training is not ported yet.
+``NotImplementedError``: multi-GPU training is not ported yet. The JAX
+config's TPU layout switches (``--remat``, ``--remat-blocks``,
+``--argmin-method``, ``--packed-stacks``, ``--scan-stacks``) are accepted and
+ignored. Every ``--block-type`` ('pre-activation', 'regular', 'evonorm'),
+``--encoder-variant`` and ``--metric`` ('huber', 'mixture-nll' with
+``--n-mix``) of the JAX CLI trains.
 
     python -m vqvae3d_tpu_torch.cli.train_vqvae /data/ct \\
         --batch-size 1 --num-embeddings 128 256 512 \\
@@ -28,7 +33,8 @@ import numpy as np
 import torch
 
 from vqvae3d_tpu_torch.checkpoint import latest_step, restore_train_state, save_train_state
-from vqvae3d_tpu_torch.cli.common import MetricLogger, add_dataclass_args, dataclass_from_args
+from vqvae3d_tpu_torch.cli.common import (MetricLogger, add_dataclass_args, booltype,
+                                          dataclass_from_args)
 from vqvae3d_tpu_torch.cli.extract_embeddings import resolve_device
 from vqvae3d_tpu_torch.data.ct_dataset import CTDataModule
 from vqvae3d_tpu_torch.data.device_feed import device_prefetch
@@ -37,9 +43,18 @@ from vqvae3d_tpu_torch.train.state import AMSGrad
 from vqvae3d_tpu_torch.train.vqvae_train import make_eval_step, make_train_step
 
 
+# the JAX config's fields in JAX_LAYOUT_FIELDS that its CLI exposes, with their defaults
+LAYOUT_FLAGS = {"remat": (booltype, True), "remat_blocks": (booltype, False),
+                "argmin_method": (str, "auto"), "packed_stacks": (str, "auto"),
+                "scan_stacks": (booltype, True)}
+
+
 def parse_arguments(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser = add_dataclass_args(parser, VQVAEConfig)
+    for name, (kind, default) in LAYOUT_FLAGS.items():
+        parser.add_argument("--" + name.replace("_", "-"), type=kind, default=default,
+                            help="the JAX package's TPU layout switch; ignored")
     parser.add_argument("dataset_path", type=Path)
     parser.add_argument("--rescale-input", type=int, nargs="+", default=None)
     parser.add_argument("--batch-size", type=int, default=1)

@@ -7,7 +7,14 @@ the space-to-depth stem (``stem_space_to_depth=2``), which that converter
 refuses. It takes the tree ``{'params', 'quantizer'}`` as nested dicts of
 numpy arrays (``jax.device_get(variables)`` on the JAX side) and imports no
 jax. The quantizer's ``initialized`` flag becomes ``first_pass = not
-initialized``.
+initialized``. It covers every block type and both encoder variants: the
+'regular' (``FixupResBlock``) and 'evonorm' (``EvonormResBlock``) blocks keep
+their JAX parameter names as the port's keys (``bias1a`` … ``scale``,
+``evonorm_{1,2,3}.{v,gamma,beta}``, ``branch_conv{1,2,3}`` and
+``skip_conv`` with their biases; a ResizeConv3D's ``/conv`` level dropped).
+No reference-checkpoint converter exists for those two block types: the JAX
+package's (``convert_reference_vqvae_state_dict``) converts pre-activation
+trees only.
 
 ``jax_pixelcnn_params_to_state_dict`` and ``jax_pixelsnail_params_to_state_dict``
 do the same for the priors: each is the exact inverse of
@@ -50,27 +57,51 @@ def jax_variables_to_state_dict(variables: Dict[str, Any], config) -> Dict[str, 
         if bias and has(tree, src + "/bias"):
             sd[dst + ".bias"] = np.asarray(get(tree, src + "/bias"))
 
+    def block(tree, src, dst, mode):
+        {"pre-activation": preact_block, "regular": fixup_block,
+         "evonorm": evonorm_block}[config.block_type](tree, src, dst, mode)
+
+    def resize_conv(tree, src, dst, mode, bias):
+        conv_entry(tree, src + ("/conv" if mode == "up" else ""), dst, bias=bias)
+
     def fixup_block(tree, src, dst, mode):
+        for name in ("1a", "1b", "2a", "2b"):
+            sd[f"{dst}.bias{name}"] = np.asarray(get(tree, f"{src}/bias{name}"))
+        sd[f"{dst}.scale"] = np.asarray(get(tree, f"{src}/scale"))
+        resize_conv(tree, f"{src}/branch_conv1", f"{dst}.branch_conv1", mode, bias=False)
+        conv_entry(tree, f"{src}/branch_conv2", f"{dst}.branch_conv2", bias=False)
+        resize_conv(tree, f"{src}/skip_conv", f"{dst}.skip_conv", mode, bias=True)
+
+    def evonorm_block(tree, src, dst, mode):
+        for i in (1, 2, 3):
+            for name in ("v", "gamma", "beta"):
+                sd[f"{dst}.evonorm_{i}.{name}"] = np.asarray(
+                    get(tree, f"{src}/evonorm_{i}/{name}"))
+        conv_entry(tree, f"{src}/branch_conv1", f"{dst}.branch_conv1")
+        resize_conv(tree, f"{src}/branch_conv2", f"{dst}.branch_conv2", mode, bias=True)
+        conv_entry(tree, f"{src}/branch_conv3", f"{dst}.branch_conv3")
+        if has(tree, f"{src}/skip_conv"):
+            resize_conv(tree, f"{src}/skip_conv", f"{dst}.skip_conv", mode, bias=True)
+
+    def preact_block(tree, src, dst, mode):
         for name in ("1a", "1b", "2a", "2b", "3a", "3b", "4"):
             sd[f"{dst}.bias{name}"] = np.asarray(get(tree, f"{src}/bias{name}"))
         sd[f"{dst}.scale"] = np.asarray(get(tree, f"{src}/scale"))
         for i in (1, 3):
             conv_entry(tree, f"{src}/branch_conv{i}", f"{dst}.branch_conv{i}", bias=False)
-        b2 = f"{src}/branch_conv2" + ("/conv" if mode == "up" else "")
-        conv_entry(tree, b2, f"{dst}.branch_conv2", bias=False)
+        resize_conv(tree, f"{src}/branch_conv2", f"{dst}.branch_conv2", mode, bias=False)
         if has(tree, f"{src}/skip_conv"):
             sd[f"{dst}.bias1c"] = np.asarray(get(tree, f"{src}/bias1c"))
             sd[f"{dst}.bias1d"] = np.asarray(get(tree, f"{src}/bias1d"))
-            skip = f"{src}/skip_conv" + ("/conv" if mode == "up" else "")
-            conv_entry(tree, skip, f"{dst}.skip_conv", bias=False)
+            resize_conv(tree, f"{src}/skip_conv", f"{dst}.skip_conv", mode, bias=False)
 
     def upblock(tree, src, dst, n_up, n_post):
         seq = 0
         for i in range(n_up - 1, -1, -1):
-            fixup_block(tree, f"{src}/up_{i}", f"{dst}.layers.{seq}", "up")
+            block(tree, f"{src}/up_{i}", f"{dst}.layers.{seq}", "up")
             seq += 1
             for j in range(n_post):
-                fixup_block(tree, f"{src}/up_{i}_post_{j}", f"{dst}.layers.{seq}", "same")
+                block(tree, f"{src}/up_{i}_post_{j}", f"{dst}.layers.{seq}", "same")
                 seq += 1
 
     enc = variables["params"]["encoder"]
@@ -78,20 +109,20 @@ def jax_variables_to_state_dict(variables: Dict[str, Any], config) -> Dict[str, 
     for lvl in range(n_enc):
         seq = 0
         for i in range(config.level_n_down(lvl)):
-            fixup_block(enc, f"down_{lvl}/down_{i}", f"encoder.down.{lvl}.layers.{seq}", "down")
+            block(enc, f"down_{lvl}/down_{i}", f"encoder.down.{lvl}.layers.{seq}", "down")
             seq += 1
             for j in range(config.n_post_downscale_blocks):
-                fixup_block(enc, f"down_{lvl}/down_{i}_post_{j}",
-                            f"encoder.down.{lvl}.layers.{seq}", "same")
+                block(enc, f"down_{lvl}/down_{i}_post_{j}", f"encoder.down.{lvl}.layers.{seq}",
+                      "same")
                 seq += 1
         pqc_src, pqc_dst = f"pre_quantize_cond_{lvl}", f"encoder.pre_quantize_cond.{lvl}"
         if has(enc, f"{pqc_src}/proj"):
             conv_entry(enc, f"{pqc_src}/proj", f"{pqc_dst}.proj")
             upblock(enc, f"{pqc_src}/upsample", f"{pqc_dst}.upsample", n_down,
                     config.n_post_upscale_blocks)
-        fixup_block(enc, f"{pqc_src}/pre_q", f"{pqc_dst}.pre_q", "same")
+        block(enc, f"{pqc_src}/pre_q", f"{pqc_dst}.pre_q", "same")
         for j in range(config.n_pre_quantization_blocks):
-            fixup_block(enc, f"pre_quantize_{lvl}_{j}", f"encoder.pre_quantize.{lvl}.{j}", "same")
+            block(enc, f"pre_quantize_{lvl}_{j}", f"encoder.pre_quantize.{lvl}.{j}", "same")
         q = variables["quantizer"]["encoder"][f"quantize_{lvl}"]
         dst = f"encoder.quantize.{lvl}"
         sd[f"{dst}.embed"] = np.asarray(q["embed"])
@@ -104,7 +135,7 @@ def jax_variables_to_state_dict(variables: Dict[str, Any], config) -> Dict[str, 
         if lvl != n_enc - 1:
             conv_entry(dec, f"proj_{lvl}", f"decoder.proj.{lvl}")
         for j in range(config.n_post_quantization_blocks):
-            fixup_block(dec, f"post_quantize_{lvl}_{j}", f"decoder.up.{lvl}.{j}", "same")
+            block(dec, f"post_quantize_{lvl}_{j}", f"decoder.up.{lvl}.{j}", "same")
         upblock(dec, f"up_{lvl}", f"decoder.up.{lvl}.{config.n_post_quantization_blocks}",
                 config.level_n_down(lvl), config.n_post_upscale_blocks)
     conv_entry(dec, "out", "decoder.out")

@@ -1,25 +1,42 @@
 """Residual blocks of the hierarchical 3D VQ-VAE on (B, C, H, W, D) volumes.
 
-Counterpart of ``vqvae3d_tpu/models/blocks.py`` for the pre-activation block
-type (the default, reference vqvae/layers.py:102-216):
+Counterpart of ``vqvae3d_tpu/models/blocks.py`` (reference
+vqvae/layers.py:14-387, vqvae/evonorm.py), the three block types of
+``RESBLOCKS``:
 
-  * ``PreActFixupResBlock`` in modes same/down/up, with skip convs and
+  * ``PreActFixupResBlock`` ('pre-activation', the default, reference
+    layers.py:102-216) in modes same/down/up, with skip convs and
     ``bias1c``/``bias1d`` where the shape changes;
+  * ``FixupResBlock`` ('regular', layers.py:219-303): two convs, the first
+    the mode's (zero padding whatever the config's pad mode), four scalar
+    biases and a scale, a skip conv with a bias always, an ELU after the
+    sum except in mode 'out';
+  * ``EvonormResBlock`` ('evonorm', layers.py:14-98) of three
+    ``EvoNorm3DS0`` + conv pairs with biases, its SiLU-velocity
+    (``silu_velocity``, an autograd Function with the reference's hand-written
+    backward) over ``group_std``;
   * ``ResizeConv3D`` — trilinear x2 upsample + conv (the JAX stock path);
-  * ``DownBlock`` / ``UpBlock`` / ``PreQuantizationConditioning``;
-  * ``apply_same_stack`` — the one call site of kernel K3: every 'same'
-    stack runs through ``ops.stack_kernel.preact_stack_fused`` (on a CUDA
-    tensor the K3 forward and, in training, its backward; on a CPU tensor
-    the plain block).
+  * ``DownBlock`` / ``UpBlock`` / ``PreQuantizationConditioning``, of any
+    block type (``make_block``);
+  * ``apply_same_stack`` — the one call site of kernel K3: every
+    pre-activation 'same' stack runs through
+    ``ops.stack_kernel.preact_stack_fused`` (on a CUDA tensor the K3 forward
+    and, in training, its backward; on a CPU tensor the plain block). The
+    other block types run their stacks as a loop of blocks, the choice the
+    JAX package makes from the config (its scan and kernel paths take
+    pre-activation blocks only).
 
 Module attributes follow the reference torch module tree, so ``state_dict``
-keys are the reference checkpoint keys that
+keys of pre-activation blocks are the reference checkpoint keys that
 ``vqvae3d_tpu/train/checkpoint.py::convert_reference_vqvae_state_dict``
 reads (``layers.{seq}``, ``branch_conv{1,2,3}.weight``, ``skip_conv.weight``,
-``bias1a`` …). The Fixup scalars are shape-(1,) fp32 parameters; compute runs
-in the block's ``dtype``. The JAX module's TPU layout paths (packed stacks,
-folded I/O, block-space convs, stack folds) compute the same math and are
-not ported.
+``bias1a`` …). The 'regular' and 'evonorm' blocks keep the JAX parameter
+names (``bias1a``, ``scale``, ``evonorm_1.v``, ``branch_conv1.bias``,
+``skip_conv.bias`` …). The Fixup scalars are shape-(1,) fp32 parameters,
+EvoNorm's ``v``, ``gamma`` and ``beta`` (C,) fp32; compute runs in the
+block's ``dtype`` (EvoNorm in fp32 inside it). The JAX module's TPU layout
+paths (packed stacks, folded I/O, block-space convs, stack folds) compute the
+same math and are not ported.
 """
 from __future__ import annotations
 
@@ -53,30 +70,28 @@ class ResizeConv3D(Conv3D):
         return super().forward(trilinear_upsample2x(x))
 
 
-def _mode_conv(mode, cin, features, pad_mode, kernel_init, dtype):
-    """The mode's spatial conv: down = k4s2p1, same = k3s1p1, up = ResizeConv3D k3s1p1."""
+def _mode_conv(mode, cin, features, pad_mode, kernel_init, dtype, use_bias=False):
+    """The mode's spatial conv: down = k4s2p1, same/out = k3s1p1, up =
+    ResizeConv3D k3s1p1."""
+    kw = dict(pad_mode=pad_mode, use_bias=use_bias, kernel_init=kernel_init, dtype=dtype)
     if mode == "down":
-        return Conv3D(cin, features, 4, stride=2, pad=1, pad_mode=pad_mode,
-                      use_bias=False, kernel_init=kernel_init, dtype=dtype)
-    if mode == "same":
-        return Conv3D(cin, features, 3, stride=1, pad=1, pad_mode=pad_mode,
-                      use_bias=False, kernel_init=kernel_init, dtype=dtype)
+        return Conv3D(cin, features, 4, stride=2, pad=1, **kw)
+    if mode in ("same", "out"):
+        return Conv3D(cin, features, 3, stride=1, pad=1, **kw)
     if mode == "up":
-        return ResizeConv3D(cin, features, 3, stride=1, pad=1, pad_mode=pad_mode,
-                            use_bias=False, kernel_init=kernel_init, dtype=dtype)
-    raise NotImplementedError(f"block mode {mode!r} is not ported")
+        return ResizeConv3D(cin, features, 3, stride=1, pad=1, **kw)
+    raise ValueError(f"unknown block mode {mode!r}")
 
 
-def _mode_skip_conv(mode, cin, features, dtype):
+def _mode_skip_conv(mode, cin, features, dtype, use_bias=False,
+                    kernel_init=xavier_normal_init()):
     """Skip path: k2s2 for 'down', upsampling 1x1x1 for 'up', else 1x1x1."""
-    init = xavier_normal_init()
+    kw = dict(use_bias=use_bias, kernel_init=kernel_init, dtype=dtype)
     if mode == "down":
-        return Conv3D(cin, features, 2, stride=2, pad=0, use_bias=False,
-                      kernel_init=init, dtype=dtype)
+        return Conv3D(cin, features, 2, stride=2, pad=0, **kw)
     if mode == "up":
-        return ResizeConv3D(cin, features, 1, pad=0, use_bias=False,
-                            kernel_init=init, dtype=dtype)
-    return Conv3D(cin, features, 1, use_bias=False, kernel_init=init, dtype=dtype)
+        return ResizeConv3D(cin, features, 1, pad=0, **kw)
+    return Conv3D(cin, features, 1, **kw)
 
 
 class PreActFixupResBlock(nn.Module):
@@ -149,23 +164,202 @@ class PreActFixupResBlock(nn.Module):
         return out + skip + s(self.bias1d)
 
 
+FIXUP_SCALARS = ("1a", "1b", "2a", "2b")
+
+
+class FixupResBlock(nn.Module):
+    """Two-conv Fixup block (reference layers.py:219-303): the mode's conv
+    (Fixup init) -> ELU -> a zero-init 3x3x3 conv, scaled, plus a skip conv
+    with a bias (kaiming init), then an ELU unless the mode is 'out'. Both
+    branch convs pad with zeros whatever the model's pad mode (the JAX
+    package passes the pad mode to pre-activation blocks only)."""
+
+    def __init__(self, in_channels: int, out_channels: int, mode: str = "same",
+                 num_layers: int = 1, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if mode not in ("same", "down", "up", "out"):
+            raise ValueError(f"unknown block mode {mode!r}")
+        self.mode = mode
+        self.dtype = dtype
+        for n in FIXUP_SCALARS:
+            setattr(self, f"bias{n}", nn.Parameter(torch.zeros(1)))
+        self.scale = nn.Parameter(torch.ones(1))
+        self.branch_conv1 = _mode_conv(mode, in_channels, out_channels, "zeros",
+                                       fixup_branch_init(num_layers), dtype)
+        self.branch_conv2 = Conv3D(out_channels, out_channels, 3, stride=1, pad=1,
+                                   use_bias=False, kernel_init=zeros_init(), dtype=dtype)
+        self.skip_conv = _mode_skip_conv(mode, in_channels, out_channels, dtype, use_bias=True,
+                                         kernel_init=kaiming_normal_init())
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            for n in FIXUP_SCALARS:
+                getattr(self, f"bias{n}").zero_()
+            self.scale.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        dt = x.dtype
+        out = self.branch_conv1(x + self.bias1a.to(dt))
+        out = F.elu(out + self.bias1b.to(dt))
+        out = self.branch_conv2(out + self.bias2a.to(dt))
+        out = out * self.scale.to(dt) + self.bias2b.to(dt)
+        out = out + self.skip_conv(x)
+        return out if self.mode == "out" else F.elu(out)
+
+
+def group_std(x: torch.Tensor, groups: Optional[int] = None, eps: float = 1e-5) -> torch.Tensor:
+    """Per-(sample, channel group) std over the group's channels and every
+    spatial voxel of (B, C, ...), broadcast back to x's shape (a view: the
+    (B, C, 1, ...) stds expanded). About 8 channels a group; the population
+    variance; right for any batch (the reference's evonorm.py:8-26 reshapes
+    to batch 1)."""
+    b, c = x.shape[:2]
+    if groups is None:
+        groups = max(c // 8, 1)
+    if c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    xg = x.reshape(b, groups, c // groups, *x.shape[2:])
+    var = torch.var(xg, dim=tuple(range(2, xg.ndim)), keepdim=True, correction=0)
+    std = torch.sqrt(var + eps)
+    per_channel = std.expand(b, groups, c // groups, *std.shape[3:]).reshape(
+        b, c, *std.shape[3:])
+    return per_channel.expand(x.shape)
+
+
+class _SiluVelocity(torch.autograd.Function):
+    """x sigmoid(v x), its backward recomputing the sigmoid from the saved
+    inputs (the reference's SiLUVelocityFunc, evonorm.py:29-47; JAX
+    ``_silu_velocity_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, v):
+        ctx.save_for_backward(x, v)
+        return x * torch.sigmoid(x * v)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, v = ctx.saved_tensors
+        xv = x * v
+        s = torch.sigmoid(xv)
+        d_sig = s * (1.0 - s)
+        dx = g * (s + xv * d_sig)
+        dv = g * (x * x * d_sig)
+        # v broadcasts over the batch and spatial axes: sum its gradient back
+        dv = dv.sum_to_size(v.shape) if dv.shape != v.shape else dv
+        return dx, dv
+
+
+def silu_velocity(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x · sigmoid(v · x) with the reference's hand-written backward; v
+    broadcasts against x."""
+    return _SiluVelocity.apply(x, v)
+
+
+class EvoNorm3DS0(nn.Module):
+    """EvoNorm-S0: silu_velocity(x, v) · gamma / group_std(x) + beta, in fp32
+    whatever the model's dtype; parameters (C,) with the reference's inits
+    (v ones, gamma and beta zeros; evonorm.py:59-76)."""
+
+    def __init__(self, channels: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.v = nn.Parameter(torch.ones(channels))
+        self.gamma = nn.Parameter(torch.zeros(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.v.fill_(1.0)
+            self.gamma.zero_()
+            self.beta.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        xf = x.float()
+        shape = (-1,) + (1,) * (x.ndim - 2)
+        num = silu_velocity(xf, self.v.float().view(shape))
+        out = num * self.gamma.view(shape) / group_std(xf) + self.beta.view(shape)
+        return out.to(x.dtype)
+
+
+class EvonormResBlock(nn.Module):
+    """EvoNorm-S0 bottleneck block (reference layers.py:14-98): three
+    (EvoNorm, conv with bias) pairs — 1x1x1, the mode's conv (zero padding),
+    1x1x1 — at ``max(max(in, out) // 4, 1)`` branch channels, plus the input,
+    or a skip conv with a bias where the shape changes. Mode 'out' is 'same'.
+    Every conv kaiming-initialised (the blocks self-initialise; no Fixup
+    scale)."""
+
+    def __init__(self, in_channels: int, out_channels: int, mode: str = "same",
+                 num_layers: int = 1, bottleneck_divisor: int = 4,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if mode not in ("same", "down", "up", "out"):
+            raise ValueError(f"unknown block mode {mode!r}")
+        mode = "same" if mode == "out" else mode
+        self.mode = mode
+        cb = max(max(in_channels, out_channels) // bottleneck_divisor, 1)
+        init = kaiming_normal_init()
+        self.evonorm_1 = EvoNorm3DS0(in_channels, dtype)
+        self.branch_conv1 = Conv3D(in_channels, cb, 1, kernel_init=init, dtype=dtype)
+        self.evonorm_2 = EvoNorm3DS0(cb, dtype)
+        self.branch_conv2 = _mode_conv(mode, cb, cb, "zeros", init, dtype, use_bias=True)
+        self.evonorm_3 = EvoNorm3DS0(cb, dtype)
+        self.branch_conv3 = Conv3D(cb, out_channels, 1, kernel_init=init, dtype=dtype)
+        self.needs_skip = not (mode == "same" and in_channels == out_channels)
+        if self.needs_skip:
+            self.skip_conv = _mode_skip_conv(mode, in_channels, out_channels, dtype,
+                                             use_bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.branch_conv1(self.evonorm_1(x))
+        out = self.branch_conv2(self.evonorm_2(out))
+        out = self.branch_conv3(self.evonorm_3(out))
+        return out + (self.skip_conv(x) if self.needs_skip else x)
+
+
+RESBLOCKS = {
+    "regular": FixupResBlock,
+    "pre-activation": PreActFixupResBlock,
+    "evonorm": EvonormResBlock,
+}
+
+
+def make_block(block_type: str, in_channels: int, out_channels: int, mode: str,
+               num_layers: int, pad_mode: str = "wrap", dtype=None) -> nn.Module:
+    """A block of ``RESBLOCKS[block_type]``; only pre-activation blocks take
+    the model's pad mode (as in the JAX package)."""
+    if block_type not in RESBLOCKS:
+        raise ValueError(f"unknown block_type {block_type!r}")
+    kw = dict(pad_mode=pad_mode) if block_type == "pre-activation" else {}
+    return RESBLOCKS[block_type](in_channels, out_channels, mode, num_layers, dtype=dtype, **kw)
+
+
 def apply_same_stack(
     x: torch.Tensor,
-    blocks: Sequence[PreActFixupResBlock],
+    blocks: Sequence[nn.Module],
     *,
     pad_mode: str,
     dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Run shape-preserving 'same' blocks over x (``apply_same_stack``,
-    vqvae3d_tpu/models/blocks.py:688-908): the stack's weights are stacked per
-    block and handed to ``preact_stack_fused`` — kernel K3 on a CUDA tensor,
-    the plain block loop on a CPU tensor. In training its backward returns
-    the gradients of the stacked tensors, and ``torch.stack`` takes them on
-    to each block's parameters."""
+    vqvae3d_tpu/models/blocks.py:688-908). Pre-activation blocks: the
+    stack's weights are stacked per block and handed to
+    ``preact_stack_fused`` — kernel K3 on a CUDA tensor, the plain block loop
+    on a CPU tensor; in training its backward returns the gradients of the
+    stacked tensors, and ``torch.stack`` takes them on to each block's
+    parameters. Blocks of the other types run one after another."""
     if not blocks:
         return x
     if dtype is not None:
         x = x.to(dtype)
+    if not isinstance(blocks[0], PreActFixupResBlock):
+        for blk in blocks:
+            x = blk(x)
+        return x
     w1s = torch.stack([blk.branch_conv1.weight for blk in blocks])
     w2s = torch.stack([blk.branch_conv2.weight for blk in blocks])
     w3s = torch.stack([blk.branch_conv3.weight for blk in blocks])
@@ -173,15 +367,13 @@ def apply_same_stack(
     return preact_stack_fused(x, w1s, w2s, w3s, sc8, pad_mode)
 
 
-def _resize_layers(mode, schedule, n_post, num_layers, pad_mode, dtype):
+def _resize_layers(block_type, mode, schedule, n_post, num_layers, pad_mode, dtype):
     """For each (cin, cout) of ``schedule``: a resize block of ``mode``, then
     ``n_post`` 'same' blocks at cout — the reference Sequential's order."""
     layers: List[nn.Module] = []
     for cin, cout in schedule:
-        layers.append(PreActFixupResBlock(cin, cout, mode, num_layers,
-                                          pad_mode=pad_mode, dtype=dtype))
-        layers += [PreActFixupResBlock(cout, cout, "same", num_layers,
-                                       pad_mode=pad_mode, dtype=dtype)
+        layers.append(make_block(block_type, cin, cout, mode, num_layers, pad_mode, dtype))
+        layers += [make_block(block_type, cout, cout, "same", num_layers, pad_mode, dtype)
                    for _ in range(n_post)]
     return nn.ModuleList(layers)
 
@@ -191,11 +383,12 @@ class DownBlock(nn.Module):
     ``n_post_downscale_blocks`` 'same' blocks). Reference layers.py:306-324."""
 
     def __init__(self, in_channels, n_down=2, n_post_downscale_blocks=0,
-                 num_layers=1, pad_mode="wrap", dtype=None):
+                 num_layers=1, pad_mode="wrap", dtype=None, block_type="pre-activation"):
         super().__init__()
         self.n_post, self.pad_mode, self.dtype = n_post_downscale_blocks, pad_mode, dtype
         schedule = [(in_channels * 2**i, in_channels * 2 ** (i + 1)) for i in range(n_down)]
-        self.layers = _resize_layers("down", schedule, self.n_post, num_layers, pad_mode, dtype)
+        self.layers = _resize_layers(block_type, "down", schedule, self.n_post, num_layers,
+                                     pad_mode, dtype)
 
     def forward(self, x):
         return _run_resize_then_stacks(self, x)
@@ -207,12 +400,13 @@ class UpBlock(nn.Module):
     ``in_channels if i == n_up-1 else out·2^(i+1)`` -> ``out·2^i``."""
 
     def __init__(self, in_channels, out_channels, n_up=2, n_post_upscale_blocks=0,
-                 num_layers=1, pad_mode="wrap", dtype=None):
+                 num_layers=1, pad_mode="wrap", dtype=None, block_type="pre-activation"):
         super().__init__()
         self.n_post, self.pad_mode, self.dtype = n_post_upscale_blocks, pad_mode, dtype
         outs = [out_channels * 2**i for i in range(n_up - 1, -1, -1)]
         schedule = list(zip([in_channels] + outs[:-1], outs))
-        self.layers = _resize_layers("up", schedule, self.n_post, num_layers, pad_mode, dtype)
+        self.layers = _resize_layers(block_type, "up", schedule, self.n_post, num_layers,
+                                     pad_mode, dtype)
 
     def forward(self, x):
         return _run_resize_then_stacks(self, x)
@@ -235,16 +429,17 @@ class PreQuantizationConditioning(nn.Module):
     the deepest level."""
 
     def __init__(self, in_channels, out_channels, has_aux, n_up=2,
-                 n_post_upscale_blocks=0, num_layers=1, pad_mode="wrap", dtype=None):
+                 n_post_upscale_blocks=0, num_layers=1, pad_mode="wrap", dtype=None,
+                 block_type="pre-activation"):
         super().__init__()
         self.has_aux = has_aux
         if has_aux:
             self.upsample = UpBlock(out_channels * 2 ** n_up, out_channels, n_up,
                                     n_post_upscale_blocks, num_layers,
-                                    pad_mode=pad_mode, dtype=dtype)
+                                    pad_mode=pad_mode, dtype=dtype, block_type=block_type)
             self.proj = Conv3D(in_channels, in_channels, 1, dtype=dtype)
-        self.pre_q = PreActFixupResBlock(in_channels, out_channels, "same", num_layers,
-                                         pad_mode=pad_mode, dtype=dtype)
+        self.pre_q = make_block(block_type, in_channels, out_channels, "same", num_layers,
+                                pad_mode, dtype)
 
     def forward(self, x, aux=None):
         if (aux is not None) != self.has_aux:

@@ -12,12 +12,15 @@ layers.0.branch_conv1.weight``, ``encoder.quantize.0.embed``,
 ``decoder.up.0.1.layers.0 …``).
 
 ``VQVAEConfig`` keeps the JAX config's field names, so either package reads
-the other's ``step_N_config.json``. Fields that select TPU layout devices
-(``remat*``, ``packed_stacks``, ``scan_stacks``, ``argmin_method``) change no
-result and are carried only for that interchange. Options outside this
-port's slice raise ``NotImplementedError`` when the model is built or run:
-``block_type`` other than 'pre-activation', ``encoder_variant='encoder'``,
-``metric='mixture-nll'``.
+the other's ``step_N_config.json``; the JAX fields that select TPU layout
+devices (``JAX_LAYOUT_FIELDS``: remat, packed and scanned stacks, the argmin
+method) change no result and are dropped when a config is read
+(``checkpoint.config_from_json``). Every option the JAX config accepts is
+built: the block types of ``RESBLOCKS`` ('pre-activation', 'regular',
+'evonorm'), both encoder variants ('encoder2'; the legacy 'encoder', whose
+pre-quantization stacks run at the level's full feature width before the
+top-down conditioning) and both metrics ('huber'; 'mixture-nll', whose
+decoder head emits ``3 n_mix`` channels per output channel).
 
 ``train=True`` runs the quantizers' train path: the first-pass codebook init
 and the EMA update, in place on their buffers (kernel K1b on a card); the
@@ -33,11 +36,12 @@ import torch
 import torch.nn as nn
 
 from vqvae3d_tpu_torch.models.blocks import (
-    PreActFixupResBlock,
+    RESBLOCKS,
     PreQuantizationConditioning,
     UpBlock,
     DownBlock,
     apply_same_stack,
+    make_block,
 )
 from vqvae3d_tpu_torch.models.quantizer import Quantizer
 from vqvae3d_tpu_torch.ops.conv3d import Conv3D
@@ -68,16 +72,16 @@ class VQVAEConfig:
     base_lr: float = 1e-5
     extract_center_cylinder: bool = True
     dtype: Any = torch.bfloat16
-    remat: bool = True
-    remat_blocks: bool = False
-    argmin_method: str = "auto"
     pad_mode: str = "wrap"
-    remat_policy: Any = None
     stem_space_to_depth: int = 1
-    packed_stacks: str = "auto"
-    scan_stacks: bool = True
 
     def __post_init__(self):
+        if self.block_type not in RESBLOCKS:
+            raise ValueError(f"unknown block_type {self.block_type!r}")
+        if self.encoder_variant not in ("encoder2", "encoder"):
+            raise ValueError(f"unknown encoder_variant {self.encoder_variant!r}")
+        if self.metric not in ("huber", "mixture-nll"):
+            raise ValueError(f"unknown metric {self.metric!r}")
         f = self.stem_space_to_depth
         if f < 1 or f & (f - 1):
             raise ValueError("stem factor must be a power of 2")
@@ -91,21 +95,6 @@ class VQVAEConfig:
         if len(ne) == 1:
             ne = ne * self.n_bottleneck_blocks
         object.__setattr__(self, "num_embeddings", ne)
-
-    def check_ported(self) -> None:
-        """Raise for options outside the port's slice."""
-        if self.block_type != "pre-activation":
-            raise NotImplementedError(
-                f"block_type={self.block_type!r}: only 'pre-activation' is ported"
-            )
-        if self.encoder_variant != "encoder2":
-            raise NotImplementedError(
-                f"encoder_variant={self.encoder_variant!r}: only 'encoder2' is ported"
-            )
-        if self.metric != "huber":
-            raise NotImplementedError(
-                f"metric={self.metric!r}: the mixture-nll head is not ported"
-            )
 
     @property
     def n_enc(self) -> int:
@@ -172,8 +161,8 @@ class VQVAEConfig:
     def same_stacks(self, volume_shape: Sequence[int]):
         """Every 'same' stack one volume runs through, in order:
         [(part, channels, spatial, n_blocks)] with part 'encode' or 'decode'
-        and spatial the stack's (H, W, D). Each block is one launch of kernel
-        K3 on a card."""
+        and spatial the stack's (H, W, D). With pre-activation blocks each
+        block is one launch of kernel K3 on a card."""
         f, emb, chans = self.stem_space_to_depth, self.embedding_dims, self.level_channels
         cur = tuple(s // f for s in volume_shape)
         stacks, grids = [], []
@@ -189,10 +178,14 @@ class VQVAEConfig:
                 ch, cur = ch * 2, tuple(s // 2 for s in cur)
                 stacks.append(("encode", ch, cur, self.n_post_downscale_blocks))
             grids.append(cur)
-        for i in reversed(range(self.n_enc)):  # top-down conditioning, pre-q
+        legacy = self.encoder_variant == "encoder"
+        for i in reversed(range(self.n_enc)):  # (legacy pre-q,) conditioning, pre-q
+            if legacy:
+                stacks.append(("encode", chans[i], grids[i], self.n_pre_quantization_blocks))
             if i != self.n_enc - 1:
                 up_stacks("encode", emb[i], self.n_blocks_per_bottleneck, grids[i + 1])
-            stacks.append(("encode", emb[i], grids[i], self.n_pre_quantization_blocks))
+            if not legacy:
+                stacks.append(("encode", emb[i], grids[i], self.n_pre_quantization_blocks))
         for i in reversed(range(self.n_enc)):  # post-q, UpBlocks
             in_ch = emb[i] + (chans[i] if i != self.n_enc - 1 else 0)
             stacks.append(("decode", in_ch, grids[i], self.n_post_quantization_blocks))
@@ -201,19 +194,24 @@ class VQVAEConfig:
         return [s for s in stacks if s[3] > 0]
 
 
+JAX_LAYOUT_FIELDS = ("remat", "remat_blocks", "remat_policy", "argmin_method",
+                     "packed_stacks", "scan_stacks")  # the JAX config's; dropped on load
+
+
 def _same_stack(n, channels, cfg):
     return nn.ModuleList(
-        PreActFixupResBlock(channels, channels, "same", cfg.num_layers,
-                            pad_mode=cfg.pad_mode, dtype=cfg.dtype)
+        make_block(cfg.block_type, channels, channels, "same", cfg.num_layers,
+                   cfg.pad_mode, cfg.dtype)
         for _ in range(n)
     )
 
 
 class Encoder(nn.Module):
-    """Hierarchical encoder ('encoder2', reference layers.py:519-588): per
-    level a DownBlock, then (deepest first) PreQuantizationConditioning on
-    the coarser quantization, the pre-q 'same' stack at embedding width and
-    the quantizer."""
+    """Hierarchical encoder (reference layers.py:390-588): per level a
+    DownBlock, then (deepest first) PreQuantizationConditioning on the
+    coarser quantization, the pre-q 'same' stack and the quantizer. The
+    pre-q stack runs after the conditioning at embedding width ('encoder2'),
+    or before it at the level's feature width (the legacy 'encoder')."""
 
     def __init__(self, cfg: VQVAEConfig):
         super().__init__()
@@ -224,7 +222,8 @@ class Encoder(nn.Module):
         downs, before = [], cfg.base_network_channels
         for i in range(cfg.n_enc):
             downs.append(DownBlock(before, cfg.level_n_down(i), cfg.n_post_downscale_blocks,
-                                   nl, pad_mode=cfg.pad_mode, dtype=cfg.dtype))
+                                   nl, pad_mode=cfg.pad_mode, dtype=cfg.dtype,
+                                   block_type=cfg.block_type))
             before *= 2 ** cfg.level_n_down(i)
         self.down = nn.ModuleList(downs)
         chans, emb = cfg.level_channels, cfg.embedding_dims
@@ -233,12 +232,14 @@ class Encoder(nn.Module):
                 chans[i] + (emb[i] if i != cfg.n_enc - 1 else 0), emb[i],
                 has_aux=i != cfg.n_enc - 1, n_up=cfg.n_blocks_per_bottleneck,
                 n_post_upscale_blocks=cfg.n_post_upscale_blocks, num_layers=nl,
-                pad_mode=cfg.pad_mode, dtype=cfg.dtype,
+                pad_mode=cfg.pad_mode, dtype=cfg.dtype, block_type=cfg.block_type,
             )
             for i in range(cfg.n_enc)
         )
+        pre_q_width = chans if cfg.encoder_variant == "encoder" else emb
         self.pre_quantize = nn.ModuleList(
-            _same_stack(cfg.n_pre_quantization_blocks, emb[i], cfg) for i in range(cfg.n_enc)
+            _same_stack(cfg.n_pre_quantization_blocks, pre_q_width[i], cfg)
+            for i in range(cfg.n_enc)
         )
         self.quantize = nn.ModuleList(
             Quantizer(cfg.num_embeddings[i], emb[i], cfg.commitment_cost,
@@ -254,10 +255,16 @@ class Encoder(nn.Module):
             x = down(x)
             downs.append(x)
         aux, results = None, []
+        legacy = cfg.encoder_variant == "encoder"
         for i in reversed(range(cfg.n_enc)):
-            h = self.pre_quantize_cond[i](downs[i], aux)
-            h = apply_same_stack(h, self.pre_quantize[i], pad_mode=cfg.pad_mode,
-                                 dtype=cfg.dtype)
+            h = downs[i]
+            if legacy:
+                h = apply_same_stack(h, self.pre_quantize[i], pad_mode=cfg.pad_mode,
+                                     dtype=cfg.dtype)
+            h = self.pre_quantize_cond[i](h, aux)
+            if not legacy:
+                h = apply_same_stack(h, self.pre_quantize[i], pad_mode=cfg.pad_mode,
+                                     dtype=cfg.dtype)
             loss, quantized, indices = self.quantize[i](h, train=train)
             results.append((loss, quantized, indices))
             aux = quantized
@@ -284,7 +291,8 @@ class Decoder(nn.Module):
                 self.proj.append(Conv3D(in_ch, in_ch, 1, dtype=cfg.dtype))
             up = _same_stack(cfg.n_post_quantization_blocks, in_ch, cfg)
             up.append(UpBlock(in_ch, out_ch, cfg.level_n_down(i), cfg.n_post_upscale_blocks,
-                              nl, pad_mode=cfg.pad_mode, dtype=cfg.dtype))
+                              nl, pad_mode=cfg.pad_mode, dtype=cfg.dtype,
+                              block_type=cfg.block_type))
             ups.append(up)
         self.up = nn.ModuleList(ups)
         self.out = Conv3D(cfg.base_network_channels, cfg.head_channels * f ** 3, 1,
@@ -313,7 +321,6 @@ class VQVAE(nn.Module):
     def __init__(self, config: VQVAEConfig, *, generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
-        config.check_ported()
         self.config = config
         self.encoder = Encoder(config)
         self.decoder = Decoder(config)

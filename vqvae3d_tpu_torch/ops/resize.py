@@ -11,6 +11,10 @@ Counterpart of ``vqvae3d_tpu/ops/resize.py`` (which works on (B, H, W, D, C)):
     ``F.interpolate`` scatters with atomics, in another order each run.
   * ``trilinear_resize`` — upsampling to any size (the prior's coarse
     condition grid), ``F.interpolate`` in fp32.
+  * ``area_resize`` — area downscaling to any size, torch
+    ``F.interpolate(mode='area')`` (adaptive average pooling), computed in
+    fp32 as one mean over boxes for integer factors and otherwise as three
+    per-axis averaging matrices, as the JAX package computes it.
   * ``space_to_depth`` / ``depth_to_space`` — the stem's f x f x f voxel
     blocks packed into channels, channel order (ph, pw, pd, c) with c
     fastest, as in the JAX package.
@@ -54,6 +58,40 @@ def trilinear_resize(x: torch.Tensor, size) -> torch.Tensor:
     if any(o < i for o, i in zip(size, x.shape[2:])):
         raise ValueError(f"trilinear_resize upsamples only: {tuple(x.shape[2:])} -> {size}")
     out = F.interpolate(x.float(), size=size, mode="trilinear", align_corners=False)
+    return out.to(x.dtype)
+
+
+def _adaptive_avg_matrix(in_dim: int, out_dim: int) -> torch.Tensor:
+    """(out_dim, in_dim) fp32 averaging matrix of adaptive average pooling:
+    bin i covers [floor(i in / out), ceil((i + 1) in / out))."""
+    m = torch.zeros(out_dim, in_dim)
+    for i in range(out_dim):
+        start, end = (i * in_dim) // out_dim, -(-((i + 1) * in_dim) // out_dim)
+        m[i, start:end] = 1.0 / (end - start)
+    return m
+
+
+def area_resize(x: torch.Tensor, size) -> torch.Tensor:
+    """Area downscale of the three spatial dims of (B, C, s0, s1, s2) to
+    ``size`` (``vqvae3d_tpu/ops/resize.py::area_resize``), in fp32, returned
+    in x's dtype. Axes whose sizes divide take the mean over boxes; any
+    other size separates into per-axis averaging matrices. Upsampling
+    raises."""
+    size = tuple(int(s) for s in size)
+    spatial = tuple(x.shape[2:])
+    if size == spatial:
+        return x
+    if any(o > i for o, i in zip(size, spatial)):
+        raise ValueError(f"area_resize only downscales: {spatial} -> {size}")
+    out = x.float()
+    if all(i % o == 0 for i, o in zip(spatial, size)):
+        box = [d for o, i in zip(size, spatial) for d in (o, i // o)]
+        out = out.reshape(*x.shape[:2], *box).mean(dim=(3, 5, 7))
+        return out.to(x.dtype)
+    for dim, (i, o) in enumerate(zip(spatial, size), 2):
+        if i != o:
+            mat = _adaptive_avg_matrix(i, o).to(out.device)
+            out = torch.movedim(torch.tensordot(mat, out, dims=([1], [dim])), 0, dim)
     return out.to(x.dtype)
 
 

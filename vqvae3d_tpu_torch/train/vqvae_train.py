@@ -8,15 +8,16 @@ vqvae/model.py:95-163), with the same log-dict keys:
   * the center-cylinder weighting as the pre-loss filter (a mask-weighted
     mean, as the JAX package computes it);
   * smooth-L1 (huber, beta = 1) reconstruction loss plus the summed
-    per-level commitment losses;
+    per-level commitment losses; or, with ``metric='mixture-nll'``, the
+    per-voxel NLL of a discretized-logistic mixture head (the point estimate
+    the argmax component's loc);
   * min/max/mean/std (and in eval the median) of the per-voxel loss and the
     reconstruction, NMSE, PSNR, and in training the EMA codebooks'
     perplexity and utilization per level.
 
 The JAX train path computes its loss in the stem's space-to-depth layout
 (a TPU layout device, exact because every term is voxel-pointwise); the port
-computes the same loss at full resolution. ``metric='mixture-nll'`` is not
-ported (the model refuses it). Batches are the loader's dicts
+computes the same loss at full resolution. Batches are the loader's dicts
 {'volume': (B, H, W, D, C) fp32, 'num_valid_slices': (B,) int}, the JAX
 step's contract; the model runs on (B, C, H, W, D).
 """
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from vqvae3d_tpu_torch.data.transforms import create_cylinder_xy_mask
+from vqvae3d_tpu_torch.metrics.distribution import mixture_nll_loss
 from vqvae3d_tpu_torch.metrics.evaluate import nmse, psnr, ssim3d_slices
 from vqvae3d_tpu_torch.utils.logging_helpers import median, sub_metric_log_dict
 
@@ -50,6 +52,25 @@ def depth_valid_mask(num_valid_slices: torch.Tensor, depth: int) -> torch.Tensor
 def cylinder_mask(h: int, w: int, device) -> torch.Tensor:
     """(1, 1, H, W, 1) bool: the gantry cylinder over (x, y)."""
     return torch.from_numpy(create_cylinder_xy_mask((h, w))).to(device)[None, None, :, :, None]
+
+
+def mixture_head(decoded: torch.Tensor, n_mix: int, valid: torch.Tensor, x: torch.Tensor):
+    """The mixture head's (loc, per-voxel NLL), both (B, C, H, W, D) fp32 and
+    zero beyond the valid depth (``valid``, a float mask). The decoder's
+    channels split as (c_out, [logits | locs | log-scales] x n_mix), the JAX
+    head's order (``reshape(..., c_out, 3 n_mix)`` on its channels axis, per
+    stem phase). loc = ELU, scale = softplus + 1e-4; the point estimate is
+    the loc of the argmax component."""
+    b, ch, *spatial = decoded.shape
+    d = decoded.float().reshape(b, ch // (3 * n_mix), 3, n_mix, *spatial)
+    d = d.movedim((2, 3), (-2, -1))  # (B, c_out, H, W, D, 3, n_mix)
+    logits, mloc, mlog_scale = d.unbind(-2)
+    mloc = F.elu(mloc)
+    mscale = F.softplus(mlog_scale) + 1e-4
+    comp = torch.argmax(logits, dim=-1, keepdim=True)
+    loc = torch.gather(mloc, -1, comp)[..., 0] * valid
+    nll = mixture_nll_loss(x, logits, mloc, mscale, reduce_sum=False) * valid
+    return loc, nll
 
 
 def _codebook_health(model) -> Dict[str, torch.Tensor]:
@@ -75,8 +96,11 @@ def vqvae_loss_fn(model, batch: Dict[str, torch.Tensor], *, train: bool,
     decoded, (c_losses, _, _) = model(x, train=train)
     xf = x.float()
     dmask = depth_valid_mask(num_valid, x.shape[-1]).float()
-    loc = F.elu(decoded.float()) * dmask
-    pointwise = huber_loss(loc, xf)
+    if model.config.metric == "mixture-nll":
+        loc, pointwise = mixture_head(decoded, model.config.n_mix, dmask, xf)
+    else:
+        loc = F.elu(decoded.float()) * dmask
+        pointwise = huber_loss(loc, xf)
     commitment_loss = sum(c_losses)
     b, c, h, w, d = x.shape
 
