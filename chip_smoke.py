@@ -214,6 +214,28 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      evonorm`` at the full config for 2 steps on the train CLI phase's
      scans, then ``calc_ssim_from_checkpoint`` and ``plot_from_checkpoint``
      on its checkpoint, each in a process of its own, with their launches.
+ 23. the PixelCNN remainder (bf16 unless stated): (a) K4 at p = 0.5 over the
+     top prior's 50-block segment (B = 1, 128x128x32, conditioned, one keep
+     mask a block as data), fp32 and bf16, output, dx, the condition's
+     gradient and every union-weight gradient against ``causal_stack_plain``
+     and its autograd; the top prior's train step at dropout 0.5
+     (bench_prior.py:130-136) beside dropout 0, in turns, with its launches
+     and peak memory; (b) the published mid (jobs/train_pixelcnn_mid.sh: 45
+     x 256d, level 1 conditioned on level 2, dropout 0.5, batch 2) and bottom
+     (jobs/train_pixelcnn_bottom.sh: 50 x 512d, level 2, unconditioned,
+     batch 6) PixelCNN jobs through ``train_prior`` for 3 steps on a
+     synthetic three-level code store: step ms, losses, peak memory, no K4
+     and no K7; (c) the Fixup (``--use-pre-activation False``),
+     concat-activation and k = 5 PixelCNNs at the top width: one fp32 step
+     on the kernel path against the plain path (loss, every gradient), a
+     counted bf16 step (K7 a step, no K4) and its ms, ``train_prior`` for 2
+     steps and one ``--resume``; K7 against ``dw_conv3d_plain`` at every
+     shape those steps launched; (d) the cached sampler at k = 5 (its own
+     row steps, no kernel) on a top-width model, teacher-forced logits
+     against the one-shot forward over 8 slices of a 32x32x8 grid, one
+     free-running 32x32x8 grid timed, and
+     ``sample_embeddings --sampler naive`` of an 8x8x2 grid from the Fixup
+     checkpoint that (c) wrote.
 
 TF32 is off for the whole run (fp32 comparisons need true fp32; bf16 runs
 do not use it). Every number is printed beside the card's name and power
@@ -1702,7 +1724,12 @@ def make_prior(fields, seed, device, dtype=None):
     (branch_conv3, the scalar biases, the scale) and every conv bias
     perturbed, so each branch counts."""
     import torch
-    from vqvae3d_tpu_torch.models.causal_blocks import SCALARS, PreActFixupCausalResBlock
+    from vqvae3d_tpu_torch.models.causal_blocks import (
+        FIXUP_SCALARS,
+        SCALARS,
+        FixupCausalResBlock,
+        PreActFixupCausalResBlock,
+    )
     from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
 
     gen = torch.Generator().manual_seed(seed)
@@ -1712,11 +1739,14 @@ def make_prior(fields, seed, device, dtype=None):
             if name.endswith(".bias"):
                 prm.copy_(torch.randn(prm.shape, generator=gen) * 0.05)
         for m in model.modules():
-            if isinstance(m, PreActFixupCausalResBlock):
+            fixup = isinstance(m, FixupCausalResBlock)
+            if fixup or isinstance(m, PreActFixupCausalResBlock):
+                last = m.branch_conv2 if fixup else m.branch_conv3
                 for stream in ("depth_conv", "height_conv", "width_conv"):
-                    w = getattr(m.branch_conv3, stream).weight
-                    w.copy_(torch.randn(w.shape, generator=gen) * 0.3 * w.shape[1] ** -0.5)
-                for n in SCALARS:
+                    w = getattr(last, stream).weight
+                    fan_in = w[0].numel()
+                    w.copy_(torch.randn(w.shape, generator=gen) * 0.3 * fan_in ** -0.5)
+                for n in FIXUP_SCALARS if fixup else SCALARS:
                     getattr(m, f"bias{n}").copy_(torch.randn(1, generator=gen) * 0.05)
                 m.scale.copy_(1.0 + torch.randn(1, generator=gen) * 0.05)
     return model.to(device).eval()
@@ -2134,15 +2164,19 @@ def code_batch(seed, device):
 
 
 def prior_step_launches(model):
-    """K4 and K7 launches of one train step of a PixelCNN on the union path:
-    one K4 forward and one K4 backward per mask-'B' block; K7 for the mask-'A'
-    block's small-channel causal convs (kernel larger than 1x1x1)."""
+    """K4 and K7 launches of one train step of a PixelCNN. On the union path:
+    one K4 forward and one K4 backward per mask-'B' block, K7 for the mask-'A'
+    block's small-channel causal convs (kernel larger than 1x1x1, ungrouped);
+    without it (wide, Fixup, concat-activation or k != 3 models): no K4, K7
+    for every block's such convs."""
     from vqvae3d_tpu_torch.models.causal_blocks import CausalConv
     from vqvae3d_tpu_torch.ops.conv3d import SMALLC_MAX
 
-    k7 = sum(1 for m in model.layers[0].modules() if isinstance(m, CausalConv)
+    union = model.uses_union_stack
+    layers = model.layers[:1] if union else model.layers
+    k7 = sum(1 for m in layers.modules() if isinstance(m, CausalConv) and m.groups == 1
              and tuple(m.weight.shape[2:]) != (1, 1, 1) and max(m.weight.shape[:2]) <= SMALLC_MAX)
-    nb = model.config.num_resblocks
+    nb = model.config.num_resblocks if union else 0
     return dict(causal_stack_fwd=nb, causal_stack_bwd=nb, dw_conv3d=k7)
 
 
@@ -3768,8 +3802,8 @@ def stage1_k7_checks(ident, seed, shapes):
             raise AssertionError(f"K7 Cin={cin} Cout={cout} {ks} over {out}: max|d|/max|ref| "
                                  f"{err:.3g} > {K7_TOL}")
     print(f"K7 at the {len(shapes)} distinct shapes of the phase's train steps (Cin, Cout, "
-          f"grid): " + ", ".join(f"{a}->{b} {tuple(p - k + 1 for p, k in zip(pp, ks))}"
-                                for a, b, ks, pp in shapes)
+          f"kernel, grid): " + ", ".join(f"{a}->{b} {ks} {tuple(p - k + 1 for p, k in zip(pp, ks))}"
+                                         for a, b, ks, pp in shapes)
           + f"; bf16 against dw_conv3d_plain, worst max|d|/max|ref| {worst:.2e} (tolerance "
           f"{K7_TOL}) [{ident}]")
 
@@ -3928,6 +3962,396 @@ def phase_stage1_variants(ident, counts, results, seed, work: Path):
     results["stage1_steps"] = steps
 
 
+# phase 23: the PixelCNN remainder. The published wide PixelCNN jobs on one
+# card (jobs/train_pixelcnn_mid.sh, jobs/train_pixelcnn_bottom.sh): batch 2 and
+# 6 a device, the lr as the jobs scale it (1e-4 x batch / 8, 1e-5 x batch / 24)
+PIXELCNN_JOBS = {
+    "mid": dict(level=1, flags=["--model-dim", "256", "--num-resblocks", "45",
+                                "--dropout-prob", "0.5", "--bottleneck-divisor", "4",
+                                "--use-conditioning", "True", "--batch-size", "2",
+                                "--lr", "2.5e-5"]),
+    "bottom": dict(level=2, flags=["--model-dim", "512", "--num-resblocks", "50",
+                                   "--dropout-prob", "0.5", "--bottleneck-divisor", "4",
+                                   "--use-conditioning", "False",
+                                   "--use-concat-activation", "False", "--batch-size", "6",
+                                   "--lr", "2.5e-6"]),
+}
+# the code store of the published hierarchy: (grid, codes) of levels 0, 1, 2
+STORE_LEVELS = [(TOP_GRID, 128), (TOP_COND, 256), ((8, 8, 2), 512)]
+# the PixelCNN options beside the default, at the top prior's width: their
+# train_prior flags and config fields
+PRIOR_OPTIONS = {
+    "fixup": (["--use-pre-activation", "False"], dict(use_pre_activation=False)),
+    "concat": (["--use-concat-activation", "True"], dict(use_concat_activation=True)),
+    "k5": (["--kernel-size", "5"], dict(kernel_size=5)),
+}
+# the k = 5 cached sampler's grid (a mid-sized grid at the top width) and its
+# condition; its teacher-forced check on the grid's first 8 slices (8 s0-
+# slices, conditioned at the same 4x ratio: the 1200 s limit); the naive
+# sampler's grid from the Fixup checkpoint
+K5_GRID, K5_COND = (32, 32, 8), (8, 8, 2)
+K5_FORCED, K5_FORCED_COND, NAIVE_GRID = (8, 32, 8), (2, 8, 2), (8, 8, 2)
+
+
+def variant_k4_dropout(ident, seed, results):
+    """(a) K4 at p = 0.5 over the top prior's 50-block segment, keep masks as
+    data, fp32 and bf16, against the plain segment and its autograd; then the
+    top prior's train step at dropout 0.5 beside dropout 0, in turns."""
+    import torch
+    from vqvae3d_tpu_torch.ops import causal_kernel as ck
+    from vqvae3d_tpu_torch.train import prior_train
+    from vqvae3d_tpu_torch.train.state import AMSGrad
+
+    dev = torch.device("cuda")
+    w = top_union_weights(TOP_PRIOR, seed + 81, dev)
+    nb, cu, cb = w.w1e.shape
+    cc = w.wc.shape[1]
+    gen = torch.Generator().manual_seed(seed + 82)
+    x32, g32 = (torch.randn(1, *TOP_GRID, cu, generator=gen).to(dev) for _ in range(2))
+    c32 = torch.randn(1, *TOP_GRID, cc, generator=gen).to(dev)
+    keep = (torch.rand(nb, 1, cb, generator=gen) < 0.5).float().to(dev)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = (str(dtype).removeprefix("torch."), "full")
+        x, gy, cond = x32.to(dtype), g32.to(dtype), c32.to(dtype)
+
+        def grads(fn, **kw):
+            xg, cg = x.clone().requires_grad_(), cond.clone().requires_grad_()
+            wg = ck.UnionWeights(*(None if t is None else t.clone().requires_grad_() for t in w))
+            y = fn(xg, cg, keep, 0.5, wg, **kw)
+            return (y.detach(), *torch.autograd.grad(
+                y, [xg, cg] + [t for t in wg if t is not None], gy))
+
+        before = (ck.causal_stack_fused.launches, ck.causal_stack_bwd.launches)
+        got = grads(ck.causal_stack_fused)
+        torch.cuda.synchronize()
+        launched = (ck.causal_stack_fused.launches - before[0],
+                    ck.causal_stack_bwd.launches - before[1])
+        want = grads(ck.causal_stack_plain, remat=True)
+        names = ["y", "dx", "dcond"] + [f for f, t in zip(ck.UnionWeights._fields, w)
+                                         if t is not None]
+        rel = []
+        for tname, a, r in zip(names, got, want):
+            err, scale = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+            rel.append(f"{tname} {err / scale:.2e}")
+            worst[key] = max(worst.get(key, 0.0), err / scale)
+            if not err <= K4_TOL[key] * scale or not torch.isfinite(a).all():
+                raise AssertionError(f"K4 p=0.5 {key} {tname}: max|d|={err:.3g} > "
+                                     f"{K4_TOL[key]} x {scale:.3g}")
+        print(f"K4 at p = 0.5 over the top segment ({nb} blocks, B=1, {TOP_GRID}, conditioned, "
+              f"one keep mask a block as data) {key[0]}: launches forward {launched[0]} "
+              f"backward {launched[1]}; max|d|/max|ref| (tolerance {K4_TOL[key]}) "
+              + ", ".join(rel) + f" [{ident}]")
+        if launched != (nb, nb):
+            raise AssertionError(f"K4 launches {launched} != ({nb}, {nb})")
+        del got, want
+        torch.cuda.empty_cache()
+
+    batch = code_batch(seed + 83, dev)
+    steps, times = {}, {}
+    for p in (0.5, 0.0):
+        model = make_prior(dict(TOP_PRIOR, dropout_prob=p), seed + 84, dev, dtype=torch.bfloat16)
+        steps[p] = prior_train.make_prior_train_step(
+            model, AMSGrad(model.parameters(), lr=TOP_LR), seed=seed + 85)
+    reset_counts()
+    log = steps[0.5](batch)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    want = dict(dict.fromkeys(got, 0), **prior_step_launches(model))
+    check_launches(got, want, "top prior step at dropout 0.5")
+    for p in (0.5, 0.0, 0.0, 0.5):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: steps[p](batch), iters=3, warmup=1)
+        times.setdefault(p, []).append((ms, torch.cuda.max_memory_allocated() / 2**30))
+    print(f"bf16 top-prior train step (bench_prior.py:130-136: 50 x 16d, 128 codes, conditioned, "
+          f"{TOP_GRID}, batch 1) in turns, ms/step (mean of 3 after 1 warm-up) and peak GiB: "
+          + "; ".join(f"dropout {p}: " + ", ".join(f"{ms:.2f} ms {pk:.2f} GiB" for ms, pk in v)
+                      for p, v in times.items())
+          + f"; launches a step at 0.5 {({k: v for k, v in got.items() if v})}, loss "
+          f"{float(log['loss_mean']):.5g} [{ident}]")
+    if not np.isfinite(float(log["loss_mean"])):
+        raise AssertionError("a non-finite loss at dropout 0.5")
+    results["top_dropout_step"] = dict(k4_worst=worst, times=times)
+
+
+def variant_store(work: Path, seed) -> Path:
+    """A code store of 8 samples of the published three-level hierarchy
+    (``STORE_LEVELS``): 7 train grids and 1 validation grid a level."""
+    from vqvae3d_tpu_torch.data.code_store import CodeStoreWriter
+
+    rng = np.random.default_rng(seed + 90)
+    store = work / "variant_codes"
+    w = CodeStoreWriter(str(store), 3, [k for _, k in STORE_LEVELS], backend="file")
+    for i in range(8):
+        w.write_sample(i, [rng.integers(0, k, grid, dtype=np.int32) for grid, k in STORE_LEVELS])
+    w.close()
+    return store
+
+
+@contextlib.contextmanager
+def step_times(times: list):
+    """Record each ``train_prior`` step's ms (its ``StepTimer``, CUDA events)
+    in ``times``."""
+    from vqvae3d_tpu_torch.cli import train_prior
+
+    base = train_prior.StepTimer
+
+    class Recorded(base):
+        def __exit__(self, *exc):
+            super().__exit__(*exc)
+            times.append(self.last_ms)
+
+    train_prior.StepTimer = Recorded
+    try:
+        yield
+    finally:
+        train_prior.StepTimer = base
+
+
+def run_train_prior(argv, steps_ms: list):
+    """``train_prior.main`` on ``argv``, counted from 0 and with its step
+    times recorded: (model, optimizer, step, launches, seconds, peak GiB)."""
+    import torch
+    from vqvae3d_tpu_torch.cli import train_prior
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with step_times(steps_ms):
+        model, opt, step = train_prior.main(train_prior.parse_arguments(argv))
+    torch.cuda.synchronize()
+    return (model, opt, step, launch_counts(), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def add_counts(counts, got):
+    for k, v in got.items():
+        counts[k] = counts.get(k, 0) + v
+
+
+def published_pixelcnn_jobs(ident, counts, seed, store: Path, work: Path, results):
+    """(b) The published mid and bottom PixelCNN jobs through ``train_prior``
+    at full width and depth, 3 steps each: step ms, finite losses, peak
+    memory; no K4 and no K7 at these widths (as in JAX)."""
+    for name, job in PIXELCNN_JOBS.items():
+        ckpt = work / f"pixelcnn_{name}"
+        times = []
+        model, opt, step, got, secs, peak = run_train_prior(
+            [str(store), str(job["level"]), "--use-model", "pixelcnn", *job["flags"],
+             "--max-steps", "3", "--val-every-steps", "3", "--log-every-n-steps", "1",
+             "--ckpt-dir", str(ckpt), "--device", "cuda", "--seed", str(seed)], times)
+        cfg = model.config
+        logs = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train_loss_mean"] for r in logs if "train_loss_mean" in r]
+        print(f"train_prior, the published {name} PixelCNN ({cfg.num_resblocks} x "
+              f"{cfg.model_dim}d over {cfg.input_dim} codes, condition {cfg.condition_dim}, "
+              f"dropout {cfg.dropout_prob}, {STORE_LEVELS[job['level']][0]}): 3 steps in "
+              f"{secs:.1f} s (host clock, model, data, checkpoint); step ms "
+              + ", ".join(f"{t:.2f}" for t in times) + f" (step_ms, the mean after the first, "
+              f"{np.mean(times[1:]):.2f}); peak {peak:.2f} GiB; losses {losses}; launches "
+              f"{({k: v for k, v in got.items() if v})} [{ident}]")
+        check_launches(got, dict.fromkeys(got, 0), f"the {name} PixelCNN job")
+        if step != 3 or len(losses) != 3 or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"the {name} PixelCNN job: step {step}, losses {losses}")
+        results[f"pixelcnn_{name}_job"] = dict(step_ms=float(np.mean(times[1:])), peak_gib=peak,
+                                               first_ms=times[0])
+        add_counts(counts, got)
+        del model, opt
+
+
+def option_fp32_step(ident, name, fields, seed, batch):
+    """One fp32 step of an option's top-width model on the kernel path (K7
+    for its small-channel causal convs) against the plain path: the loss and
+    every gradient."""
+    import torch
+    from vqvae3d_tpu_torch.train import prior_train
+
+    model = make_prior(fields, seed, "cuda")
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = prior_train.prior_loss_fn(model, batch, train=True)
+        loss.backward()
+        return float(loss.detach()), {n: (torch.zeros_like(q) if q.grad is None else q.grad.clone())
+                                      for n, q in model.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads()
+    with plain_path():
+        loss_p, grads_p = loss_and_grads()
+    torch.cuda.synchronize()
+    gmax = max(float(g.abs().max()) for g in grads_p.values())
+    grad_err = {n: float((grads_k[n] - grads_p[n]).abs().max())
+                / max(float(grads_p[n].abs().max()), 1e-3 * gmax) for n in grads_p}
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"fp32 {name} top-width train step ({TOP_GRID}): loss kernel {loss_k:.7g} plain "
+          f"{loss_p:.7g} (rel {loss_err:.2e}); gradients of {len(grads_p)} tensors, worst "
+          f"max|d| over max(max|ref|, 1e-3 max grad): "
+          + ", ".join(f"{n} {e:.2e}" for n, e in worst) + f" [{ident}]")
+    if loss_err > STEP_LOSS_TOL or worst[0][1] > STEP_GRAD_TOL or not np.isfinite(loss_k):
+        raise AssertionError(f"fp32 {name} step: the kernel path disagrees with the plain path")
+    return loss_err, worst[0][1]
+
+
+def prior_option_steps(ident, counts, seed, store: Path, work: Path, shapes: list, results):
+    """(c) Each PixelCNN option at the top width (50 x 16d, 128 codes,
+    conditioned, 128x128x32, batch 1): one fp32 step, kernel path against
+    plain path; a counted bf16 step (K7's launches and shapes, no K4) and the
+    ms a step; then ``train_prior`` for 2 steps and one ``--resume``."""
+    import torch
+    from vqvae3d_tpu_torch.train import prior_train
+    from vqvae3d_tpu_torch.train.state import AMSGrad
+
+    batch = code_batch(seed + 86, "cuda")
+    out = {}
+    for name, (flags, extra) in PRIOR_OPTIONS.items():
+        fields = dict(TOP_PRIOR, **extra)
+        fp32 = option_fp32_step(ident, name, fields, seed + 87, batch)
+        torch.cuda.empty_cache()
+        model = make_prior(fields, seed + 87, "cuda", dtype=torch.bfloat16)
+        step = prior_train.make_prior_train_step(model, AMSGrad(model.parameters(), lr=TOP_LR),
+                                                 seed=seed + 88)
+        reset_counts()
+        seen = []
+        with k7_record(seen, [0.0]):
+            log = step(batch)
+            torch.cuda.synchronize()
+        got = launch_counts()
+        check_launches(got, dict(dict.fromkeys(got, 0), **prior_step_launches(model)),
+                       f"{name} top-width step")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(batch), iters=3, warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        shapes.extend(sh for sh in dict.fromkeys(seen) if sh not in shapes)
+        print(f"bf16 {name} top-width train step ({TOP_GRID}, batch 1): {ms:.2f} ms/step (mean "
+              f"of 3 after the counted step) peak {peak:.2f} GiB; launches a step K7 "
+              f"{got['dw_conv3d']} at {len(set(seen))} shapes, K4 {got['causal_stack_fwd']}; "
+              f"loss {float(log['loss_mean']):.5g} [{ident}]")
+        if not np.isfinite(float(log["loss_mean"])):
+            raise AssertionError(f"{name}: a non-finite loss")
+        out[name] = dict(fp32=fp32, ms=ms, peak_gib=peak, k7_per_step=got["dw_conv3d"])
+        del model, step
+        torch.cuda.empty_cache()
+        ckpt = work / f"pixelcnn_{name}"
+        argv = [str(store), "0", "--use-model", "pixelcnn",
+                "--model-dim", str(TOP_PRIOR["model_dim"]),
+                "--num-resblocks", str(TOP_PRIOR["num_resblocks"]),
+                "--bottleneck-divisor", "4", "--dropout-prob", "0",
+                "--batch-size", "1", "--val-every-steps", "2", "--log-every-n-steps", "1",
+                "--lr", str(TOP_LR), "--ckpt-dir", str(ckpt), "--device", "cuda",
+                "--seed", str(seed), *flags]
+        per_step = out[name]["k7_per_step"]
+        for run, extra, n in (("train", ["--max-steps", "2"], 2),
+                              ("resume", ["--max-steps", "3", "--resume"], 1)):
+            model, opt, step_n, got, secs, _ = run_train_prior(argv + extra, [])
+            print(f"train_prior {' '.join(flags)} {run}: {n} step(s) to step {step_n} in "
+                  f"{secs:.1f} s (host clock); launches {({k: v for k, v in got.items() if v})} "
+                  f"[{ident}]")
+            check_launches(got, dict(dict.fromkeys(got, 0), dw_conv3d=n * per_step),
+                           f"train_prior {name} {run}")
+            if step_n != {"train": 2, "resume": 3}[run] or opt.count != step_n:
+                raise AssertionError(f"train_prior {name} {run} stopped at step {step_n}")
+            add_counts(counts, got)
+            del model, opt
+    results["prior_options"] = out
+
+
+def prior_option_sampling(ident, counts, seed, work: Path, results):
+    """(d) The cached sampler at k = 5 (its own row steps, no kernel) on a
+    top-width model: teacher-forced logits against the one-shot forward on
+    the 32x32x8 grid's first 8 slices, then one free-running 32x32x8 grid
+    conditioned on 8x8x2, timed;
+    ``sample_embeddings --sampler naive`` of an 8x8x2 grid from the Fixup
+    checkpoint that (c) wrote."""
+    import torch
+    from vqvae3d_tpu_torch.cli import sample_embeddings
+    from vqvae3d_tpu_torch.data.sample_db import add_samples, create_or_load_db, save_db
+    from vqvae3d_tpu_torch.models.prior_utils import idx_to_one_hot
+    from vqvae3d_tpu_torch.sample.cached_sample import cached_ancestral_sample
+
+    dev = torch.device("cuda")
+    model = make_prior(dict(TOP_PRIOR, kernel_size=5), seed + 91, dev)
+    gen = torch.Generator(dev).manual_seed(seed + 92)
+    k, kc = TOP_PRIOR["input_dim"], TOP_PRIOR["condition_dim"]
+    cond = torch.randint(0, kc, (1, *K5_FORCED_COND), device=dev, generator=gen)
+    forced = torch.randint(0, k, (1, *K5_FORCED), device=dev, generator=gen)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, logits = cached_ancestral_sample(model, K5_FORCED, 1, cond, TOP_TAU, forced=forced)
+    torch.cuda.synchronize()
+    t_forced = time.perf_counter() - t0
+    with torch.inference_mode():
+        ref = model(idx_to_one_hot(forced, k), idx_to_one_hot(cond, kc))
+    err, scale = float((logits - ref).abs().max()), float(ref.abs().max())
+    cond = torch.randint(0, kc, (1, *K5_COND), device=dev, generator=gen)
+    t0 = time.perf_counter()
+    grid = cached_ancestral_sample(model, K5_GRID, 1, cond, TOP_TAU, generator=gen)
+    torch.cuda.synchronize()
+    t_free = time.perf_counter() - t0
+    got = launch_counts()
+    voxels = int(np.prod(K5_GRID))
+    print(f"cached sampler at kernel size 5 (top width, batch 1, fp32, its own row steps "
+          f"replayed as CUDA graphs): teacher-forced over {K5_FORCED} on {K5_FORCED_COND} "
+          f"{t_forced:.2f} s, logits max|d| {err:.3g} against the one-shot forward, max|ref| "
+          f"{scale:.3g} (tolerance {FORWARD_TOL} x max|ref|); one free-running grid {K5_GRID} "
+          f"on {K5_COND} {t_free:.2f} s ({1e3 * t_free / voxels:.3f} ms a voxel, host "
+          f"clock), codes {int(grid.min())}..{int(grid.max())}; launches "
+          f"{({k_: v for k_, v in got.items() if v})} [{ident}]")
+    check_launches(got, dict.fromkeys(got, 0), "the k = 5 cached sampler")
+    if (not err <= FORWARD_TOL * scale or not torch.isfinite(logits).all()
+            or tuple(grid.shape) != (1, *K5_GRID) or int(grid.min()) < 0 or int(grid.max()) >= k):
+        raise AssertionError("the k = 5 cached sampler disagrees or sampled a wrong grid")
+    del model, logits, ref
+
+    ckpt = work / "pixelcnn_fixup"
+    db_path = work / "samples_fixup.db"
+    db = create_or_load_db(db_path, 1)
+    rng = np.random.default_rng(seed + 93)
+    level1 = add_samples(db, 1, rng.integers(0, kc, (2, 2, 2, 1)).astype(np.int32), None)
+    save_db(db, db_path, 1)
+    reset_counts()
+    t0 = time.perf_counter()
+    new = sample_embeddings.main(sample_embeddings.parse_arguments([
+        "--model-checkpoint", str(ckpt), "--db-path", str(db_path), "--level", "0",
+        "--size", *map(str, NAIVE_GRID), "--num-samples", "1", "--batch-size", "1",
+        "--tau", str(TOP_TAU), "--sampler", "naive", "--seed", str(seed), "--device", "cuda"]))
+    torch.cuda.synchronize()
+    t_naive = time.perf_counter() - t0
+    got = launch_counts()
+    out = np.asarray(create_or_load_db(db_path, 0)[0][new[0]]["data"])
+    print(f"sample_embeddings --sampler naive --size {NAIVE_GRID} from the Fixup checkpoint: "
+          f"{t_naive:.2f} s (host clock, one forward a voxel), grid {out.shape} codes "
+          f"{out.min()}..{out.max()}; launches {({k_: v for k_, v in got.items() if v})} "
+          f"[{ident}]")
+    check_launches(got, dict.fromkeys(got, 0), "naive sampling of the Fixup checkpoint")
+    if out.shape != NAIVE_GRID or out.min() < 0 or out.max() >= k:
+        raise AssertionError("the naive sampler wrote a wrong grid")
+    add_counts(counts, got)
+    results["k5_sampling"] = dict(forced_s=t_forced, free_s=t_free, err=err / scale,
+                                  naive_s=t_naive)
+
+
+def phase_prior_variants(ident, counts, results, seed, work: Path):
+    """Phase 23: the PixelCNN remainder (K4 at dropout 0.5 over 50 blocks,
+    the published mid and bottom PixelCNN jobs, the Fixup, concat-activation
+    and k = 5 options at the top width, and their sampling)."""
+    t0 = time.perf_counter()
+    variant_k4_dropout(ident, seed, results)
+    t_a = time.perf_counter() - t0
+    store = variant_store(work, seed)
+    published_pixelcnn_jobs(ident, counts, seed, store, work, results)
+    t_b = time.perf_counter() - t0 - t_a
+    shapes = []
+    prior_option_steps(ident, counts, seed, store, work, shapes, results)
+    stage1_k7_checks(ident, seed, shapes)
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    prior_option_sampling(ident, counts, seed, work, results)
+    t_d = time.perf_counter() - t0 - t_a - t_b - t_c
+    print(f"phase 23 parts: K4 at dropout 0.5 and the top steps {t_a:.1f} s, the mid and "
+          f"bottom jobs {t_b:.1f} s, the options at the top width {t_c:.1f} s, sampling "
+          f"{t_d:.1f} s")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3998,6 +4422,8 @@ def main():
             ("PixelSNAIL sampling main path", lambda: phase_snail_sample_main_path(
                 ident, counts, results, args.seed, Path(tmp))),
             ("stage-1 block types and published configs", lambda: phase_stage1_variants(
+                ident, counts, results, args.seed, Path(tmp))),
+            ("the PixelCNN remainder", lambda: phase_prior_variants(
                 ident, counts, results, args.seed, Path(tmp))),
         ]
         for number, (name, fn) in enumerate(phases, 1):

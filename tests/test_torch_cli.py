@@ -17,6 +17,11 @@
     checkpoint keeps the step and the optimizer state, ``load_prior`` and
     ``sample_embeddings`` read it, and the JAX ``_config_from_json`` reads
     its config.
+  * ``train_prior`` with each PixelCNN option beside the default
+    (``--use-pre-activation False``, ``--use-concat-activation True``,
+    ``--kernel-size 5``) trains two steps and ``--resume``s for a third;
+    ``sample_embeddings --sampler naive`` samples from the Fixup checkpoint,
+    and the cached sampler refuses it.
   * A resumed ``train_prior`` run (2 + 1 + 1 steps) equals an uninterrupted
     one (4 steps) bit for bit, for the PixelCNN and the PixelSNAIL, with
     dropout and mixup on.
@@ -272,6 +277,49 @@ def test_train_prior_cli_on_cpu(tmp_path):
         "--size", "4", "4", "4", "--num-samples", "2", "--batch-size", "1", "--device", "cpu"]))
     db = create_or_load_db(db_path, 0)
     assert len(new) == 2 and all(db[0][u]["condition"] in level1 for u in new)
+
+
+@pytest.mark.parametrize("option", [["--use-pre-activation", "False"],
+                                    ["--use-concat-activation", "True"],
+                                    ["--kernel-size", "5"]])
+def test_train_prior_options_on_cpu(tmp_path, option):
+    rng = np.random.default_rng(7)
+    w = CodeStoreWriter(str(tmp_path / "codes"), 2, [5, 4], backend="file")
+    for i in range(3):  # 2 train grids, 1 validation grid
+        w.write_sample(i, [rng.integers(0, 5, (4, 4, 2)).astype(np.int32),
+                           rng.integers(0, 4, (2, 2, 1)).astype(np.int32)])
+    w.close()
+    ck = tmp_path / "prior"
+    flags = [str(tmp_path / "codes"), "0", "--model-dim", "8", "--num-resblocks", "2",
+             "--bottleneck-divisor", "2", "--dropout-prob", "0.3", "--batch-size", "1",
+             "--val-every-steps", "2", "--ckpt-dir", str(ck), "--device", "cpu", *option]
+    model, opt, step = train_prior.main(train_prior.parse_arguments(flags + ["--max-steps", "2"]))
+    assert step == 2 and not model.uses_union_stack
+    model, opt, step = train_prior.main(train_prior.parse_arguments(
+        flags + ["--max-steps", "3", "--resume"]))
+    assert step == opt.count == 3
+    logs = [json.loads(line) for line in (ck / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["val_loss_mean"] for r in logs if "val_loss_mean" in r]
+    assert len(losses) == 2 and np.all(np.isfinite(losses))
+    loaded, cfg = load_prior(ck, device="cpu")
+    assert cfg == model.config and (cfg.use_pre_activation, cfg.use_concat_activation,
+                                    cfg.kernel_size) == {
+        "--use-pre-activation": (False, False, 3), "--use-concat-activation": (True, True, 3),
+        "--kernel-size": (True, False, 5)}[option[0]]
+    if option[0] != "--use-pre-activation":
+        return
+    db_path = tmp_path / "samples.db"
+    db = create_or_load_db(db_path, 1)
+    level1 = jadd_samples(db, 1, rng.integers(0, 4, (2, 2, 2, 1)).astype(np.int32), None)
+    jsave_db(db, db_path, 1)
+    argv = ["--model-checkpoint", str(ck), "--db-path", str(db_path), "--level", "0",
+            "--size", "3", "3", "2", "--num-samples", "2", "--batch-size", "2", "--device", "cpu"]
+    with pytest.raises(ValueError, match="--sampler naive"):
+        sample_embeddings.main(sample_embeddings.parse_arguments(argv))
+    new = sample_embeddings.main(sample_embeddings.parse_arguments(argv + ["--sampler", "naive"]))
+    db = create_or_load_db(db_path, 0)
+    assert len(new) == 2 and all(db[0][u]["condition"] in level1 for u in new)
+    assert all(np.asarray(db[0][u]["data"]).shape == (3, 3, 2) for u in new)
 
 
 @pytest.mark.parametrize("use_model", ["pixelcnn", "pixelsnail"])

@@ -78,6 +78,14 @@ On a card (marker ``gpu``; skipped here with the reason):
     sums in fp32), bit-identical on a second call; and the causality check
     of ``causal_reach`` on the kernel's forward (impulses) and backward
     (gradients), fp32 and bf16 (the tensor-core forward and backward);
+  * K4 at p = 0.5 over 12 blocks at the top prior's widths, conditioned, the
+    keep masks as data: output and every gradient within 1e-4 (fp32) and
+    2^-4 (bf16) of max|ref|; K7 at the causal convs of the Fixup (16 -> 16,
+    kernels (2, 3, 3), (1, 2, 3), (1, 1, 2)) and k = 5 (4 -> 4, kernels
+    past 3) PixelCNNs within 1e-5;
+  * the cached sampler at kernel size 5 (its row step replayed as CUDA
+    graphs, no K6) gives the grids of the eager step and of the naive
+    sampler for one Gumbel table;
   * K4's bf16 tensor-core forward at the top prior's widths, conditioned or
     not, p = 0 and 0.5, no-save and saving, against ``causal_stack_plain``
     within 2^-6 (one block) and 2^-4 (three) of max|ref|, bit-identical on a
@@ -129,8 +137,9 @@ from vqvae3d_tpu_torch.ops import (
     quantizer_ops,
     stack_kernel,
 )
-from vqvae3d_tpu_torch.sample.ar_sample import draw_gumbel
-from vqvae3d_tpu_torch.sample.cached_sample import _extract_layers
+from vqvae3d_tpu_torch.sample import cached_sample
+from vqvae3d_tpu_torch.sample.ar_sample import ancestral_sample, draw_gumbel
+from vqvae3d_tpu_torch.sample.cached_sample import _extract_layers, cached_ancestral_sample
 
 
 def _stack(rng, nb, c, std=0.2):
@@ -1634,6 +1643,64 @@ def test_k4_bwd_kernel_matches_plain_on_card(cuda_device, case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_dropout_over_a_deep_segment_on_card(cuda_device, dtype):
+    """K4 at p = 0.5 over 12 blocks at the top prior's widths (C 16, Cb 4,
+    conditioned), one keep mask a block passed as data: the output and every
+    gradient against the plain segment's autograd, within 1e-4 (fp32) and
+    2^-4 (bf16, the rounding flips of a deep segment) of max|ref|."""
+    rng = np.random.default_rng(990)
+    b, grid, nb = 1, (6, 5, 7), 12
+    w = causal_kernel.UnionWeights(*(None if t is None else t.to(cuda_device)
+                                     for t in _union_weights(rng, nb, 16, 4, 16, std=0.5)))
+    x, gy, cond = (torch.from_numpy(rng.standard_normal((b, *grid, n)).astype(np.float32))
+                   .to(cuda_device, dtype) for n in (48, 48, 16))
+    keep = torch.from_numpy((rng.random((nb, b, 12)) < 0.5).astype(np.float32)).to(cuda_device)
+
+    def grads(run):
+        xg, cg = x.clone().requires_grad_(), cond.clone().requires_grad_()
+        wg = [None if t is None else t.clone().requires_grad_() for t in w]
+        y = run(xg, cg, keep, 0.5, causal_kernel.UnionWeights(*wg))
+        return (y.detach(), *torch.autograd.grad(y, [xg, cg] + [t for t in wg if t is not None],
+                                                  gy))
+
+    launches = (causal_kernel.causal_stack_fused.launches,
+                causal_kernel.causal_stack_bwd.launches)
+    got = grads(causal_kernel.causal_stack_fused)
+    want = grads(causal_kernel.causal_stack_plain)
+    torch.cuda.synchronize()
+    assert (causal_kernel.causal_stack_fused.launches,
+            causal_kernel.causal_stack_bwd.launches) == (launches[0] + nb, launches[1] + nb)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -4
+    for i, (a, r) in enumerate(zip(got, want)):
+        scale = float(r.float().abs().max())
+        err = float((a.float() - r.float()).abs().max())
+        assert torch.isfinite(a).all() and err <= tol * scale, f"output {i}: {err:.3g}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,ksize,grid", [
+    (16, (2, 3, 3), (8, 10, 9)), (16, (1, 2, 3), (8, 9, 9)), (16, (1, 1, 2), (8, 8, 9)),
+    (4, (4, 5, 5), (10, 12, 11)), (4, (1, 4, 5), (7, 11, 11)), (4, (1, 1, 3), (7, 8, 9))])
+def test_k7_at_the_prior_variant_shapes_on_card(cuda_device, c, ksize, grid, dtype):
+    """K7 at the causal convs of the PixelCNN options at the top width: the
+    Fixup blocks' C 16 -> 16 branch convs (k 3) and the k = 5 blocks' C 4 ->
+    4 (kernels past 3 take the CUDA-core route in bf16 too), ``grid`` the
+    padded input; within 1e-5 of max|ref|, one launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(ksize) * 10 + c)
+    xp = torch.randn(2, c, *grid, device=cuda_device, generator=gen).to(dtype)
+    g = torch.randn(2, c, *(s - k + 1 for s, k in zip(grid, ksize)), device=cuda_device,
+                    generator=gen).to(dtype)
+    launches = conv3d.dw_conv3d.launches
+    got = conv3d.dw_conv3d(xp, g, ksize)
+    want = conv3d.dw_conv3d_plain(xp, g, ksize)
+    torch.cuda.synchronize()
+    assert conv3d.dw_conv3d.launches == launches + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", range(len(K4_CASES)))
 def test_k4_bwd_routes_agree_on_card(cuda_device, case, monkeypatch):
     """bf16 takes the tensor-core backward at the cases' widths; it agrees with
@@ -1927,6 +1994,39 @@ def test_k6_wide_kernel_reports_non_finite_logits(cuda_device):
                                    2, 0.1)
     torch.cuda.synchronize()
     assert torch.equal(idx.cpu(), torch.full((3, 3), -1, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cond", [False, True])
+def test_cached_sampler_at_kernel_size_5_on_card(cuda_device, cond, monkeypatch):
+    """The k = 5 row step (no kernel; its two variants replayed as CUDA
+    graphs on a card) gives the grids of the same step run eagerly and of the
+    naive sampler for one Gumbel table, and launches no K6."""
+    gen = torch.Generator().manual_seed(70 + cond)
+    model = PixelCNN(PixelCNNConfig(input_dim=12, condition_dim=6 if cond else 0, model_dim=16,
+                                    num_resblocks=3, dropout_prob=0.0, kernel_size=5),
+                     generator=gen)
+    with torch.no_grad():
+        for prm in model.parameters():
+            prm.add_(torch.randn(prm.shape, generator=gen) * 0.1)
+    model = model.to(cuda_device).eval()
+    dims = (3, 5, 6)
+    ci = torch.randint(0, 6, (2, 1, 2, 2), generator=gen) if cond else None
+    table = draw_gumbel((*dims, 2, 12), torch.Generator(cuda_device).manual_seed(71),
+                        cuda_device)
+    launches = decode_row.row_decode.launches
+    graphs = cached_ancestral_sample(model, dims, 2, ci, 0.5, gumbel=table)
+    assert decode_row.row_decode.launches == launches
+    naive = ancestral_sample(model, dims, 2, ci, 0.5, gumbel=table)
+    init = cached_sample.AnyKRowStep.__init__
+
+    def eager(self, *args, **kw):
+        init(self, *args, **kw)
+        self.graphs = None
+
+    monkeypatch.setattr(cached_sample.AnyKRowStep, "__init__", eager)
+    assert torch.equal(graphs, cached_ancestral_sample(model, dims, 2, ci, 0.5, gumbel=table))
+    assert torch.equal(graphs, naive)
 
 
 @pytest.mark.gpu

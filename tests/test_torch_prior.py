@@ -181,12 +181,13 @@ def test_prior_checkpoint_and_config_interchange(tmp_path):
 
 
 def test_training_only_options_raise():
-    """What the port does not train yet raises; training-time dropout works
+    """What the port does not train yet (multi-host) raises; the Fixup and
+    concat-activation PixelCNNs build (their parity:
+    tests/test_torch_prior_variants.py) and training-time dropout works
     (tests/test_torch_prior_train.py::test_dropout_trains)."""
-    with pytest.raises(NotImplementedError):
-        PixelCNN(PixelCNNConfig(**tiny_config(False), use_pre_activation=False))
-    with pytest.raises(NotImplementedError):
-        PixelCNN(PixelCNNConfig(**tiny_config(False), use_concat_activation=True))
+    fixup = PixelCNN(PixelCNNConfig(**tiny_config(False), use_pre_activation=False))
+    concat = PixelCNN(PixelCNNConfig(**tiny_config(False), use_concat_activation=True))
+    assert not fixup.uses_union_stack and not concat.uses_union_stack
     # PixelSNAIL trains (tests/test_torch_pixelsnail.py): its flags parse
     args = train_prior.parse_arguments(["codes", "0", "--use-model", "pixelsnail",
                                         "--num-blocks", "3", "--attention-dropout-prob", "0"])

@@ -211,16 +211,20 @@ def _raster(dims):
     return [(a, b, c) for a in range(dims[0]) for b in range(dims[1]) for c in range(dims[2])]
 
 
+@pytest.mark.parametrize("variant", [{}, {"use_pre_activation": False},
+                                     {"use_concat_activation": True}])
 @pytest.mark.parametrize("use_cond", [False, True])
-def test_pixelcnn_causality(use_cond):
+def test_pixelcnn_causality(use_cond, variant):
     """tests/test_causal.py:159-178 for the port: perturbing the input at v
-    leaves every logit at raster positions <= v bit-identical."""
+    leaves every logit at raster positions <= v bit-identical; for the
+    default PixelCNN (the union stack) and the Fixup and concat-activation
+    ones (stock blocks)."""
     torch.manual_seed(1)
     dims = (3, 4, 3)
     model = PixelCNN(PixelCNNConfig(input_dim=6, condition_dim=5 if use_cond else 0,
                                     model_dim=8, num_resblocks=2, dropout_prob=0.0,
-                                    dtype=torch.float32))
-    assert model.uses_union_stack
+                                    dtype=torch.float32, **variant))
+    assert model.uses_union_stack == (not variant)
     with torch.no_grad():
         for prm in model.parameters():
             prm.copy_(torch.randn(prm.shape) * 0.3)

@@ -17,8 +17,14 @@ carried across with ``jax_pixelcnn_params_to_state_dict``
   * the port's cached sampler gives exactly the port's naive sampler's grids
     for the same table, and both keep their noise on a ``torch.Generator``;
   * the row function checks: CPU tensors take the plain version (no launch);
-    other devices raise; ``kernel_size != 3`` raises; non-finite logits
-    give index -1, and the cached sampler raises on them.
+    other devices raise; non-finite logits give index -1, and the cached
+    sampler raises on them;
+  * at ``kernel_size`` 5 (the sampler's own height and width row steps, no
+    row kernel, as the JAX sampler's XLA row body) the same three checks,
+    conditioned and not;
+  * a Fixup or concat-activation PixelCNN in the cached sampler raises
+    ``ValueError``, as the JAX sampler asserts (``--sampler naive`` takes
+    them).
 """
 import jax
 import jax.numpy as jnp
@@ -30,7 +36,6 @@ from test_torch_prior import COARSE, DIMS, jax_and_port_models, tiny_config
 from vqvae3d_tpu.ops.decode_row import gumbel_row
 from vqvae3d_tpu.sample.cached_sample import cached_ancestral_sample as jcached
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
-from vqvae3d_tpu_torch.models.prior_utils import idx_to_one_hot
 from vqvae3d_tpu_torch.ops import decode_row
 from vqvae3d_tpu_torch.sample.ar_sample import ancestral_sample
 from vqvae3d_tpu_torch.sample.cached_sample import _extract_layers, cached_ancestral_sample
@@ -146,11 +151,45 @@ def test_non_finite_logits_are_reported():
                                 generator=torch.Generator().manual_seed(94))
 
 
-def test_cached_sampler_takes_kernel_size_3_only():
-    model = PixelCNN(PixelCNNConfig(**tiny_config(False), kernel_size=5))
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("with_cond", [False, True])
+def test_cached_sampler_at_kernel_size_5(with_cond):
+    """The k = 5 row steps: forced logits against the JAX one-shot forward,
+    free-running grids equal to JAX ``cached_ancestral_sample``'s (its XLA
+    row body at k != 3) and, conditioned, to the port's naive sampler's for
+    one table (the naive sampler's 36 forwards are this test's costliest
+    part; the JAX grid pins the unconditioned case)."""
+    fields = tiny_config(with_cond, kernel_size=5)
+    jmodel, params, model = jax_and_port_models(fields, seed=95 + with_cond)
+    cond = _cond(with_cond, 96)
+    cond_t = None if cond is None else torch.from_numpy(cond)
+    grid = np.random.default_rng(97).integers(0, 5, (B, *DIMS))
+    _, logits = cached_ancestral_sample(model, DIMS, B, cond_t, TAU,
+                                        forced=torch.from_numpy(grid))
+    want = np.asarray(jmodel.apply(
+        {"params": params}, jax.nn.one_hot(grid, 5),
+        None if cond is None else jax.nn.one_hot(cond, 4), train=False))
+    got = logits.movedim(1, -1).numpy()
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    assert err <= 1e-5 * scale, f"max|d|={err:.3g} > 1e-5 x {scale:.3g}"
+    seed = 17 + with_cond
+    jgrid = jcached(jmodel, params, jax.random.PRNGKey(seed), DIMS, B,
+                    None if cond is None else jnp.asarray(cond, jnp.int32), tau=TAU)
+    table = torch.from_numpy(_jax_gumbel_table(seed))
+    before = decode_row.row_decode.launches
+    got = cached_ancestral_sample(model, DIMS, B, cond_t, TAU, gumbel=table)
+    assert decode_row.row_decode.launches == before
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jgrid))
+    if with_cond:
+        naive = ancestral_sample(model, DIMS, B, cond_t, TAU, gumbel=table)
+        torch.testing.assert_close(got, naive, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("option", [{"use_pre_activation": False},
+                                    {"use_concat_activation": True}])
+def test_cached_sampler_refuses_fixup_and_concat(option):
+    model = PixelCNN(PixelCNNConfig(**tiny_config(False), **option))
+    with pytest.raises(ValueError, match="--sampler naive"):
         cached_ancestral_sample(model, DIMS, 1)
-    # the naive sampler and the forward take any odd kernel size
-    with torch.inference_mode():
-        assert model(idx_to_one_hot(torch.zeros(1, *DIMS, dtype=torch.int64), 5)).shape == (
-            1, 5, *DIMS)
+    # the naive sampler takes them
+    grid = ancestral_sample(model, DIMS, 1, generator=torch.Generator().manual_seed(0))
+    assert grid.shape == (1, *DIMS) and int(grid.min()) >= 0 and int(grid.max()) < 5

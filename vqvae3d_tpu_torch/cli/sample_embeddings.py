@@ -9,9 +9,12 @@ next-coarser level in the DB (the pool repeats when it is small) when the
 prior is conditioned, and store {uuid: {'data', 'condition'}} under the
 level with merge-on-save. A conditioned prior needs that level in the DB, an
 unconditioned one refuses it. ``--sampler cached`` runs the exact cached
-sampler of the prior's class (PixelCNN: kernel K6 per row on a card;
-PixelSNAIL: ``sample/cached_snail.py``, appended K/V per stream), ``naive``
-the O(V²) full-forward loop (PixelSNAIL's forward takes kernel K8 on a card).
+sampler of the prior's class (PixelCNN: kernel K6 per row on a card at
+kernel size 3, its own row steps at any other odd size, and a Fixup or
+concat-activation PixelCNN refused with ``ValueError``; PixelSNAIL:
+``sample/cached_snail.py``, appended K/V per stream), ``naive`` the O(V²)
+full-forward loop, which samples every prior (PixelSNAIL's forward takes
+kernel K8 on a card).
 
     python -m vqvae3d_tpu_torch.cli.sample_embeddings --model-checkpoint CKPT \\
         --db-path samples.db --level 0 --size 128 128 32 --tau 0.1

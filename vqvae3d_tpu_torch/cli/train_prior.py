@@ -9,7 +9,11 @@ in ``--ckpt-dir`` and the best on ``val_loss_mean`` under ``--ckpt-dir``/best
 (``checkpoint.save_prior_train_state``; ``load_prior`` reads either).
 ``--use-model`` picks the PixelCNN or the PixelSNAIL and its config's flags
 (PixelSNAIL: ``--num-blocks``, ``--num-layers-per-block``, ``--num-heads``,
-``--causal-dropout-prob``, ``--attention-dropout-prob`` …). Each step draws
+``--causal-dropout-prob``, ``--attention-dropout-prob`` …); the PixelCNN's
+``--use-pre-activation False`` (Fixup blocks), ``--use-concat-activation
+True`` and ``--kernel-size`` (any odd size) build those PixelCNNs, which run
+no K4 (their small-channel causal convs take their weight gradients through
+K7). Each step draws
 its dropout masks and mixup from a generator seeded from (``--seed`` + 1,
 step) (``prior_train.step_generator``). ``--resume`` continues from the
 newest checkpoint there (params, optimizer state, step) at the batch the

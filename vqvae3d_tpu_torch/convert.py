@@ -20,6 +20,11 @@ trees only.
 do the same for the priors: each is the exact inverse of
 ``vqvae3d_tpu/train/checkpoint.py::convert_reference_pixelcnn_state_dict``
 (``convert_reference_pixelsnail_state_dict``) and takes the ``params`` tree.
+The PixelCNN bridge also covers the concat-activation tree (grouped
+kernels, (k…, I/groups, O) -> (O, I/groups, k…), the same transpose) and the
+``FixupCausalResBlock`` tree (no ``branch_conv3``, ``expand_rf`` or
+``bias3a/3b/4``), which that converter does not read.
+``jax_gated_block_params_to_state_dict`` bridges a ``GatedResBlock``.
 """
 from __future__ import annotations
 
@@ -162,6 +167,32 @@ def _causal_block(tree, dst: str, sd: Dict[str, np.ndarray]) -> None:
         _biased_streams(tree, conv, f"{dst}.{conv}", sd)
 
 
+def _fixup_causal_block(tree, dst: str, sd: Dict[str, np.ndarray]) -> None:
+    """One FixupCausalResBlock: four scalar biases, the scale, two bias-less
+    k-sized causal convs and the optional skip conv."""
+    for name in ("1a", "1b", "2a", "2b"):
+        sd[f"{dst}.bias{name}"] = np.asarray(tree[f"bias{name}"])
+    sd[f"{dst}.scale"] = np.asarray(tree["scale"])
+    for conv in ("branch_conv1", "branch_conv2"):
+        for stream in ("depth_conv", "height_conv", "width_conv"):
+            sd[f"{dst}.{conv}.{stream}.weight"] = _j2t_conv(tree[conv][stream]["kernel"])
+    _biased_streams(tree, "skip_conv", f"{dst}.skip_conv", sd)
+
+
+def jax_gated_block_params_to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``GatedResBlock`` ``params`` tree -> the port block's state_dict."""
+    sd: Dict[str, np.ndarray] = {}
+    _biased_streams(tree, "causal_conv", "causal_conv", sd)
+    _biased_streams(tree, "skip_conv", "skip_conv", sd)
+    convs = ["depth_conv", "height_conv"] + [f"{n}_{i}" for n in ("condition_conv", "res_conv")
+                                             for i in range(3)]
+    for name in convs:
+        if name in tree:
+            sd[f"{name}.weight"] = _j2t_conv(tree[name]["kernel"])
+            sd[f"{name}.bias"] = np.asarray(tree[name]["bias"])
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
 def _biased_streams(tree, conv: str, dst: str, sd: Dict[str, np.ndarray]) -> None:
     """A CausalConv3dAdd with bias, when ``tree`` has it."""
     if conv in tree:
@@ -178,8 +209,9 @@ def jax_pixelcnn_params_to_state_dict(params: Dict[str, Any], config) -> Dict[st
             ("embed_condition",) if config.use_conditioning else ()):
         sd[f"{name}.weight"] = _j2t_conv(params[name]["kernel"])
         sd[f"{name}.bias"] = np.asarray(params[name]["bias"])
+    block = _causal_block if config.use_pre_activation else _fixup_causal_block
     for i in range(config.num_resblocks + 1):
-        _causal_block(params[f"layer_{i}"], f"layers.{i}", sd)
+        block(params[f"layer_{i}"], f"layers.{i}", sd)
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
 
 

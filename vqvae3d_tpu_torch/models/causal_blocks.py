@@ -20,9 +20,18 @@ training applies channel dropout (torch ``Dropout3d``: one keep decision per
 ``branch_conv2`` and before the condition add). With ``use_aux`` a block
 takes an ``aux`` stack (PixelSNAIL's attention output, ``branch`` channels):
 a 1x1x1 ``CausalConv3dAdd`` with bias over elu(aux), added after ExpandRF.
-``concat_activation`` and ``FixupCausalResBlock`` raise
-``NotImplementedError``. Module attributes follow the reference torch tree,
-so ``state_dict`` keys are the reference checkpoint keys
+With ``concat_activation`` the block's three pre-activations are
+``ConcatActivation`` (cat[elu(x), −elu(−x)] on channels, reference
+layers.py:112-119) and its three branch convs are grouped (``groups=2``)
+over the doubled inputs, as JAX ``causal_blocks.py:216-324``: ExpandRF, the
+condition and the skip conv stay ungrouped, and the branch is at least 2
+channels. ``FixupCausalResBlock`` is the reference's simpler two-conv
+variant (layers.py:251-335; JAX ``:481-567``): two k-sized causal convs at
+``max(in, out)`` channels, four scalar biases and a scale, channel dropout
+after the first ELU, a trailing ELU unless ``out``; it takes no condition
+and no aux. ``GatedResBlock`` (JAX ``:570-666``) is ported for parity only:
+no model of either package calls it. Module attributes follow the reference
+torch tree, so ``state_dict`` keys are the reference checkpoint keys
 (``branch_conv1.depth_conv.weight``, ``expand_rf.height_conv.bias``,
 ``condition.weight``, ``skip_conv.width_conv.bias``, ``aux.depth_conv.weight``,
 ``bias1a`` …).
@@ -128,16 +137,17 @@ def causal_conv_geometry(kernel_size: int, mask: str):
 
 
 class CausalConv(nn.Module):
-    """One stream's conv: ``weight`` (O, I, k0, k1, k2), optional ``bias``;
-    the input is padded by ``pads`` ((front, back) per spatial axis), then
-    convolved VALID."""
+    """One stream's conv: ``weight`` (O, I / groups, k0, k1, k2), optional
+    ``bias``; the input is padded by ``pads`` ((front, back) per spatial
+    axis), then convolved VALID."""
 
     def __init__(self, in_channels: int, features: int, kernel_shape: Sequence[int],
-                 pads, use_bias: bool, kernel_init: Callable):
+                 pads, use_bias: bool, kernel_init: Callable, groups: int = 1):
         super().__init__()
         self.pads = tuple(tuple(p) for p in pads)
         self.kernel_init = kernel_init
-        self.weight = nn.Parameter(torch.empty(features, in_channels, *kernel_shape))
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(features, in_channels // groups, *kernel_shape))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -150,7 +160,7 @@ class CausalConv(nn.Module):
         (f0, b0), (f1, b1), (f2, b2) = self.pads
         if any((f0, b0, f1, b1, f2, b2)):
             x = F.pad(x, (f2, b2, f1, b1, f0, b0))
-        return conv3d(x, self.weight, self.bias)
+        return conv3d(x, self.weight, self.bias, groups=self.groups)
 
 
 class CausalConv3dAdd(nn.Module):
@@ -159,7 +169,7 @@ class CausalConv3dAdd(nn.Module):
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  mask: str = "B", use_bias: bool = True,
-                 kernel_init: Optional[Callable] = None):
+                 kernel_init: Optional[Callable] = None, groups: int = 1):
         super().__init__()
         if mask not in ("A", "B"):
             raise ValueError(f"mask must be 'A' or 'B', got {mask!r}")
@@ -167,7 +177,8 @@ class CausalConv3dAdd(nn.Module):
         init = kernel_init or torch_conv_default_init()
         for name, (shape, pads) in zip(("depth_conv", "height_conv", "width_conv"),
                                        causal_conv_geometry(kernel_size, mask)):
-            setattr(self, name, CausalConv(in_channels, features, shape, pads, use_bias, init))
+            setattr(self, name, CausalConv(in_channels, features, shape, pads, use_bias, init,
+                                           groups))
 
     def forward(self, stack: Stack) -> Stack:
         depth, height, width = stack
@@ -196,11 +207,31 @@ class ExpandRFConv(nn.Module):
         return depth, height + d2h, width + h2w + d2w
 
 
+class ConcatActivation(nn.Module):
+    """cat[elu(x), −elu(−x)] on the channel dim (reference layers.py:112-119;
+    JAX ``causal_blocks.py:180-185``); no parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([F.elu(x), -F.elu(-x)], 1)
+
+
+def _channel_dropout(stack: Stack, keep: Optional[torch.Tensor], p: float) -> Stack:
+    """torch Dropout3d on each stream: ``keep`` (B, 3·C) 0/1, [d|h|w] (drawn
+    from torch's default generator when None); kept channels × 1/(1 − p)."""
+    c = stack[0].shape[1]
+    if keep is None:
+        keep = draw_keep_masks((stack[0].shape[0], 3 * c), p, device=stack[0].device)
+    return tuple(torch.where(keep[:, s * c:(s + 1) * c, None, None, None] > 0, o / (1.0 - p), 0.0)
+                 for s, o in enumerate(stack))
+
+
 class PreActFixupCausalResBlock(nn.Module):
     """Pre-activation bottleneck Fixup causal block (reference
     layers.py:338-497): 1x1x1 (mask) → ExpandRF → k (mask 'B') →
     (+ condition) → 1x1x1, 7 scalar biases and a scale, and a skip 1x1x1
-    (with bias) only for mask 'A' or a change of width."""
+    (with bias) only for mask 'A' or a change of width. With
+    ``concat_activation`` the three branch convs are grouped (2 groups) over
+    ``ConcatActivation``'s doubled channels."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  mask: str = "B", condition_dim: int = 0, condition_kernel_size: int = 1,
@@ -208,25 +239,27 @@ class PreActFixupCausalResBlock(nn.Module):
                  concat_activation: bool = False, use_aux: bool = False,
                  num_layers: int = 1):
         super().__init__()
-        if concat_activation:
-            raise NotImplementedError("concat_activation is not ported")
         self.dropout_prob = dropout_prob
-        branch = max(max(in_channels, out_channels) // bottleneck_divisor, 1)
+        self.act = ConcatActivation() if concat_activation else nn.ELU()
+        g = 2 if concat_activation else 1
+        branch = max(max(in_channels, out_channels) // bottleneck_divisor, g)
+        self.branch = branch  # the keep mask's channels a stream
         for n in SCALARS:
             setattr(self, f"bias{n}", nn.Parameter(torch.zeros(1)))
         self.scale = nn.Parameter(torch.ones(1))
-        self.branch_conv1 = CausalConv3dAdd(in_channels, branch, 1, mask, False,
-                                            fixup_branch_init(num_layers))
+        self.branch_conv1 = CausalConv3dAdd(g * in_channels, branch, 1, mask, False,
+                                            fixup_branch_init(num_layers), groups=g)
         self.expand_rf = ExpandRFConv(branch)
         self.aux = (CausalConv3dAdd(branch, branch, 1, "B", True, torch_conv_default_init())
                     if use_aux else None)
-        self.branch_conv2 = CausalConv3dAdd(branch, branch, kernel_size, "B", False,
-                                            kaiming_normal_init())
+        self.branch_conv2 = CausalConv3dAdd(g * branch, branch, kernel_size, "B", False,
+                                            kaiming_normal_init(), groups=g)
         self.condition = None
         if condition_dim > 0:
             self.condition = Conv3D(condition_dim, branch, condition_kernel_size,
                                     pad=condition_kernel_size // 2)
-        self.branch_conv3 = CausalConv3dAdd(branch, out_channels, 1, "B", False, zeros_init())
+        self.branch_conv3 = CausalConv3dAdd(g * branch, out_channels, 1, "B", False, zeros_init(),
+                                            groups=g)
         self.skip_conv = None
         if in_channels != out_channels or mask == "A":
             self.skip_conv = CausalConv3dAdd(in_channels, out_channels, 1, mask, True,
@@ -252,20 +285,15 @@ class PreActFixupCausalResBlock(nn.Module):
         dt = stack[0].dtype
 
         def pre(x, a, b):
-            return F.elu(x + a.to(dt)) + b.to(dt)
+            return self.act(x + a.to(dt)) + b.to(dt)
 
         out = self.branch_conv1(tuple(pre(x, self.bias1a, self.bias1b) for x in stack))
         out = self.expand_rf(out)
         if self.aux is not None:
             out = tuple(o + a for o, a in zip(out, self.aux(tuple(F.elu(x) for x in aux))))
         out = self.branch_conv2(tuple(pre(x, self.bias2a, self.bias2b) for x in out))
-        p = self.dropout_prob
-        if train and p > 0:
-            cb = out[0].shape[1]
-            if keep is None:
-                keep = draw_keep_masks((out[0].shape[0], 3 * cb), p, device=out[0].device)
-            out = tuple(torch.where(keep[:, s * cb:(s + 1) * cb, None, None, None] > 0,
-                                    o / (1.0 - p), 0.0) for s, o in enumerate(out))
+        if train and self.dropout_prob > 0:
+            out = _channel_dropout(out, keep, self.dropout_prob)
         if self.condition is not None:
             cond = self.condition(condition)
             out = tuple(o + cond.to(dt) for o in out)
@@ -273,6 +301,118 @@ class PreActFixupCausalResBlock(nn.Module):
         out = tuple(o * self.scale.to(dt) + self.bias4.to(dt) for o in out)
         skip = stack if self.skip_conv is None else self.skip_conv(stack)
         return tuple(o + s for o, s in zip(out, skip))
+
+
+FIXUP_SCALARS = ("1a", "1b", "2a", "2b")
+
+
+class FixupCausalResBlock(nn.Module):
+    """The two-conv causal Fixup block (reference layers.py:251-335; JAX
+    ``causal_blocks.py:481-567``): k (mask) → ELU → (dropout) → k (mask 'B')
+    at ``branch = max(in, out)`` channels, scalars ``bias1a/1b/2a/2b`` and
+    ``scale``, a skip 1x1x1 (with bias; Kaiming init, Xavier when ``out``)
+    for mask 'A' or a change of width, and an ELU after the residual unless
+    ``out``. No condition, no aux."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 mask: str = "B", out: bool = False, dropout_prob: float = 0.5,
+                 num_layers: int = 1):
+        super().__init__()
+        self.dropout_prob = dropout_prob
+        self.out = out
+        branch = max(in_channels, out_channels)
+        self.branch = branch  # the keep mask's channels a stream
+        for n in FIXUP_SCALARS:
+            setattr(self, f"bias{n}", nn.Parameter(torch.zeros(1)))
+        self.scale = nn.Parameter(torch.ones(1))
+        self.branch_conv1 = CausalConv3dAdd(in_channels, branch, kernel_size, mask, False,
+                                            fixup_branch_init(num_layers))
+        self.branch_conv2 = CausalConv3dAdd(branch, out_channels, kernel_size, "B", False,
+                                            zeros_init())
+        self.skip_conv = None
+        if in_channels != out_channels or mask == "A":
+            self.skip_conv = CausalConv3dAdd(
+                in_channels, out_channels, 1, mask, True,
+                xavier_normal_init() if out else kaiming_normal_init())
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            for n in FIXUP_SCALARS:
+                getattr(self, f"bias{n}").zero_()
+            self.scale.fill_(1.0)
+
+    def forward(self, stack: Stack, condition: Optional[torch.Tensor] = None,
+                train: bool = False, keep: Optional[torch.Tensor] = None,
+                aux: Optional[Stack] = None) -> Stack:
+        """``keep``: (B, 3·branch) 0/1 dropout keep mask, [d|h|w], used when
+        ``train`` and dropout_prob > 0 (drawn from torch's default generator
+        when None)."""
+        if condition is not None or aux is not None:
+            raise ValueError("FixupCausalResBlock takes neither a condition nor an aux stack")
+        dt = stack[0].dtype
+
+        def s(name):
+            return getattr(self, f"bias{name}").to(dt)
+
+        out = self.branch_conv1(tuple(x + s("1a") for x in stack))
+        out = tuple(F.elu(x + s("1b")) for x in out)
+        if train and self.dropout_prob > 0:
+            out = _channel_dropout(out, keep, self.dropout_prob)
+        out = self.branch_conv2(tuple(x + s("2a") for x in out))
+        out = tuple(x * self.scale.to(dt) + s("2b") for x in out)
+        skip = stack if self.skip_conv is None else self.skip_conv(stack)
+        out = tuple(o + sk for o, sk in zip(out, skip))
+        return out if self.out else tuple(F.elu(x) for x in out)
+
+
+def tanh_glu(x: torch.Tensor) -> torch.Tensor:
+    """PixelCNN++'s gate over the channel halves: tanh(a)·sigmoid(b)."""
+    a, b = x.chunk(2, dim=1)
+    return torch.tanh(a) * torch.sigmoid(b)
+
+
+class GatedResBlock(nn.Module):
+    """PixelCNN++-style tanh·sigmoid gated causal block (reference
+    layers.py:504-610; JAX ``causal_blocks.py:570-666``), ported for parity
+    only: no model of either package calls it (the reference disables it).
+    A k-sized ``causal_conv`` to 2·C a stream; the cross-stream feeds are
+    shifted explicitly: depth → height one s0-slice back, height → width one
+    s1-row down, depth → width both; an optional 1x1x1 condition conv a
+    stream (``condition_conv_{i}``); the gate; a 1x1x1 ``res_conv_{i}`` onto
+    the skip (the input, or a mask-'A' 1x1x1 ``skip_conv``)."""
+
+    def __init__(self, in_channels: int, kernel_size: int = 3, mask: str = "B",
+                 condition_dim: int = 0, condition_kernel_size: int = 1):
+        super().__init__()
+        c = in_channels
+        self.causal_conv = CausalConv3dAdd(c, 2 * c, kernel_size, mask, True)
+        self.depth_conv = Conv3D(2 * c, 4 * c, 1, groups=2)
+        self.height_conv = Conv3D(2 * c, 2 * c, 1)
+        self.conditioned = condition_dim > 0
+        if self.conditioned:
+            for i in range(3):
+                setattr(self, f"condition_conv_{i}",
+                        Conv3D(condition_dim, 2 * c, condition_kernel_size,
+                               pad=condition_kernel_size // 2))
+        self.skip_conv = CausalConv3dAdd(c, c, 1, "A", True) if mask == "A" else None
+        for i in range(3):
+            setattr(self, f"res_conv_{i}", Conv3D(c, c, 1))
+
+    def forward(self, stack: Stack, condition: Optional[torch.Tensor] = None) -> Stack:
+        if (condition is not None) != self.conditioned:
+            raise ValueError("a condition is needed exactly when condition_dim > 0")
+        depth, height, width = self.causal_conv(stack)
+        d2h, d2w = self.depth_conv(depth).chunk(2, dim=1)
+        height = height + shift_backwards_3d(d2h)
+        h2w = self.height_conv(height)
+        width = width + shift_down_3d(h2w) + shift_down_3d(shift_backwards_3d(d2w))
+        streams = [depth, height, width]
+        if condition is not None:
+            streams = [x + getattr(self, f"condition_conv_{i}")(condition).to(x.dtype)
+                       for i, x in enumerate(streams)]
+        skip = stack if self.skip_conv is None else self.skip_conv(stack)
+        return tuple(sk + getattr(self, f"res_conv_{i}")(tanh_glu(x))
+                     for i, (sk, x) in enumerate(zip(skip, streams)))
 
 
 # Above this sequence length the dense path's O(S²) logits give way to a

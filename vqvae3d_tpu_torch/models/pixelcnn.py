@@ -21,8 +21,16 @@ Wider models (the 256/512-d mid and bottom PixelCNNs) run the stock block
 modules, as the JAX package does. This is a dispatch on the config, decided
 before any launch.
 
+The block type follows the config as in JAX (``pixelcnn.py:239-263``):
+``PreActFixupCausalResBlock`` (with ``use_concat_activation`` its branch
+convs grouped over concatenated ELUs), or ``FixupCausalResBlock`` when
+``use_pre_activation`` is off. A Fixup model keeps ``embed_condition`` in its
+parameters (its checkpoints carry the JAX tree's) but passes its blocks no
+condition, as the JAX module does; its output is not computed.
+
 Channel dropout in training: one (L, B, 3·Cb) 0/1 keep mask for the L
-blocks, passed in as data or drawn from ``generator``.
+blocks, passed in as data or drawn from ``generator``; Cb is the blocks'
+``branch`` width (``model_dim`` for Fixup blocks).
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch
 import torch.nn as nn
 
 from vqvae3d_tpu_torch.models.causal_blocks import (
+    FixupCausalResBlock,
     PreActFixupCausalResBlock,
     draw_keep_masks,
     input_to_stack,
@@ -77,25 +86,28 @@ class PixelCNN(nn.Module):
     def __init__(self, config: PixelCNNConfig, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if not config.use_pre_activation:
-            raise NotImplementedError("FixupCausalResBlock (use_pre_activation=False) "
-                                      "is not ported")
         self.config = config
         c = config.model_dim
         self.parse_input = Conv3D(config.input_dim, c, 1)
         self.embed_condition = (Conv3D(config.condition_dim, c, 1)
                                 if config.use_conditioning else None)
-        self.layers = nn.ModuleList(
-            PreActFixupCausalResBlock(
-                c, c, config.kernel_size, "A" if i == 0 else "B",
+
+        def block(i):
+            mask = "A" if i == 0 else "B"
+            if not config.use_pre_activation:
+                return FixupCausalResBlock(c, c, config.kernel_size, mask,
+                                           dropout_prob=config.dropout_prob,
+                                           num_layers=config.num_layers)
+            return PreActFixupCausalResBlock(
+                c, c, config.kernel_size, mask,
                 condition_dim=c if config.use_conditioning else 0,
                 dropout_prob=config.dropout_prob,
                 bottleneck_divisor=config.bottleneck_divisor,
                 concat_activation=config.use_concat_activation,
                 num_layers=config.num_layers,
             )
-            for i in range(config.num_layers)
-        )
+
+        self.layers = nn.ModuleList(block(i) for i in range(config.num_layers))
         self.parse_output = Conv3D(c, config.input_dim, 1)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
         if device is not None:
@@ -108,9 +120,13 @@ class PixelCNN(nn.Module):
 
     @property
     def uses_union_stack(self) -> bool:
-        """Whether the mask-'B' segment runs through ``causal_stack_fused``."""
+        """Whether the mask-'B' segment runs through ``causal_stack_fused``:
+        pre-activation blocks without concat-activation (the union's
+        structure), ``kernel_size`` 3, ``model_dim`` <= 32, at least one
+        mask-'B' block."""
         cfg = self.config
-        return cfg.kernel_size == 3 and cfg.model_dim <= 32 and cfg.num_resblocks >= 1
+        return (cfg.use_pre_activation and not cfg.use_concat_activation
+                and cfg.kernel_size == 3 and cfg.model_dim <= 32 and cfg.num_resblocks >= 1)
 
     def forward(self, data: torch.Tensor, condition: Optional[torch.Tensor] = None,
                 train: bool = False, keep: Optional[torch.Tensor] = None,
@@ -126,15 +142,15 @@ class PixelCNN(nn.Module):
             raise ValueError("a condition is needed exactly when condition_dim > 0")
         p = cfg.dropout_prob if train else 0.0
         if p > 0 and keep is None:
-            cb = max(cfg.model_dim // cfg.bottleneck_divisor, 1)
-            keep = draw_keep_masks((cfg.num_layers, data.shape[0], 3 * cb), p, generator,
-                                   data.device)
+            keep = draw_keep_masks((cfg.num_layers, data.shape[0], 3 * self.layers[0].branch), p,
+                                   generator, data.device)
         if p == 0:
             keep = None
         h = self.parse_input(data.to(dt))
         stack = input_to_stack(h)
         cond = None
-        if cfg.use_conditioning:
+        # Fixup blocks take no condition: embed_condition stays, unused (JAX :230-263)
+        if cfg.use_conditioning and cfg.use_pre_activation:
             if condition.shape[2:] != data.shape[2:]:
                 condition = trilinear_resize(condition.float(), data.shape[2:])
             cond = self.embed_condition(condition.to(dt))

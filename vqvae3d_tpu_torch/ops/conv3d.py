@@ -17,7 +17,10 @@ package's ``_conv3d_valid_smallc`` (vqvae3d_tpu/ops/conv3d.py:287-336):
 forward ``F.conv3d``, dx the transposed conv (cuDNN, as XLA computes it in
 the JAX package), dW ``dw_conv3d`` — kernel K7 (``csrc/dw_conv3d.cu``) on a
 CUDA tensor, ``dw_conv3d_plain`` on a CPU tensor. Every other conv keeps the
-plain autograd.
+plain autograd, grouped convs (``groups`` > 1: the concat-activation
+PixelCNN's branch convs) included: as in the JAX package, whose special
+paths all take ``groups == 1``, K7 never sees a grouped conv. The route is
+chosen from the shapes and ``groups`` before any launch.
 
 The TPU-only rewrites of the JAX module (block-space s2d convs, folded
 weights) are exact re-expressions of this math for 128-lane layouts and are
@@ -57,14 +60,16 @@ def conv3d(
     stride: int = 1,
     padding: int = 0,
     pad_mode: str = "zeros",
+    groups: int = 1,
 ) -> torch.Tensor:
-    """x: (B, Cin, H, W, D); w: (Cout, Cin, kH, kW, kD) -> (B, Cout, H', W', D')."""
+    """x: (B, Cin, H, W, D); w: (Cout, Cin / groups, kH, kW, kD) -> (B, Cout, H', W', D')."""
     x = pad3d(x, padding, pad_mode)
-    if (stride == 1 and tuple(w.shape[2:]) != (1, 1, 1) and max(w.shape[:2]) <= SMALLC_MAX
+    if (groups == 1 and stride == 1 and tuple(w.shape[2:]) != (1, 1, 1)
+            and max(w.shape[:2]) <= SMALLC_MAX
             and torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
         out = _SmallConv3d.apply(x, w)
     else:
-        out = F.conv3d(x, w.to(x.dtype), stride=stride)
+        out = F.conv3d(x, w.to(x.dtype), stride=stride, groups=groups)
     if b is not None:
         out = out + b.to(out.dtype)[:, None, None, None]
     return out
@@ -286,8 +291,8 @@ def zeros_init() -> Callable:
 
 class Conv3D(nn.Module):
     """3D conv with torch-compatible explicit padding; parameters ``weight``
-    (O, I, k, k, k) and optional ``bias`` (O,). ``dtype`` is the compute
-    dtype the input is cast to (None keeps the input's)."""
+    (O, I / groups, k, k, k) and optional ``bias`` (O,). ``dtype`` is the
+    compute dtype the input is cast to (None keeps the input's)."""
 
     def __init__(
         self,
@@ -300,15 +305,19 @@ class Conv3D(nn.Module):
         use_bias: bool = True,
         kernel_init: Optional[Callable] = None,
         dtype: Optional[torch.dtype] = None,
+        groups: int = 1,
     ):
         super().__init__()
+        if in_channels % groups or features % groups:
+            raise ValueError(f"{in_channels} -> {features} channels in {groups} groups")
         k = kernel_size
+        self.groups = groups
         self.stride = stride
         self.pad = pad
         self.pad_mode = pad_mode
         self.dtype = dtype
         self.kernel_init = kernel_init or torch_conv_default_init()
-        self.weight = nn.Parameter(torch.empty(features, in_channels, k, k, k))
+        self.weight = nn.Parameter(torch.empty(features, in_channels // groups, k, k, k))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -322,5 +331,5 @@ class Conv3D(nn.Module):
             x = x.to(self.dtype)
         return conv3d(
             x, self.weight, self.bias,
-            stride=self.stride, padding=self.pad, pad_mode=self.pad_mode,
+            stride=self.stride, padding=self.pad, pad_mode=self.pad_mode, groups=self.groups,
         )
