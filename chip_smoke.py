@@ -52,7 +52,8 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      yardstick of the transposed conv).
   5. the stem-2 full-config train step at 512x512x128: one fp32 step on the
      kernel path against the plain path (loss, every gradient, the new EMA
-     state); bf16 ms/step of both paths with peak memory; the launches per
+     state); bf16 ms/step of both paths with peak memory (the plain path's
+     step once, after the kernel paths' turns); the launches per
      step against what the config implies; two identical steps from one
      state give bit-identical parameters and EMA state; bf16 ms/step also
      with K3's backward on the parent's five elementwise kernels and with
@@ -126,7 +127,8 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      0): for each, one fp32 step on the kernel path against the plain path
      (the dense attention checkpointed per block; the same dropout masks
      and mixup), loss and every gradient; bf16 ms/step of both paths with
-     peak memory; K8 launches per step; two identical bf16 steps
+     peak memory (the plain path's step once, after the kernel path's
+     turns); K8 launches per step; two identical bf16 steps
      bit-identical; a profiler breakdown.
  14. the PixelSNAIL train main path: ``train_prior --use-model pixelsnail``
      at both configs on a seeded code store, 3 steps (validating at step 3)
@@ -166,8 +168,10 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      8x5x256d over 256 codes, 32x32x8, conditioned on 8x8x2 of 512, causal
      and attention dropout 0.5, batch 1): as phase 13, with K5 in place of
      K8 (8 forward and 8 backward launches a step), and the parent's K5 in
-     turns; each profiled step split by K5 kernel, with its kernels launched
-     a step and its ten costliest host operations.
+     turns, the plain path's step run once after the turns (~5.5 s a step:
+     cut from two timed turns for the time limit); each profiled step split
+     by K5 kernel, with its kernels launched a step and its ten costliest
+     host operations.
  19. its train main path: ``train_prior --use-model pixelsnail`` at that
      config on a seeded code store, 3 steps (validating at step 3, where K8
      serves the eval forward), ``--resume`` for one more, and an
@@ -175,7 +179,8 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      for bit (cuDNN deterministic).
  20. PixelSNAIL sampling vs the one-shot forward: the cached sampler
      (``sample/cached_snail.py``, plain PyTorch) at the published mid
-     (8x5x256d, 256 codes, 32x32x8, batch 10) and bottom (3x5x512d, 512
+     widths (256d, 256 codes, 32x32x8, batch 10; 2 of its 8 blocks, see
+     ``SNAIL_SAMPLING``) and bottom (3x5x512d, 512
      codes, 8x8x2, batch 20), unconditioned, fp32 random weights: its
      teacher-forced logits against the one-shot ``PixelSNAIL.forward`` (K8)
      over the mid grid's first 8 slices and the whole bottom grid, within
@@ -236,6 +241,29 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      free-running 32x32x8 grid timed, and
      ``sample_embeddings --sampler naive`` of an 8x8x2 grid from the Fixup
      checkpoint that (c) wrote.
+ 24. data-parallel training (``vqvae3d_tpu_torch/parallel``): (a)
+     ``train_vqvae --multihost --coordinator`` over NCCL at world size 1 and
+     the same command without it, side by side in processes of their own at
+     the full config, stem 2, bf16, 2 steps and a validation (cuDNN
+     deterministic): their checkpoints bit-identical; then, in this process
+     at world size 1 over NCCL, the bf16 step with and without its gradient
+     all-reduce in turns, and the all-reduce alone; (b) two ranks sharing
+     the card over gloo (``DP_RANK``, a process each) against the
+     one-process step on the same global batch of 2 (a volume or a grid a
+     rank), fp32, two steps from a first pass, for the stage-1 step at the
+     full config, stem 2 (K1b, K3, K7) and the top prior at dropout 0 (K4,
+     K7): the loss, the log, every gradient, the launches a rank a step, the
+     parameters within the AMSGrad bound, the EMA state (cluster_size exact)
+     on the codes no tie-flipped row touched, the ranks' states bit for bit;
+     then a bf16 step of each, timed on both ranks at once (not a scaling
+     figure: two processes share one card); (c) ``--mesh-shape 2 2`` raises
+     ``NotImplementedError`` naming spatial sharding.
+
+Cuts made for the 1200 s limit (widths, grids and batches stay the
+published ones): phases 20-21's mid PixelSNAIL at 2 of its 8 blocks;
+phase 22 serves at stem 2 only; phase 23's k = 5 forced check covers 8 of 32
+slices; phases 5, 13 and 18 run the plain path's step once instead of in two
+timed turns.
 
 TF32 is off for the whole run (fp32 comparisons need true fp32; bf16 runs
 do not use it). Every number is printed beside the card's name and power
@@ -252,7 +280,9 @@ import argparse
 import contextlib
 import functools
 import json
+import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1571,18 +1601,20 @@ def phase_train_step(ident, seed, results):
     if got != want or not np.isfinite(float(log["loss"])):
         raise AssertionError(f"train step launches {got} != {want} or non-finite loss")
     timing = {}
-    paths = ("kernel", "parent K3 bwd", "parent K3 fwd", "plain")
-    for path in paths + paths:
+    paths = ("kernel", "parent K3 bwd", "parent K3 fwd")
+    for path in paths + paths + ("plain",):  # the plain path's step once, after the turns
         ctx = (plain_path() if path == "plain" else parent_routes(k3_fwd=True)
                if path == "parent K3 fwd" else parent_routes(k3_bwd=True)
                if path == "parent K3 bwd" else contextlib.nullcontext())
+        once = path == "plain"
         with ctx:
             torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(lambda: step(batch), iters=3, warmup=1)
+            ms = cuda_ms(lambda: step(batch), iters=1 if once else 3, warmup=0 if once else 1)
             peak = torch.cuda.max_memory_allocated() / 2**30
         timing.setdefault(path, []).append((ms, peak))
-        print(f"bf16 train step (stem 2, batch 1, {VOLUME}) {path} path: {ms:.2f} ms/step "
-              f"(mean of 3 after 1 warm-up) peak {peak:.2f} GiB [{ident}]")
+        print(f"bf16 train step (stem 2, batch 1, {VOLUME}) {path} path: {ms:.2f} ms/step ("
+              + ("one step, no warm-up" if once else "mean of 3 after 1 warm-up")
+              + f") peak {peak:.2f} GiB [{ident}]")
     results["step_bf16"] = timing
 
     # --- two identical steps from one state: bit-identical params and EMA state
@@ -2578,7 +2610,7 @@ def snail_batch(cfg, seed, device):
 
 
 def snail_step_checks(ident, seed, results, name, cfg, batch, launches, kernels,
-                      tols=(STEP_LOSS_TOL, STEP_GRAD_TOL), parent=None):
+                      tols=(STEP_LOSS_TOL, STEP_GRAD_TOL), parent=None, plain_once=False):
     """One PixelSNAIL train step at ``cfg`` on ``batch``: fp32 loss and
     gradients, kernel path vs plain path (one generator state for both, so
     the same dropout masks, attention seeds and mixup); the bf16 step's
@@ -2590,7 +2622,8 @@ def snail_step_checks(ident, seed, results, name, cfg, batch, launches, kernels,
     that runs the parent's kernels of the step): those kernels' ms/step in
     turns with the kernel path's, a second profiled step on them, and each
     profile's ``kernels`` split by kernel name and its host side (the ten
-    costliest host operations, the kernel launches a step)."""
+    costliest host operations, the kernel launches a step). ``plain_once``:
+    the plain path's step is run once after the turns, not timed in them."""
     import torch
     from vqvae3d_tpu_torch.train import prior_train
     from vqvae3d_tpu_torch.train.state import AMSGrad
@@ -2653,15 +2686,19 @@ def snail_step_checks(ident, seed, results, name, cfg, batch, launches, kernels,
     paths = ("kernel", "plain", "kernel", "plain")
     if parent is not None:
         paths = ("kernel", "parent", "plain", "parent", "kernel", "plain")
+    if plain_once:  # the plain path's one step, after the timed turns
+        paths = tuple(p for p in paths if p != "plain") + ("plain",)
     for path in paths:
         ctx = {"plain": plain_path, "parent": parent}.get(path, contextlib.nullcontext)()
+        once = plain_once and path == "plain"
         with ctx:
             torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(lambda: step(batch), iters=3, warmup=1)
+            ms = cuda_ms(lambda: step(batch), iters=1 if once else 3, warmup=0 if once else 1)
             peak = torch.cuda.max_memory_allocated() / 2**30
         timing.setdefault(path, []).append((ms, peak))
-        print(f"bf16 {desc} train step, {path} path: {ms:.2f} ms/step (mean of 3 after 1 "
-              f"warm-up) peak {peak:.2f} GiB [{ident}]")
+        print(f"bf16 {desc} train step, {path} path: {ms:.2f} ms/step ("
+              + ("one step, no warm-up" if once else "mean of 3 after 1 warm-up")
+              + f") peak {peak:.2f} GiB [{ident}]")
     results[f"snail_{name}_bf16"] = timing
 
     # --- two identical steps from one state: bit-identical parameters
@@ -2731,7 +2768,8 @@ def phase_snail_steps(ident, seed, results):
         snail_step_checks(
             ident, seed, results, name, cfg, snail_batch(cfg, seed + 80, dev),
             dict(flash_attention_fwd=nb, flash_attention_bwd=nb),
-            {"K8 forward": ("flash_fwd",), "K8 backward": ("bwd_delta", "bwd_dkdv", "bwd_dq")})
+            {"K8 forward": ("flash_fwd",), "K8 backward": ("bwd_delta", "bwd_dkdv", "bwd_dq")},
+            plain_once=True)
 
 
 def phase_snail_cli(ident, counts, seed, work: Path):
@@ -3201,7 +3239,7 @@ def phase_dropout_snail_step(ident, seed, results):
         dict(flash_dropout_attention_fwd=nb, flash_dropout_attention_bwd=nb),
         {"K5 forward": ("flash_dropout_fwd",),
          "K5 backward": ("drop_delta", "drop_dkdv", "drop_dq")}, tols=DROPOUT_STEP_TOL,
-        parent=functools.partial(parent_routes, k5=True))
+        parent=functools.partial(parent_routes, k5=True), plain_once=True)
 
 
 def phase_dropout_snail_cli(ident, counts, seed, work: Path):
@@ -3288,11 +3326,12 @@ def phase_dropout_snail_cli(ident, counts, seed, work: Path):
 # teacher-forces the mid grid's first 8 of 32 slices (2,048 voxels: a whole
 # mid grid takes ~90-160 s of launch-bound host time on an H100, PERF.md), the
 # other grids whole; phase 21 samples every grid whole.
-# the mid prior's depth cut from the published 8 blocks to 4 (its sampling
-# is host-bound: half the blocks, half the time) so the script stays inside
-# its time limit; widths, grid and batch are the published ones
+# the mid prior's depth cut from the published 8 blocks to 2 (its sampling
+# is host-bound: a quarter of the blocks, about a quarter of the time) so the
+# script stays inside its time limit; widths, grid and batch are the
+# published ones
 SNAIL_SAMPLING = {
-    "mid": dict(fields=dict(SNAIL["mid"]["fields"], num_blocks=4), level=1, grid=(32, 32, 8),
+    "mid": dict(fields=dict(SNAIL["mid"]["fields"], num_blocks=2), level=1, grid=(32, 32, 8),
                 batch=10, forced_slices=8),
     "bottom": dict(fields=SNAIL["bottom"]["fields"], level=2, grid=(8, 8, 2), batch=20,
                    forced_slices=8),
@@ -3469,10 +3508,11 @@ def phase_snail_sampling(ident, results, seed):
 # a port CLI in a process of its own: argv is the repo, the CLI's module name
 # and its flags; the last line printed holds its seconds, result and launches
 FRESH_CLI = """
-import importlib, json, sys, time
+import importlib, json, os, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
 import chip_smoke
+torch.backends.cudnn.deterministic = os.environ.get("CHIP_SMOKE_DETERMINISTIC") == "1"
 cli = importlib.import_module("vqvae3d_tpu_torch.cli." + sys.argv[2])
 chip_smoke.reset_counts()
 t0 = time.perf_counter()
@@ -4352,6 +4392,420 @@ def phase_prior_variants(ident, counts, results, seed, work: Path):
           f"{t_d:.1f} s")
 
 
+# phase 24: data-parallel training (``vqvae3d_tpu_torch/parallel``). One card is
+# reachable, so NCCL runs at world size 1 only, and two ranks share the card
+# over gloo (which carries CUDA tensors through its all-reduces): the
+# distributed step, kernels and all, against the one-process step on the same
+# global batch of 2 (a volume or a code grid a rank)
+DP_WORLD = 2
+DP_TIMEOUT = 420  # seconds a subprocess of the phase may take
+# the log of the two ranks against one process, each value within this of
+# max(|ref|, 1): the global statistics summed in another order, and a row that
+# a genuine tie sends to the other code moves the voxels it decodes (the
+# loss and the gradients keep phase 5's tolerances)
+DP_LOG_TOL = 1e-3
+# a rank's place in the process group, set for every process the phase
+# starts (the card's machine may carry a launcher's own values)
+DP_ENV = ("SLURM_PROCID", "SLURM_NTASKS", "LOCAL_RANK")
+DP_RANK = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.dp_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+"""
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_processes(commands):
+    """Start every (argv, env) at once, each in a process of its own."""
+    return [subprocess.Popen(argv, env={**os.environ, **env}, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True) for argv, env in commands]
+
+
+def wait_processes(procs, timeout: int = DP_TIMEOUT):
+    """Wait for every process (killing any left at the end) and return their
+    standard outputs; fail on a non-zero exit."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode:
+                raise AssertionError(f"{p.args[3:6]}: exit {p.returncode}\n{err[-4000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def dp_stage1_batch(seed, device, ranks):
+    """The two-rank checks' stage-1 batch over ``ranks``: a synthetic volume a
+    rank, rank 1's with 3/4 of its slices valid (the rest zero, as the loader
+    pads)."""
+    import torch
+
+    parts = []
+    valid = VOLUME[2] * 3 // 4
+    for r in ranks:
+        batch = synthetic_batch(seed + r, device)
+        if r == 1:
+            batch["volume"][:, :, :, valid:] = 0.0
+            batch["num_valid_slices"].fill_(valid)
+        parts.append(batch)
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def dp_prior_batch(seed, device, ranks):
+    """The two-rank checks' top-prior batch over ``ranks``: a grid a rank."""
+    import torch
+
+    parts = [code_batch(seed + r, device) for r in ranks]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def dp_steps(model, opt, step, batch, stage1: bool):
+    """Two train steps, counted: per step the log, the launches, the
+    gradient the optimizer took (``taken_gradient``) and, for stage 1, the
+    K7 launches the model implies (``k7_expected``), the EMA state before
+    the step and each level's rows and indices; then the final state_dict
+    (host copies)."""
+    import torch
+
+    out, mu = [], torch.zeros_like(opt.mu, dtype=torch.float64).cpu()
+    for _ in range(2):
+        rec, seen, calls, hooks = {}, {}, [], []
+        if stage1:
+            rec["before"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                             if ".quantize." in k}
+            hooks = [q.register_forward_hook(lambda m, a, o, i=i: seen.__setitem__(i, (
+                a[0].detach().float().movedim(1, -1).reshape(-1, a[0].shape[1]).cpu(),
+                o[2].flatten().cpu()))) for i, q in enumerate(model.encoder.quantize)]
+            hooks += k7_expected(model, calls)
+        reset_counts()
+        log = step(batch)
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        grads, mu = taken_gradient(model, opt, mu)
+        rec.update(log={k: float(v) for k, v in log.items()}, launches=launch_counts(),
+                   k7_expected=len(calls), seen=seen, grads=grads)
+        out.append(rec)
+    return out, {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def taken_gradient(model, opt, mu_prev):
+    """(the gradient AMSGrad's last step took, by parameter on the host, and
+    its first moment): under a process group the mean over ranks, which no
+    parameter's ``.grad`` holds, read back from the first moment as g_n =
+    (mu_n - b1 mu_n-1) / (1 - b1)."""
+    mu = opt.mu.double().cpu()
+    flat = ((mu - opt.b1 * mu_prev) / (1 - opt.b1)).float()
+    named = list(model.named_parameters())
+    return {n: g.view_as(p) for (n, p), g in
+            zip(named, flat.split([p.numel() for _, p in named]))}, mu
+
+
+def dp_models(seed, device, dtype):
+    """((stage-1 model at the full config, stem 2, its AMSGrad, its train
+    step), (the top prior, its AMSGrad, its train step)), seeded as phases 5
+    and 10 seed them."""
+    import torch
+    from vqvae3d_tpu_torch.train import prior_train, vqvae_train
+    from vqvae3d_tpu_torch.train.state import AMSGrad
+
+    model, _ = make_model(2, seed, dtype, device)
+    opt = AMSGrad(model.parameters(), lr=STAGE1_LR)
+    prior = make_prior(TOP_PRIOR, seed + 51, device, dtype=dtype)
+    popt = AMSGrad(prior.parameters(), lr=TOP_LR)
+    return ((model, opt, vqvae_train.make_train_step(model, opt)),
+            (prior, popt, prior_train.make_prior_train_step(prior, popt, seed=seed + 52)))
+
+
+def dp_rank(work: str, port: int, seed: int) -> None:
+    """One rank of phase 24 (b), run as ``DP_RANK`` with ``SLURM_PROCID`` and
+    ``SLURM_NTASKS`` set: joins the gloo group on card 0, takes two fp32 steps
+    of stage 1 and of the top prior on its slice of the global batch (saved
+    to ``work``/dp_rank<r>.pt), then times a bf16 step of each while the other
+    rank steps beside it on the same card."""
+    import torch
+    from vqvae3d_tpu_torch.parallel.multihost import barrier, initialize_multihost, rank, shutdown
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = initialize_multihost(f"127.0.0.1:{port}", backend="gloo", device="cuda")
+    r = rank()
+    stage1, prior = dp_models(seed, dev, torch.float32)
+    saved = {"stage1": dp_steps(*stage1, dp_stage1_batch(seed + 2, dev, [r]), True),
+             "prior": dp_steps(*prior, dp_prior_batch(seed + 50, dev, [r]), False)}
+    torch.save(saved, Path(work) / f"dp_rank{r}.pt")
+    del stage1, prior, saved
+    torch.cuda.empty_cache()
+    stage1, prior = dp_models(seed, dev, torch.bfloat16)
+    ms = {}
+    for name, (_, _, fn), batch in (("stage 1", stage1, dp_stage1_batch(seed + 2, dev, [r])),
+                                    ("top prior", prior, dp_prior_batch(seed + 50, dev, [r]))):
+        barrier()
+        ms[name] = cuda_ms(lambda: fn(batch), iters=3, warmup=1)
+    print(json.dumps({"rank": r, "bf16_ms": ms}))
+    shutdown()
+
+
+@contextlib.contextmanager
+def no_gradient_average():
+    """The train steps without their gradient all-reduce (the one-process
+    step, with a process group present)."""
+    from vqvae3d_tpu_torch.parallel import mesh
+
+    kept = mesh.average_gradient
+    mesh.average_gradient = lambda flat: None
+    try:
+        yield
+    finally:
+        mesh.average_gradient = kept
+
+
+def dp_rel(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1.0)
+
+
+def dp_grads(got: dict, want: dict):
+    """Per tensor max|d| over max(max|ref|, 1e-3 of the largest gradient), as
+    phase 5; returns ({name: error}, {name: absolute tolerance at
+    STEP_GRAD_TOL})."""
+    gmax = max(float(g.abs().max()) for g in want.values())
+    scale = {n: max(float(g.abs().max()), 1e-3 * gmax) for n, g in want.items()}
+    return ({n: float((got[n] - g).abs().max()) / scale[n] for n, g in want.items()},
+            {n: STEP_GRAD_TOL * s for n, s in scale.items()})
+
+
+def dp_check_params(state: dict, ref_state: dict, grads: dict, tols: dict, lr: float) -> float:
+    """Parameters after two AMSGrad steps within its bound (a gradient within
+    ``tol`` moves Adam's ratio of moments by at most ~2 tol / |g|, taken 4x
+    for the mix of two steps, capped at two sign flips): the worst
+    error over its bound."""
+    worst = 0.0
+    for n, g in grads.items():
+        bound = lr * np.minimum(4.0, 4 * tols[n] / np.maximum(g.abs().numpy(), 1e-30)) + 1e-3 * lr
+        worst = max(worst, float(((state[n] - ref_state[n]).abs().numpy() / bound).max()))
+    return worst
+
+
+def dp_compare(ident, name, ref, ranks, lr, stage1: bool, launches: dict):
+    """The two ranks against the one-process steps: the ranks' states bit for
+    bit; per step the loss, the log, the gradients, the launches a rank, and
+    for stage 1 each level's indices (equal but at genuine ties, judged on
+    the reference's rows and lookup codebook); after two steps the
+    parameters within the AMSGrad bound and, for stage 1, the EMA state on
+    the codes no mismatched row touched (cluster_size exact there)."""
+    import torch
+    from vqvae3d_tpu_torch.models.quantizer import QuantizerState, ema_first_pass_init
+    from vqvae3d_tpu_torch.ops import quantizer_ops
+
+    (ref_steps, ref_state), (steps, state) = ref, ranks[0]
+    differ = [k for k in state if not torch.equal(state[k], ranks[1][1][k])]
+    if differ or ranks[0][0][1]["log"] != ranks[1][0][1]["log"]:
+        raise AssertionError(f"{name}: the two ranks' states differ: {differ[:5]}")
+    touched, worst_grad, tols = {}, 0.0, {}
+    for n, (want, got) in enumerate(zip(ref_steps, steps), 1):
+        loss_err = dp_rel(got["log"].get("loss", got["log"].get("loss_mean")),
+                          want["log"].get("loss", want["log"].get("loss_mean")))
+        log_err = max(dp_rel(got["log"][k], v) for k, v in want["log"].items())
+        err, tol = dp_grads(got["grads"], want["grads"])
+        worst = sorted(err.items(), key=lambda kv: -kv[1])[:2]
+        worst_grad = max(worst_grad, worst[0][1])
+        tols = {k: max(tol[k], tols.get(k, 0.0)) for k in tol}
+        for r, (rank_steps, _) in enumerate(ranks):
+            check_launches(rank_steps[n - 1]["launches"], launches, f"{name} rank {r} step {n}")
+        mism = []
+        for lvl in sorted(want["seen"]):
+            flat, b = want["seen"][lvl]
+            q0 = QuantizerState(*(want["before"][f"encoder.quantize.{lvl}.{k}"] for k in
+                                  ("embed", "embed_avg", "cluster_size", "first_pass")))
+            embed = ema_first_pass_init(q0, flat).embed
+            a = torch.cat([rank_steps[n - 1]["seen"][lvl][1] for rank_steps, _ in ranks])
+            ties, real = quantizer_ops.genuine_ties(flat, embed, a, b)
+            if real.numel():
+                raise AssertionError(f"{name} step {n} level {lvl}: {real.numel()} index "
+                                     f"mismatches beyond ties")
+            diff = torch.nonzero(a != b).flatten()
+            touched[lvl] = torch.unique(torch.cat([touched.get(lvl, diff[:0]), a[diff], b[diff]]))
+            mism.append(f"level {lvl} {diff.numel()} (ties {ties.numel()})")
+        print(f"fp32 {name} step {n}, two ranks (gloo, one card) vs one process on the global "
+              f"batch of 2: loss {got['log'].get('loss', got['log'].get('loss_mean')):.7g} "
+              f"(rel {loss_err:.2e}); log worst rel {log_err:.2e}; gradients worst "
+              + ", ".join(f"{k} {e:.2e}" for k, e in worst)
+              + (f"; index mismatches {', '.join(mism)}" if mism else "")
+              + f"; launches a rank {({k: v for k, v in rank_steps[n - 1]['launches'].items() if v})}"
+              f" [{ident}]")
+        if (loss_err > STEP_LOSS_TOL or log_err > DP_LOG_TOL or worst[0][1] > STEP_GRAD_TOL
+                or not np.isfinite(loss_err)):
+            raise AssertionError(f"{name} step {n}: the two ranks disagree with one process")
+    params = dict(ref_steps[-1]["grads"])
+    param_err = dp_check_params(state, ref_state, params, tols, lr)
+    ema_err, cs_exact = 0.0, True
+    for k in (k for k in ref_state if ".quantize." in k and not k.endswith("first_pass")):
+        keep = torch.ones(ref_state[k].shape[:1], dtype=torch.bool)
+        keep[touched[int(k.split(".")[2])]] = False
+        d = (state[k] - ref_state[k])[keep]
+        if k.endswith("cluster_size"):
+            cs_exact &= bool((d == 0).all())
+        else:
+            ema_err = max(ema_err, float(d.abs().max()) / max(float(ref_state[k].abs().max()), 1.0))
+    ntouch = sum(t.numel() for t in touched.values())
+    print(f"{name} after two steps: parameters worst {param_err:.3f} of the AMSGrad bound"
+          + (f"; EMA state rel {ema_err:.2e} and cluster_size "
+             f"{'exact' if cs_exact else 'NOT exact'} on the codes no mismatched row touched "
+             f"({ntouch} touched)" if stage1 else "") + f" [{ident}]")
+    if param_err > 1.0 or ema_err > STEP_EMA_TOL or not cs_exact:
+        raise AssertionError(f"{name}: the two ranks' state disagrees with one process")
+    return dict(grad_worst=worst_grad, param_bound=param_err, ema_rel=ema_err,
+                touched=ntouch)
+
+
+def phase_data_parallel(ident, counts, results, seed, work: Path):
+    import torch
+    from vqvae3d_tpu_torch.cli import train_vqvae
+    from vqvae3d_tpu_torch.parallel import mesh
+    from vqvae3d_tpu_torch.parallel.multihost import initialize_multihost, shutdown
+
+    here = str(Path(__file__).resolve().parent)
+    # --- (c) a spatial mesh axis is not ported
+    try:
+        train_vqvae.main(train_vqvae.parse_arguments([str(work), "--mesh-shape", "2", "2",
+                                                      "--device", "cuda"]))
+    except NotImplementedError as e:
+        if "spatial sharding" not in str(e):
+            raise
+        print(f"--mesh-shape 2 2 raises NotImplementedError: {e}")
+    else:
+        raise AssertionError("--mesh-shape 2 2 did not raise")
+
+    # --- (a) train_vqvae --multihost over NCCL at world size 1 against the same
+    # command without it, side by side (cuDNN deterministic in both), started
+    # now and compared after (b)'s one-process reference (not timed) has run
+    # beside them
+    ct = stage1_scans(work, seed)
+    flags = [str(ct), "--batch-size", "1", "--num-embeddings", *map(str, FULL["num_embeddings"]),
+             "--n-pre-quantization-blocks", "50", "--n-post-quantization-blocks", "50",
+             "--n-post-downscale-blocks", "2", "--n-post-upscale-blocks", "3",
+             "--stem-space-to-depth", "2", "--base-network-channels", "8",
+             "--pad-mode", "wrap", "--scan-size", *map(str, VOLUME[:2]),
+             "--output-depth", str(VOLUME[2]), "--val-every-steps", "2", "--max-steps", "2",
+             "--log-every-n-steps", "1", "--num-workers", "2", "--device", "cuda"]
+    env = {"CHIP_SMOKE_DETERMINISTIC": "1"}
+    runs = {"multihost": [*flags, "--ckpt-dir", str(work / "dp_nccl"), "--multihost",
+                          "--coordinator", f"127.0.0.1:{free_port()}", "--mesh-shape", "1"],
+            "one process": [*flags, "--ckpt-dir", str(work / "dp_one")]}
+    t0 = time.perf_counter()
+    clis = start_processes([([sys.executable, "-c", FRESH_CLI, here, "train_vqvae", *argv],
+                             {**env, **dict(zip(DP_ENV, ("0", "1", "0")))}
+                             if name == "multihost" else env)
+                            for name, argv in runs.items()])
+    try:
+        # --- (b) the one-process reference: fp32 steps on the global batch of 2
+        dev = torch.device("cuda")
+        stage1, prior = dp_models(seed, dev, torch.float32)
+        cfg = stage1[0].config
+        ref = {"stage1": dp_steps(*stage1, dp_stage1_batch(seed + 2, dev, range(DP_WORLD)), True),
+               "prior": dp_steps(*prior, dp_prior_batch(seed + 50, dev, range(DP_WORLD)), False)}
+        prior_launches = prior_step_launches(prior[0])
+        k7_per_step = ref["stage1"][0][0]["k7_expected"]
+        del stage1, prior
+        torch.cuda.empty_cache()
+    finally:
+        outs = wait_processes(clis)
+    cli_s = time.perf_counter() - t0
+    for name, out in zip(runs, outs):
+        lines = out.strip().splitlines()
+        rec = json.loads(lines[-1])
+        add_counts(counts, rec["launches"])
+        print(f"train_vqvae {name}: {rec['seconds']:.1f} s in its process, launches "
+              f"{({k: v for k, v in rec['launches'].items() if v})} [{ident}]\n"
+              + "\n".join(lines[:-1]))
+    differ = []
+    for sub in ("", "best"):
+        for suffix in (".pt", "_train.pt"):
+            a, b = (torch.load(work / d / sub / f"step_2{suffix}", weights_only=True)
+                    for d in ("dp_nccl", "dp_one"))
+            a, b = (a["optimizer"], b["optimizer"]) if suffix == "_train.pt" else (a, b)
+            differ += [f"{sub}/{k}" for k in a if not (
+                torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k])]
+    print(f"train_vqvae --multihost (NCCL, world size 1) and without it, side by side in "
+          f"{cli_s:.1f} s (beside the fp32 reference below): checkpoints (parameters, EMA "
+          f"state, optimizer moments, last and best) "
+          f"{'bit-identical' if not differ else f'differ in {differ[:5]}'} [{ident}]")
+    if differ:
+        raise AssertionError(f"--multihost at world size 1 differs from one process: {differ[:5]}")
+
+    # --- (b) two ranks on the one card over gloo against the reference above,
+    # fp32, two steps from a first pass
+    port = free_port()
+    t0 = time.perf_counter()
+    outs = wait_processes(start_processes(
+        [([sys.executable, "-c", DP_RANK, here, str(work), str(port), str(seed)],
+          dict(zip(DP_ENV, (str(r), str(DP_WORLD), "0")))) for r in range(DP_WORLD)]))
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(work / f"dp_rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    blocks = sum(n for *_, n in cfg.same_stacks(VOLUME))
+    want = dict(dict.fromkeys(launch_counts(), 0), l2_argmin_stats=cfg.n_enc,
+                preact_stack_fwd=blocks, preact_stack_bwd=blocks, dw_conv3d=k7_per_step)
+    pwant = dict(dict.fromkeys(launch_counts(), 0), **prior_launches)
+    out = {"stage1": dp_compare(ident, "stage-1 (stem 2)", ref["stage1"],
+                                [g["stage1"] for g in got], STAGE1_LR, True, want),
+           "prior": dp_compare(ident, "top-prior", ref["prior"], [g["prior"] for g in got],
+                               TOP_LR, False, pwant)}
+    for g in got:
+        for part in ("stage1", "prior"):
+            for rec in g[part][0]:
+                add_counts(counts, rec["launches"])
+    timing = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    print(f"two ranks over gloo on one card: {ranks_s:.1f} s for both processes; bf16 ms a "
+          "step (mean of 3 after 1 warm-up), each rank batch 1, the other rank stepping "
+          "beside it on the same card (not a scaling figure: two processes share one card, "
+          "and gloo stages every all-reduce through the host): "
+          + "; ".join(f"rank {t['rank']} " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                       t["bf16_ms"].items()) for t in timing)
+          + f" [{ident}]")
+
+    # --- (a) the data-parallel path's cost on one card: a bf16 step with and
+    # without its gradient all-reduce (NCCL, world size 1), in turns
+    kept_env = {k: os.environ.get(k) for k in DP_ENV}
+    os.environ.update(zip(DP_ENV, ("0", "1", "0")))
+    try:
+        dev = initialize_multihost(f"127.0.0.1:{free_port()}", device="cuda")
+        (model, opt, step), _ = dp_models(seed, dev, torch.bfloat16)
+        batch = synthetic_batch(seed + 2, dev)
+        step(batch)
+        ms = {}
+        for path in ("data-parallel", "no all-reduce") * 2:
+            with no_gradient_average() if path == "no all-reduce" else contextlib.nullcontext():
+                ms.setdefault(path, []).append(cuda_ms(lambda: step(batch), iters=3, warmup=1))
+        flat = torch.zeros_like(opt.mu)
+        ar_ms = cuda_ms(lambda: mesh.average_gradient(flat), iters=10, warmup=2)
+        nbytes = flat.numel() * flat.element_size()
+        print(f"bf16 stem-2 train step at world size 1 over NCCL (batch 1, {VOLUME}), in turns: "
+              + "; ".join(f"{k} {', '.join(f'{v:.2f}' for v in vs)} ms" for k, vs in ms.items())
+              + f"; the gradient all-reduce alone {ar_ms:.3f} ms a step ({nbytes} bytes: "
+              f"{nbytes // 4} fp32 parameters) [{ident}]")
+        del model, opt, step
+    finally:
+        shutdown()
+        for k, v in kept_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    results["dp"] = dict(out, nccl_ms=ms, allreduce_ms=ar_ms, allreduce_bytes=nbytes,
+                         gloo_bf16_ms=timing)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4424,6 +4878,8 @@ def main():
             ("stage-1 block types and published configs", lambda: phase_stage1_variants(
                 ident, counts, results, args.seed, Path(tmp))),
             ("the PixelCNN remainder", lambda: phase_prior_variants(
+                ident, counts, results, args.seed, Path(tmp))),
+            ("data-parallel training", lambda: phase_data_parallel(
                 ident, counts, results, args.seed, Path(tmp))),
         ]
         for number, (name, fn) in enumerate(phases, 1):

@@ -36,7 +36,7 @@ from vqvae3d_tpu.train.checkpoint import (
     convert_reference_pixelcnn_state_dict,
 )
 from vqvae3d_tpu_torch.checkpoint import load_prior, save_prior
-from vqvae3d_tpu_torch.cli import train_prior
+from vqvae3d_tpu_torch.cli import train_prior, train_vqvae
 from vqvae3d_tpu_torch.convert import _causal_block, jax_pixelcnn_params_to_state_dict
 from vqvae3d_tpu_torch.models.causal_blocks import PreActFixupCausalResBlock
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
@@ -181,7 +181,7 @@ def test_prior_checkpoint_and_config_interchange(tmp_path):
 
 
 def test_training_only_options_raise():
-    """What the port does not train yet (multi-host) raises; the Fixup and
+    """What the port does not train yet (a spatial mesh axis) raises; the Fixup and
     concat-activation PixelCNNs build (their parity:
     tests/test_torch_prior_variants.py) and training-time dropout works
     (tests/test_torch_prior_train.py::test_dropout_trains)."""
@@ -192,8 +192,12 @@ def test_training_only_options_raise():
     args = train_prior.parse_arguments(["codes", "0", "--use-model", "pixelsnail",
                                         "--num-blocks", "3", "--attention-dropout-prob", "0"])
     assert (args.num_blocks, args.attention_dropout_prob) == (3, 0.0)
-    with pytest.raises(NotImplementedError):
-        train_prior.main(train_prior.parse_arguments(["codes", "0", "--multihost"]))
+    # multi-host training joins a process group from the launcher's env, and a
+    # spatial mesh axis is not ported
+    assert train_prior.parse_arguments(["codes", "0", "--multihost"]).multihost
+    with pytest.raises(NotImplementedError, match="spatial sharding"):
+        train_vqvae.main(train_vqvae.parse_arguments(["ct", "--mesh-shape", "2", "2",
+                                                      "--device", "cpu"]))
     model = PixelCNN(PixelCNNConfig(**{**tiny_config(False), "dropout_prob": 0.5}))
     out = model(torch.zeros(1, 5, *DIMS), train=True, generator=torch.Generator().manual_seed(0))
     assert out.dtype == torch.float32 and torch.isfinite(out).all()

@@ -37,7 +37,8 @@ with ``convert``; everything runs in fp32.
   * Dropout trains: a training forward with p = 0.5 through the union
     stack equals the stock block loop on the same masks, and its gradients
     are finite.
-  * ``CodeDataModule`` draws the same batches as the JAX one from one store.
+  * ``CodeDataModule`` draws the same batches as the JAX one from one store,
+    and the same slice of each for the second of two processes.
 """
 import jax
 import jax.numpy as jnp
@@ -430,5 +431,7 @@ def test_code_data_module_matches_jax(tmp_path):
                 assert set(a) == set(b)
                 for k in a:
                     assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
-    with pytest.raises(NotImplementedError):
-        next(dm.train_dataloader(process_index=0, process_count=2))
+    # the second of two processes reads the JAX module's slice of every batch
+    for got, want in zip(dm.train_dataloader(process_index=1, process_count=2),
+                         jdm.train_dataloader(process_index=1, process_count=2)):
+        assert got["data"].shape[0] == 1 and all(np.array_equal(got[k], want[k]) for k in got)

@@ -2,7 +2,7 @@
 
 The JAX package ``vqvae3d_tpu`` is the reference; this package mirrors its
 subpackage and module names (``ops/``, ``models/``, ``train/``, ``data/``,
-``metrics/``, ``sample/``, ``cli/``) so each module's counterpart is easy to find. It
+``metrics/``, ``sample/``, ``cli/``, ``parallel/``) so each module's counterpart is easy to find. It
 imports ``torch`` and never ``jax``, and nothing of ``vqvae3d_tpu``: the
 numpy-only data modules it needs are its own copies under ``data/``, whose
 on-disk formats (NRRD, code store, sample DB) stay interchangeable with the
@@ -11,7 +11,9 @@ JAX package's.
 Scope so far: stage-1 serving (encode → quantize → decode), the stage-1
 train step with its CLI (``cli/train_vqvae.py``), sampling of code grids
 from a PixelCNN prior of any width (``sample/``, ``cli/sample_embeddings.py``),
-and training of the PixelCNN and PixelSNAIL priors (``cli/train_prior.py``).
+and training of the PixelCNN and PixelSNAIL priors (``cli/train_prior.py``),
+either train CLI data parallel over several cards (``parallel/``,
+``--multihost``).
 
   * Activations use the reference torch layout (B, C, H, W, D); weights use
     the reference torch state_dict keys and shapes (O, I, kH, kW, kD).

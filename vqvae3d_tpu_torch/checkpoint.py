@@ -32,6 +32,11 @@ no extra key, so the JAX package reads it; its fields name the model class
 
 ``load_model`` and ``load_prior`` put the model on the card unless the
 caller names another device.
+
+Under a process group (``parallel/multihost.py``) every rank holds the same
+train state, so ``save_train_state`` writes on the primary rank only and
+every rank waits at a barrier until the files are there; on ``--resume``
+every rank restores from the same files.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ import torch
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
 from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL, PixelSNAILConfig
 from vqvae3d_tpu_torch.models.vqvae import JAX_LAYOUT_FIELDS, VQVAE, VQVAEConfig
+from vqvae3d_tpu_torch.parallel.multihost import barrier, is_primary
 
 PRIOR_LAYOUT_FIELDS = ("scan_stacks", "remat_scan")  # JAX-only, dropped on load
 
@@ -111,8 +117,15 @@ def load_model(path, device="cuda", step: Optional[int] = None) -> Tuple[VQVAE, 
 def save_train_state(path, model, optimizer, config, step: int,
                      max_to_keep: Optional[int] = None) -> None:
     """Save params + quantizer buffers, the optimizer state and the step;
-    then keep only the newest ``max_to_keep`` steps."""
-    path = Path(path)
+    then keep only the newest ``max_to_keep`` steps. Under a process group
+    the primary rank writes and every rank returns once it has."""
+    if is_primary():
+        _write_train_state(Path(path), model, optimizer, config, step, max_to_keep)
+    barrier()
+
+
+def _write_train_state(path: Path, model, optimizer, config, step: int,
+                       max_to_keep: Optional[int]) -> None:
     path.mkdir(parents=True, exist_ok=True)
     opt = {k: v.detach().cpu() if torch.is_tensor(v) else v
            for k, v in optimizer.state_dict().items()}

@@ -19,10 +19,17 @@ step) (``prior_train.step_generator``). ``--resume`` continues from the
 newest checkpoint there (params, optimizer state, step) at the batch the
 uninterrupted run would take next, so a resumed run replays the
 uninterrupted one (the JAX CLI restarts its loader at epoch 0).
-``--profile-dir`` writes a ``torch.profiler`` trace of steps 10-15. The
-multi-host flags raise ``NotImplementedError``: multi-GPU training is not
-ported yet. ``--scan-stacks`` / ``--remat-scan`` are the JAX package's TPU
-layout switches of the PixelCNN, accepted and ignored.
+``--profile-dir`` writes a ``torch.profiler`` trace of steps 10-15.
+``--scan-stacks`` / ``--remat-scan`` are the JAX package's TPU layout
+switches of the PixelCNN, accepted and ignored.
+
+``--multihost`` trains data parallel, one process a card, as
+``train_vqvae`` does (its docstring has both launch forms): ``--batch-size``
+is the global batch, each rank trains on its contiguous slice of it and
+draws its own dropout masks and mixup (``prior_train.step_generator`` folds
+in the rank), the gradients are averaged over ranks, the logs are the
+global batch's, and only rank 0 prints, writes the metrics, traces and
+writes checkpoints.
 
 The published top prior (reference slurm-jobs/train_pixelcnn_top.job), the
 bottom PixelSNAIL (jobs/train_pixelsnail_bottom.sh) and the mid PixelSNAIL
@@ -66,6 +73,9 @@ from vqvae3d_tpu_torch.data.code_store import CodeDataModule
 from vqvae3d_tpu_torch.data.device_feed import device_prefetch
 from vqvae3d_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
 from vqvae3d_tpu_torch.models.pixelsnail import PixelSNAIL, PixelSNAILConfig
+from vqvae3d_tpu_torch.parallel.mesh import local_batch_size
+from vqvae3d_tpu_torch.parallel.multihost import (initialize_multihost, is_primary, rank,
+                                                  shutdown, world_size)
 from vqvae3d_tpu_torch.train.prior_train import make_prior_eval_step, make_prior_train_step
 from vqvae3d_tpu_torch.train.state import AMSGrad
 from vqvae3d_tpu_torch.utils.profiling import StepTimer
@@ -97,18 +107,25 @@ def parse_arguments(argv=None):
     parser.add_argument("--precision", choices=["bf16", "fp32"], default="bf16")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler trace of steps 10-15 here")
-    parser.add_argument("--multihost", action="store_true", help="not ported: raises")
-    parser.add_argument("--coordinator", type=str, default=None, help="not ported: raises")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a torch.distributed process group (one process a card; "
+                             "SLURM or torchrun env)")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="rendezvous host:port for --multihost (default env://)")
     parser.add_argument("--use-conditioning", type=str, default="True")
     parser.add_argument("--device", type=str, default="cuda")
     return parser.parse_args(argv)
 
 
 def main(args):
-    if args.multihost or args.coordinator:
-        raise NotImplementedError("--multihost / --coordinator: multi-GPU training is not "
-                                  "ported yet")
-    device = resolve_device(args.device)
+    if args.coordinator and not args.multihost:
+        raise ValueError("--coordinator needs --multihost")
+    device = (initialize_multihost(args.coordinator, device=args.device) if args.multihost
+              else resolve_device(args.device))
+    world = world_size()
+    local_batch_size(args.batch_size, world)
+    primary = is_primary()
+    proc = dict(process_index=rank(), process_count=world)
     dm = CodeDataModule(str(args.dataset_path), embedding_id=args.level,
                         batch_size=args.batch_size, seed=args.seed)
     if len(dm.train_indices) < args.batch_size:
@@ -123,18 +140,21 @@ def main(args):
                    "dtype": dtype})
     model = model_cls(config, generator=torch.Generator().manual_seed(args.seed), device=device)
     ckpt_dir = args.ckpt_dir or f"ckpts/{args.use_model}_level{args.level}"
-    print(f"model: {args.use_model}; input_dim={input_dim} "
-          f"condition_dim={config.condition_dim}; device {device}; "
-          f"{len(dm.train_indices)} train / {len(dm.val_indices)} val grids")
+    if primary:
+        print(f"model: {args.use_model}; input_dim={input_dim} "
+              f"condition_dim={config.condition_dim}; device {device}; "
+              f"{len(dm.train_indices)} train / {len(dm.val_indices)} val grids; "
+              f"{world} process(es)")
     optimizer = AMSGrad(model.parameters(), lr=config.lr)
     step = 0
     if args.resume and latest_step(ckpt_dir) is not None:
         step = restore_prior_train_state(ckpt_dir, model, optimizer)
-        print(f"resumed from step {step}")
+        if primary:
+            print(f"resumed from step {step}")
 
     train_step = make_prior_train_step(model, optimizer, seed=args.seed + 1)
     eval_step = make_prior_eval_step(model)
-    logger = MetricLogger(ckpt_dir)
+    logger = MetricLogger(ckpt_dir if primary else None)
     val_every = args.val_every_steps or max(1, len(dm.train_indices) // (2 * args.batch_size))
     best_val = float("inf")
     timer = StepTimer(device)
@@ -149,13 +169,13 @@ def main(args):
         return batch
 
     while step < args.max_steps:
-        batches = itertools.islice(dm.train_dataloader(epoch=epoch), skip, None)
+        batches = itertools.islice(dm.train_dataloader(epoch=epoch, **proc), skip, None)
         skip = 0
         for batch in device_prefetch(batches, device):
             with timer:
                 log = train_step(clean(batch))
             step += 1
-            if args.profile_dir and step == 10:
+            if args.profile_dir and primary and step == 10:
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 profiler.start()
@@ -164,17 +184,19 @@ def main(args):
                 Path(args.profile_dir).mkdir(parents=True, exist_ok=True)
                 profiler.export_chrome_trace(str(Path(args.profile_dir) / "train_trace.json"))
                 profiler = None
-            if step % args.log_every_n_steps == 0:
+            if primary and step % args.log_every_n_steps == 0:
                 flat = logger.log(step, log, prefix="train")
                 flat["step_ms"] = timer.mean_ms
                 logger.print(step, flat)
             if step % val_every == 0 or step >= args.max_steps:
                 val_logs = [eval_step(clean(vb))
-                            for vb in device_prefetch(dm.val_dataloader(), device)]
+                            for vb in device_prefetch(dm.val_dataloader(**proc), device)]
                 if val_logs:
+                    # global values, the same on every rank (the same branch below)
                     mean_log = {k: float(np.mean([float(v[k]) for v in val_logs]))
                                 for k in val_logs[0]}
-                    logger.print(step, logger.log(step, mean_log, prefix="val"))
+                    if primary:
+                        logger.print(step, logger.log(step, mean_log, prefix="val"))
                     save_prior_train_state(ckpt_dir, model, optimizer, step, max_to_keep=1)
                     if mean_log["loss_mean"] < best_val:
                         best_val = mean_log["loss_mean"]
@@ -185,7 +207,10 @@ def main(args):
         epoch += 1
 
     save_prior_train_state(ckpt_dir, model, optimizer, step, max_to_keep=1)
-    print(f"done at step {step}; best val_loss_mean={best_val:.5g}")
+    if primary:
+        print(f"done at step {step}; best val_loss_mean={best_val:.5g}")
+    if args.multihost:
+        shutdown()
     return model, optimizer, step
 
 

@@ -7,12 +7,10 @@ validation every ``--val-every-steps`` (0: every half train epoch), the last
 checkpoint in ``--ckpt-dir`` and the best on ``val_recon_loss_mean`` under
 ``--ckpt-dir``/best. ``--resume`` continues from the newest checkpoint there
 (params, EMA codebooks, optimizer state, step). ``--profile-dir`` writes a
-``torch.profiler`` trace of steps 10-15. The mesh and multi-host flags
-(``--mesh-shape``, ``--multihost``, ``--coordinator``) raise
-``NotImplementedError``: multi-GPU training is not ported yet. The JAX
-config's TPU layout switches (``--remat``, ``--remat-blocks``,
-``--argmin-method``, ``--packed-stacks``, ``--scan-stacks``) are accepted and
-ignored. Every ``--block-type`` ('pre-activation', 'regular', 'evonorm'),
+``torch.profiler`` trace of steps 10-15. The JAX config's TPU layout
+switches (``--remat``, ``--remat-blocks``, ``--argmin-method``,
+``--packed-stacks``, ``--scan-stacks``) are accepted and ignored. Every
+``--block-type`` ('pre-activation', 'regular', 'evonorm'),
 ``--encoder-variant`` and ``--metric`` ('huber', 'mixture-nll' with
 ``--n-mix``) of the JAX CLI trains.
 
@@ -22,6 +20,21 @@ ignored. Every ``--block-type`` ('pre-activation', 'regular', 'evonorm'),
         --n-post-upscale-blocks 3 --n-post-downscale-blocks 2 \\
         --stem-space-to-depth 2 --base-network-channels 8 \\
         --max-steps 100000 --ckpt-dir ckpts/vqvae
+
+Data parallel over several cards (``parallel/``): ``--multihost`` starts one
+process a card, ``--batch-size`` stays the global batch (each rank trains
+on its contiguous slice of it), the gradients are averaged over ranks, the
+quantizers' EMA statistics and first-pass init are global, and the logs are
+the global batch's; only rank 0 prints, writes the metrics, traces
+``--profile-dir`` and writes checkpoints. ``--mesh-shape N`` (or ``N 1``)
+must name the world size; a spatial axis (``d s``, s > 1) raises
+``NotImplementedError``. With ``--multihost``, ``--device cuda`` is the
+rank's own card (``LOCAL_RANK`` / ``SLURM_LOCALID``):
+
+    torchrun --nproc-per-node 4 -m vqvae3d_tpu_torch.cli.train_vqvae /data/ct \\
+        --batch-size 4 ... --multihost
+    srun python -m vqvae3d_tpu_torch.cli.train_vqvae /data/ct --batch-size 8 ... \\
+        --multihost --coordinator $MASTER_ADDR:8476
 """
 from __future__ import annotations
 
@@ -39,6 +52,9 @@ from vqvae3d_tpu_torch.cli.extract_embeddings import resolve_device
 from vqvae3d_tpu_torch.data.ct_dataset import CTDataModule
 from vqvae3d_tpu_torch.data.device_feed import device_prefetch
 from vqvae3d_tpu_torch.models.vqvae import VQVAE, VQVAEConfig
+from vqvae3d_tpu_torch.parallel.mesh import check_mesh_shape, local_batch_size
+from vqvae3d_tpu_torch.parallel.multihost import (initialize_multihost, is_primary, rank,
+                                                  shutdown, world_size)
 from vqvae3d_tpu_torch.train.state import AMSGrad
 from vqvae3d_tpu_torch.train.vqvae_train import make_eval_step, make_train_step
 
@@ -67,12 +83,16 @@ def parse_arguments(argv=None):
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--num-workers", type=int, default=5)
     parser.add_argument("--mesh-shape", type=int, nargs="+", default=None,
-                        help="not ported (multi-GPU): raises")
+                        help="'N' or 'N 1': N data-parallel processes (the world size); a "
+                             "spatial axis (s > 1) is not ported and raises")
     parser.add_argument("--precision", choices=["bf16", "fp32"], default="bf16")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler trace of steps 10-15 here")
-    parser.add_argument("--multihost", action="store_true", help="not ported: raises")
-    parser.add_argument("--coordinator", type=str, default=None, help="not ported: raises")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a torch.distributed process group (one process a card; "
+                             "SLURM or torchrun env)")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="rendezvous host:port for --multihost (default env://)")
     parser.add_argument("--scan-size", type=int, nargs=2, default=[512, 512],
                         help="expected (H, W) of input scans; others are dropped")
     parser.add_argument("--output-depth", type=int, default=128,
@@ -90,11 +110,14 @@ def _sync(device):
 
 
 def main(args):
-    if args.mesh_shape or args.multihost or args.coordinator:
-        raise NotImplementedError(
-            "--mesh-shape / --multihost / --coordinator: multi-GPU training is not ported yet"
-        )
-    device = resolve_device(args.device)
+    if args.coordinator and not args.multihost:
+        raise ValueError("--coordinator needs --multihost")
+    device = (initialize_multihost(args.coordinator, device=args.device) if args.multihost
+              else resolve_device(args.device))
+    world = check_mesh_shape(args.mesh_shape, world_size())
+    local_batch_size(args.batch_size, world)
+    primary = is_primary()
+    proc = dict(process_index=rank(), process_count=world)
     np.random.seed(args.seed)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     config = dataclass_from_args(VQVAEConfig, args, overrides={"dtype": dtype})
@@ -109,27 +132,29 @@ def main(args):
         output_depth=args.output_depth,
         cache_dir=args.volume_cache,
     )
-    print(f"dataset: {dm.train_len} train / {dm.val_len} val scans")
+    if primary:
+        print(f"dataset: {dm.train_len} train / {dm.val_len} val scans; {world} process(es)")
     if dm.train_len < args.batch_size:
         raise ValueError("not enough scans for one batch")
     optimizer = AMSGrad(model.parameters(), lr=config.base_lr)
     step = 0
     if args.resume and latest_step(args.ckpt_dir) is not None:
         step = restore_train_state(args.ckpt_dir, model, optimizer)
-        print(f"resumed from step {step}")
+        if primary:
+            print(f"resumed from step {step}")
 
     train_step = make_train_step(model, optimizer)
     eval_step = make_eval_step(model)
-    logger = MetricLogger(args.ckpt_dir)
+    logger = MetricLogger(args.ckpt_dir if primary else None)
     val_every = args.val_every_steps or max(1, dm.train_len // (2 * args.batch_size))
     best_val = float("inf")
     epoch, profiler = 0, None
     t_mark, step_mark = time.perf_counter(), step
     while step < args.max_steps:
-        for batch in device_prefetch(dm.train_dataloader(epoch=epoch), device):
+        for batch in device_prefetch(dm.train_dataloader(epoch=epoch, **proc), device):
             log = train_step(batch)
             step += 1
-            if args.profile_dir and step == 10:
+            if args.profile_dir and primary and step == 10:
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 profiler.start()
@@ -139,7 +164,7 @@ def main(args):
                 Path(args.profile_dir).mkdir(parents=True, exist_ok=True)
                 profiler.export_chrome_trace(str(Path(args.profile_dir) / "train_trace.json"))
                 profiler = None
-            if step % args.log_every_n_steps == 0:
+            if primary and step % args.log_every_n_steps == 0:
                 _sync(device)
                 now = time.perf_counter()
                 flat = logger.log(step, log, prefix="train")
@@ -148,11 +173,15 @@ def main(args):
                 t_mark, step_mark = now, step
 
             if step % val_every == 0 or step >= args.max_steps:
-                val_logs = [eval_step(vb) for vb in device_prefetch(dm.val_dataloader(), device)]
+                val_logs = [eval_step(vb)
+                            for vb in device_prefetch(dm.val_dataloader(**proc), device)]
                 if val_logs:
+                    # the global batch's values, the same on every rank: every
+                    # rank takes the same branch below
                     mean_log = {k: float(np.mean([float(v[k]) for v in val_logs]))
                                 for k in val_logs[0]}
-                    logger.print(step, logger.log(step, mean_log, prefix="val"))
+                    if primary:
+                        logger.print(step, logger.log(step, mean_log, prefix="val"))
                     save_train_state(args.ckpt_dir, model, optimizer, config, step, max_to_keep=1)
                     if mean_log["recon_loss_mean"] < best_val:
                         best_val = mean_log["recon_loss_mean"]
@@ -164,7 +193,10 @@ def main(args):
         epoch += 1
 
     save_train_state(args.ckpt_dir, model, optimizer, config, step, max_to_keep=1)
-    print(f"done at step {step}; best val_recon_loss_mean={best_val:.5g}")
+    if primary:
+        print(f"done at step {step}; best val_recon_loss_mean={best_val:.5g}")
+    if args.multihost:
+        shutdown()
     return model, optimizer, step
 
 

@@ -165,14 +165,21 @@ class CodeDataModule:
 
     def _iter(self, indices, shuffle: bool, epoch: int = 0, process_index: int = 0,
               process_count: int = 1):
-        if process_count != 1 or process_index != 0:
-            raise NotImplementedError("per-process batch slices: multi-GPU is not ported yet")
+        """Iterate global batches; under ``process_count`` processes each
+        reads its contiguous slice of every global batch (the shuffle keyed
+        on (seed, epoch) alone, as ``CTDataModule._iter``; JAX
+        code_store.py:205-222)."""
         idx = np.array(indices)
         if shuffle:
             idx = np.random.default_rng(self.seed + 1 + epoch).permutation(idx)
-        bs = self.batch_size
-        for b in range(len(idx) // bs):
-            items = [self.dataset[int(i)] for i in idx[b * bs:(b + 1) * bs]]
+        if self.batch_size % process_count:
+            raise ValueError(f"batch size {self.batch_size} does not divide over "
+                             f"{process_count} processes")
+        bs = self.batch_size // process_count
+        lo = process_index * bs
+        for b in range(len(idx) // self.batch_size):
+            start = b * self.batch_size + lo
+            items = [self.dataset[int(i)] for i in idx[start:start + bs]]
             batch = {"data": np.stack([_degrid(it[0]) for it in items]).astype(np.int32)}
             if len(items[0]) > 1:
                 batch["condition"] = np.stack([_degrid(it[1]) for it in items]).astype(np.int32)

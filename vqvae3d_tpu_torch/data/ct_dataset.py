@@ -1,9 +1,9 @@
 """CT scan dataset and a batched, prefetching data module (numpy only).
 
 The port's copy of ``vqvae3d_tpu/data/ct_dataset.py``, trimmed to what the
-port calls (one process, full-resolution volumes: the port computes the loss
-at full resolution, so the JAX module's space-to-depth pre-fold and its
-per-process slicing are not carried over):
+port calls (full-resolution volumes: the port computes the loss at full
+resolution, so the JAX module's space-to-depth pre-fold is not carried
+over):
 
   * ``CTScanDataset`` — globs ``**/*.nrrd``, keeps scans whose header matches
     the wanted (H, W) size and voxel spacing, reads volumes as float32 and
@@ -11,7 +11,8 @@ per-process slicing are not carried over):
     optional area rescale. An optional decode-once cache keeps the
     preprocessed volumes as ``.npz``.
   * ``CTDataModule`` — seeded train/val split, shuffled drop-last batches,
-    background decode threads and a prefetch queue.
+    background decode threads and a prefetch queue; under several processes
+    each decodes only its contiguous slice of every global batch.
 
 Batches are dicts {'volume': (B, H, W, D, 1) float32, 'num_valid_slices':
 (B,) int32}, as the JAX loader yields them.
@@ -169,12 +170,23 @@ class CTDataModule:
         self.train_indices = perm[: int(n * train_frac)]
         self.val_indices = perm[int(n * train_frac):]
 
-    def _iter(self, indices, shuffle: bool, epoch: int = 0) -> Iterator[dict]:
+    def _iter(self, indices, shuffle: bool, epoch: int = 0, process_index: int = 0,
+              process_count: int = 1) -> Iterator[dict]:
+        """Iterate global batches of ``batch_size``; under ``process_count``
+        processes each decodes only its contiguous slice of every global
+        batch (the per-rank DistributedSampler of the reference's DDP). The
+        shuffle is keyed on (seed, epoch) alone, so every process draws the
+        same permutation and the slices' union is the global batch (JAX
+        ct_dataset.py:305-330)."""
         idx = np.array(indices)
         if shuffle:
             idx = np.random.default_rng(self.seed + 1 + epoch).permutation(idx)
-        bs = self.batch_size
-        n_batches = len(idx) // bs  # drop_last
+        if self.batch_size % process_count:
+            raise ValueError(f"batch size {self.batch_size} does not divide over "
+                             f"{process_count} processes")
+        bs = self.batch_size // process_count
+        lo = process_index * bs
+        n_batches = len(idx) // self.batch_size  # drop_last
         if n_batches == 0:
             return
         # A decode pool for samples and a separate assembly pool: assembly
@@ -185,8 +197,9 @@ class CTDataModule:
                 ThreadPoolExecutor(max_workers=2) as asm:
 
             def submit_batch(b):
+                start = b * self.batch_size + lo
                 futs = [pool.submit(self.dataset.__getitem__, int(i))
-                        for i in idx[b * bs: (b + 1) * bs]]
+                        for i in idx[start:start + bs]]
 
                 def assemble():
                     samples = [f.result() for f in futs]
@@ -205,11 +218,12 @@ class CTDataModule:
                     futures.put(submit_batch(b + prefetch))
                 yield batch
 
-    def train_dataloader(self, epoch: int = 0) -> Iterator[dict]:
-        return self._iter(self.train_indices, shuffle=True, epoch=epoch)
+    def train_dataloader(self, epoch: int = 0, process_index: int = 0,
+                         process_count: int = 1) -> Iterator[dict]:
+        return self._iter(self.train_indices, True, epoch, process_index, process_count)
 
-    def val_dataloader(self) -> Iterator[dict]:
-        return self._iter(self.val_indices, shuffle=False)
+    def val_dataloader(self, process_index: int = 0, process_count: int = 1) -> Iterator[dict]:
+        return self._iter(self.val_indices, False, 0, process_index, process_count)
 
     @property
     def train_len(self) -> int:

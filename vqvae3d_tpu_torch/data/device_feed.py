@@ -6,7 +6,10 @@ Counterpart of the single-device ``device_prefetch`` of
 arrays) is copied into pinned memory and sent to the device with
 ``non_blocking=True`` up to ``size`` batches ahead of the consumer.
 PyTorch's pinned-memory allocator keeps a pinned buffer alive until its copy
-has completed. On a CPU device the arrays are only wrapped as tensors.
+has completed. On a CPU device the arrays are only wrapped as tensors. Under
+data parallelism each rank passes its own card (``cuda:<local rank>``, as
+``parallel.multihost.initialize_multihost`` returns it), so each pins and
+copies its slice of the batch to that card.
 """
 from __future__ import annotations
 

@@ -17,9 +17,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed
 import torch.nn as nn
 
 from vqvae3d_tpu_torch.ops.quantizer_ops import l2_argmin, l2_argmin_stats
+from vqvae3d_tpu_torch.parallel import mesh
 
 
 class QuantizerState(NamedTuple):
@@ -32,15 +34,31 @@ class QuantizerState(NamedTuple):
     first_pass: torch.Tensor  # () bool
 
 
-def ema_first_pass_init(state: QuantizerState, flat: torch.Tensor) -> QuantizerState:
+def row_stats(flat: torch.Tensor):
+    """(N, mean, population std) over the rows of every rank: under a
+    process group of more than one rank (``parallel.mesh``) the global N,
+    and the mean and the two-pass std from sums all-reduced through
+    ``AllReduceSum``, so each rank's rows get the gradient that every rank's
+    loss sends back through them (the JAX package's "global N under
+    jit+GSPMD", quantizer.py:59-71). At world size 1 torch's mean and std."""
+    if not mesh.data_parallel():
+        return flat.shape[0], torch.mean(flat, dim=0), torch.std(flat, dim=0, correction=0)
+    n = flat.shape[0] * mesh.world_size()  # every rank holds as many rows
+    mean = mesh.AllReduceSum.apply(torch.sum(flat, dim=0)) / n
+    var = mesh.AllReduceSum.apply(torch.sum(torch.square(flat - mean), dim=0)) / n
+    return n, mean, torch.sqrt(var)
+
+
+def ema_first_pass_init(state: QuantizerState, flat: torch.Tensor, stats=None) -> QuantizerState:
     """Data-dependent codebook init where ``first_pass`` is set:
     embed <- embed * std + mean over the rows (population std), embed_avg <-
-    embed, cluster_size += N / K (JAX quantizer.py:59-71). Selected with
-    ``torch.where``, so no host sync. ``quantize_train`` passes detached rows
-    and carries the init's gradient itself."""
+    embed, cluster_size += N / K (JAX quantizer.py:59-71); ``stats`` is
+    ``row_stats(flat)`` where the caller has it. Selected with
+    ``torch.where``, so no host sync. ``quantize_train`` passes detached
+    statistics and carries the init's gradient itself."""
     k = state.embed.shape[0]
-    n = flat.shape[0]
-    init = state.embed * torch.std(flat, dim=0, correction=0) + torch.mean(flat, dim=0)
+    n, mean, std = stats if stats is not None else row_stats(flat)
+    init = state.embed * std + mean
     first = state.first_pass
     embed = torch.where(first, init, state.embed)
     return QuantizerState(
@@ -102,16 +120,26 @@ def quantize_train(inputs: torch.Tensor, state: QuantizerState, *,
     where only std and mean depend on x, so the rows carry the term
     ``t - t.detach()`` (value 0) of t = decay / smoothed_k (E_k std + mean),
     selected by ``first_pass`` on the device: the backward reduces over rows
-    and scatters nothing into the codebook."""
+    and scatters nothing into the codebook.
+
+    Under a process group of more than one rank the statistics are global:
+    the init's N, mean and std (``row_stats``), and K1b's counts and dw,
+    sum-all-reduced before the EMA update (the psums of JAX
+    quantizer.py:139-145; counts are integers in fp32, so their sum is
+    exact). Every rank then holds the same EMA state."""
     x = inputs.float()
     x_last = x.movedim(1, -1)
     flat = x_last.reshape(-1, x_last.shape[-1])
-    init = ema_first_pass_init(state, flat.detach())
+    n, mean, std = row_stats(flat)
+    init = ema_first_pass_init(state, flat, (n, mean.detach(), std.detach()))
     indices, counts, dw = l2_argmin_stats(flat.detach(), init.embed)
+    if mesh.data_parallel():
+        stats = torch.cat([counts[:, None], dw], dim=1)
+        torch.distributed.all_reduce(stats)
+        counts, dw = stats[:, 0], stats[:, 1:]
     new = ema_update(init, counts, dw, decay, laplace_alpha)
     scale = (decay / _smoothed(new.cluster_size, laplace_alpha))[indices, None]
-    t = scale * (state.embed[indices] * torch.std(flat, dim=0, correction=0)
-                 + torch.mean(flat, dim=0))
+    t = scale * (state.embed[indices] * std + mean)
     rows = new.embed[indices] + torch.where(state.first_pass, t - t.detach(), 0.0)
     return (*_finish(x, x_last, rows, indices, commitment_cost), new)
 

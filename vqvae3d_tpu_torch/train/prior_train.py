@@ -23,7 +23,13 @@ Random draws per step: ``make_prior_train_step(..., seed=s)`` draws each
 step's dropout masks and mixup from ``step_generator(s, step)``, a function
 of the seed and the optimizer's step count only, as the JAX step folds the
 step into its key (``vqvae3d_tpu/train/prior_train.py:153``): a resumed run
-draws what an uninterrupted one does.
+draws what an uninterrupted one does. Under a process group of more than
+one rank the generator also folds in the rank, so the ranks draw their own
+masks for their own samples (a step there differs from the one-process step
+on the global batch by its draws only: JAX draws one λ and one pairing over
+the global batch, each rank here its own over its slice); the gradients are
+averaged over ranks and the log holds the global batch's values
+(``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ from vqvae3d_tpu_torch.models.prior_utils import (
     mixup_cross_entropy,
     mixup_data,
 )
+from vqvae3d_tpu_torch.parallel import mesh
+from vqvae3d_tpu_torch.parallel.multihost import rank
 
 
 def prior_loss_fn(model, batch: Dict[str, torch.Tensor], *, train: bool,
@@ -65,22 +73,36 @@ def prior_loss_fn(model, batch: Dict[str, torch.Tensor], *, train: bool,
     unreduced = (mixup_cross_entropy(logits, targets, lam) if mixup
                  else cross_entropy(logits, targets))
     loss = torch.mean(unreduced)
-    log = {
-        "loss_min": torch.min(unreduced),
-        "loss_max": torch.max(unreduced),
-        "loss_mean": loss,
-        "loss_std": torch.std(unreduced, correction=0),
-        "bits_per_dim": bits_per_dim(loss),
-    }
-    if not train:
-        log["accuracy"] = torch.mean((logits.argmax(1) == data.long()).float())
+    log = _global_log(unreduced.detach(), loss, None if train else logits, data)
+    log["bits_per_dim"] = bits_per_dim(log["loss_mean"])
     return loss, {k: v.detach() for k, v in log.items()}
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+@torch.no_grad()
+def _global_log(unreduced, loss, logits, data) -> Dict[str, torch.Tensor]:
+    """The log over the global batch from each rank's slice (an equal count
+    of voxels a rank; at world size 1 the batch's own): means averaged over
+    ranks, the std two-pass from the global mean, min and max over ranks;
+    with ``logits`` the accuracy."""
+    mean = {"loss_mean": loss}
+    if logits is not None:
+        mean["accuracy"] = torch.mean((logits.argmax(1) == data.long()).float())
+    mean = mesh.all_reduce_dict(mean, "mean")
+    var = mesh.all_reduce_dict(
+        {"var": torch.mean(torch.square(unreduced - mean["loss_mean"]))}, "mean")["var"]
+    return {**mesh.all_reduce_dict({"loss_min": torch.min(unreduced)}, "min"),
+            **mesh.all_reduce_dict({"loss_max": torch.max(unreduced)}, "max"),
+            "loss_mean": mean["loss_mean"], "loss_std": torch.sqrt(var),
+            **({"accuracy": mean["accuracy"]} if logits is not None else {})}
+
+
+def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The generator of train step ``step`` (0 for the first) of a run
-    seeded ``seed``: seeded from (seed, step) alone."""
-    mixed = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]) >> 1
+    seeded ``seed`` on process ``rank``: seeded from (seed, step) alone on
+    rank 0 (and without a process group), from (seed, step, rank) on the
+    others."""
+    entropy = [seed, step] + ([rank] if rank else [])
+    mixed = int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]) >> 1
     return torch.Generator(device).manual_seed(mixed)
 
 
@@ -88,11 +110,14 @@ def make_prior_train_step(model, optimizer, seed: int = 0):
     """The train step: batch -> log dict (0-d tensors on the model's device).
     One forward in training mode (dropout, mixup), the backward, and one
     optimizer step; params and the optimizer state change in place. The
-    random draws come from ``step_generator(seed, optimizer.count)``."""
+    random draws come from ``step_generator(seed, optimizer.count, rank)``.
+    Under a process group AMSGrad averages the gradient over ranks before
+    its update (a parameter that no loss reaches, such as a Fixup PixelCNN's
+    ``embed_condition``, has no gradient on any rank and counts as zero)."""
     device = next(model.parameters()).device
 
     def train_step(batch):
-        gen = step_generator(seed, optimizer.count, device)
+        gen = step_generator(seed, optimizer.count, device, rank())
         optimizer.zero_grad()
         loss, log = prior_loss_fn(model, batch, train=True, generator=gen)
         loss.backward()

@@ -21,6 +21,8 @@ from typing import Iterable
 
 import torch
 
+from vqvae3d_tpu_torch.parallel import mesh
+
 
 def amsgrad_update(grad: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                    nu_max: torch.Tensor, count: int, lr: float, b1: float = 0.9,
@@ -39,7 +41,11 @@ def amsgrad_update(grad: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
 
 class AMSGrad:
     """AMSGrad over a list of parameters, the state flat (``optax.flatten``).
-    A parameter without a gradient counts as a zero gradient, as in JAX."""
+    A parameter without a gradient counts as a zero gradient, as in JAX.
+    Under a process group the flat gradient is averaged over ranks before
+    the update (``parallel.mesh.average_gradient``: one all-reduce, and the
+    parameters' own ``.grad`` stay the rank's), so every rank takes the
+    global batch's step."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
@@ -57,6 +63,7 @@ class AMSGrad:
         self.count += 1
         grad = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                           for p in self.params]).float()
+        mesh.average_gradient(grad)
         update = amsgrad_update(grad, self.mu, self.nu, self.nu_max, self.count,
                                 self.lr, self.b1, self.b2, self.eps)
         parts = update.split([p.numel() for p in self.params])

@@ -20,6 +20,12 @@ The JAX train path computes its loss in the stem's space-to-depth layout
 computes the same loss at full resolution. Batches are the loader's dicts
 {'volume': (B, H, W, D, C) fp32, 'num_valid_slices': (B,) int}, the JAX
 step's contract; the model runs on (B, C, H, W, D).
+
+Under a process group (``parallel/``) the batch is the rank's slice of the
+global batch, as the JAX step's batch is sharded on the mesh's 'data' axis:
+the loss is the rank's mean over an equal count, the gradients are averaged
+over ranks, the quantizers' statistics are global, and the log holds the
+global batch's values (``weighted_log``).
 """
 from __future__ import annotations
 
@@ -30,8 +36,9 @@ import torch.nn.functional as F
 
 from vqvae3d_tpu_torch.data.transforms import create_cylinder_xy_mask
 from vqvae3d_tpu_torch.metrics.distribution import mixture_nll_loss
-from vqvae3d_tpu_torch.metrics.evaluate import nmse, psnr, ssim3d_slices
-from vqvae3d_tpu_torch.utils.logging_helpers import median, sub_metric_log_dict
+from vqvae3d_tpu_torch.metrics.evaluate import ssim3d_slices
+from vqvae3d_tpu_torch.parallel import mesh
+from vqvae3d_tpu_torch.utils.logging_helpers import median
 
 PSNR_DATA_RANGE = 4.0  # reference vqvae/model.py:25
 
@@ -86,6 +93,45 @@ def _codebook_health(model) -> Dict[str, torch.Tensor]:
     return log
 
 
+@torch.no_grad()
+def weighted_log(pointwise, loc, xf, mask, count, *, recon_from_square: bool,
+                 with_median: bool) -> Dict[str, torch.Tensor]:
+    """min / max / mean / std (and with ``with_median`` the median) of the
+    per-voxel loss and of the reconstruction over ``mask`` (``count``
+    voxels a rank), NMSE and PSNR, global over ranks (``parallel.mesh``):
+    each rank's means are over an equal count, so their mean over ranks is
+    the global one; the two-pass std takes the global mean first; NMSE and
+    PSNR take the global sums; the medians gather every rank's voxels. At
+    world size 1 the rank's own statistics."""
+    wgt = mask.float()
+    big = float("inf")
+    values = {"recon_loss": pointwise, "loc": loc}
+    mean = {f"{k}_mean": torch.sum(v * wgt) / count for k, v in values.items()}
+    if recon_from_square:
+        mean["recon_loss_sq"] = torch.sum(pointwise ** 2 * wgt) / count
+    err2 = torch.sum((loc - xf) ** 2 * wgt)
+    mean = mesh.all_reduce_dict({**mean, "err2": err2, "x2": torch.sum(xf ** 2 * wgt)}, "mean")
+    lo = mesh.all_reduce_dict({f"{k}_min": torch.min(torch.where(mask, v, big))
+                               for k, v in values.items()}, "min")
+    hi = mesh.all_reduce_dict({f"{k}_max": torch.max(torch.where(mask, v, -big))
+                               for k, v in values.items()}, "max")
+    two_pass = [k for k in values if not (recon_from_square and k == "recon_loss")]
+    var = mesh.all_reduce_dict({k: torch.sum((values[k] - mean[f"{k}_mean"]) ** 2 * wgt) / count
+                                for k in two_pass}, "mean")
+    log = {}
+    for k, v in values.items():
+        m = mean[f"{k}_mean"]
+        std = (torch.sqrt(var[k]) if k in var else
+               torch.sqrt(torch.clamp(mean["recon_loss_sq"] - m ** 2, min=0.0)))
+        log.update({f"{k}_min": lo[f"{k}_min"], f"{k}_max": hi[f"{k}_max"], f"{k}_mean": m,
+                    f"{k}_std": std})
+        if with_median:
+            log[f"{k}_median"] = median(mesh.all_gather_flat(v[mask.expand_as(v)]))
+    log["nmse"] = mean["err2"] / mean["x2"]
+    log["psnr"] = 10.0 * torch.log10(PSNR_DATA_RANGE ** 2 / (mean["err2"] / count))
+    return log
+
+
 def vqvae_loss_fn(model, batch: Dict[str, torch.Tensor], *, train: bool,
                   extract_cylinder: bool = True, with_median: bool = False):
     """Returns (loss, log_dict, loc); ``loc`` is the masked reconstruction
@@ -104,53 +150,19 @@ def vqvae_loss_fn(model, batch: Dict[str, torch.Tensor], *, train: bool,
     commitment_loss = sum(c_losses)
     b, c, h, w, d = x.shape
 
-    if extract_cylinder:
-        mask = cylinder_mask(h, w, x.device)
-        wgt = mask.float()
-        count = torch.sum(wgt) * b * d * c
-        big = float("inf")
-
-        def wstats(name, v, std_from_square=False):
-            m = torch.sum(v * wgt) / count
-            if std_from_square:  # the JAX train path's form
-                std = torch.sqrt(torch.clamp(torch.sum(v ** 2 * wgt) / count - m ** 2, min=0.0))
-            else:
-                std = torch.sqrt(torch.sum((v - m) ** 2 * wgt) / count)
-            out = {
-                f"{name}_min": torch.min(torch.where(mask, v, big)),
-                f"{name}_max": torch.max(torch.where(mask, v, -big)),
-                f"{name}_mean": m,
-                f"{name}_std": std,
-            }
-            if with_median:
-                out[f"{name}_median"] = median(v[mask.expand_as(v)])
-            return out
-
-        recon_loss = torch.sum(pointwise * wgt) / count
-        err2 = torch.sum((loc - xf) ** 2 * wgt)
-        log = {
-            **wstats("recon_loss", pointwise, std_from_square=train),
-            **wstats("loc", loc),
-            "nmse": err2 / torch.sum(xf ** 2 * wgt),
-            "psnr": 10.0 * torch.log10(PSNR_DATA_RANGE ** 2 / (err2 / count)),
-        }
-    else:
-        recon_loss = torch.mean(pointwise)
-        log = {
-            **sub_metric_log_dict("recon_loss", pointwise),
-            **sub_metric_log_dict("loc", loc),
-            "nmse": nmse(xf, loc),
-            "psnr": psnr(xf, loc, data_range=PSNR_DATA_RANGE),
-        }
-        if not with_median:
-            log.pop("recon_loss_median")
-            log.pop("loc_median")
+    mask = (cylinder_mask(h, w, x.device) if extract_cylinder
+            else torch.ones(1, 1, h, w, 1, dtype=torch.bool, device=x.device))
+    count = torch.sum(mask.float()) * b * d * c
+    recon_loss = torch.sum(pointwise * mask.float()) / count
+    # the JAX train path's std of the loss is from its square
+    log = weighted_log(pointwise.detach(), loc.detach(), xf, mask, count,
+                       recon_from_square=train and extract_cylinder, with_median=with_median)
 
     loss = recon_loss + commitment_loss
-    log["commitment_loss"] = commitment_loss
-    log["loss"] = loss
-    for i, cl in enumerate(c_losses):
-        log[f"commitment_loss_{i}"] = cl
+    # means over an equal count on every rank: their mean over ranks is global
+    log.update(mesh.all_reduce_dict({
+        "commitment_loss": commitment_loss, "loss": loss,
+        **{f"commitment_loss_{i}": cl for i, cl in enumerate(c_losses)}}, "mean"))
     if train:
         log.update(_codebook_health(model))
     return loss, {k: v.detach() for k, v in log.items()}, loc
@@ -160,7 +172,9 @@ def make_train_step(model, optimizer, extract_cylinder: bool = True):
     """The train step: batch -> log dict (0-d tensors on the model's device).
     One forward with the quantizers' train path, the backward, and one
     optimizer step (``train.state.AMSGrad``); params, EMA buffers and the
-    optimizer state change in place."""
+    optimizer state change in place. Under a process group the batch is the
+    rank's slice of the global batch: AMSGrad averages the gradient over
+    ranks before its update, and the log holds the global batch's values."""
 
     def train_step(batch):
         optimizer.zero_grad()
@@ -181,7 +195,9 @@ def make_eval_step(model, extract_cylinder: bool = True):
     def eval_step(batch):
         _, log, loc = vqvae_loss_fn(model, batch, train=False,
                                     extract_cylinder=extract_cylinder, with_median=True)
-        log["ssim"] = ssim3d_slices(loc, batch["volume"].movedim(-1, 1).float())
+        ssim = ssim3d_slices(loc, batch["volume"].movedim(-1, 1).float())
+        # a mean over as many slices on every rank
+        log["ssim"] = mesh.all_reduce_dict({"ssim": ssim}, "mean")["ssim"]
         return log
 
     return eval_step

@@ -1,4 +1,6 @@
-"""Metric-distribution logging (``vqvae3d_tpu/utils/logging_helpers.py``)."""
+"""Metric-distribution logging (``vqvae3d_tpu/utils/logging_helpers.py``):
+the median that the train log takes (``train.vqvae_train.weighted_log``
+computes the rest of the distribution's statistics, global over ranks)."""
 from __future__ import annotations
 
 import torch
@@ -11,13 +13,3 @@ def median(v: torch.Tensor) -> torch.Tensor:
     n = s.numel()
     return s[n // 2] if n % 2 else (s[n // 2 - 1] + s[n // 2]) / 2
 
-
-def sub_metric_log_dict(metric_name: str, metric: torch.Tensor) -> dict:
-    """A tensor metric -> its min/max/mean/median/std (population std)."""
-    return {
-        f"{metric_name}_min": torch.min(metric),
-        f"{metric_name}_max": torch.max(metric),
-        f"{metric_name}_mean": torch.mean(metric),
-        f"{metric_name}_median": median(metric),
-        f"{metric_name}_std": torch.std(metric, correction=0),
-    }
