@@ -256,14 +256,34 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      parameters within the AMSGrad bound, the EMA state (cluster_size exact)
      on the codes no tie-flipped row touched, the ranks' states bit for bit;
      then a bf16 step of each, timed on both ranks at once (not a scaling
-     figure: two processes share one card); (c) ``--mesh-shape 2 2`` raises
-     ``NotImplementedError`` naming spatial sharding.
+     figure: two processes share one card); (c) ``--mesh-shape 2 2``
+     without ``--multihost`` raises ``ValueError``.
+ 25. spatial sharding (``--mesh-shape d s``, ``parallel/halo.py``) and the
+     remainder's CLIs: (a) two gloo ranks sharing the card at
+     ``--mesh-shape 1 2`` (``SP_RANK``, a process each), each an H slab of
+     one volume, against the one-process steps on the same volume and
+     weights, fp32, the full config, stem 2: the eval step's log (SSIM over
+     the gathered slices) within rel 1e-5 and its launches (K1a, K3); one
+     train step from a first pass: the loss and the log within rel 1e-5,
+     every gradient within phase 24's scale, K1b / K3 fwd and bwd / K7
+     launches a rank, cluster_size exact on the codes no genuine tie
+     touched (the ties printed), the ranks' states bit for bit; each rank's
+     peak memory (fp32 and bf16 step) beside the one process's, and a bf16
+     step timed on both ranks at once (not a scaling figure); (b)
+     ``convert_checkpoint vqvae`` of a Lightning ``.ckpt`` of phase 3's
+     fp32 stem-1 model, the converted checkpoint serving phase 3's volume
+     through K3 and K1a bit for bit as phase 3's model does, and
+     ``data_marginal`` on the card against ``np.histogram``; (c)
+     ``train_vqvae --multihost --mesh-shape 1 2`` through the CLI for 2
+     steps and a validation at 10 + 10 blocks a level (full widths), beside
+     (a)'s one-process reference.
 
 Cuts made for the 1200 s limit (widths, grids and batches stay the
 published ones): phases 20-21's mid PixelSNAIL at 2 of its 8 blocks;
 phase 22 serves at stem 2 only; phase 23's k = 5 forced check covers 8 of 32
 slices; phases 5, 13 and 18 run the plain path's step once instead of in two
-timed turns.
+timed turns; phase 25's CLI run at 10 of the 50 pre- and post-quantization
+blocks a level.
 
 TF32 is off for the whole run (fp32 comparisons need true fp32; bf16 runs
 do not use it). Every number is printed beside the card's name and power
@@ -3514,6 +3534,10 @@ import torch
 import chip_smoke
 torch.backends.cudnn.deterministic = os.environ.get("CHIP_SMOKE_DETERMINISTIC") == "1"
 cli = importlib.import_module("vqvae3d_tpu_torch.cli." + sys.argv[2])
+if os.environ.get("CHIP_SMOKE_BACKEND"):  # e.g. gloo: ranks that share one card
+    import functools
+    cli.initialize_multihost = functools.partial(cli.initialize_multihost,
+                                                 backend=os.environ["CHIP_SMOKE_BACKEND"])
 chip_smoke.reset_counts()
 t0 = time.perf_counter()
 result = cli.main(cli.parse_arguments(sys.argv[3:]))
@@ -4470,8 +4494,8 @@ def dp_prior_batch(seed, device, ranks):
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
-def dp_steps(model, opt, step, batch, stage1: bool):
-    """Two train steps, counted: per step the log, the launches, the
+def dp_steps(model, opt, step, batch, stage1: bool, steps: int = 2):
+    """``steps`` train steps, counted: per step the log, the launches, the
     gradient the optimizer took (``taken_gradient``) and, for stage 1, the
     K7 launches the model implies (``k7_expected``), the EMA state before
     the step and each level's rows and indices; then the final state_dict
@@ -4479,7 +4503,7 @@ def dp_steps(model, opt, step, batch, stage1: bool):
     import torch
 
     out, mu = [], torch.zeros_like(opt.mu, dtype=torch.float64).cpu()
-    for _ in range(2):
+    for _ in range(steps):
         rec, seen, calls, hooks = {}, {}, [], []
         if stage1:
             rec["before"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
@@ -4597,7 +4621,9 @@ def dp_check_params(state: dict, ref_state: dict, grads: dict, tols: dict, lr: f
     return worst
 
 
-def dp_compare(ident, name, ref, ranks, lr, stage1: bool, launches: dict):
+def dp_compare(ident, name, ref, ranks, lr, stage1: bool, launches: dict,
+               label: str = "two ranks (gloo, one card) vs one process on the global batch of 2",
+               log_tol: float = DP_LOG_TOL):
     """The two ranks against the one-process steps: the ranks' states bit for
     bit; per step the loss, the log, the gradients, the launches a rank, and
     for stage 1 each level's indices (equal but at genuine ties, judged on
@@ -4610,7 +4636,7 @@ def dp_compare(ident, name, ref, ranks, lr, stage1: bool, launches: dict):
 
     (ref_steps, ref_state), (steps, state) = ref, ranks[0]
     differ = [k for k in state if not torch.equal(state[k], ranks[1][1][k])]
-    if differ or ranks[0][0][1]["log"] != ranks[1][0][1]["log"]:
+    if differ or [r["log"] for r in ranks[0][0]] != [r["log"] for r in ranks[1][0]]:
         raise AssertionError(f"{name}: the two ranks' states differ: {differ[:5]}")
     touched, worst_grad, tols = {}, 0.0, {}
     for n, (want, got) in enumerate(zip(ref_steps, steps), 1):
@@ -4637,14 +4663,14 @@ def dp_compare(ident, name, ref, ranks, lr, stage1: bool, launches: dict):
             diff = torch.nonzero(a != b).flatten()
             touched[lvl] = torch.unique(torch.cat([touched.get(lvl, diff[:0]), a[diff], b[diff]]))
             mism.append(f"level {lvl} {diff.numel()} (ties {ties.numel()})")
-        print(f"fp32 {name} step {n}, two ranks (gloo, one card) vs one process on the global "
-              f"batch of 2: loss {got['log'].get('loss', got['log'].get('loss_mean')):.7g} "
+        print(f"fp32 {name} step {n}, {label}: "
+              f"loss {got['log'].get('loss', got['log'].get('loss_mean')):.7g} "
               f"(rel {loss_err:.2e}); log worst rel {log_err:.2e}; gradients worst "
               + ", ".join(f"{k} {e:.2e}" for k, e in worst)
               + (f"; index mismatches {', '.join(mism)}" if mism else "")
               + f"; launches a rank {({k: v for k, v in rank_steps[n - 1]['launches'].items() if v})}"
               f" [{ident}]")
-        if (loss_err > STEP_LOSS_TOL or log_err > DP_LOG_TOL or worst[0][1] > STEP_GRAD_TOL
+        if (loss_err > STEP_LOSS_TOL or log_err > log_tol or worst[0][1] > STEP_GRAD_TOL
                 or not np.isfinite(loss_err)):
             raise AssertionError(f"{name} step {n}: the two ranks disagree with one process")
     params = dict(ref_steps[-1]["grads"])
@@ -4659,7 +4685,8 @@ def dp_compare(ident, name, ref, ranks, lr, stage1: bool, launches: dict):
         else:
             ema_err = max(ema_err, float(d.abs().max()) / max(float(ref_state[k].abs().max()), 1.0))
     ntouch = sum(t.numel() for t in touched.values())
-    print(f"{name} after two steps: parameters worst {param_err:.3f} of the AMSGrad bound"
+    print(f"{name} after {len(steps)} step(s): parameters worst {param_err:.3f} of the AMSGrad "
+          "bound"
           + (f"; EMA state rel {ema_err:.2e} and cluster_size "
              f"{'exact' if cs_exact else 'NOT exact'} on the codes no mismatched row touched "
              f"({ntouch} touched)" if stage1 else "") + f" [{ident}]")
@@ -4676,14 +4703,14 @@ def phase_data_parallel(ident, counts, results, seed, work: Path):
     from vqvae3d_tpu_torch.parallel.multihost import initialize_multihost, shutdown
 
     here = str(Path(__file__).resolve().parent)
-    # --- (c) a spatial mesh axis is not ported
+    # --- (c) a space axis needs a process group (phase 25 runs one)
     try:
         train_vqvae.main(train_vqvae.parse_arguments([str(work), "--mesh-shape", "2", "2",
                                                       "--device", "cuda"]))
-    except NotImplementedError as e:
-        if "spatial sharding" not in str(e):
+    except ValueError as e:
+        if "--multihost" not in str(e):
             raise
-        print(f"--mesh-shape 2 2 raises NotImplementedError: {e}")
+        print(f"--mesh-shape 2 2 without --multihost raises ValueError: {e}")
     else:
         raise AssertionError("--mesh-shape 2 2 did not raise")
 
@@ -4806,6 +4833,309 @@ def phase_data_parallel(ident, counts, results, seed, work: Path):
                          gloo_bf16_ms=timing)
 
 
+# phase 25: spatial sharding (``--mesh-shape d s``, ``parallel/halo.py``). Two
+# gloo ranks share the card (NCCL refuses two ranks on one device) at
+# ``--mesh-shape 1 2``: each holds one H slab of the volume, and the step
+# against the one-process step on the same volume and weights
+SP_SPACE = 2
+SP_LOG_TOL = 1e-5  # the sharded log against one process, each value rel max(|ref|, 1)
+SP_CLI_DEPTH = 10  # the CLI run's pre- and post-quantization blocks a level (of 50)
+SP_RANK = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.sp_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+"""
+
+
+def sp_model(seed, device, dtype):
+    """(model, AMSGrad, train step, eval step) at the full config, stem 2,
+    seeded as phase 5 seeds it."""
+    from vqvae3d_tpu_torch.train import vqvae_train
+    from vqvae3d_tpu_torch.train.state import AMSGrad
+
+    model, _ = make_model(2, seed, dtype, device)
+    opt = AMSGrad(model.parameters(), lr=STAGE1_LR)
+    return (model, opt, vqvae_train.make_train_step(model, opt),
+            vqvae_train.make_eval_step(model))
+
+
+def sp_slab(batch):
+    """This rank's H slab of a batch (the whole batch without a space axis)."""
+    from vqvae3d_tpu_torch.parallel import mesh
+
+    s, i = mesh.space_size(), mesh.space_index()
+    h = batch["volume"].shape[1] // s
+    return {"volume": batch["volume"][:, i * h:(i + 1) * h].contiguous(),
+            "num_valid_slices": batch["num_valid_slices"]}
+
+
+def sp_eval(eval_step, batch):
+    """One counted eval step: (its log, its launches)."""
+    import torch
+
+    reset_counts()
+    log = eval_step(batch)
+    torch.cuda.synchronize()
+    return {k: float(v) for k, v in log.items()}, launch_counts()
+
+
+def sp_rank(work: str, port: int, seed: int) -> None:
+    """One rank of phase 25, run as ``SP_RANK`` with ``SLURM_PROCID`` and
+    ``SLURM_NTASKS`` set: joins the gloo group on card 0 laid out as 1 x
+    ``SP_SPACE``, takes the fp32 eval step and one fp32 train step from a
+    first pass on its H slab of phase 24's rank-1 volume (saved to
+    ``work``/sp_rank<r>.pt with its peak memory), then times a bf16 step
+    while the other rank steps beside it on the same card."""
+    import torch
+    from vqvae3d_tpu_torch.parallel import mesh
+    from vqvae3d_tpu_torch.parallel.multihost import barrier, initialize_multihost, rank, shutdown
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = initialize_multihost(f"127.0.0.1:{port}", backend="gloo", device="cuda")
+    mesh.init_mesh(SP_SPACE)
+    r = rank()
+    batch = sp_slab(dp_stage1_batch(seed + 2, dev, [1]))
+    model, opt, step, eval_step = sp_model(seed, dev, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    ev = sp_eval(eval_step, batch)
+    steps, state = dp_steps(model, opt, step, batch, True, steps=1)
+    saved = {"eval": ev, "steps": steps, "state": state,
+             "peak_fp32": torch.cuda.max_memory_allocated() / 2**30}
+    del model, opt, step, eval_step
+    torch.cuda.empty_cache()
+    _, _, step, _ = sp_model(seed, dev, torch.bfloat16)
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    barrier()
+    saved["bf16_ms"] = cuda_ms(lambda: step(batch), iters=3, warmup=1)
+    saved["peak_bf16"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.save(saved, Path(work) / f"sp_rank{r}.pt")
+    mesh.reset_mesh()
+    shutdown()
+
+
+def sp_reference(seed):
+    """The one-process side: the fp32 eval step and train step on the whole
+    volume, and the peak memory of the fp32 and of a bf16 step."""
+    import torch
+
+    dev = torch.device("cuda")
+    batch = dp_stage1_batch(seed + 2, dev, [1])
+    model, opt, step, eval_step = sp_model(seed, dev, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    ev = sp_eval(eval_step, batch)
+    steps, state = dp_steps(model, opt, step, batch, True, steps=1)
+    out = {"eval": ev, "steps": steps, "state": state,
+           "peak_fp32": torch.cuda.max_memory_allocated() / 2**30}
+    del model, opt, step, eval_step
+    torch.cuda.empty_cache()
+    _, _, step, _ = sp_model(seed, dev, torch.bfloat16)
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(batch)
+    torch.cuda.synchronize()
+    out["peak_bf16"] = torch.cuda.max_memory_allocated() / 2**30
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_convert_and_serve(ident, counts, seed, work: Path):
+    """The remainder's CLIs on the card: phase 3's fp32 stem-1 model (the
+    same seed) written as a Lightning ``.ckpt``, converted by
+    ``convert_checkpoint vqvae``, and one volume served from the converted
+    checkpoint through K3 and K1a against phase 3's forward of it, bit for
+    bit; then ``data_marginal`` over the stage-1 scans against
+    ``np.histogram`` on the host."""
+    import dataclasses
+
+    import torch
+    from vqvae3d_tpu_torch.checkpoint import load_model
+    from vqvae3d_tpu_torch.cli import convert_checkpoint, data_marginal
+    from vqvae3d_tpu_torch.data.ct_dataset import CTDataModule
+    from vqvae3d_tpu_torch.data.transforms import create_cylinder_xy_mask, hu_window_normalize
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 1)  # phase 3's volume
+    x = torch.from_numpy(hu_window_normalize(
+        rng.integers(-1000, 1500, size=VOLUME, dtype=np.int16)))[None, None].to(dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, cfg = make_model(1, seed, torch.float32, dev)
+        with torch.inference_mode():
+            want = model(x)[0]
+        torch.save({"state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+                    "hyper_parameters": {}}, work / "reference.ckpt")
+        del model
+        flags = ["--num-embeddings", *map(str, FULL["num_embeddings"])]
+        for k in ("n_pre_quantization_blocks", "n_post_quantization_blocks",
+                  "n_post_downscale_blocks", "n_post_upscale_blocks", "pad_mode"):
+            flags += ["--" + k.replace("_", "-"), str(FULL[k])]
+        t0 = time.perf_counter()
+        convert_checkpoint.main(convert_checkpoint.parse_arguments(
+            ["vqvae", str(work / "reference.ckpt"), str(work / "converted"), *flags,
+             "--device", "cuda"]))
+        convert_s = time.perf_counter() - t0
+        served, scfg = load_model(work / "converted", device=dev)
+        if dataclasses.replace(scfg, dtype=cfg.dtype, base_lr=cfg.base_lr) != cfg:
+            raise AssertionError(f"converted config {scfg} is not {cfg}")
+        fp32 = type(served)(dataclasses.replace(scfg, dtype=torch.float32)).to(dev).eval()
+        fp32.load_state_dict(served.state_dict())
+        reset_counts()
+        with torch.inference_mode():
+            got = fp32(x)[0]
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        add_counts(counts, launches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    blocks = sum(n for *_, n in cfg.same_stacks(VOLUME))
+    check_launches(launches, dict(dict.fromkeys(launch_counts(), 0), l2_argmin=cfg.n_enc,
+                                  preact_stack_fwd=blocks), "the converted checkpoint's forward")
+    same = torch.equal(got, want)
+    print(f"convert_checkpoint vqvae (a Lightning .ckpt of phase 3's fp32 stem-1 model, "
+          f"{cfg.n_enc} levels, {cfg.n_pre_quantization_blocks} + "
+          f"{cfg.n_post_quantization_blocks} blocks) in {convert_s:.1f} s; the converted "
+          f"checkpoint's fp32 forward of phase 3's volume "
+          f"{'bit-identical to' if same else 'DIFFERS from'} phase 3's "
+          f"(max|d| {float((got - want).abs().max()):.3g}); launches "
+          f"{({k: v for k, v in launches.items() if v})} [{ident}]")
+    if not same:
+        raise AssertionError("the converted checkpoint serves another volume")
+    del served, fp32, got, want
+    torch.cuda.empty_cache()
+
+    ct = stage1_scans(work, seed)
+    out = work / "marginal.npz"
+    t0 = time.perf_counter()
+    data_marginal.main(data_marginal.parse_arguments(
+        [str(ct), "--out", str(out), "--scan-size", *map(str, VOLUME[:2]), "--device", "cuda"]))
+    marginal_s = time.perf_counter() - t0
+    edges = np.linspace(-0.5, 4.0, 513)
+    host, n = np.zeros(512, np.int64), 0
+    for batch in CTDataModule(str(ct), batch_size=1, train_frac=1.0,
+                              size=(*VOLUME[:2], None)).train_dataloader(epoch=0):
+        vol = batch["volume"][0, ..., 0]
+        host += np.histogram(vol[create_cylinder_xy_mask(vol.shape[:2])], bins=edges)[0]
+        n += 1
+    with np.load(out) as z:
+        same = np.array_equal(z["counts"], host) and int(z["num_scans"]) == n
+        total = int(z["counts"].sum())
+    print(f"data_marginal over {n} synthetic {VOLUME} scans on the card in {marginal_s:.1f} s: "
+          f"{total} voxels binned, counts {'equal to' if same else 'DIFFER from'} "
+          f"np.histogram on the host [{ident}]")
+    if not same:
+        raise AssertionError("data_marginal's counts differ from np.histogram")
+
+
+def phase_spatial(ident, counts, results, seed, work: Path):
+    import torch
+    from vqvae3d_tpu_torch.models.vqvae import VQVAEConfig
+
+    here = str(Path(__file__).resolve().parent)
+    # --- (c) train_vqvae --multihost --mesh-shape 1 2 through the CLI: two gloo
+    # ranks on the card, 2 steps and a validation, at SP_CLI_DEPTH blocks a stack,
+    # started now and read after the one-process reference has run beside it
+    ct = stage1_scans(work, seed)
+    depth = str(SP_CLI_DEPTH)
+    flags = [str(ct), "--batch-size", "1", "--num-embeddings", *map(str, FULL["num_embeddings"]),
+             "--n-pre-quantization-blocks", depth, "--n-post-quantization-blocks", depth,
+             "--n-post-downscale-blocks", "2", "--n-post-upscale-blocks", "3",
+             "--stem-space-to-depth", "2", "--base-network-channels", "8",
+             "--pad-mode", "wrap", "--scan-size", *map(str, VOLUME[:2]),
+             "--output-depth", str(VOLUME[2]), "--val-every-steps", "2", "--max-steps", "2",
+             "--log-every-n-steps", "1", "--num-workers", "2", "--device", "cuda",
+             "--ckpt-dir", str(work / "sp_cli"), "--multihost", "--coordinator",
+             f"127.0.0.1:{free_port()}", "--mesh-shape", "1", str(SP_SPACE)]
+    t0 = time.perf_counter()
+    clis = start_processes([([sys.executable, "-c", FRESH_CLI, here, "train_vqvae", *flags],
+                             {"CHIP_SMOKE_BACKEND": "gloo",
+                              **dict(zip(DP_ENV, (str(r), str(SP_SPACE), "0")))})
+                            for r in range(SP_SPACE)])
+    try:
+        ref = sp_reference(seed)
+    finally:
+        outs = wait_processes(clis)
+    cli_s = time.perf_counter() - t0
+    cfg = VQVAEConfig(**dict(FULL, n_pre_quantization_blocks=SP_CLI_DEPTH,
+                             n_post_quantization_blocks=SP_CLI_DEPTH), **STEM2)
+    blocks = sum(n for *_, n in cfg.same_stacks(VOLUME))
+    # 2 steps (K3 fwd and bwd, K1b, K7) and a validation of the one val scan (K3 fwd, K1a)
+    cli_want = dict(dict.fromkeys(launch_counts(), 0), preact_stack_fwd=3 * blocks,
+                    preact_stack_bwd=2 * blocks, l2_argmin_stats=2 * cfg.n_enc,
+                    l2_argmin=cfg.n_enc, dw_conv3d=2 * ref["steps"][0]["k7_expected"])
+    for r, out in enumerate(outs):
+        lines = out.strip().splitlines()
+        rec = json.loads(lines[-1])
+        add_counts(counts, rec["launches"])
+        got = rec["launches"]
+        check_launches(got, cli_want, f"train_vqvae --mesh-shape 1 {SP_SPACE} rank {r}")
+        print(f"train_vqvae --multihost --mesh-shape 1 {SP_SPACE} rank {r} (gloo, one card; "
+              f"{SP_CLI_DEPTH} + {SP_CLI_DEPTH} blocks a level, full widths): "
+              f"{rec['seconds']:.1f} s in its process, launches "
+              f"{({k: v for k, v in got.items() if v})} [{ident}]"
+              + ("\n" + "\n".join(lines[:-1]) if r == 0 else ""))
+    if not (work / "sp_cli" / "latest.txt").exists():
+        raise AssertionError("train_vqvae --mesh-shape 1 2 wrote no checkpoint")
+    print(f"the CLI's two ranks and the one-process reference beside them: {cli_s:.1f} s")
+
+    # --- (a) the two ranks' fp32 eval step and train step against one process
+    port = free_port()
+    t0 = time.perf_counter()
+    wait_processes(start_processes(
+        [([sys.executable, "-c", SP_RANK, here, str(work), str(port), str(seed)],
+          dict(zip(DP_ENV, (str(r), str(SP_SPACE), "0")))) for r in range(SP_SPACE)]))
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(work / f"sp_rank{r}.pt", weights_only=False) for r in range(SP_SPACE)]
+    full = VQVAEConfig(**FULL, **STEM2)
+    blocks = sum(n for *_, n in full.same_stacks(VOLUME))
+    k7_per_step = ref["steps"][0]["k7_expected"]
+    want = dict(dict.fromkeys(launch_counts(), 0), l2_argmin_stats=full.n_enc,
+                preact_stack_fwd=blocks, preact_stack_bwd=blocks, dw_conv3d=k7_per_step)
+    eval_want = dict(dict.fromkeys(launch_counts(), 0), l2_argmin=full.n_enc,
+                     preact_stack_fwd=blocks)
+    for r, g in enumerate(got):
+        check_launches(g["eval"][1], eval_want, f"the eval step, rank {r}")
+        add_counts(counts, g["eval"][1])
+        for rec in g["steps"]:
+            add_counts(counts, rec["launches"])
+    eval_err = max(dp_rel(got[0]["eval"][0][k], v) for k, v in ref["eval"][0].items())
+    if got[0]["eval"][0] != got[1]["eval"][0] or set(got[0]["eval"][0]) != set(ref["eval"][0]):
+        raise AssertionError("the two ranks' eval logs differ")
+    print(f"fp32 eval step, {SP_SPACE} H slabs of one volume (gloo, one card) vs one process: "
+          f"log worst rel {eval_err:.2e} (ssim {got[0]['eval'][0]['ssim']:.7g} over the "
+          f"gathered slices); launches a rank "
+          f"{({k: v for k, v in got[0]['eval'][1].items() if v})} [{ident}]")
+    if not eval_err <= SP_LOG_TOL:
+        raise AssertionError("the sharded eval step disagrees with one process")
+    out = dp_compare(ident, "stage-1 (stem 2)", (ref["steps"], ref["state"]),
+                     [(g["steps"], g["state"]) for g in got], STAGE1_LR, True, want,
+                     label=f"{SP_SPACE} H slabs of one volume (gloo, one card) vs one process",
+                     log_tol=SP_LOG_TOL)
+    print(f"peak device memory a rank (two ranks on one card; {ranks_s:.1f} s for both "
+          f"processes): fp32 step "
+          + ", ".join(f"{g['peak_fp32']:.2f}" for g in got)
+          + f" GiB against one process's {ref['peak_fp32']:.2f}; bf16 step "
+          + ", ".join(f"{g['peak_bf16']:.2f}" for g in got)
+          + f" GiB against {ref['peak_bf16']:.2f}. bf16 ms a step a rank (mean of 3 after 1 "
+          "warm-up; two ranks on one card, not a scaling figure: both step at once and gloo "
+          "stages every exchange through the host): "
+          + ", ".join(f"rank {r} {g['bf16_ms']:.2f}" for r, g in enumerate(got))
+          + f" [{ident}]")
+
+    # --- (b) the remainder's CLIs on the card
+    sp_convert_and_serve(ident, counts, seed, work)
+    results["spatial"] = dict(out, eval_rel=eval_err, peak_fp32=[g["peak_fp32"] for g in got],
+                              peak_bf16=[g["peak_bf16"] for g in got],
+                              ref_peak_fp32=ref["peak_fp32"], ref_peak_bf16=ref["peak_bf16"],
+                              bf16_ms=[g["bf16_ms"] for g in got])
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4880,6 +5210,8 @@ def main():
             ("the PixelCNN remainder", lambda: phase_prior_variants(
                 ident, counts, results, args.seed, Path(tmp))),
             ("data-parallel training", lambda: phase_data_parallel(
+                ident, counts, results, args.seed, Path(tmp))),
+            ("spatial sharding and the remainder's CLIs", lambda: phase_spatial(
                 ident, counts, results, args.seed, Path(tmp))),
         ]
         for number, (name, fn) in enumerate(phases, 1):

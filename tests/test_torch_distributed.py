@@ -30,8 +30,10 @@ process on the whole batch:
   * ``CTDataModule`` and ``CodeDataModule``: each rank's slice equals the
     JAX modules' ``process_index`` slice, and the slices' union is the
     one-process batch (in-process, no spawn);
-  * ``--mesh-shape``: ``N 1`` at world size N is taken, another N and a
-    spatial axis raise.
+  * ``--mesh-shape``: ``N 1`` at world size N and ``d s`` at world size d
+    x s are taken; another world size, and a space axis that does not
+    divide the coarsest code grid's H, raise (the spatial steps themselves
+    are ``tests/test_torch_spatial.py``'s).
 
 The spawned ranks import no jax (this module imports it only inside the
 tests); every spawn and subprocess has a timeout, so a rendezvous that hangs
@@ -470,8 +472,11 @@ def test_data_modules_slice_per_rank_as_jax(tmp_path):
 def test_mesh_shape_and_batch_checks():
     assert mesh.check_mesh_shape(None, 4) == 4
     assert mesh.check_mesh_shape([2], 2) == mesh.check_mesh_shape([2, 1], 2) == 2
-    with pytest.raises(NotImplementedError, match="spatial sharding"):
-        mesh.check_mesh_shape([2, 2], 4)
+    assert mesh.check_mesh_shape([2, 2], 4, coarsest_h=8) == 2
+    with pytest.raises(ValueError, match="coarsest code grid's H"):
+        mesh.check_mesh_shape([1, 4], 4, coarsest_h=2)
+    with pytest.raises(ValueError, match="world size"):
+        mesh.check_mesh_shape([2, 2], 2, coarsest_h=8)
     with pytest.raises(ValueError, match="world size"):
         mesh.check_mesh_shape([2], 1)
     assert mesh.local_batch_size(6, 2) == 3

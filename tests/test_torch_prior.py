@@ -181,7 +181,8 @@ def test_prior_checkpoint_and_config_interchange(tmp_path):
 
 
 def test_training_only_options_raise():
-    """What the port does not train yet (a spatial mesh axis) raises; the Fixup and
+    """A spatial mesh axis without a process group raises (the sharded steps:
+    tests/test_torch_spatial.py); the Fixup and
     concat-activation PixelCNNs build (their parity:
     tests/test_torch_prior_variants.py) and training-time dropout works
     (tests/test_torch_prior_train.py::test_dropout_trains)."""
@@ -192,10 +193,10 @@ def test_training_only_options_raise():
     args = train_prior.parse_arguments(["codes", "0", "--use-model", "pixelsnail",
                                         "--num-blocks", "3", "--attention-dropout-prob", "0"])
     assert (args.num_blocks, args.attention_dropout_prob) == (3, 0.0)
-    # multi-host training joins a process group from the launcher's env, and a
-    # spatial mesh axis is not ported
+    # multi-host training joins a process group from the launcher's env, which a
+    # spatial mesh axis needs
     assert train_prior.parse_arguments(["codes", "0", "--multihost"]).multihost
-    with pytest.raises(NotImplementedError, match="spatial sharding"):
+    with pytest.raises(ValueError, match="needs --multihost"):
         train_vqvae.main(train_vqvae.parse_arguments(["ct", "--mesh-shape", "2", "2",
                                                       "--device", "cpu"]))
     model = PixelCNN(PixelCNNConfig(**{**tiny_config(False), "dropout_prob": 0.5}))

@@ -27,14 +27,22 @@ on its contiguous slice of it), the gradients are averaged over ranks, the
 quantizers' EMA statistics and first-pass init are global, and the logs are
 the global batch's; only rank 0 prints, writes the metrics, traces
 ``--profile-dir`` and writes checkpoints. ``--mesh-shape N`` (or ``N 1``)
-must name the world size; a spatial axis (``d s``, s > 1) raises
-``NotImplementedError``. With ``--multihost``, ``--device cuda`` is the
-rank's own card (``LOCAL_RANK`` / ``SLURM_LOCALID``):
+must name the world size. ``--mesh-shape d s`` (d x s the world size, s >
+1, with ``--multihost``) also splits H over a space axis of s ranks, as the
+JAX CLI's ``('data', 'space')`` mesh does: each group of s ranks shares one
+batch slice, each holding one H slab of every activation, with halo
+exchanges around the convs, the upsamples and kernel K3's blocks
+(``parallel/halo.py``); s must divide the coarsest code grid's H. With
+``--multihost``, ``--device cuda`` is the rank's own card (``LOCAL_RANK`` /
+``SLURM_LOCALID``):
 
     torchrun --nproc-per-node 4 -m vqvae3d_tpu_torch.cli.train_vqvae /data/ct \\
         --batch-size 4 ... --multihost
     srun python -m vqvae3d_tpu_torch.cli.train_vqvae /data/ct --batch-size 8 ... \\
         --multihost --coordinator $MASTER_ADDR:8476
+    # 8 cards: 4 batch slices, each volume's H over 2 cards
+    torchrun --nproc-per-node 8 -m vqvae3d_tpu_torch.cli.train_vqvae /data/ct \\
+        --batch-size 4 ... --multihost --mesh-shape 4 2
 """
 from __future__ import annotations
 
@@ -52,9 +60,9 @@ from vqvae3d_tpu_torch.cli.extract_embeddings import resolve_device
 from vqvae3d_tpu_torch.data.ct_dataset import CTDataModule
 from vqvae3d_tpu_torch.data.device_feed import device_prefetch
 from vqvae3d_tpu_torch.models.vqvae import VQVAE, VQVAEConfig
-from vqvae3d_tpu_torch.parallel.mesh import check_mesh_shape, local_batch_size
-from vqvae3d_tpu_torch.parallel.multihost import (initialize_multihost, is_primary, rank,
-                                                  shutdown, world_size)
+from vqvae3d_tpu_torch.parallel import mesh
+from vqvae3d_tpu_torch.parallel.multihost import (initialize_multihost, is_primary, shutdown,
+                                                  world_size)
 from vqvae3d_tpu_torch.train.state import AMSGrad
 from vqvae3d_tpu_torch.train.vqvae_train import make_eval_step, make_train_step
 
@@ -83,8 +91,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--num-workers", type=int, default=5)
     parser.add_argument("--mesh-shape", type=int, nargs="+", default=None,
-                        help="'N' or 'N 1': N data-parallel processes (the world size); a "
-                             "spatial axis (s > 1) is not ported and raises")
+                        help="'d' or 'd s': d batch slices x s H slabs a volume (d x s = the "
+                             "world size; s > 1 needs --multihost)")
     parser.add_argument("--precision", choices=["bf16", "fp32"], default="bf16")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler trace of steps 10-15 here")
@@ -112,15 +120,23 @@ def _sync(device):
 def main(args):
     if args.coordinator and not args.multihost:
         raise ValueError("--coordinator needs --multihost")
-    device = (initialize_multihost(args.coordinator, device=args.device) if args.multihost
-              else resolve_device(args.device))
-    world = check_mesh_shape(args.mesh_shape, world_size())
-    local_batch_size(args.batch_size, world)
-    primary = is_primary()
-    proc = dict(process_index=rank(), process_count=world)
-    np.random.seed(args.seed)
+    if args.mesh_shape and len(args.mesh_shape) == 2 and args.mesh_shape[1] > 1 \
+            and not args.multihost:
+        raise ValueError("--mesh-shape d s with s > 1 needs --multihost")
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     config = dataclass_from_args(VQVAEConfig, args, overrides={"dtype": dtype})
+    volume = tuple(args.rescale_input) if args.rescale_input else (*args.scan_size,
+                                                                    args.output_depth)
+    device = (initialize_multihost(args.coordinator, device=args.device) if args.multihost
+              else resolve_device(args.device))
+    data = mesh.check_mesh_shape(args.mesh_shape, world_size(),
+                                 config.code_grid_shapes(volume)[-1][0])
+    mesh.init_mesh(world_size() // data)
+    mesh.local_batch_size(args.batch_size, data)
+    primary = is_primary()
+    proc = dict(process_index=mesh.data_index(), process_count=data,
+                space_index=mesh.space_index(), space_count=mesh.space_size())
+    np.random.seed(args.seed)
     model = VQVAE(config, generator=torch.Generator().manual_seed(args.seed), device=device)
     dm = CTDataModule(
         str(args.dataset_path),
@@ -133,7 +149,8 @@ def main(args):
         cache_dir=args.volume_cache,
     )
     if primary:
-        print(f"dataset: {dm.train_len} train / {dm.val_len} val scans; {world} process(es)")
+        print(f"dataset: {dm.train_len} train / {dm.val_len} val scans; {world_size()} "
+              f"process(es), mesh (data, space) = ({data}, {mesh.space_size()})")
     if dm.train_len < args.batch_size:
         raise ValueError("not enough scans for one batch")
     optimizer = AMSGrad(model.parameters(), lr=config.base_lr)
@@ -196,6 +213,7 @@ def main(args):
     if primary:
         print(f"done at step {step}; best val_recon_loss_mean={best_val:.5g}")
     if args.multihost:
+        mesh.reset_mesh()
         shutdown()
     return model, optimizer, step
 

@@ -12,7 +12,8 @@ over):
     preprocessed volumes as ``.npz``.
   * ``CTDataModule`` — seeded train/val split, shuffled drop-last batches,
     background decode threads and a prefetch queue; under several processes
-    each decodes only its contiguous slice of every global batch.
+    each decodes only its contiguous slice of every global batch, and under
+    a space axis keeps only its H slab of it.
 
 Batches are dicts {'volume': (B, H, W, D, 1) float32, 'num_valid_slices':
 (B,) int32}, as the JAX loader yields them.
@@ -142,6 +143,14 @@ def _area_rescale_np(vol: np.ndarray, size: Sequence[int]) -> np.ndarray:
     return out.astype(vol.dtype)
 
 
+def h_slab(volumes: np.ndarray, index: int, count: int) -> np.ndarray:
+    """Rows [i H/s, (i + 1) H/s) of (B, H, W, D, C) volumes (a view)."""
+    h = volumes.shape[1]
+    if h % count:
+        raise ValueError(f"H {h} does not split into {count} slabs")
+    return volumes[:, index * h // count:(index + 1) * h // count]
+
+
 class CTDataModule:
     """Seeded split + batched iteration with background decode and prefetch."""
 
@@ -171,13 +180,17 @@ class CTDataModule:
         self.val_indices = perm[int(n * train_frac):]
 
     def _iter(self, indices, shuffle: bool, epoch: int = 0, process_index: int = 0,
-              process_count: int = 1) -> Iterator[dict]:
+              process_count: int = 1, space_index: int = 0,
+              space_count: int = 1) -> Iterator[dict]:
         """Iterate global batches of ``batch_size``; under ``process_count``
         processes each decodes only its contiguous slice of every global
         batch (the per-rank DistributedSampler of the reference's DDP). The
         shuffle is keyed on (seed, epoch) alone, so every process draws the
         same permutation and the slices' union is the global batch (JAX
-        ct_dataset.py:305-330)."""
+        ct_dataset.py:305-330). With ``space_count`` > 1 the volumes keep
+        only their H slab ``space_index`` of ``space_count`` (the rows
+        [i H/s, (i + 1) H/s)), as the JAX package's volume sharding on its
+        mesh's 'space' axis places them."""
         idx = np.array(indices)
         if shuffle:
             idx = np.random.default_rng(self.seed + 1 + epoch).permutation(idx)
@@ -204,6 +217,8 @@ class CTDataModule:
                 def assemble():
                     samples = [f.result() for f in futs]
                     vols = samples[0][0][None] if bs == 1 else np.stack([s[0] for s in samples])
+                    if space_count > 1:
+                        vols = np.ascontiguousarray(h_slab(vols, space_index, space_count))
                     nvs = np.array([s[1] for s in samples], np.int32)
                     return {"volume": vols, "num_valid_slices": nvs}
 
@@ -218,12 +233,15 @@ class CTDataModule:
                     futures.put(submit_batch(b + prefetch))
                 yield batch
 
-    def train_dataloader(self, epoch: int = 0, process_index: int = 0,
-                         process_count: int = 1) -> Iterator[dict]:
-        return self._iter(self.train_indices, True, epoch, process_index, process_count)
+    def train_dataloader(self, epoch: int = 0, process_index: int = 0, process_count: int = 1,
+                         space_index: int = 0, space_count: int = 1) -> Iterator[dict]:
+        return self._iter(self.train_indices, True, epoch, process_index, process_count,
+                          space_index, space_count)
 
-    def val_dataloader(self, process_index: int = 0, process_count: int = 1) -> Iterator[dict]:
-        return self._iter(self.val_indices, False, 0, process_index, process_count)
+    def val_dataloader(self, process_index: int = 0, process_count: int = 1,
+                       space_index: int = 0, space_count: int = 1) -> Iterator[dict]:
+        return self._iter(self.val_indices, False, 0, process_index, process_count,
+                          space_index, space_count)
 
     @property
     def train_len(self) -> int:

@@ -40,6 +40,7 @@ same math and are not ported.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -55,6 +56,7 @@ from vqvae3d_tpu_torch.ops.conv3d import (
 )
 from vqvae3d_tpu_torch.ops.resize import trilinear_upsample2x
 from vqvae3d_tpu_torch.ops.stack_kernel import preact_fixup_same, preact_stack_fused
+from vqvae3d_tpu_torch.parallel import halo, mesh
 
 SCALARS = ("1a", "1b", "2a", "2b", "3a", "3b", "4")
 
@@ -214,14 +216,23 @@ def group_std(x: torch.Tensor, groups: Optional[int] = None, eps: float = 1e-5) 
     spatial voxel of (B, C, ...), broadcast back to x's shape (a view: the
     (B, C, 1, ...) stds expanded). About 8 channels a group; the population
     variance; right for any batch (the reference's evonorm.py:8-26 reshapes
-    to batch 1)."""
+    to batch 1). On an H slab (``parallel/halo.py``) the two-pass
+    statistics are summed over the space group, so they are the whole
+    volume's."""
     b, c = x.shape[:2]
     if groups is None:
         groups = max(c // 8, 1)
     if c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
     xg = x.reshape(b, groups, c // groups, *x.shape[2:])
-    var = torch.var(xg, dim=tuple(range(2, xg.ndim)), keepdim=True, correction=0)
+    dims = tuple(range(2, xg.ndim))
+    if halo.active():
+        n = math.prod(xg.shape[2:]) * mesh.space_size()
+        group = mesh.space_group()
+        mean = mesh.AllReduceSum.apply(xg.sum(dims, keepdim=True), group) / n
+        var = mesh.AllReduceSum.apply(torch.square(xg - mean).sum(dims, keepdim=True), group) / n
+    else:
+        var = torch.var(xg, dim=dims, keepdim=True, correction=0)
     std = torch.sqrt(var + eps)
     per_channel = std.expand(b, groups, c // groups, *std.shape[3:]).reshape(
         b, c, *std.shape[3:])

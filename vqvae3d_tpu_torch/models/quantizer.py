@@ -126,7 +126,10 @@ def quantize_train(inputs: torch.Tensor, state: QuantizerState, *,
     the init's N, mean and std (``row_stats``), and K1b's counts and dw,
     sum-all-reduced before the EMA update (the psums of JAX
     quantizer.py:139-145; counts are integers in fp32, so their sum is
-    exact). Every rank then holds the same EMA state."""
+    exact). Every rank then holds the same EMA state. Under a space axis
+    (``--mesh-shape d s``) x is the rank's H slab: the same sums over the
+    world count each voxel once, and the commitment loss is the slab's part
+    of its space group's mean."""
     x = inputs.float()
     x_last = x.movedim(1, -1)
     flat = x_last.reshape(-1, x_last.shape[-1])
@@ -147,6 +150,8 @@ def quantize_train(inputs: torch.Tensor, state: QuantizerState, *,
 def _finish(x, x_last, rows, indices, commitment_cost):
     quantized = rows.reshape(x_last.shape).movedim(-1, 1)
     loss = commitment_cost * torch.mean(torch.square(quantized - x.detach()))
+    if mesh.space_size() > 1:  # the slab's part of its space group's mean
+        loss = loss / mesh.space_size()
     quantized_st = x + (quantized - x).detach()
     return loss, quantized_st, indices.reshape(x_last.shape[:-1])
 

@@ -22,6 +22,14 @@ PixelCNN's branch convs) included: as in the JAX package, whose special
 paths all take ``groups == 1``, K7 never sees a grouped conv. The route is
 chosen from the shapes and ``groups`` before any launch.
 
+Under a space group (``parallel/halo.py``, ``--mesh-shape d s``) a conv
+runs on the rank's H slab, ``pad3d`` taking H's padding from the
+neighbouring slabs: the 'same' k3s1p1 conv and the 'down' k4s2p1 conv (an
+even slab with one row below and one above gives exactly the slab's output
+rows) exchange, the k2s2 skip and the 1x1x1 convs do not. K7 then computes
+the slab's part of dW from its padded slab; the gradient all-reduce sums
+the parts.
+
 The TPU-only rewrites of the JAX module (block-space s2d convs, folded
 weights) are exact re-expressions of this math for 128-lane layouts and are
 not ported.
@@ -36,20 +44,24 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vqvae3d_tpu_torch.ops import _build
+from vqvae3d_tpu_torch.parallel import halo
 
 SMALLC_MAX = 32  # the custom backward takes max(Cin, Cout) <= this
 
 
 def pad3d(x: torch.Tensor, pad: int, mode: str = "zeros") -> torch.Tensor:
     """Pad the three spatial dims (H, W, D) of (B, C, H, W, D) by ``pad`` on
-    each side."""
+    each side. Under a space group (``parallel/halo.py``) x is an H slab:
+    H's padding is the neighbouring slabs' planes (the volume's ends by
+    ``mode``), W's and D's as without one."""
     if pad == 0:
         return x
-    if mode == "zeros":
-        return F.pad(x, (pad,) * 6)
-    if mode == "wrap":
-        return F.pad(x, (pad,) * 6, mode="circular")
-    raise ValueError(f"unknown pad mode {mode!r}")
+    if mode not in ("zeros", "wrap"):
+        raise ValueError(f"unknown pad mode {mode!r}")
+    spec = (pad,) * 6
+    if halo.active():
+        x, spec = halo.exchange(x, pad, mode), (pad,) * 4 + (0, 0)
+    return F.pad(x, spec) if mode == "zeros" else F.pad(x, spec, mode="circular")
 
 
 def conv3d(

@@ -18,11 +18,18 @@ Counterpart of ``vqvae3d_tpu/ops/resize.py`` (which works on (B, H, W, D, C)):
   * ``space_to_depth`` / ``depth_to_space`` — the stem's f x f x f voxel
     blocks packed into channels, channel order (ph, pw, pd, c) with c
     fastest, as in the JAX package.
+
+Under a space group (``parallel/halo.py``) volumes are H slabs: the x2
+upsample takes one row from each neighbouring slab (its separable passes
+serve eval too), and space_to_depth / depth_to_space work per slab, whose
+H holds whole stride groups.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from vqvae3d_tpu_torch.parallel import halo
 
 
 def _upsample2x_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -37,7 +44,16 @@ def _upsample2x_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def trilinear_upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """x2 trilinear upsample of the three spatial dims of (B, C, H, W, D)."""
+    """x2 trilinear upsample of the three spatial dims of (B, C, H, W, D).
+    Under a space group x is an H slab: its H pass reads one row from each
+    neighbouring slab (the volume's ends clamped), and the result is the
+    rows of the whole volume's upsample that the slab owns."""
+    if halo.active():
+        rows = 2 * x.shape[2]
+        out = _upsample2x_axis(halo.exchange(x, 1, "clamp").float(), 2).narrow(2, 2, rows)
+        for dim in (3, 4):
+            out = _upsample2x_axis(out, dim)
+        return out.to(x.dtype)
     if not (torch.is_grad_enabled() and x.requires_grad):
         return F.interpolate(x, scale_factor=2, mode="trilinear", align_corners=False)
     out = x.float()

@@ -36,12 +36,14 @@ The JAX package's resident/streaming/tiled variants and its s2d stack folds
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from vqvae3d_tpu_torch.ops import _build
+from vqvae3d_tpu_torch.parallel import halo
 from vqvae3d_tpu_torch.ops.conv3d import (conv3d, stack_bwd_brick_route,
                                           stack_bwd_tensor_core_route, stack_fwd_route)
 
@@ -61,11 +63,54 @@ def preact_fixup_same(x, w1, w2, w3, sc8, *, pad_mode: str):
     return out * scale + b4 + x
 
 
-def preact_stack_plain(x, w1s, w2s, w3s, sc8, *, pad_mode: str):
-    """The stack as a loop of the plain block."""
-    for j in range(w1s.shape[0]):
-        x = preact_fixup_same(x, w1s[j], w2s[j], w3s[j], sc8[j], pad_mode=pad_mode)
+def preact_stack_plain(x, w1s, w2s, w3s, sc8, *, pad_mode: str, fill=None):
+    """The stack as a loop of the plain block; ``fill(x, 2)`` writes a slab
+    buffer's halo rows before each block (``_on_slab``)."""
+    with halo.suspended():
+        for j in range(w1s.shape[0]):
+            if fill is not None:
+                fill(x, 2)
+            x = preact_fixup_same(x, w1s[j], w2s[j], w3s[j], sc8[j], pad_mode=pad_mode)
     return x
+
+
+def stack_halo_rows(pad_mode: str):
+    """(lo, hi): the neighbour planes a slab's stack buffer holds below and
+    above the slab, one a side, but none at a true end of the volume in
+    'zeros' mode, where the kernel's own zero padding is the volume's (the
+    conv pads a2, not the block input)."""
+    first, last = halo.ends()
+    wrap = pad_mode == "wrap"
+    return int(wrap or not first), int(wrap or not last)
+
+
+def _fill_halo(buf, dim: int, lo: int, hi: int) -> None:
+    """Write the neighbouring slabs' edge planes into the halo rows of a
+    stack buffer (H at ``dim``; the slab's rows lo .. n - hi - 1), in
+    place. Every rank of the space group calls it (one exchange)."""
+    n = buf.shape[dim]
+    below, above = halo.swap_edges(buf.select(dim, lo), buf.select(dim, n - hi - 1))
+    if lo:
+        buf.select(dim, 0).copy_(below)
+    if hi:
+        buf.select(dim, n - 1).copy_(above)
+
+
+def _fold_halo(buf, dim: int, lo: int, hi: int) -> None:
+    """The backward of ``_fill_halo`` on a cotangent buffer, in place: send
+    the halo rows' cotangents to the slabs that own those rows, add theirs
+    to this slab's edge rows, then zero the halo rows (the next block's
+    backward takes a cotangent that is zero there)."""
+    n = buf.shape[dim]
+    below, above = buf.select(dim, 0), buf.select(dim, n - 1)
+    from_prev, from_next = halo.swap_edges(below if lo else torch.zeros_like(below),
+                                           above if hi else torch.zeros_like(above))
+    if lo:
+        buf.select(dim, lo).add_(from_prev)
+        below.zero_()
+    if hi:
+        buf.select(dim, n - hi - 1).add_(from_next)
+        above.zero_()
 
 
 def _cob(n: int) -> int:
@@ -198,11 +243,12 @@ def _check(x, w1s, w2s, w3s, sc8, pad_mode):
         )
 
 
-def _forward_cuda(x, w1s, w2s, w3s, sc8, pad_mode, saves=None):
+def _forward_cuda(x, w1s, w2s, w3s, sc8, pad_mode, saves=None, fill=None):
     """K3 forward over the stack, on ``conv3d.stack_fwd_route``'s route.
     Without ``saves`` the activations ping-pong between two buffers; with
     ``saves`` (NB, B, H, W, D, C) block j reads saves[j] and writes saves[j +
-    1] (the last block a fresh buffer)."""
+    1] (the last block a fresh buffer). ``fill(buf, 1)`` writes a slab
+    buffer's halo rows before each launch (``_on_slab``)."""
     _check(x, w1s, w2s, w3s, sc8, pad_mode)
     nb = w1s.shape[0]
     b, c, h, w, d = x.shape
@@ -230,6 +276,8 @@ def _forward_cuda(x, w1s, w2s, w3s, sc8, pad_mode, saves=None):
     stream = _build.stream_ptr(x.device)
     is_bf16 = int(x.dtype == torch.bfloat16)
     for j in range(nb):
+        if fill is not None:
+            fill(cur, 1)
         if fused:
             err = lib.vq_preact_block_fwd_fused(
                 cur.data_ptr(), w1p[j].data_ptr(), w2p[j].data_ptr(), w3p[j].data_ptr(),
@@ -247,18 +295,22 @@ def _forward_cuda(x, w1s, w2s, w3s, sc8, pad_mode, saves=None):
     return cur.permute(0, 4, 1, 2, 3)
 
 
-def preact_stack_bwd_plain(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
+def preact_stack_bwd_plain(saves, gy, w1s, w2s, w3s, sc8, pad_mode, fold=None):
     """The stack's backward by the autograd of the plain block, block by
     block in reverse, each recomputed from its saved input (saves[j],
-    channels-last). Returns (dx, dw1s, dw2s, dw3s, dsc8)."""
+    channels-last); ``fold(g, 2)`` passes a slab buffer's halo cotangents
+    on after each block (``_on_slab``). Returns (dx, dw1s, dw2s, dw3s,
+    dsc8)."""
     grads = []
     g = gy
-    with torch.enable_grad():
+    with torch.enable_grad(), halo.suspended():
         for j in reversed(range(w1s.shape[0])):
             xj = saves[j].permute(0, 4, 1, 2, 3).detach().requires_grad_()
             ws = [t[j].detach().requires_grad_() for t in (w1s, w2s, w3s, sc8)]
             y = preact_fixup_same(xj, *ws, pad_mode=pad_mode)
             g, *gw = torch.autograd.grad(y, [xj, *ws], g)
+            if fold is not None:
+                fold(g, 2)
             grads.append(gw)
     return (g, *(torch.stack(t[::-1]) for t in zip(*grads)))
 
@@ -289,7 +341,7 @@ def contract_plan(b: int, h: int, w: int, d: int, c: int, cb: int):
     return chunks, need
 
 
-def preact_stack_bwd(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
+def preact_stack_bwd(saves, gy, w1s, w2s, w3s, sc8, pad_mode, fold=None):
     """The stack's backward on the card: one K3-backward launch per block,
     last block first (each adds one to ``preact_stack_bwd.launches``).
     saves (NB, B, H, W, D, C) are the blocks' inputs, gy the cotangent of the
@@ -298,13 +350,14 @@ def preact_stack_bwd(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
     brick kernels (``_bwd_bricks``) where ``conv3d.stack_bwd_brick_route``
     says so, else the five elementwise kernels; the weight contractions take
     the tensor cores in bf16 and the CUDA cores in fp32
-    (``conv3d.stack_bwd_tensor_core_route``)."""
+    (``conv3d.stack_bwd_tensor_core_route``). ``fold(dx, 1)`` passes a
+    slab buffer's halo cotangents on after each block (``_on_slab``)."""
     _check(gy, w1s, w2s, w3s, sc8, pad_mode)
     nb, cb, c = w1s.shape[:3]
     b, _, h, w, d = gy.shape
     dt = saves.dtype
     if stack_bwd_brick_route(dt, cb):
-        return _bwd_bricks(saves, gy, w1s, w2s, w3s, sc8, pad_mode)
+        return _bwd_bricks(saves, gy, w1s, w2s, w3s, sc8, pad_mode, fold)
     nvox = b * h * w * d
     w1p, w2p, w3p = pack_stack_weights(w1s, w2s, w3s, dt)
     w1t, w2t, w3t = pack_stack_weights_t(w1s, w2s, w3s, dt)
@@ -338,13 +391,15 @@ def preact_stack_bwd(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
             "preact_stack_bwd",
         )
         preact_stack_bwd.launches += 1
+        if fold is not None:
+            fold(dx, 1)
         g = dx
     # (NB, 27, Cb_out, Cb_in) with tap = (kh*3 + kw)*3 + kd -> (NB, Cb_out, Cb_in, 3, 3, 3)
     dw2 = dw2.permute(0, 2, 3, 1).reshape(nb, cb, cb, 3, 3, 3)
     return (g.permute(0, 4, 1, 2, 3), dw1.reshape(w1s.shape), dw2, dw3.reshape(w3s.shape), dsc)
 
 
-def _bwd_bricks(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
+def _bwd_bricks(saves, gy, w1s, w2s, w3s, sc8, pad_mode, fold=None):
     """``preact_stack_bwd`` on the brick route (bf16): one
     ``vq_preact_block_bwd_brick`` a block, last block first, on the forward's
     bricks (``fused_brick`` at ``fused_voxels``); the contractions on the
@@ -383,6 +438,8 @@ def _bwd_bricks(saves, gy, w1s, w2s, w3s, sc8, pad_mode):
             "preact_stack_bwd",
         )
         preact_stack_bwd.launches += 1
+        if fold is not None:
+            fold(dx, 1)
         g = dx
     dw2 = dw2.permute(0, 2, 3, 1).reshape(nb, cb, cb, 3, 3, 3)
     return (g.permute(0, 4, 1, 2, 3), dw1.reshape(w1s.shape), dw2, dw3.reshape(w3s.shape), dsc)
@@ -397,29 +454,37 @@ class _PreactStack(torch.autograd.Function):
     block's input, the backward recomputes each block from it."""
 
     @staticmethod
-    def forward(ctx, x, w1s, w2s, w3s, sc8, pad_mode):
+    def forward(ctx, x, w1s, w2s, w3s, sc8, pad_mode, rows=None):
         nb = w1s.shape[0]
         b, c, h, w, d = x.shape
+        fill = None if rows is None else functools.partial(_fill_halo, lo=rows[0], hi=rows[1])
         saves = torch.empty((nb, b, h, w, d, c), dtype=x.dtype, device=x.device)
         if x.device.type == "cuda":
-            y = _forward_cuda(x, w1s, w2s, w3s, sc8, pad_mode, saves=saves)
+            y = _forward_cuda(x, w1s, w2s, w3s, sc8, pad_mode, saves=saves, fill=fill)
         else:
             cur = x
-            for j in range(nb):
-                saves[j].copy_(cur.permute(0, 2, 3, 4, 1))
-                cur = preact_fixup_same(cur, w1s[j], w2s[j], w3s[j], sc8[j], pad_mode=pad_mode)
+            with halo.suspended():
+                for j in range(nb):
+                    saves[j].copy_(cur.permute(0, 2, 3, 4, 1))
+                    if fill is not None:
+                        fill(saves[j], 1)
+                        cur = saves[j].permute(0, 4, 1, 2, 3)
+                    cur = preact_fixup_same(cur, w1s[j], w2s[j], w3s[j], sc8[j],
+                                            pad_mode=pad_mode)
             y = cur
         ctx.save_for_backward(saves, w1s, w2s, w3s, sc8)
-        ctx.pad_mode = pad_mode
+        ctx.pad_mode, ctx.rows = pad_mode, rows
         return y
 
     @staticmethod
     def backward(ctx, gy):
         saves, w1s, w2s, w3s, sc8 = ctx.saved_tensors
         bwd = preact_stack_bwd_plain if saves.device.type == "cpu" else preact_stack_bwd
-        dx, dw1, dw2, dw3, dsc = bwd(saves, gy, w1s, w2s, w3s, sc8, ctx.pad_mode)
+        fold = (None if ctx.rows is None else
+                functools.partial(_fold_halo, lo=ctx.rows[0], hi=ctx.rows[1]))
+        dx, dw1, dw2, dw3, dsc = bwd(saves, gy, w1s, w2s, w3s, sc8, ctx.pad_mode, fold)
         return (dx.to(gy.dtype), dw1.to(w1s.dtype), dw2.to(w2s.dtype), dw3.to(w3s.dtype),
-                dsc.to(sc8.dtype), None)
+                dsc.to(sc8.dtype), None, None)
 
 
 def preact_stack_fused(x, w1s, w2s, w3s, sc8, pad_mode: str):
@@ -428,9 +493,12 @@ def preact_stack_fused(x, w1s, w2s, w3s, sc8, pad_mode: str):
     When autograd needs a gradient of any input: the saving forward and the
     K3 backward (``_PreactStack``). Otherwise: CPU -> ``preact_stack_plain``;
     CUDA -> one K3 launch per block (fp32 or bf16 activations), saving
-    nothing. Any other device or dtype raises."""
+    nothing. Under a space group x is an H slab (``_on_slab``). Any other
+    device or dtype raises."""
     if w1s.shape[0] == 0:
         return x
+    if halo.active():
+        return _on_slab(x, w1s, w2s, w3s, sc8, pad_mode)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1s, w2s, w3s, sc8)):
         return _PreactStack.apply(x, w1s, w2s, w3s, sc8, pad_mode)
     if x.device.type == "cpu":
@@ -439,3 +507,27 @@ def preact_stack_fused(x, w1s, w2s, w3s, sc8, pad_mode: str):
 
 
 preact_stack_fused.launches = 0
+
+
+def _on_slab(x, w1s, w2s, w3s, sc8, pad_mode):
+    """The stack on an H slab of (B, C, H/s, W, D): the slab in a buffer of
+    lo + H/s + hi rows (``stack_halo_rows``) whose halo rows hold the
+    neighbouring slabs' edge planes of each block's input, written before
+    each block (``_fill_halo``); the unchanged per-block step (K3 on a card)
+    runs over the whole buffer in either pad mode. The slab's rows are then
+    exact: only the halo rows read a wrapped or zero row, and the next
+    exchange overwrites them. The backward takes a cotangent that is zero
+    on the halo rows; each block's dx there is the neighbours' share, sent
+    to them and added to their edge rows (``_fold_halo``). gt3 is zero on
+    the halo rows, so the weight gradients, summed over the space group by
+    the gradient all-reduce, count every (row, cotangent) pair once."""
+    lo, hi = stack_halo_rows(pad_mode)
+    xp = F.pad(x, (0, 0, 0, 0, lo, hi))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1s, w2s, w3s, sc8)):
+        y = _PreactStack.apply(xp, w1s, w2s, w3s, sc8, pad_mode, (lo, hi))
+    else:
+        fill = functools.partial(_fill_halo, lo=lo, hi=hi)
+        y = (preact_stack_plain(xp, w1s, w2s, w3s, sc8, pad_mode=pad_mode, fill=fill)
+             if x.device.type == "cpu" else
+             _forward_cuda(xp, w1s, w2s, w3s, sc8, pad_mode, fill=fill))
+    return y.narrow(2, lo, x.shape[2])

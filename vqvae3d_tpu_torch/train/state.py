@@ -42,10 +42,11 @@ def amsgrad_update(grad: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
 class AMSGrad:
     """AMSGrad over a list of parameters, the state flat (``optax.flatten``).
     A parameter without a gradient counts as a zero gradient, as in JAX.
-    Under a process group the flat gradient is averaged over ranks before
-    the update (``parallel.mesh.average_gradient``: one all-reduce, and the
-    parameters' own ``.grad`` stay the rank's), so every rank takes the
-    global batch's step."""
+    Under a process group the flat gradient is summed over the space axis
+    and averaged over the data axis before the update
+    (``parallel.mesh.average_gradient``: one all-reduce, and the parameters'
+    own ``.grad`` stay the rank's), so every rank takes the global batch's
+    step and holds the same parameters, bit for bit."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):

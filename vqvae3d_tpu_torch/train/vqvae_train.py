@@ -25,7 +25,15 @@ Under a process group (``parallel/``) the batch is the rank's slice of the
 global batch, as the JAX step's batch is sharded on the mesh's 'data' axis:
 the loss is the rank's mean over an equal count, the gradients are averaged
 over ranks, the quantizers' statistics are global, and the log holds the
-global batch's values (``weighted_log``).
+global batch's values (``weighted_log``). Under ``--mesh-shape d s`` with
+s > 1 the batch is also cut along H, as the JAX step's volumes are sharded
+on 'space': each rank of a space group holds one H slab of its batch slice
+and its loss is the slab's part of its space group's mean (sums over the
+slab over the whole volume's count), so the gradients summed over 'space'
+and averaged over 'data' are the global batch's; the cylinder mask takes
+the slab's rows; the eval step gathers the space group's slabs for the
+slice-wise SSIM, which needs whole H x W slices (the one gather of a whole
+volume, in eval only).
 """
 from __future__ import annotations
 
@@ -98,11 +106,13 @@ def weighted_log(pointwise, loc, xf, mask, count, *, recon_from_square: bool,
                  with_median: bool) -> Dict[str, torch.Tensor]:
     """min / max / mean / std (and with ``with_median`` the median) of the
     per-voxel loss and of the reconstruction over ``mask`` (``count``
-    voxels a rank), NMSE and PSNR, global over ranks (``parallel.mesh``):
-    each rank's means are over an equal count, so their mean over ranks is
-    the global one; the two-pass std takes the global mean first; NMSE and
-    PSNR take the global sums; the medians gather every rank's voxels. At
-    world size 1 the rank's own statistics."""
+    voxels a batch slice), NMSE and PSNR, global over ranks
+    (``parallel.mesh``): each rank's sums over its voxels divided by its
+    batch slice's count, so their 'mean' (summed over the space axis,
+    averaged over the data axis) is the global mean; the two-pass std takes
+    the global mean first; NMSE and PSNR take the global sums; the medians
+    gather every rank's voxels. At world size 1 the rank's own
+    statistics."""
     wgt = mask.float()
     big = float("inf")
     values = {"recon_loss": pointwise, "loc": loc}
@@ -150,16 +160,19 @@ def vqvae_loss_fn(model, batch: Dict[str, torch.Tensor], *, train: bool,
     commitment_loss = sum(c_losses)
     b, c, h, w, d = x.shape
 
-    mask = (cylinder_mask(h, w, x.device) if extract_cylinder
-            else torch.ones(1, 1, h, w, 1, dtype=torch.bool, device=x.device))
+    # under a space axis x holds the rows [i h, (i + 1) h) of volumes of s h
+    s, i = mesh.space_size(), mesh.space_index()
+    mask = (cylinder_mask(s * h, w, x.device) if extract_cylinder
+            else torch.ones(1, 1, s * h, w, 1, dtype=torch.bool, device=x.device))
     count = torch.sum(mask.float()) * b * d * c
+    mask = mask[:, :, i * h:(i + 1) * h] if s > 1 else mask
     recon_loss = torch.sum(pointwise * mask.float()) / count
     # the JAX train path's std of the loss is from its square
     log = weighted_log(pointwise.detach(), loc.detach(), xf, mask, count,
                        recon_from_square=train and extract_cylinder, with_median=with_median)
 
     loss = recon_loss + commitment_loss
-    # means over an equal count on every rank: their mean over ranks is global
+    # each rank's part of its batch slice's mean: their 'mean' is global
     log.update(mesh.all_reduce_dict({
         "commitment_loss": commitment_loss, "loss": loss,
         **{f"commitment_loss_{i}": cl for i, cl in enumerate(c_losses)}}, "mean"))
@@ -173,8 +186,10 @@ def make_train_step(model, optimizer, extract_cylinder: bool = True):
     One forward with the quantizers' train path, the backward, and one
     optimizer step (``train.state.AMSGrad``); params, EMA buffers and the
     optimizer state change in place. Under a process group the batch is the
-    rank's slice of the global batch: AMSGrad averages the gradient over
-    ranks before its update, and the log holds the global batch's values."""
+    rank's slice of the global batch (and under a space axis its H slab):
+    AMSGrad sums the gradient over the space axis and averages it over the
+    data axis before its update, and the log holds the global batch's
+    values."""
 
     def train_step(batch):
         optimizer.zero_grad()
@@ -195,8 +210,12 @@ def make_eval_step(model, extract_cylinder: bool = True):
     def eval_step(batch):
         _, log, loc = vqvae_loss_fn(model, batch, train=False,
                                     extract_cylinder=extract_cylinder, with_median=True)
-        ssim = ssim3d_slices(loc, batch["volume"].movedim(-1, 1).float())
-        # a mean over as many slices on every rank
+        # whole H x W slices: the space group's slabs gathered (eval only)
+        ssim = ssim3d_slices(mesh.space_gather(loc),
+                             mesh.space_gather(batch["volume"].movedim(-1, 1).float()))
+        if mesh.space_size() > 1:  # every rank of the space group holds it
+            ssim = ssim / mesh.space_size()
+        # a mean over as many slices on every batch slice
         log["ssim"] = mesh.all_reduce_dict({"ssim": ssim}, "mean")["ssim"]
         return log
 
