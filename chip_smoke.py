@@ -276,7 +276,11 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      ``data_marginal`` on the card against ``np.histogram``; (c)
      ``train_vqvae --multihost --mesh-shape 1 2`` through the CLI for 2
      steps and a validation at 10 + 10 blocks a level (full widths), beside
-     (a)'s one-process reference.
+     (a)'s one-process reference; (d) (a)'s checks on a volume of 64 x 512
+     x 128 (``SP_WHOLE_VOLUME``: code grids of H 16 / 4 / 1, so the
+     coarsest level runs whole on both ranks, ``models/vqvae.py``) in the
+     same rank processes, with each rank's launches, its peak memory and a
+     bf16 step timed on both ranks at once.
 
 Cuts made for the 1200 s limit (widths, grids and batches stay the
 published ones): phases 20-21's mid PixelSNAIL at 2 of its 8 blocks;
@@ -4623,7 +4627,7 @@ def dp_check_params(state: dict, ref_state: dict, grads: dict, tols: dict, lr: f
 
 def dp_compare(ident, name, ref, ranks, lr, stage1: bool, launches: dict,
                label: str = "two ranks (gloo, one card) vs one process on the global batch of 2",
-               log_tol: float = DP_LOG_TOL):
+               log_tol: float = DP_LOG_TOL, loss_tol: float = STEP_LOSS_TOL):
     """The two ranks against the one-process steps: the ranks' states bit for
     bit; per step the loss, the log, the gradients, the launches a rank, and
     for stage 1 each level's indices (equal but at genuine ties, judged on
@@ -4642,7 +4646,8 @@ def dp_compare(ident, name, ref, ranks, lr, stage1: bool, launches: dict,
     for n, (want, got) in enumerate(zip(ref_steps, steps), 1):
         loss_err = dp_rel(got["log"].get("loss", got["log"].get("loss_mean")),
                           want["log"].get("loss", want["log"].get("loss_mean")))
-        log_err = max(dp_rel(got["log"][k], v) for k, v in want["log"].items())
+        log_key, log_err = max(((k, dp_rel(got["log"][k], v)) for k, v in want["log"].items()),
+                               key=lambda kv: kv[1])
         err, tol = dp_grads(got["grads"], want["grads"])
         worst = sorted(err.items(), key=lambda kv: -kv[1])[:2]
         worst_grad = max(worst_grad, worst[0][1])
@@ -4655,7 +4660,13 @@ def dp_compare(ident, name, ref, ranks, lr, stage1: bool, launches: dict,
             q0 = QuantizerState(*(want["before"][f"encoder.quantize.{lvl}.{k}"] for k in
                                   ("embed", "embed_avg", "cluster_size", "first_pass")))
             embed = ema_first_pass_init(q0, flat).embed
-            a = torch.cat([rank_steps[n - 1]["seen"][lvl][1] for rank_steps, _ in ranks])
+            parts = [rank_steps[n - 1]["seen"][lvl][1] for rank_steps, _ in ranks]
+            # a level that runs whole on a space group holds every row on each rank
+            whole = parts[0].numel() == b.numel()
+            if whole and not all(torch.equal(p, parts[0]) for p in parts):
+                raise AssertionError(f"{name} step {n} level {lvl}: the ranks' whole level "
+                                     f"differs")
+            a = parts[0] if whole else torch.cat(parts)
             ties, real = quantizer_ops.genuine_ties(flat, embed, a, b)
             if real.numel():
                 raise AssertionError(f"{name} step {n} level {lvl}: {real.numel()} index "
@@ -4665,12 +4676,12 @@ def dp_compare(ident, name, ref, ranks, lr, stage1: bool, launches: dict,
             mism.append(f"level {lvl} {diff.numel()} (ties {ties.numel()})")
         print(f"fp32 {name} step {n}, {label}: "
               f"loss {got['log'].get('loss', got['log'].get('loss_mean')):.7g} "
-              f"(rel {loss_err:.2e}); log worst rel {log_err:.2e}; gradients worst "
+              f"(rel {loss_err:.2e}); log worst rel {log_err:.2e} ({log_key}); gradients worst "
               + ", ".join(f"{k} {e:.2e}" for k, e in worst)
               + (f"; index mismatches {', '.join(mism)}" if mism else "")
               + f"; launches a rank {({k: v for k, v in rank_steps[n - 1]['launches'].items() if v})}"
               f" [{ident}]")
-        if (loss_err > STEP_LOSS_TOL or log_err > log_tol or worst[0][1] > STEP_GRAD_TOL
+        if (loss_err > loss_tol or log_err > log_tol or worst[0][1] > STEP_GRAD_TOL
                 or not np.isfinite(loss_err)):
             raise AssertionError(f"{name} step {n}: the two ranks disagree with one process")
     params = dict(ref_steps[-1]["grads"])
@@ -4839,6 +4850,9 @@ def phase_data_parallel(ident, counts, results, seed, work: Path):
 # against the one-process step on the same volume and weights
 SP_SPACE = 2
 SP_LOG_TOL = 1e-5  # the sharded log against one process, each value rel max(|ref|, 1)
+# (d): a volume whose code grids have H 16 / 4 / 1 at stem 2, so at s = 2 the
+# coarsest level runs whole on both ranks of the space group
+SP_WHOLE_VOLUME = (64, 512, 128)
 SP_CLI_DEPTH = 10  # the CLI run's pre- and post-quantization blocks a level (of 50)
 SP_RANK = """
 import sys
@@ -4880,6 +4894,45 @@ def sp_eval(eval_step, batch):
     return {k: float(v) for k, v in log.items()}, launch_counts()
 
 
+def sp_whole_batch(seed, device):
+    """(d)'s batch: one ``SP_WHOLE_VOLUME`` volume, its last quarter of
+    slices zero (as the loader pads)."""
+    batch = synthetic_batch(seed + 3, device, SP_WHOLE_VOLUME)
+    valid = SP_WHOLE_VOLUME[2] * 3 // 4
+    batch["volume"][:, :, :, valid:] = 0.0
+    batch["num_valid_slices"].fill_(valid)
+    return batch
+
+
+def sp_whole_steps(seed, device):
+    """(d) on this process's H slab of the ``SP_WHOLE_VOLUME`` batch (the
+    whole volume without a space axis): the fp32 eval step and one fp32
+    train step from a first pass with their peak memory, then a bf16 step's
+    ms (mean of 3 after 1 warm-up, every rank at once) and peak memory."""
+    import torch
+    from vqvae3d_tpu_torch.parallel.multihost import barrier
+
+    batch = sp_slab(sp_whole_batch(seed, device))
+    model, opt, step, eval_step = sp_model(seed, device, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    ev = sp_eval(eval_step, batch)
+    steps, state = dp_steps(model, opt, step, batch, True, steps=1)
+    out = {"eval": ev, "steps": steps, "state": state,
+           "peak_fp32": torch.cuda.max_memory_allocated() / 2**30}
+    del model, opt, step, eval_step
+    torch.cuda.empty_cache()
+    _, _, step, _ = sp_model(seed, device, torch.bfloat16)
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    barrier()
+    out["bf16_ms"] = cuda_ms(lambda: step(batch), iters=3, warmup=1)
+    out["peak_bf16"] = torch.cuda.max_memory_allocated() / 2**30
+    del step
+    torch.cuda.empty_cache()
+    return out
+
+
 def sp_rank(work: str, port: int, seed: int) -> None:
     """One rank of phase 25, run as ``SP_RANK`` with ``SLURM_PROCID`` and
     ``SLURM_NTASKS`` set: joins the gloo group on card 0 laid out as 1 x
@@ -4912,6 +4965,9 @@ def sp_rank(work: str, port: int, seed: int) -> None:
     barrier()
     saved["bf16_ms"] = cuda_ms(lambda: step(batch), iters=3, warmup=1)
     saved["peak_bf16"] = torch.cuda.max_memory_allocated() / 2**30
+    del step
+    torch.cuda.empty_cache()
+    saved["whole"] = sp_whole_steps(seed, dev)
     torch.save(saved, Path(work) / f"sp_rank{r}.pt")
     mesh.reset_mesh()
     shutdown()
@@ -4941,7 +4997,33 @@ def sp_reference(seed):
     out["peak_bf16"] = torch.cuda.max_memory_allocated() / 2**30
     del step
     torch.cuda.empty_cache()
+    out["whole"] = sp_whole_steps(seed, dev)
     return out
+
+
+def sp_compare(ident, name, ref, got, launches, eval_launches, **tols):
+    """The two ranks' eval step and train step (``sp_rank``) against one
+    process's (``sp_reference``): the eval logs equal across ranks and
+    within ``SP_LOG_TOL`` of one process's, the launches a rank, then
+    ``dp_compare`` (the step's log within ``SP_LOG_TOL`` unless ``tols``
+    says otherwise). Returns ``dp_compare``'s figures and the eval error."""
+    for r, g in enumerate(got):
+        check_launches(g["eval"][1], eval_launches, f"{name}: the eval step, rank {r}")
+    eval_err = max(dp_rel(got[0]["eval"][0][k], v) for k, v in ref["eval"][0].items())
+    if got[0]["eval"][0] != got[1]["eval"][0] or set(got[0]["eval"][0]) != set(ref["eval"][0]):
+        raise AssertionError(f"{name}: the two ranks' eval logs differ")
+    print(f"fp32 eval step, {name}, {SP_SPACE} H slabs of one volume (gloo, one card) vs one "
+          f"process: log worst rel {eval_err:.2e} (ssim {got[0]['eval'][0]['ssim']:.7g} over "
+          f"the gathered slices); launches a rank "
+          + "; ".join(f"rank {r} {({k: v for k, v in g['eval'][1].items() if v})}"
+                      for r, g in enumerate(got)) + f" [{ident}]")
+    if not eval_err <= SP_LOG_TOL:
+        raise AssertionError(f"{name}: the sharded eval step disagrees with one process")
+    out = dp_compare(ident, name, (ref["steps"], ref["state"]),
+                     [(g["steps"], g["state"]) for g in got], STAGE1_LR, True, launches,
+                     label=f"{SP_SPACE} H slabs of one volume (gloo, one card) vs one process",
+                     **{"log_tol": SP_LOG_TOL, **tols})
+    return dict(out, eval_rel=eval_err)
 
 
 def sp_convert_and_serve(ident, counts, seed, work: Path):
@@ -5099,24 +5181,12 @@ def phase_spatial(ident, counts, results, seed, work: Path):
                 preact_stack_fwd=blocks, preact_stack_bwd=blocks, dw_conv3d=k7_per_step)
     eval_want = dict(dict.fromkeys(launch_counts(), 0), l2_argmin=full.n_enc,
                      preact_stack_fwd=blocks)
-    for r, g in enumerate(got):
-        check_launches(g["eval"][1], eval_want, f"the eval step, rank {r}")
-        add_counts(counts, g["eval"][1])
-        for rec in g["steps"]:
-            add_counts(counts, rec["launches"])
-    eval_err = max(dp_rel(got[0]["eval"][0][k], v) for k, v in ref["eval"][0].items())
-    if got[0]["eval"][0] != got[1]["eval"][0] or set(got[0]["eval"][0]) != set(ref["eval"][0]):
-        raise AssertionError("the two ranks' eval logs differ")
-    print(f"fp32 eval step, {SP_SPACE} H slabs of one volume (gloo, one card) vs one process: "
-          f"log worst rel {eval_err:.2e} (ssim {got[0]['eval'][0]['ssim']:.7g} over the "
-          f"gathered slices); launches a rank "
-          f"{({k: v for k, v in got[0]['eval'][1].items() if v})} [{ident}]")
-    if not eval_err <= SP_LOG_TOL:
-        raise AssertionError("the sharded eval step disagrees with one process")
-    out = dp_compare(ident, "stage-1 (stem 2)", (ref["steps"], ref["state"]),
-                     [(g["steps"], g["state"]) for g in got], STAGE1_LR, True, want,
-                     label=f"{SP_SPACE} H slabs of one volume (gloo, one card) vs one process",
-                     log_tol=SP_LOG_TOL)
+    for g in got:
+        for part in (g, g["whole"]):
+            add_counts(counts, part["eval"][1])
+            for rec in part["steps"]:
+                add_counts(counts, rec["launches"])
+    out = sp_compare(ident, f"stage-1 (stem 2, {VOLUME})", ref, got, want, eval_want)
     print(f"peak device memory a rank (two ranks on one card; {ranks_s:.1f} s for both "
           f"processes): fp32 step "
           + ", ".join(f"{g['peak_fp32']:.2f}" for g in got)
@@ -5128,12 +5198,46 @@ def phase_spatial(ident, counts, results, seed, work: Path):
           + ", ".join(f"rank {r} {g['bf16_ms']:.2f}" for r, g in enumerate(got))
           + f" [{ident}]")
 
+    # --- (d) a volume whose coarsest level runs whole on both ranks
+    volume = SP_WHOLE_VOLUME
+    whole_from = full.first_whole_level(volume[0], SP_SPACE)
+    if whole_from != full.n_enc - 1:
+        raise AssertionError(f"{volume} at s = {SP_SPACE}: level {whole_from} is the first "
+                             f"whole one, not the coarsest")
+    wref, wgot = ref["whole"], [g["whole"] for g in got]
+    k7_whole = wref["steps"][0]["k7_expected"]
+    wwant = dict(want, dw_conv3d=k7_whole)
+    # the loss within SP_LOG_TOL; the rest of the step's log within phase 24's
+    # DP_LOG_TOL: a genuine tie at level 0 moves a count of 1 in 65,536 rows,
+    # ~1e-5 of the codebook's perplexity
+    wout = sp_compare(ident, f"stage-1 (stem 2, {volume}, level {whole_from} whole)", wref,
+                      wgot, wwant, eval_want, loss_tol=SP_LOG_TOL, log_tol=DP_LOG_TOL)
+    print(f"{volume} (code grids H {[h for h, *_ in full.code_grid_shapes(volume)]}; level "
+          f"{whole_from} whole on both ranks): launches a train step "
+          + "; ".join(f"rank {r} K1b {g['steps'][0]['launches']['l2_argmin_stats']} K3 "
+                      f"{g['steps'][0]['launches']['preact_stack_fwd']} fwd "
+                      f"{g['steps'][0]['launches']['preact_stack_bwd']} bwd K7 "
+                      f"{g['steps'][0]['launches']['dw_conv3d']}"
+                      for r, g in enumerate(wgot))
+          + "; peak device memory a rank: fp32 step "
+          + ", ".join(f"{g['peak_fp32']:.2f}" for g in wgot)
+          + f" GiB against one process's {wref['peak_fp32']:.2f}; bf16 step "
+          + ", ".join(f"{g['peak_bf16']:.2f}" for g in wgot)
+          + f" GiB against {wref['peak_bf16']:.2f}. bf16 ms a step (mean of 3 after 1 warm-up; "
+          "both ranks on one card at once): "
+          + ", ".join(f"rank {r} {g['bf16_ms']:.2f}" for r, g in enumerate(wgot))
+          + f", one process alone {wref['bf16_ms']:.2f} [{ident}]")
+
     # --- (b) the remainder's CLIs on the card
     sp_convert_and_serve(ident, counts, seed, work)
-    results["spatial"] = dict(out, eval_rel=eval_err, peak_fp32=[g["peak_fp32"] for g in got],
+    results["spatial"] = dict(out, peak_fp32=[g["peak_fp32"] for g in got],
                               peak_bf16=[g["peak_bf16"] for g in got],
                               ref_peak_fp32=ref["peak_fp32"], ref_peak_bf16=ref["peak_bf16"],
-                              bf16_ms=[g["bf16_ms"] for g in got])
+                              bf16_ms=[g["bf16_ms"] for g in got],
+                              whole=dict(wout, peak_fp32=[g["peak_fp32"] for g in wgot],
+                                         peak_bf16=[g["peak_bf16"] for g in wgot],
+                                         bf16_ms=[g["bf16_ms"] for g in wgot],
+                                         ref_bf16_ms=wref["bf16_ms"]))
 
 
 def main():

@@ -31,9 +31,10 @@ process on the whole batch:
     JAX modules' ``process_index`` slice, and the slices' union is the
     one-process batch (in-process, no spawn);
   * ``--mesh-shape``: ``N 1`` at world size N and ``d s`` at world size d
-    x s are taken; another world size, and a space axis that does not
-    divide the coarsest code grid's H, raise (the spatial steps themselves
-    are ``tests/test_torch_spatial.py``'s).
+    x s are taken, also where s does not divide the coarsest code grid's H
+    (those levels run whole); another world size, and a space axis that
+    does not divide the H of the stem's output, raise (the spatial steps
+    themselves are ``tests/test_torch_spatial.py``'s).
 
 The spawned ranks import no jax (this module imports it only inside the
 tests); every spawn and subprocess has a timeout, so a rendezvous that hangs
@@ -472,11 +473,15 @@ def test_data_modules_slice_per_rank_as_jax(tmp_path):
 def test_mesh_shape_and_batch_checks():
     assert mesh.check_mesh_shape(None, 4) == 4
     assert mesh.check_mesh_shape([2], 2) == mesh.check_mesh_shape([2, 1], 2) == 2
-    assert mesh.check_mesh_shape([2, 2], 4, coarsest_h=8) == 2
-    with pytest.raises(ValueError, match="coarsest code grid's H"):
-        mesh.check_mesh_shape([1, 4], 4, coarsest_h=2)
+    assert mesh.check_mesh_shape([2, 2], 4, stem_h=16) == 2
+    # 32x32x16 volumes at stem 2: stem output H 16, code grids H 8 and 2; s = 4
+    # runs the coarsest level whole, s = 32 and s = 3 split no stem output
+    assert mesh.check_mesh_shape([1, 4], 4, stem_h=16) == 1
+    for s in (32, 3):
+        with pytest.raises(ValueError, match="H of the stem's output"):
+            mesh.check_mesh_shape([1, s], s, stem_h=16)
     with pytest.raises(ValueError, match="world size"):
-        mesh.check_mesh_shape([2, 2], 2, coarsest_h=8)
+        mesh.check_mesh_shape([2, 2], 2, stem_h=16)
     with pytest.raises(ValueError, match="world size"):
         mesh.check_mesh_shape([2], 1)
     assert mesh.local_batch_size(6, 2) == 3

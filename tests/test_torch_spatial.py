@@ -21,6 +21,17 @@ state within 1e-5) and ``cluster_size`` equal, bit for bit:
   * ``--mesh-shape 2 2`` (one spawn of four ranks): one train step against
     the JAX step on the global batch, where a sum over 'space' taken for a
     mean over 'data' (or the reverse) would show;
+  * ``--mesh-shape 1 4`` (the same four processes, the mesh laid out
+    again): the eval step and one train step, held as ``1 2`` is. Its code
+    grids have H 8 and 2 (the JAX package's
+    ``test_train_step_data_space_mesh`` grids), so level 0 runs on slabs of
+    2 rows and level 1 whole on every rank (``models/vqvae.py``), where a
+    whole level's statistics or gradient counted once a rank would show;
+  * in the four ranks, at both layouts: ``mesh.gather_slabs`` (forward
+    against the slabs end to end, backward against the slab of the sum of
+    the ranks' cotangents) and a whole level's statistics (the first pass's
+    N, mean and std, float64; K1b's counts bit for bit and dw) against
+    those of every batch slice's rows in one process;
   * in the ranks: the halo exchange (``parallel/halo.py``) at each edge
     rule, ``trilinear_upsample2x``, ``conv3d``, the K3 stack's plain path
     and EvoNorm's ``group_std`` on slabs, forward and backward, against the
@@ -188,12 +199,62 @@ def _slab_ops(rank):
     return errs
 
 
+def _whole_ops():
+    """The collectives of the levels that run whole, float64 where the code
+    allows: per check the max |error| against the whole volume. Every rank
+    of a space group holds its batch slice's copy of a whole level."""
+    from vqvae3d_tpu_torch.models import quantizer
+
+    s, i, d, j = mesh.space_size(), mesh.space_index(), mesh.data_size(), mesh.data_index()
+
+    def draw(seed, shape):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(seed),
+                           dtype=torch.float64)
+
+    # the space group's slabs, and the cotangent each rank gives the whole tensor
+    slabs = [draw(100 * j + r, (2, 3, 2, 4, 3)) for r in range(s)]
+    cots = [draw(200 * j + r, (2, 3, 2 * s, 4, 3)) for r in range(s)]
+    x = slabs[i].clone().requires_grad_()
+    y = mesh.gather_slabs(x)
+    y.backward(cots[i])
+    errs = {"gather": float((y.detach() - torch.cat(slabs, 2)).abs().max()),
+            "gather backward": float((x.grad - sum(cots).narrow(2, 2 * i, 2)).abs().max())}
+
+    # a whole level (B, D, H, W, Z) a batch slice, and every slice's rows
+    levels = [draw(300 + k, (1, 4, 3, 2, 2)) * 2 + k for k in range(d)]
+    rows = torch.cat([v.movedim(1, -1).reshape(-1, 4) for v in levels])
+    with halo.whole():
+        n, mean, std = quantizer.row_stats(levels[j].movedim(1, -1).reshape(-1, 4))
+    errs.update({"N": abs(n - rows.shape[0]),
+                 "mean": float((mean - rows.mean(0)).abs().max()),
+                 "std": float((std - rows.std(0, correction=0)).abs().max())})
+    # K1b's counts and dw through the first pass and the EMA update: the
+    # counts summed over 'data' once each, against one quantize_train of all rows
+    embed = draw(400, (5, 4)).float()
+    state = quantizer.QuantizerState(embed, embed.clone(), torch.zeros(5), torch.tensor(True))
+    with halo.whole():
+        new = quantizer.quantize_train(levels[j], state)[-1]
+    kept = mesh.data_parallel
+    mesh.data_parallel = lambda: False  # one process over every slice's rows
+    try:
+        want = quantizer.quantize_train(torch.cat(levels), state)[-1]
+    finally:
+        mesh.data_parallel = kept
+    errs["cluster_size"] = float((new.cluster_size - want.cluster_size).abs().max())
+    errs["embed_avg"] = float((new.embed_avg - want.embed_avg).abs().max())
+    return errs
+
+
 def _job_12(rank, cases):
     return {"ops": _slab_ops(rank), **{name: _steps(c, 2) for name, c in cases.items()}}
 
 
 def _job_22(rank, case):
-    return _steps(case, 1)
+    """At ``--mesh-shape 2 2``, then, in the same processes, ``1 4``."""
+    out = {"2x2": _steps(case, 1), "ops 2x2": _whole_ops()}
+    mesh.reset_mesh()
+    mesh.init_mesh(4)
+    return {**out, "1x4": _steps(case, 1), "ops 1x4": _whole_ops()}
 
 
 @pytest.fixture(scope="module")
@@ -292,9 +353,32 @@ def test_two_slabs_match_jax(spatial, pad_mode):
 
 
 def test_two_by_two_mesh_matches_jax(spatial):
-    _same_across_ranks(spatial.got22)
+    got = [g["2x2"] for g in spatial.got22]
+    _same_across_ranks(got)
     ref = spatial.ref["wrap"]
-    _check_against_jax(spatial.cases["wrap"], ref[:2], spatial.got22[0])
+    _check_against_jax(spatial.cases["wrap"], ref[:2], got[0])
+
+
+def test_one_by_four_mesh_runs_the_coarsest_level_whole(spatial):
+    # H 32 at stem 2: code grids of H 8 (slabs of 2 rows) and 2 (whole)
+    case = spatial.cases["wrap"]
+    assert [h for h, *_ in case.tcfg.code_grid_shapes((32, 32, 16))] == [8, 2]
+    assert case.tcfg.first_whole_level(32, 4) == 1
+    assert case.tcfg.first_whole_level(32, 2) == case.tcfg.n_enc
+    got = [g["1x4"] for g in spatial.got22]
+    _same_across_ranks(got)
+    _check_against_jax(case, spatial.ref["wrap"][:2], got[0])
+
+
+def test_whole_level_collectives(spatial):
+    for layout in ("ops 2x2", "ops 1x4"):
+        for rank, got in enumerate(spatial.got22):
+            errs = got[layout]
+            assert errs["N"] == 0 and errs["cluster_size"] == 0.0, (layout, rank, errs)
+            # float64 sums in another order; embed_avg sums fp32 rows
+            for name in ("gather", "gather backward", "mean", "std"):
+                assert errs[name] <= 1e-12, (layout, rank, name, errs[name])
+            assert errs["embed_avg"] <= 1e-5, (layout, rank, errs["embed_avg"])
 
 
 def test_slab_ops_match_the_whole_volume(spatial):

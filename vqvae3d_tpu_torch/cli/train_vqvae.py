@@ -32,7 +32,9 @@ must name the world size. ``--mesh-shape d s`` (d x s the world size, s >
 JAX CLI's ``('data', 'space')`` mesh does: each group of s ranks shares one
 batch slice, each holding one H slab of every activation, with halo
 exchanges around the convs, the upsamples and kernel K3's blocks
-(``parallel/halo.py``); s must divide the coarsest code grid's H. With
+(``parallel/halo.py``); s must divide the H of the stem's output (the
+volume's H over ``--stem-space-to-depth``), and the levels whose code grid's
+H s does not divide run whole on every rank of the space group. With
 ``--multihost``, ``--device cuda`` is the rank's own card (``LOCAL_RANK`` /
 ``SLURM_LOCALID``):
 
@@ -130,7 +132,7 @@ def main(args):
     device = (initialize_multihost(args.coordinator, device=args.device) if args.multihost
               else resolve_device(args.device))
     data = mesh.check_mesh_shape(args.mesh_shape, world_size(),
-                                 config.code_grid_shapes(volume)[-1][0])
+                                 volume[0] // config.stem_space_to_depth)
     mesh.init_mesh(world_size() // data)
     mesh.local_batch_size(args.batch_size, data)
     primary = is_primary()

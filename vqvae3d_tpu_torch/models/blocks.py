@@ -452,10 +452,19 @@ class PreQuantizationConditioning(nn.Module):
         self.pre_q = make_block(block_type, in_channels, out_channels, "same", num_layers,
                                 pad_mode, dtype)
 
-    def forward(self, x, aux=None):
+    def forward(self, x, aux=None, whole_aux: bool = False):
+        """``whole_aux``: x is an H slab and aux the quantization of a coarser
+        level that runs whole on every rank of the space group
+        (``models/vqvae.py``): aux is upsampled whole and the rank keeps its
+        slab of the result."""
         if (aux is not None) != self.has_aux:
             raise ValueError("aux must be given exactly for levels with a coarser level")
         if aux is not None:
-            up = self.upsample(aux)
+            if whole_aux:
+                with halo.whole():
+                    up = self.upsample(aux)
+                up = mesh.space_slab(up)
+            else:
+                up = self.upsample(aux)
             x = self.proj(torch.cat([x.to(up.dtype), up], dim=1))
         return self.pre_q(x)

@@ -21,7 +21,7 @@ import torch.distributed
 import torch.nn as nn
 
 from vqvae3d_tpu_torch.ops.quantizer_ops import l2_argmin, l2_argmin_stats
-from vqvae3d_tpu_torch.parallel import mesh
+from vqvae3d_tpu_torch.parallel import halo, mesh
 
 
 class QuantizerState(NamedTuple):
@@ -40,12 +40,18 @@ def row_stats(flat: torch.Tensor):
     and the mean and the two-pass std from sums all-reduced through
     ``AllReduceSum``, so each rank's rows get the gradient that every rank's
     loss sends back through them (the JAX package's "global N under
-    jit+GSPMD", quantizer.py:59-71). At world size 1 torch's mean and std."""
+    jit+GSPMD", quantizer.py:59-71). A whole level under a space axis
+    (``halo.replicated()``) holds the same rows on every rank of a space
+    group: the group's first rank alone adds them, and N counts each batch
+    slice once. At world size 1 torch's mean and std."""
     if not mesh.data_parallel():
         return flat.shape[0], torch.mean(flat, dim=0), torch.std(flat, dim=0, correction=0)
-    n = flat.shape[0] * mesh.world_size()  # every rank holds as many rows
-    mean = mesh.AllReduceSum.apply(torch.sum(flat, dim=0)) / n
-    var = mesh.AllReduceSum.apply(torch.sum(torch.square(flat - mean), dim=0)) / n
+    # every rank holds as many rows; a whole level's, one copy a batch slice
+    n = flat.shape[0] * (mesh.data_size() if halo.replicated() else mesh.world_size())
+    counted = halo.counted()
+    mean = mesh.AllReduceSum.apply(torch.sum(flat, dim=0), None, counted) / n
+    var = mesh.AllReduceSum.apply(torch.sum(torch.square(flat - mean), dim=0), None,
+                                  counted) / n
     return n, mean, torch.sqrt(var)
 
 
@@ -129,7 +135,10 @@ def quantize_train(inputs: torch.Tensor, state: QuantizerState, *,
     exact). Every rank then holds the same EMA state. Under a space axis
     (``--mesh-shape d s``) x is the rank's H slab: the same sums over the
     world count each voxel once, and the commitment loss is the slab's part
-    of its space group's mean."""
+    of its space group's mean. A whole level (``halo.replicated()``: every
+    rank of the space group holds the same x) enters those sums from the
+    group's first rank only, the others sending zeros (the counts stay
+    exact), and its commitment loss is split evenly over the group."""
     x = inputs.float()
     x_last = x.movedim(1, -1)
     flat = x_last.reshape(-1, x_last.shape[-1])
@@ -138,6 +147,8 @@ def quantize_train(inputs: torch.Tensor, state: QuantizerState, *,
     indices, counts, dw = l2_argmin_stats(flat.detach(), init.embed)
     if mesh.data_parallel():
         stats = torch.cat([counts[:, None], dw], dim=1)
+        if not halo.counted():
+            stats = torch.zeros_like(stats)
         torch.distributed.all_reduce(stats)
         counts, dw = stats[:, 0], stats[:, 1:]
     new = ema_update(init, counts, dw, decay, laplace_alpha)
@@ -150,7 +161,8 @@ def quantize_train(inputs: torch.Tensor, state: QuantizerState, *,
 def _finish(x, x_last, rows, indices, commitment_cost):
     quantized = rows.reshape(x_last.shape).movedim(-1, 1)
     loss = commitment_cost * torch.mean(torch.square(quantized - x.detach()))
-    if mesh.space_size() > 1:  # the slab's part of its space group's mean
+    # the slab's part of its space group's mean; of a whole level, a copy's share
+    if mesh.space_size() > 1:
         loss = loss / mesh.space_size()
     quantized_st = x + (quantized - x).detach()
     return loss, quantized_st, indices.reshape(x_last.shape[:-1])

@@ -26,9 +26,25 @@ decoder head emits ``3 n_mix`` channels per output channel).
 and the EMA update, in place on their buffers (kernel K1b on a card); the
 encoder and decoder compute the same values as in eval, and autograd runs
 the 'same' stacks' backward through kernel K3's (``ops/stack_kernel.py``).
+
+Under a space axis of s ranks (``--mesh-shape d s``, ``parallel/``) each
+rank holds an H slab of the volume. A level whose code grid's H s does not
+divide runs whole on every rank of the space group, and so does every
+coarser level (``VQVAEConfig.first_whole_level``): its DownBlock, its
+conditioning, its pre-quantization stack, its quantizer, its
+post-quantization stack and its UpBlock. That is the JAX quantizer's
+``_shardable`` fallback (vqvae3d_tpu/models/quantizer.py:116-122), which
+there covers the lookup alone because GSPMD re-partitions the convs; the
+port's convs exchange halos, which need whole stride-2 windows in every
+slab. The slabs are gathered (``mesh.gather_slabs``) into the first whole
+level's DownBlock, and each rank takes its slab (``mesh.space_slab``) of
+the UpBlocks out of that level, in the encoder's conditioning and in the
+decoder. With 32x32x16 volumes at stem 2 and s = 4, for instance: stem
+slabs of 4 rows, level 0 (H 8) slabs of 2 rows, level 1 (H 2) whole.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -46,6 +62,7 @@ from vqvae3d_tpu_torch.models.blocks import (
 from vqvae3d_tpu_torch.models.quantizer import Quantizer
 from vqvae3d_tpu_torch.ops.conv3d import Conv3D
 from vqvae3d_tpu_torch.ops.resize import depth_to_space, space_to_depth
+from vqvae3d_tpu_torch.parallel import halo, mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +175,18 @@ class VQVAEConfig:
             shapes.append(cur)
         return shapes
 
+    def first_whole_level(self, volume_h: int, space: int) -> int:
+        """Under a space axis of ``space`` ranks, the finest level whose code
+        grid's H (of volumes ``volume_h`` high) the axis does not divide:
+        it and every coarser level run whole on each rank of the space
+        group. ``n_enc`` where the axis divides every level's H (and at
+        ``space`` 1). Where it divides level i's H, level i's input slabs
+        hold whole stride-2 windows of each of its DownBlock's convs."""
+        for i, (h,) in enumerate(self.code_grid_shapes((volume_h,))):
+            if h % space:
+                return i
+        return self.n_enc
+
     def same_stacks(self, volume_shape: Sequence[int]):
         """Every 'same' stack one volume runs through, in order:
         [(part, channels, spatial, n_blocks)] with part 'encode' or 'decode'
@@ -196,6 +225,20 @@ class VQVAEConfig:
 
 JAX_LAYOUT_FIELDS = ("remat", "remat_blocks", "remat_policy", "argmin_method",
                      "packed_stacks", "scan_stacks")  # the JAX config's; dropped on load
+
+
+def whole_levels(cfg: VQVAEConfig, x: torch.Tensor) -> int:
+    """The first level of ``cfg`` that runs whole for the volume x, an H
+    slab of a volume s times as high under a space axis of s ranks
+    (``VQVAEConfig.first_whole_level``; ``n_enc`` without one). Decided from
+    shapes before any launch."""
+    s = mesh.space_size() if halo.active() else 1
+    return cfg.first_whole_level(x.shape[2] * s, s)
+
+
+def _level(i: int, whole_from: int):
+    """The context level i runs in: ``halo.whole()`` from ``whole_from`` on."""
+    return halo.whole() if i >= whole_from else contextlib.nullcontext()
 
 
 def _same_stack(n, channels, cfg):
@@ -247,25 +290,33 @@ class Encoder(nn.Module):
             for i in range(cfg.n_enc)
         )
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, whole_from: Optional[int] = None):
+        """``whole_from``: the first level that runs whole under a space axis
+        (``whole_levels``; found from x when None)."""
         cfg = self.cfg
+        if whole_from is None:
+            whole_from = whole_levels(cfg, x)
         x = self.parse_input(space_to_depth(x, cfg.stem_space_to_depth))
         downs = []
-        for down in self.down:
-            x = down(x)
+        for i, down in enumerate(self.down):
+            if i == whole_from:
+                x = mesh.gather_slabs(x)
+            with _level(i, whole_from):
+                x = down(x)
             downs.append(x)
         aux, results = None, []
         legacy = cfg.encoder_variant == "encoder"
         for i in reversed(range(cfg.n_enc)):
-            h = downs[i]
-            if legacy:
-                h = apply_same_stack(h, self.pre_quantize[i], pad_mode=cfg.pad_mode,
-                                     dtype=cfg.dtype)
-            h = self.pre_quantize_cond[i](h, aux)
-            if not legacy:
-                h = apply_same_stack(h, self.pre_quantize[i], pad_mode=cfg.pad_mode,
-                                     dtype=cfg.dtype)
-            loss, quantized, indices = self.quantize[i](h, train=train)
+            with _level(i, whole_from):
+                h = downs[i]
+                if legacy:
+                    h = apply_same_stack(h, self.pre_quantize[i], pad_mode=cfg.pad_mode,
+                                         dtype=cfg.dtype)
+                h = self.pre_quantize_cond[i](h, aux, whole_aux=i + 1 == whole_from)
+                if not legacy:
+                    h = apply_same_stack(h, self.pre_quantize[i], pad_mode=cfg.pad_mode,
+                                         dtype=cfg.dtype)
+                loss, quantized, indices = self.quantize[i](h, train=train)
             results.append((loss, quantized, indices))
             aux = quantized
         return list(reversed(results))  # fine -> coarse
@@ -298,16 +349,26 @@ class Decoder(nn.Module):
         self.out = Conv3D(cfg.base_network_channels, cfg.head_channels * f ** 3, 1,
                           dtype=cfg.dtype)
 
-    def forward(self, quantizations, train: bool = False):
-        """``train`` changes nothing in the decoder (the JAX signature's flag)."""
+    def forward(self, quantizations, train: bool = False, whole_from: Optional[int] = None):
+        """``train`` changes nothing in the decoder (the JAX signature's flag).
+        Under a space axis ``whole_from`` is the encoder's (``whole_levels``):
+        the quantizations of the levels from it on are whole, the finer ones
+        slabs, which their shapes alone do not tell apart."""
         cfg = self.cfg
+        if whole_from is None:
+            if halo.active():
+                raise ValueError("decoding H slabs needs the first whole level (whole_from)")
+            whole_from = cfg.n_enc
         out = None
         for i in reversed(range(cfg.n_enc)):
-            q = quantizations[i].to(cfg.dtype) if cfg.dtype else quantizations[i]
-            h = self.proj[i](torch.cat([q, out], dim=1)) if i != cfg.n_enc - 1 else q
-            *post, up = self.up[i]
-            h = apply_same_stack(h, post, pad_mode=cfg.pad_mode, dtype=cfg.dtype)
-            out = up(h)
+            with _level(i, whole_from):
+                q = quantizations[i].to(cfg.dtype) if cfg.dtype else quantizations[i]
+                h = self.proj[i](torch.cat([q, out], dim=1)) if i != cfg.n_enc - 1 else q
+                *post, up = self.up[i]
+                h = apply_same_stack(h, post, pad_mode=cfg.pad_mode, dtype=cfg.dtype)
+                out = up(h)
+            if i == whole_from:
+                out = mesh.space_slab(out)
         return depth_to_space(self.out(out), cfg.stem_space_to_depth)
 
 
@@ -334,16 +395,17 @@ class VQVAE(nn.Module):
                 m.reset_parameters(generator)
 
     def forward(self, x, train: bool = False):
-        results = self.encode(x, train=train)
+        whole_from = whole_levels(self.config, x)
+        results = self.encode(x, train=train, whole_from=whole_from)
         losses, quantizations, indices = zip(*results)
-        decoded = self.decode(quantizations, train=train)
+        decoded = self.decode(quantizations, train=train, whole_from=whole_from)
         return decoded, (losses, quantizations, indices)
 
-    def encode(self, x, train: bool = False):
-        return self.encoder(x, train=train)
+    def encode(self, x, train: bool = False, whole_from: Optional[int] = None):
+        return self.encoder(x, train=train, whole_from=whole_from)
 
-    def decode(self, quantizations, train: bool = False):
-        return self.decoder(quantizations, train=train)
+    def decode(self, quantizations, train: bool = False, whole_from: Optional[int] = None):
+        return self.decoder(quantizations, train=train, whole_from=whole_from)
 
     def embed_code(self, level: int, indices: torch.Tensor) -> torch.Tensor:
         """(...,) int code grid -> (..., D) fp32 embeddings of that level."""

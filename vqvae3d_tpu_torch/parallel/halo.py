@@ -23,6 +23,10 @@ Every exchange is one ``all_gather`` of the ranks' two edge planes over the
 space group (gloo stages CUDA tensors through the host). ``active()`` is
 true under a space axis of more than one rank; ``suspended()`` turns the
 exchange off for code that pads a buffer whose halo rows it fills itself.
+``whole()`` marks code that runs on whole volumes which every rank of the
+space group holds alike (the levels whose code grid's H the space axis does
+not divide, ``models/vqvae.py``): no exchange, and ``counted()`` tells a
+sum over the world to take such values from the group's first rank only.
 A failed collective raises; nothing falls back to a whole volume.
 """
 from __future__ import annotations
@@ -55,6 +59,33 @@ def suspended():
         yield
     finally:
         _LOCAL.suspended = prev
+
+
+@contextlib.contextmanager
+def whole():
+    """Ops inside run on whole volumes, the same on every rank of the space
+    group: no exchange (as under ``suspended()``), and ``replicated()`` is
+    true."""
+    prev = getattr(_LOCAL, "whole", False)
+    _LOCAL.whole = True
+    try:
+        with suspended():
+            yield
+    finally:
+        _LOCAL.whole = prev
+
+
+def replicated() -> bool:
+    """True inside ``whole()`` under a space axis of more than one rank: the
+    values are copies, one a rank of the space group."""
+    return mesh.space_size() > 1 and getattr(_LOCAL, "whole", False)
+
+
+def counted() -> bool:
+    """Whether this rank's values enter a sum over the world: a slab's
+    always; of the copies ``replicated()`` marks, only the space group's
+    first rank's, so the sum counts them once."""
+    return not replicated() or mesh.space_index() == 0
 
 
 def ends() -> Tuple[bool, bool]:

@@ -7,7 +7,10 @@ mesh is the process group (one process per card, ``parallel/multihost.py``)
 laid out as d x s, rank r = i_data * s + i_space. The s ranks of a space
 group share one slice of every global batch, each holding one contiguous H
 slab of every activation (``parallel/halo.py`` exchanges the planes the
-convs read across slab edges). The collectives are written out:
+convs read across slab edges), except in the levels whose code grid's H s
+does not divide: those run whole on every rank of the group
+(``models/vqvae.py``; the JAX quantizer's ``_shardable`` fallback). The
+collectives are written out:
 
   * ``average_gradient``: the flat gradient vector that
     ``train.state.AMSGrad`` builds (``optax.flatten``'s layout), summed over
@@ -17,14 +20,20 @@ convs read across slab edges). The collectives are written out:
     space group for EvoNorm's group statistics) that autograd
     differentiates (its backward sums the incoming gradient over the same
     ranks), for statistics that carry a gradient (the quantizer's
-    first-pass mean and std);
+    first-pass mean and std); a rank whose copy is not ``counted`` sends
+    zeros (a whole level's statistics count once over the space group);
   * ``all_reduce_dict``: the sum / mean / min / max over ranks of a dict of
     0-d tensors (the log's global values), one collective a dict; 'mean' is
     the mean over ``data`` of sums over ``space``, so a rank passes its
     slab's part of its space group's value;
   * ``all_gather_flat``: the ranks' 1-D tensors end to end (the eval
     medians); ``space_gather``: the space group's slabs along H (the eval
-    SSIM, which needs whole H x W slices).
+    SSIM, which needs whole H x W slices);
+  * ``gather_slabs``: ``space_gather`` that autograd differentiates, into
+    the first whole level; its backward is each rank's slab of the sum of
+    the ranks' gradients (a reduce-scatter over the space group).
+    ``space_slab``, the rank's slab of a whole tensor, is its inverse out of
+    the finest whole level (its backward pads with zeros).
 
 Collectives on CUDA tensors under gloo go through the host where gloo
 needs it. Without a process group, or at world size 1, every function
@@ -53,12 +62,13 @@ _MESH = _Mesh()
 
 
 def check_mesh_shape(mesh_shape: Optional[Sequence[int]], world: int,
-                     coarsest_h: Optional[int] = None) -> int:
+                     stem_h: Optional[int] = None) -> int:
     """Validate ``--mesh-shape`` (``d``, ``d 1`` or ``d s``) against the
     process group: d x s must be the world size, and s must divide
-    ``coarsest_h``, the H of the coarsest code grid, so that every level's
-    slab holds whole stride-2 pairs (where it does not, the JAX package
-    looks the codes up unsharded; the port raises). Returns d."""
+    ``stem_h``, the H of the stem's output (the volume's H over
+    ``stem_space_to_depth``), so that every slab holds whole stem blocks.
+    The levels whose code grid's H s does not divide run whole
+    (``models/vqvae.py``). Returns d."""
     if not mesh_shape:
         return world
     shape = tuple(int(n) for n in mesh_shape)
@@ -68,9 +78,9 @@ def check_mesh_shape(mesh_shape: Optional[Sequence[int]], world: int,
     if d * s != world:
         raise ValueError(f"--mesh-shape {shape}: data x space must equal the world size "
                          f"({world} processes, one a card)")
-    if s > 1 and (coarsest_h is None or coarsest_h % s):
-        raise ValueError(f"--mesh-shape {shape}: the space axis must divide the coarsest "
-                         f"code grid's H ({coarsest_h})")
+    if s > 1 and (stem_h is None or stem_h % s):
+        raise ValueError(f"--mesh-shape {shape}: the space axis must divide the H of the "
+                         f"stem's output ({stem_h})")
     return d
 
 
@@ -144,12 +154,13 @@ def average_gradient(flat: torch.Tensor) -> None:
 class AllReduceSum(torch.autograd.Function):
     """The sum of a tensor over the ranks of ``group`` (None: every rank);
     its gradient is the incoming gradient summed over the same ranks (every
-    rank's loss reads the sum)."""
+    rank's loss reads the sum). A rank that passes ``counted=False`` adds
+    zeros and takes a zero gradient, but joins both collectives."""
 
     @staticmethod
-    def forward(ctx, x, group=None):
-        ctx.group = group
-        out = x.clone()
+    def forward(ctx, x, group=None, counted=True):
+        ctx.group, ctx.counted = group, counted
+        out = x.clone() if counted else torch.zeros_like(x)
         dist.all_reduce(out, group=group)
         return out
 
@@ -157,7 +168,7 @@ class AllReduceSum(torch.autograd.Function):
     def backward(ctx, grad):
         out = grad.clone()
         dist.all_reduce(out, group=ctx.group)
-        return out, None
+        return (out if ctx.counted else torch.zeros_like(out)), None, None
 
 
 def staged(x: torch.Tensor) -> torch.Tensor:
@@ -209,3 +220,37 @@ def space_gather(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
     parts = [torch.empty_like(host) for _ in range(_MESH.space)]
     dist.all_gather(parts, host, group=_MESH.group)
     return torch.cat(parts, dim).to(x.device)
+
+
+class _GatherSlabs(torch.autograd.Function):
+    """``space_gather`` along H with its backward: every rank of the space
+    group reads the whole tensor, so the gradient of a rank's slab is the
+    sum of the ranks' gradients at its rows, taken as an all-reduce over
+    the group in at least fp32 and the rank's slab of it (gloo takes CUDA
+    tensors in an all-reduce, not in a reduce-scatter), rounded to the
+    gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return space_gather(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = grad.to(torch.promote_types(grad.dtype, torch.float32)).contiguous().clone()
+        dist.all_reduce(total, group=_MESH.group)
+        return space_slab(total).to(grad.dtype)
+
+
+def gather_slabs(x: torch.Tensor) -> torch.Tensor:
+    """The space group's H slabs of (B, C, H/s, W, D) end to end, as one
+    (B, C, H, W, D) on every rank of the group, differentiable."""
+    return x if _MESH.space == 1 else _GatherSlabs.apply(x)
+
+
+def space_slab(x: torch.Tensor) -> torch.Tensor:
+    """This rank's H slab of a whole (B, C, H, W, D), H a multiple of s;
+    autograd's backward of the slice pads the slab's gradient with zeros."""
+    if _MESH.space == 1:
+        return x
+    h = x.shape[2] // _MESH.space
+    return x.narrow(2, space_index() * h, h).contiguous()

@@ -33,7 +33,10 @@ slab over the whole volume's count), so the gradients summed over 'space'
 and averaged over 'data' are the global batch's; the cylinder mask takes
 the slab's rows; the eval step gathers the space group's slabs for the
 slice-wise SSIM, which needs whole H x W slices (the one gather of a whole
-volume, in eval only).
+volume, in eval only). The coarse levels that run whole on every rank of a
+space group (``models/vqvae.py``) each add 1/s of their commitment loss a
+rank, so the sum over 'space' counts it once, as it does the slabs' parts
+of the reconstruction loss.
 """
 from __future__ import annotations
 
