@@ -179,7 +179,7 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      for bit (cuDNN deterministic).
  20. PixelSNAIL sampling vs the one-shot forward: the cached sampler
      (``sample/cached_snail.py``, plain PyTorch) at the published mid
-     widths (256d, 256 codes, 32x32x8, batch 10; 2 of its 8 blocks, see
+     widths (256d, 256 codes, 32x32x8, batch 10; 1 of its 8 blocks, see
      ``SNAIL_SAMPLING``) and bottom (3x5x512d, 512
      codes, 8x8x2, batch 20), unconditioned, fp32 random weights: its
      teacher-forced logits against the one-shot ``PixelSNAIL.forward`` (K8)
@@ -218,7 +218,8 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      stack (150 blocks), fp32 and bf16; (e) ``train_vqvae --block-type
      evonorm`` at the full config for 2 steps on the train CLI phase's
      scans, then ``calc_ssim_from_checkpoint`` and ``plot_from_checkpoint``
-     on its checkpoint, each in a process of its own, with their launches.
+     on its checkpoint, with their launches (in this process since phase 26
+     came: each had a process of its own).
  23. the PixelCNN remainder (bf16 unless stated): (a) K4 at p = 0.5 over the
      top prior's 50-block segment (B = 1, 128x128x32, conditioned, one keep
      mask a block as data), fp32 and bf16, output, dx, the condition's
@@ -281,9 +282,25 @@ Builds the CUDA kernels from csrc/ (nvcc, sm_90a), then:
      coarsest level runs whole on both ranks, ``models/vqvae.py``) in the
      same rank processes, with each rank's launches, its peak memory and a
      bf16 step timed on both ranks at once.
+ 26. the convergence tools (``vqvae3d_tpu_torch/tools/``), cuDNN
+     deterministic: (a) ``convergence_smoke`` (the downscaled config at stem
+     2, 150 + 150 blocks a level, bf16, batch 1) on 2 scans it generates at
+     256x256x110: 3 steps in a process of its own, then 2 resumed in
+     another; every logged value finite, the resumed leg starting at step
+     3 with the parameters, EMA buffers and AMSGrad state the first leg
+     saved (SHA-256 of every tensor), K1b, K3 forward and backward and K7
+     launches a leg against the config (K7: ``k7_expected``'s hooks in the
+     tool's process); (b) ``prior_convergence_smoke`` (the top prior, bf16):
+     4 steps here, 2 resumed in a process of its own, against 6
+     uninterrupted steps here: the parameters and AMSGrad state bit for
+     bit, the logs of steps 5-6 equal, K4 and K7 launches a run; (c) (a)'s
+     checkpoint through ``extract_embeddings``, ``decode_embeddings`` and
+     ``calc_ssim_from_checkpoint``: code-grid shapes and ranges, finite
+     volumes, SSIM in [-1, 1], K1a and K3 launches.
 
 Cuts made for the 1200 s limit (widths, grids and batches stay the
-published ones): phases 20-21's mid PixelSNAIL at 2 of its 8 blocks;
+published ones): phases 20-21's mid PixelSNAIL at 1 of its 8 blocks (2
+until phase 26 came); phase 22's SSIM and plot CLIs in this process;
 phase 22 serves at stem 2 only; phase 23's k = 5 forced check covers 8 of 32
 slices; phases 5, 13 and 18 run the plain path's step once instead of in two
 timed turns; phase 25's CLI run at 10 of the 50 pre- and post-quantization
@@ -550,6 +567,17 @@ def cuda_events(fn, calls: int):
             fn()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_events(prof) -> list:
+    """(name, ms) of every CUDA activity of a finished torch.profiler run,
+    from its raw events: ``key_averages`` would first build an event object
+    for each of the ~16k rows of a sampled grid and the kernels around them
+    (tens of seconds)."""
+    import torch
+
+    return [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
 
 
 def device_ms_by_name(fn, calls: int = 1) -> dict:
@@ -1934,10 +1962,8 @@ def phase_sample_main_path(ident, counts, results, seed, work: Path):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0  # the profiler's teardown left out
     got = launch_counts()
-    k6_rows = [e for e in prof.key_averages() if "row_decode" in e.key
-               and e.device_type == torch.autograd.DeviceType.CUDA]
-    k6_ms = sum(e.self_device_time_total for e in k6_rows) / 1e3
-    k6_n = sum(e.count for e in k6_rows)
+    k6_rows = [ms for name, ms in device_events(prof) if "row_decode" in name]
+    k6_ms, k6_n = sum(k6_rows), len(k6_rows)
     rows = TOP_GRID[0] * TOP_GRID[1]
     want = dict(dict.fromkeys(got, 0), row_decode=rows)
     db = create_or_load_db(db_path, 0)
@@ -3003,12 +3029,10 @@ def phase_wide_sample_main_path(ident, counts, results, seed, work: Path):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         got = launch_counts()
-        k6_rows = [e for e in prof.key_averages() if "row_decode_wide" in e.key
-                   and e.device_type == torch.autograd.DeviceType.CUDA]
-        k6_ms = sum(e.self_device_time_total for e in k6_rows) / 1e3
-        k6_n = sum(e.count for e in k6_rows)
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        events = device_events(prof)
+        k6_rows = [ms for name, ms in events if "row_decode_wide" in name]
+        k6_ms, k6_n = sum(k6_rows), len(k6_rows)
+        busy = sum(ms for _, ms in events)
         rows = grid[0] * grid[1]
         want = dict(dict.fromkeys(got, 0), row_decode_wide=rows * calls)
         db = create_or_load_db(db_path, level)
@@ -3355,7 +3379,7 @@ def phase_dropout_snail_cli(ident, counts, seed, work: Path):
 # script stays inside its time limit; widths, grid and batch are the
 # published ones
 SNAIL_SAMPLING = {
-    "mid": dict(fields=dict(SNAIL["mid"]["fields"], num_blocks=2), level=1, grid=(32, 32, 8),
+    "mid": dict(fields=dict(SNAIL["mid"]["fields"], num_blocks=1), level=1, grid=(32, 32, 8),
                 batch=10, forced_slices=8),
     "bottom": dict(fields=SNAIL["bottom"]["fields"], level=2, grid=(8, 8, 2), batch=20,
                    forced_slices=8),
@@ -3564,6 +3588,22 @@ def fresh_cli(module: str, argv, timeout: int = 900):
     lines = run.stdout.strip().splitlines()
     print("\n".join(lines[:-1]))
     return json.loads(lines[-1]), process_s
+
+
+def this_process_cli(module: str, argv) -> dict:
+    """Run ``vqvae3d_tpu_torch.cli.<module>`` with ``argv`` here: the record
+    ``FRESH_CLI`` prints (its seconds, result and launches), without the
+    ~10 s of a process of its own, for a CLI whose time is not a measurement."""
+    import importlib
+
+    import torch
+
+    cli = importlib.import_module("vqvae3d_tpu_torch.cli." + module)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = cli.main(cli.parse_arguments(argv))
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0, result=result, launches=launch_counts())
 
 
 def phase_snail_sample_main_path(ident, counts, results, seed, work: Path):
@@ -3893,8 +3933,8 @@ def stage1_scans(work: Path, seed) -> Path:
 def stage1_clis(ident, counts, seed, work: Path, k7_per_step: int):
     """``train_vqvae --block-type evonorm`` at the full config (stem 2) for 2
     steps (validating at step 2), then ``calc_ssim_from_checkpoint`` and
-    ``plot_from_checkpoint`` on its checkpoint, each in a process of its own;
-    the launches against what the runs imply."""
+    ``plot_from_checkpoint`` on its checkpoint (``this_process_cli``); the
+    launches against what the runs imply."""
     import torch
     from vqvae3d_tpu_torch.cli import train_vqvae
     from vqvae3d_tpu_torch.data import nrrd_io
@@ -3925,12 +3965,12 @@ def stage1_clis(ident, counts, seed, work: Path, k7_per_step: int):
         raise AssertionError(f"train_vqvae stopped at step {step}")
     total = dict(got)
 
-    out, process_s = fresh_cli("calc_ssim_from_checkpoint",
-                               [str(ckpt), str(ct), *size, "--device", "cuda"])
+    out = this_process_cli("calc_ssim_from_checkpoint",
+                           [str(ckpt), str(ct), *size, "--device", "cuda"])
     ssim, got = out["result"], out["launches"]
     n = sum(v["n"] for v in ssim.values())
-    print(f"calc_ssim_from_checkpoint: {ssim} in {out['seconds']:.2f} s ({process_s:.1f} s the "
-          f"process); launches {({k: v for k, v in got.items() if v})} [{ident}]")
+    print(f"calc_ssim_from_checkpoint: {ssim} in {out['seconds']:.2f} s; launches "
+          f"{({k: v for k, v in got.items() if v})} [{ident}]")
     check_launches(got, dict(dict.fromkeys(got, 0), l2_argmin=3 * n), "calc_ssim_from_checkpoint")
     if (sorted(ssim) != ["train", "val"] or n != 3
             or not all(np.isfinite(v["ssim_mean"]) and -1 <= v["ssim_mean"] <= 1
@@ -3941,14 +3981,13 @@ def stage1_clis(ident, counts, seed, work: Path, k7_per_step: int):
 
     prefix = work / "plot" / "evonorm"
     prefix.parent.mkdir(exist_ok=True)
-    out, process_s = fresh_cli("plot_from_checkpoint", [str(ckpt), str(ct), str(prefix), *size,
-                                                         "--device", "cuda"])
+    out = this_process_cli("plot_from_checkpoint", [str(ckpt), str(ct), str(prefix), *size,
+                                                     "--device", "cuda"])
     got = out["launches"]
     check_launches(got, dict(dict.fromkeys(got, 0), l2_argmin=3), "plot_from_checkpoint")
     vols = [nrrd_io.read(f)[0] for f in out["result"]]
-    print(f"plot_from_checkpoint: {out['result']} in {out['seconds']:.2f} s ({process_s:.1f} s "
-          f"the process): {[(v.shape, str(v.dtype), int(v.min()), int(v.max())) for v in vols]} "
-          f"[{ident}]")
+    print(f"plot_from_checkpoint: {[str(f) for f in out['result']]} in {out['seconds']:.2f} s: "
+          f"{[(v.shape, str(v.dtype), int(v.min()), int(v.max())) for v in vols]} [{ident}]")
     # the ELU's floor is -1: HU -2000
     if len(vols) != 2 or any(v.shape != VOLUME or v.min() < -2000 for v in vols):
         raise AssertionError("plot_from_checkpoint wrote the wrong volumes")
@@ -5240,6 +5279,300 @@ def phase_spatial(ident, counts, results, seed, work: Path):
                                          ref_bf16_ms=wref["bf16_ms"]))
 
 
+# phase 26: the convergence tools (vqvae3d_tpu_torch/tools/) for a few steps,
+# each leg that resumes in a fresh process, and the serving CLIs on what they train
+CONV_SCANS = 2  # generated scans (the tool's default is 12)
+CONV_RES, CONV_BLOCKS = 256, 150  # the tool's defaults: the downscaled config's
+CONV_LEGS = (3, 2)  # the stage-1 tool: steps, then resumed steps
+PRIOR_LEGS = (4, 2)  # the prior tool, against the same number uninterrupted
+PRIOR_EVAL_EVERY = 2
+FRESH_TOOL = """
+import importlib, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke
+torch.backends.cudnn.deterministic = True
+tool = importlib.import_module("vqvae3d_tpu_torch.tools." + sys.argv[2])
+k7_calls, restored = [], {}
+if hasattr(tool, "VQVAE"):  # K7's launches counted apart from its wrapper
+    model_class = tool.VQVAE
+    def built(*args, **kwargs):
+        model = model_class(*args, **kwargs)
+        chip_smoke.k7_expected(model, k7_calls)
+        return model
+    tool.VQVAE = built
+restore_name = next(n for n in ("restore_train_state", "restore_prior_train_state")
+                    if hasattr(tool, n))
+restore = getattr(tool, restore_name)
+def recorded(path, model, optimizer):
+    step = restore(path, model, optimizer)
+    restored.update(step=step, digest=chip_smoke.state_digest(model, optimizer))
+    return step
+setattr(tool, restore_name, recorded)
+chip_smoke.reset_counts()
+t0 = time.perf_counter()
+model, optimizer, step = tool.main(tool.parse_arguments(sys.argv[3:]))
+torch.cuda.synchronize()
+print(json.dumps(dict(seconds=time.perf_counter() - t0, step=step, restored=restored,
+                      digest=chip_smoke.state_digest(model, optimizer), k7_calls=len(k7_calls),
+                      launches=chip_smoke.launch_counts())))
+"""
+
+
+def state_digest(model, optimizer) -> dict:
+    """SHA-256 of every tensor of the model's state_dict (parameters and the
+    EMA codebook buffers) and of the optimizer's state, bytes as they are;
+    the optimizer's count as it is."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for prefix, state in (("model.", model.state_dict()), ("optimizer.", optimizer.state_dict())):
+        for k, v in state.items():
+            out[prefix + k] = (hashlib.sha256(v.detach().reshape(-1).view(torch.uint8).cpu()
+                                              .numpy().tobytes()).hexdigest()
+                               if torch.is_tensor(v) else v)
+    return out
+
+
+def start_tool(name: str, argv):
+    """Start ``vqvae3d_tpu_torch.tools.<name>`` with ``argv`` in a process of
+    its own (``FRESH_TOOL``)."""
+    return start_processes([([sys.executable, "-c", FRESH_TOOL,
+                              str(Path(__file__).resolve().parent), name, *argv], {})])
+
+
+def tool_result(procs) -> dict:
+    """Print a ``start_tool`` process's output and return its last line's record."""
+    lines = wait_processes(procs)[0].strip().splitlines()
+    print("\n".join(lines[:-1]))
+    return json.loads(lines[-1])
+
+
+def tool_records(out: Path) -> list:
+    return [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+
+
+def untimed(records: list, steps) -> list:
+    """The records of ``steps`` without their clock readings."""
+    return [{k: v for k, v in r.items() if k not in ("time", "wall_step_ms", "cuda_step_ms")}
+            for r in records if r["step"] in steps]
+
+
+def check_resume(name: str, first: dict, second: dict, at: int):
+    """The resumed leg restored step ``at`` and, bit for bit, the state the
+    first leg saved (its parameters, EMA buffers and optimizer state)."""
+    if second["restored"].get("step") != at:
+        raise AssertionError(f"{name}: the resumed leg started at {second['restored']}")
+    differ = [k for k, v in first.items() if second["restored"]["digest"].get(k) != v]
+    if differ or len(first) != len(second["restored"]["digest"]):
+        raise AssertionError(f"{name}: the restored state differs from the saved one in {differ}")
+
+
+def conv_stage1_leg(cfg, out: dict, steps: int, volume) -> dict:
+    """The launches of a stage-1 tool leg of ``steps`` steps: K1b a level,
+    K3 forward and backward a block a step, K7 as its hooks counted."""
+    blocks = sum(n for *_, n in cfg.same_stacks(volume))
+    return dict(dict.fromkeys(out["launches"], 0), l2_argmin_stats=cfg.n_enc * steps,
+                preact_stack_fwd=blocks * steps, preact_stack_bwd=blocks * steps,
+                dw_conv3d=out["k7_calls"])
+
+
+def conv_prior_launches(per_step: dict, steps: int, evals: int, launches: dict) -> dict:
+    return dict(dict.fromkeys(launches, 0), causal_stack_fwd=per_step["causal_stack_fwd"]
+                * (steps + evals), causal_stack_bwd=per_step["causal_stack_bwd"] * steps,
+                dw_conv3d=per_step["dw_conv3d"] * steps)
+
+
+def conv_times(records: list) -> str:
+    """The logged steps' mean times after step 1; (a) and (b) share the card,
+    so these are not the tools' speeds (the full runs' logs have those)."""
+    wall = [r["wall_step_ms"] for r in records if "wall_step_ms" in r and r["step"] > 1]
+    cuda = [r["cuda_step_ms"] for r in records if "cuda_step_ms" in r and r["step"] > 1]
+    return (f"ms a step after the first, the card shared by (a) and (b): wall "
+            f"{np.mean(wall):.2f}, CUDA events {np.mean(cuda):.2f}")
+
+
+def phase_convergence_tools(ident, counts, work: Path):
+    """(a) the stage-1 tool, (b) the prior tool, (c) the serving CLIs on (a)'s
+    checkpoint; (a)'s legs and (b)'s resumed leg in processes of their own,
+    (a)'s beside (b)'s work."""
+    import torch
+    from vqvae3d_tpu_torch.cli import calc_ssim_from_checkpoint, decode_embeddings, \
+        extract_embeddings
+    from vqvae3d_tpu_torch.data import nrrd_io
+    from vqvae3d_tpu_torch.tools import convergence_smoke as conv
+    from vqvae3d_tpu_torch.tools import prior_convergence_smoke as prior
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as in FRESH_TOOL: bit-identical steps
+    started = []  # every tool process, stopped on the way out if a check failed first
+
+    def start(name, argv):
+        started.extend(start_tool(name, argv))
+        return started[-1:]
+
+    try:
+        # --- (a) leg 1 of the stage-1 tool runs while (b) starts here
+        ct, run = work / "conv_ct", work / "conv_run"
+        volume = (CONV_RES, CONV_RES, 128)  # depth 110 padded to 128
+        flags = ["--data", str(ct), "--out", str(run), "--n-vols", str(CONV_SCANS),
+                 "--res", str(CONV_RES), "--blocks", str(CONV_BLOCKS), "--log-every", "1",
+                 "--workers", "2", "--device", "cuda"]
+        cfg = conv.downscaled_config(CONV_BLOCKS)
+        t0 = time.perf_counter()
+        leg1 = start("convergence_smoke", flags + ["--steps", str(CONV_LEGS[0])])
+
+        # --- (b) the prior tool: the first leg and the uninterrupted run here,
+        # the resumed leg in a process of its own
+        n = sum(PRIOR_LEGS)
+        pcfg = prior.top_prior_config()
+        samples = [prior.synth_codes(1000 + i, prior.DIMS, pcfg.input_dim, prior.COND_DIMS,
+                                     pcfg.condition_dim) for i in range(n)]
+        heldout = prior.synth_codes(prior.HELDOUT_SEED, prior.DIMS, pcfg.input_dim,
+                                    prior.COND_DIMS, pcfg.condition_dim)
+        pflags = dict(log_every=1, eval_every=PRIOR_EVAL_EVERY, device="cuda")
+        legs, whole = work / "prior_legs", work / "prior_whole"
+        evals = [len({s for s in range(a + 1, b + 1) if s % PRIOR_EVAL_EVERY == 0} | {b})
+                 for a, b in ((0, PRIOR_LEGS[0]), (PRIOR_LEGS[0], n), (0, n))]
+        runs = {}
+        for name, out, steps, ev in (("leg 1", legs, PRIOR_LEGS[0], evals[0]),
+                                     ("uninterrupted", whole, n, evals[2])):
+            reset_counts()
+            model, opt, step = prior.run(pcfg, samples, heldout, out, steps=steps,
+                                         resume_steps=0, **pflags)
+            torch.cuda.synchronize()
+            per_step = prior_step_launches(model)
+            check_launches(launch_counts(), conv_prior_launches(per_step, steps, ev,
+                                                                launch_counts()),
+                           f"prior tool {name}")
+            runs[name] = dict(step=step, digest=state_digest(model, opt),
+                              launches=launch_counts())
+            del model, opt
+        leg2 = start("prior_convergence_smoke", [
+            "--out", str(legs), "--resume-steps", str(PRIOR_LEGS[1]), "--n-samples", str(n),
+            "--log-every", "1", "--eval-every", str(PRIOR_EVAL_EVERY), "--device", "cuda"])
+        out1 = tool_result(leg1)
+        # (a)'s resumed leg in a fresh process, beside (b)'s
+        leg2a = start("convergence_smoke", flags + ["--resume-steps", str(CONV_LEGS[1])])
+        out2 = tool_result(leg2)
+
+        # (b)'s checks
+        check_resume("prior tool", runs["leg 1"]["digest"], out2, PRIOR_LEGS[0])
+        check_launches(out2["launches"], conv_prior_launches(per_step, PRIOR_LEGS[1], evals[1],
+                                                             out2["launches"]),
+                       "prior tool, resumed leg")
+        if out2["step"] != n or out2["digest"] != runs["uninterrupted"]["digest"]:
+            raise AssertionError(f"prior tool: {PRIOR_LEGS[0]} + {PRIOR_LEGS[1]} resumed steps "
+                                 f"(to step {out2['step']}) differ from {n} uninterrupted ones")
+        tail = range(PRIOR_LEGS[0] + 1, n + 1)
+        if untimed(tool_records(legs), tail) != untimed(tool_records(whole), tail):
+            raise AssertionError(f"prior tool: the logs of steps {list(tail)} differ")
+        precs = tool_records(legs)
+        print(f"prior tool (top prior, bf16): {PRIOR_LEGS[0]} steps here + {PRIOR_LEGS[1]} "
+              f"resumed in a fresh process ({out2['seconds']:.1f} s) bit-identical to {n} "
+              f"uninterrupted steps (parameters, AMSGrad state, the logs of steps "
+              f"{list(tail)}); train bits/dim "
+              f"{[round(r['train_bits_per_dim'], 4) for r in precs if 'train_bits_per_dim' in r]}"
+              f", val {[round(r['val_bits_per_dim'], 4) for r in precs if 'val_bits_per_dim' in r]}"
+              f"; {conv_times(precs)}; launches the resumed leg "
+              f"{({k: v for k, v in out2['launches'].items() if v})} [{ident}]")
+
+        # --- (a)'s checks
+        out2a = tool_result(leg2a)
+        check_resume("stage-1 tool", out1["digest"], out2a, CONV_LEGS[0])
+        for name, out, steps in (("leg 1", out1, CONV_LEGS[0]), ("resumed leg", out2a,
+                                                                  CONV_LEGS[1])):
+            check_launches(out["launches"], conv_stage1_leg(cfg, out, steps, volume),
+                           f"stage-1 tool {name}")
+        records = tool_records(run)
+        if ([r["step"] for r in records] != list(range(1, sum(CONV_LEGS) + 1))
+                or out2a["step"] != sum(CONV_LEGS)
+                or not all(np.isfinite(v) for r in records for v in r.values())):
+            raise AssertionError(f"stage-1 tool: steps {[r['step'] for r in records]}, "
+                                 f"or a value not finite")
+        print(f"stage-1 tool (downscaled config, stem 2, {CONV_BLOCKS} + {CONV_BLOCKS} blocks a "
+              f"level, bf16, {CONV_SCANS} generated scans {volume}): {CONV_LEGS[0]} steps "
+              f"({out1['seconds']:.1f} s, scans generated included) + {CONV_LEGS[1]} resumed in "
+              f"a fresh process ({out2a['seconds']:.1f} s), the restored parameters, EMA and "
+              f"AMSGrad state bit-identical to the saved; losses "
+              f"{[round(r['train_loss'], 4) for r in records]}, perplexity "
+              f"{[round(r['train_codebook_perplexity_0'], 2) for r in records]} / "
+              f"{[round(r['train_codebook_perplexity_1'], 2) for r in records]}; "
+              f"{conv_times(records)}; launches a leg "
+              f"{[{k: v for k, v in o['launches'].items() if v} for o in (out1, out2a)]} "
+              f"[{ident}]")
+
+        # --- (c) the serving CLIs on (a)'s checkpoint
+        size = ["--scan-size", *map(str, volume[:2]), "--output-depth", str(volume[2])]
+        stacks = cfg.same_stacks(volume)
+        k3 = {p: sum(n for q, _, _, n in stacks if q == p) for p in ("encode", "decode")}
+        total = {k: out1["launches"][k] + out2a["launches"][k] + out2["launches"][k]
+                 + runs["leg 1"]["launches"][k] + runs["uninterrupted"]["launches"][k]
+                 for k in out1["launches"]}
+        reset_counts()
+        extract_embeddings.main(extract_embeddings.parse_arguments([
+            "--checkpoint-path", str(run), "--dataset-path", str(ct), "--output-path", str(work),
+            "--output-name", "conv_codes", "--rescale-input", "0", "--backend", "file",
+            "--device", "cuda", *size]))
+        torch.cuda.synchronize()
+        got = launch_counts()
+        check_launches(got, dict(dict.fromkeys(got, 0), l2_argmin=cfg.n_enc * CONV_SCANS,
+                                 preact_stack_fwd=k3["encode"] * CONV_SCANS), "extract_embeddings")
+        codes = extract_embeddings.read_codes(work / "conv_codes")
+        if (len(codes) != CONV_SCANS
+                or any([g.shape for g in grids] != cfg.code_grid_shapes(volume) for grids in codes)
+                or any(g.min() < 0 or g.max() >= k for grids in codes
+                       for g, k in zip(grids, cfg.num_embeddings, strict=True))):
+            raise AssertionError("extract_embeddings on the tool's checkpoint: wrong grids")
+        for k in total:
+            total[k] += got[k]
+        decode_embeddings.code_store_to_sample_db(work / "conv_codes", work / "conv.db")
+        reset_counts()
+        decoded = work / "conv_decoded"
+        n_dec = decode_embeddings.main(decode_embeddings.parse_arguments([
+            str(work / "conv.db"), str(run), str(decoded / "v"), "--volume-shape",
+            *map(str, volume), "--device", "cuda"]))
+        torch.cuda.synchronize()
+        got = launch_counts()
+        check_launches(got, dict(dict.fromkeys(got, 0), preact_stack_fwd=k3["decode"] * n_dec),
+                       "decode_embeddings")
+        vols = [nrrd_io.read(f)[0] for f in sorted(decoded.glob("*.nrrd"))]
+        # the ELU's floor is -1: HU -2000; a NaN would land at INT_MIN
+        if n_dec != CONV_SCANS or any(v.shape != volume or v.min() < -2000 for v in vols):
+            raise AssertionError("decode_embeddings on the tool's checkpoint: wrong volumes")
+        for k in total:
+            total[k] += got[k]
+        reset_counts()
+        ssim = calc_ssim_from_checkpoint.main(calc_ssim_from_checkpoint.parse_arguments(
+            [str(run), str(ct), "--device", "cuda", *size]))
+        torch.cuda.synchronize()
+        got = launch_counts()
+        n_ssim = sum(v["n"] for v in ssim.values())
+        check_launches(got, dict(dict.fromkeys(got, 0), l2_argmin=cfg.n_enc * n_ssim,
+                                 preact_stack_fwd=(k3["encode"] + k3["decode"]) * n_ssim),
+                       "calc_ssim_from_checkpoint")
+        if n_ssim != CONV_SCANS or not all(np.isfinite(v["ssim_mean"])
+                                           and -1 <= v["ssim_mean"] <= 1 for v in ssim.values()):
+            raise AssertionError(f"calc_ssim_from_checkpoint on the tool's checkpoint: {ssim}")
+        for k in total:
+            total[k] += got[k]
+            counts[k] = counts.get(k, 0) + total[k]
+        print(f"serving the stage-1 tool's step-{sum(CONV_LEGS)} checkpoint: extract_embeddings "
+              f"grids {[g.shape for g in codes[0]]}, decode_embeddings {n_dec} volumes {volume} "
+              f"(HU {min(int(v.min()) for v in vols)}..{max(int(v.max()) for v in vols)}), "
+              f"calc_ssim_from_checkpoint {ssim}; the phase's launches "
+              f"{({k: v for k, v in total.items() if v})}; phase wall "
+              f"{time.perf_counter() - t0:.1f} s [{ident}]")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for p in started:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5317,6 +5650,8 @@ def main():
                 ident, counts, results, args.seed, Path(tmp))),
             ("spatial sharding and the remainder's CLIs", lambda: phase_spatial(
                 ident, counts, results, args.seed, Path(tmp))),
+            ("the convergence tools", lambda: phase_convergence_tools(
+                ident, counts, Path(tmp))),
         ]
         for number, (name, fn) in enumerate(phases, 1):
             if only and number not in only:
